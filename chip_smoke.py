@@ -104,6 +104,30 @@ def make_item(opt, azimuth=0.7, elevation=0.5):
             "bg_color": np.ones((1, 3), np.float32)}
 
 
+def build_workload(dev):
+    """The main path's inputs on `dev`: the lego preset, bench.py's cloud,
+    its grid (built there), seeded aggregator weights and one camera.
+    Returns (opt, state, spec, grid, agg, serve_state, item, grid_ms)."""
+    from pointnerf_tpu_torch.config import nerf_synth_preset
+    from pointnerf_tpu_torch.models import neural_points as npc
+    from pointnerf_tpu_torch.models.aggregator import init_aggregator_params
+    from pointnerf_tpu_torch.run import common
+    from pointnerf_tpu_torch.train.trainer import ServeState
+    opt = nerf_synth_preset("lego").replace(max_o=280000,
+                                            random_sample_size=60)
+    xyz, emb, color, dirs, conf = make_cloud(opt)
+    state = npc.create_point_cloud(xyz, emb, color, dirs, conf, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spec, grid = common.make_spec_and_grid(opt, state)
+    torch.cuda.synchronize()
+    grid_ms = 1e3 * (time.perf_counter() - t0)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    agg = init_aggregator_params(opt, generator=gen, device=dev)
+    return (opt, state, spec, grid, agg, ServeState(agg, state),
+            make_item(opt), grid_ms)
+
+
 def check_trunk(agg, opt, Ncb: int, NtB: int):
     """K1 against fused_trunk_reference at one serving group's tier shapes."""
     from pointnerf_tpu_torch.ops import trunk as tt
@@ -143,8 +167,8 @@ def check_trunk(agg, opt, Ncb: int, NtB: int):
                                       lambda: tt.fused_trunk_reference(*args))
             mac = S * sum(t.numel() for t in ops if t.shape[0] > 1)
             log(f"K1 trunk_fwd {tier} K={K} order={1 if order1 else 2} "
-                f"rows={S}: max_abs_err={err:.3e} (relative to max |plain| "
-                f"{rel:.3e}) "
+                f"rows={S}: max_abs_err={err:.3e} "
+                f"max_abs_err/max|plain|={rel:.3e} "
                 f"kernel={ms:.3f} ms "
                 f"plain={plain_ms:.3f} ms ({2 * mac / ms / 1e9:.2f} TFLOP/s "
                 f"kernel)")
@@ -188,9 +212,6 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from pointnerf_tpu_torch.config import nerf_synth_preset
-    from pointnerf_tpu_torch.models import neural_points as npc
-    from pointnerf_tpu_torch.models.aggregator import init_aggregator_params
     from pointnerf_tpu_torch.models.renderer import effective_sr_budget
     from pointnerf_tpu_torch.ops import kernels
     from pointnerf_tpu_torch.run import common
@@ -210,21 +231,10 @@ def main() -> int:
         if "registers" in line or "spill" in line or "error" in line:
             log("  ptxas:", line.strip())
 
-    dev = torch.device("cuda")
-    opt = nerf_synth_preset("lego").replace(max_o=280000,
-                                            random_sample_size=60)
-    xyz, emb, color, dirs, conf = make_cloud(opt)
-    state = npc.create_point_cloud(xyz, emb, color, dirs, conf, device=dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    spec, grid = common.make_spec_and_grid(opt, state)
-    torch.cuda.synchronize()
-    log(f"grid build on card: {1e3 * (time.perf_counter() - t0):.1f} ms, "
+    opt, state, spec, grid, agg, ts, item, grid_ms = build_workload(
+        torch.device("cuda"))
+    log(f"grid build on card: {grid_ms:.1f} ms, "
         f"vdim {spec.vdim}, occupied voxels {int(grid['num_occ'])}")
-    gen = torch.Generator(device="cpu").manual_seed(0)
-    agg = init_aggregator_params(opt, generator=gen, device=dev)
-    ts = ServeState(agg, state)
-    item = make_item(opt)
 
     # kernels against their plain versions, at one serving group's shapes
     chunk = opt.random_sample_size ** 2

@@ -258,15 +258,16 @@ def aggregator_forward(agg: Aggregator, opt,
         out = torch.cat([alpha, color], dim=-1).reshape(B, R, SR, 4)
         return out * ray_valid[..., None].to(out.dtype)
 
-    # fused trunk (ops/trunk.py): -1 = auto, on where the kernel runs (CUDA)
-    # and the config is inside its envelope; 1 = force (plain version on
-    # CPU); 0 = off
+    # fused trunk (ops/trunk.py): on CUDA, K1 runs wherever the config is
+    # inside its envelope, whatever use_fused_trunk says. On the CPU,
+    # use_fused_trunk=1 picks the kernel's plain version; other values the
+    # unfused composition below.
     uf = int(getattr(opt, "use_fused_trunk", 0))
     if uf > 0 and not fused_trunk_ok(opt):
         raise ValueError("use_fused_trunk=1 with an unsupported aggregator "
                          "config")
-    use_fused = uf > 0 or (uf < 0 and fused_trunk_ok(opt)
-                           and sampled_xyz.device.type == "cuda")
+    use_fused = fused_trunk_ok(opt) and (sampled_xyz.device.type == "cuda"
+                                         or uf > 0)
     order1 = opt.agg_intrp_order == 1
     if use_fused:
         Fd = sampled_embedding.shape[-1]

@@ -124,18 +124,6 @@ def _tiered_aggregate(agg, point_state, opt, c_pidx, comp_valid, c_loc,
     return c_decoded, c_weight, c_conf, ovB
 
 
-def resolve_occ_segments(opt, device) -> int:
-    """Occupancy path selector: > 0 = the kernel path, 0 = dense.
-
-    -1 (auto) takes the kernel path on CUDA and the dense plain test on the
-    CPU, like the JAX package's accelerator/CPU split. Both give the same
-    mask in the port (the kernel has no row budget)."""
-    v = int(getattr(opt, "occ_segments", 0))
-    if v < 0:
-        return 96 if torch.device(device).type == "cuda" else 0
-    return v
-
-
 def effective_sr_budget(opt, rows: int) -> int:
     """Shading-row compaction budget for a row space of `rows` = B·R·SR:
     SR_budget > 0 explicit; -1 auto (1/6 of the rows, rounded up to 128);
@@ -177,8 +165,7 @@ def render_query(point_state: Dict, grid: Dict, spec: GridSpec, opt,
     Nc = effective_sr_budget(opt, B * R * opt.SR)
     (sample_pidx, sample_loc_w, ray_mask, q_overflow, comp,
      occ_over) = query_grid_points(
-        campos, raydir, mid_ts, grid, spec, SR=opt.SR, K=opt.K, Nc=Nc,
-        occ_U=resolve_occ_segments(opt, raydir.device))
+        campos, raydir, mid_ts, grid, spec, SR=opt.SR, K=opt.K, Nc=Nc)
     return QueryOut(sample_pidx, sample_loc_w, ray_mask, None, q_overflow,
                     comp, occ_over)
 

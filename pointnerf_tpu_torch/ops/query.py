@@ -250,14 +250,15 @@ def knn_neighbors(sample_loc: torch.Tensor, sample_mask: torch.Tensor,
 
 def query_grid_points(campos: torch.Tensor, raydir: torch.Tensor,
                       tvals: torch.Tensor, grid, spec: GridSpec, SR: int,
-                      K: int, Nc: int = 0, occ_U: int = 0):
+                      K: int, Nc: int = 0):
     """Full query pipeline (reference host orchestration cu:305-433).
 
-    campos [B,3], raydir [B,R,3], tvals [B,R,D] ray-march depths. occ_U > 0
-    selects the occupancy kernel path (`mask_raypos_segmented`), 0 the dense
-    plain test; both give the same mask. Nc > 0: the KNN runs only on the
-    first Ncb = ceil(Nc/B) occupancy-valid shading rows of each batch row;
-    rows past the budget get no neighbors and count in q_overflow.
+    campos [B,3], raydir [B,R,3], tvals [B,R,D] ray-march depths. The
+    occupancy test is always `mask_raypos_segmented`: exact and without a
+    row budget, so the JAX package's `occ_segments` option has nothing to
+    choose here. Nc > 0: the KNN runs only on the first Ncb = ceil(Nc/B)
+    occupancy-valid shading rows of each batch row; rows past the budget
+    get no neighbors and count in q_overflow.
 
     Returns (sample_pidx [B,R,SR,K] or None, sample_loc_w [B,R,SR,3],
     ray_mask [B,R] bool, q_overflow [] int32, comp, occ_overflow [] int32);
@@ -265,12 +266,8 @@ def query_grid_points(campos: torch.Tensor, raydir: torch.Tensor,
     [B,Ncb], comp_valid [B,Ncb], c_pidx [B,Ncb,K], row_valid [B,R,SR],
     counts [B,R]).
     """
-    if occ_U > 0:
-        rp_valid, occ_overflow = mask_raypos_segmented(campos, raydir, tvals,
-                                                       grid, spec)
-    else:
-        rp_valid = mask_raypos(ray_points(campos, raydir, tvals), grid, spec)
-        occ_overflow = torch.zeros((), dtype=torch.int32, device=tvals.device)
+    rp_valid, occ_overflow = mask_raypos_segmented(campos, raydir, tvals,
+                                                   grid, spec)
     t_sel, sample_mask, counts = select_shading_t(tvals, rp_valid, SR)
     sample_loc_w = torch.where(sample_mask[..., None],
                                ray_points(campos, raydir, t_sel), 0.0)

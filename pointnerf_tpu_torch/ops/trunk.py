@@ -34,7 +34,9 @@ def pack_trunk_params(agg, F_emb: int, dd: int, n_feat_freqs: int,
     """Flatten block1/block3[/alpha_branch] into the kernel's operand list,
     in the JAX layout: weights [in, out] contiguous, biases [1, out]. The
     block1 first layer splits by piece [emb | PE(emb) | PE(dists)], block3's
-    by [h | ex3]. with_alpha=False (order 1): the alpha head runs outside."""
+    by [h | ex3]; the pieces are row views of one transposed weight, which
+    the kernel reads whole. with_alpha=False (order 1): the alpha head runs
+    outside."""
     from ..models.networks import linears
     b1, b3 = linears(agg.block1), linears(agg.block3)
     pe_e = 2 * n_feat_freqs * F_emb
@@ -132,6 +134,27 @@ def fused_trunk(L1: int, L3: int, n_feat_freqs: int, n_dist_freqs: int,
                    emb, d, ex3, w, ops)
 
 
+def _joined(*pieces: torch.Tensor) -> torch.Tensor:
+    """The [Σrows, H] matrix whose consecutive row blocks are `pieces`,
+    without a copy. pack_trunk_params cuts a first layer's input pieces
+    from one contiguous transposed weight, so the kernel reads that weight
+    whole; pieces laid out any other way are refused."""
+    first = pieces[0]
+    H = first.shape[1]
+    base = first.untyped_storage().data_ptr()
+    offset = first.storage_offset()
+    for p in pieces:
+        if (not p.is_contiguous() or p.dim() != 2 or p.shape[1] != H
+                or p.untyped_storage().data_ptr() != base
+                or p.storage_offset() != offset):
+            raise ValueError("split trunk weights must be consecutive row "
+                             "blocks of one buffer: pack them with "
+                             "pack_trunk_params")
+        offset += p.numel()
+    rows = (offset - first.storage_offset()) // H
+    return first.as_strided((rows, H), (H, 1))
+
+
 def _launch(L1, L3, nf, nd, K, act_super, order1, emb, d, ex3, w, ops):
     w1e, w1p, w1d, b1, extra1, w3x, w3e, b3, extra3, wa, ba = _unpack(
         ops, L1, L3, not order1)
@@ -148,8 +171,8 @@ def _launch(L1, L3, nf, nd, K, act_super, order1, emb, d, ex3, w, ops):
                          f"{H1}, {H3}")
     dev = emb.device
     f32 = torch.float32
-    w1 = torch.cat([w1e, w1p, w1d], dim=0).contiguous()
-    w3 = torch.cat([w3x, w3e], dim=0).contiguous()
+    w1 = _joined(w1e, w1p, w1d)
+    w3 = _joined(w3x, w3e)
     kernels.require(emb, "emb", f32, dev, (S, Fe))
     kernels.require(d, "d", f32, dev, (S, dd))
     kernels.require(ex3, "ex3", f32, dev, (S, E3))

@@ -1,0 +1,117 @@
+"""Where the time of one 800x800 lego-preset render goes, on one CUDA GPU.
+
+    python3 profile_render.py [--out chiprun_out/render_trace.json]
+
+Builds chip_smoke.py's main-path workload (the lego preset, bench.py's
+100k-point cloud, seeded random weights, one NeRF-Synthetic camera),
+renders the image once to warm up, then profiles a second render_image
+call with torch.profiler (CPU and CUDA activities). Prints the render's
+wall time, the device busy share (the union of the kernel and copy
+intervals over the wall time) and the device time per kernel family, then
+writes the Chrome trace to --out. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+# kernel families, by a substring of the kernel's name (first match wins)
+FAMILIES = (("K1 trunk_fwd", ("trunk_fwd",)),
+            ("K3 occupancy", ("occupancy",)),
+            ("gathers", ("gather", "index")),
+            ("sorts", ("sort",)),
+            ("GEMMs", ("gemm", "xmma", "cutlass")),
+            ("scans", ("scan", "cumsum")))
+
+
+def family(name: str) -> str:
+    low = name.lower()
+    for fam, keys in FAMILIES:
+        if any(k in low for k in keys):
+            return fam
+    return "rest"
+
+
+def union_us(intervals) -> float:
+    """Total length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="chiprun_out/render_trace.json",
+                    help="where to write the Chrome trace")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_render: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from chip_smoke import GROUP, build_workload
+    from pointnerf_tpu_torch.ops import kernels
+    from pointnerf_tpu_torch.run import common
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip())
+    kernels.library()
+    opt, _, spec, grid, _, ts, item, _ = build_workload(torch.device("cuda"))
+    common.render_image(ts, grid, opt, spec, item, group=GROUP)
+    for k in kernels.KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        common.render_image(ts, grid, opt, spec, item, group=GROUP)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev_events:
+        raise RuntimeError("the profiler recorded no device activity")
+    spans = [(e.time_range.start, e.time_range.end) for e in dev_events]
+    busy_ms = union_us(spans) / 1e3
+    by_family, launches = {}, {}
+    for e in dev_events:
+        fam = family(e.name)
+        by_family[fam] = by_family.get(fam, 0.0) + e.time_range.elapsed_us()
+        launches[fam] = launches.get(fam, 0) + 1
+    total_ms = sum(by_family.values()) / 1e3
+    print(f"render 800x800 under the profiler: wall {wall_ms:.1f} ms, device "
+          f"busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% of wall), "
+          f"device time summed over kernels {total_ms:.1f} ms; port launch "
+          f"counts {({k.name: k.launches for k in kernels.KERNELS})}")
+    print(f"{'family':<14} {'ms':>9} {'share':>7} {'kernels':>8}")
+    for fam, us in sorted(by_family.items(), key=lambda kv: -kv[1]):
+        print(f"{fam:<14} {us / 1e3:9.1f} {100 * us / 1e3 / total_ms:6.1f}% "
+              f"{launches[fam]:8d}")
+    names = {}
+    for e in dev_events:
+        names[e.name] = names.get(e.name, 0.0) + e.time_range.elapsed_us()
+    print("top device kernels (ms):")
+    for name, us in sorted(names.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  {us / 1e3:9.1f}  {name[:110]}")
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    prof.export_chrome_trace(args.out)
+    print(f"trace written to {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -94,9 +94,12 @@ def test_occupancy_kernel_matches_plain(dev):
     assert torch.equal(got, want)
 
 
-def test_render_goes_through_both_kernels_and_matches_cpu(dev):
+@pytest.mark.parametrize("use_fused_trunk", [-1, 0])
+def test_render_goes_through_both_kernels_and_matches_cpu(dev,
+                                                          use_fused_trunk):
     """A small scene rendered on the card (kernels) and on the CPU (plain
-    versions) gives the same image."""
+    versions) gives the same image; on the card K1 runs whatever
+    use_fused_trunk says."""
     rng = np.random.RandomState(0)
     xyz = rng.uniform(-0.4, 0.4, (800, 3)).astype(np.float32)
     xyz[:, 2] *= 0.1
@@ -105,7 +108,7 @@ def test_render_goes_through_both_kernels_and_matches_cpu(dev):
                kernel_size=(3, 3, 3), query_size=(3, 3, 3), max_o=2048, P=8,
                K=8, SR=8, z_depth_dim=64, superset_P=16, SR_budget=-1,
                ranges=(-0.5, -0.5, -0.5, 0.5, 0.5, 0.5),
-               radius_limit_scale=4.0)
+               radius_limit_scale=4.0, use_fused_trunk=use_fused_trunk)
     cloud = dict(xyz=xyz, embedding=rng.uniform(-0.5, 0.5, (n, 8)),
                  color=rng.uniform(0, 1, (n, 3)),
                  direction=rng.normal(size=(n, 3)),

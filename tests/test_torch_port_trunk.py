@@ -68,6 +68,20 @@ def test_fused_trunk_matches_pallas_interpret(K, L1, L3, order):
         np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), **TOL)
 
 
+def test_packed_first_layers_join_without_copy():
+    """The kernel reads block1's and block3's first weights whole: the split
+    pieces pack_trunk_params returns join back into the transposed weight
+    in place; pieces cut from separate buffers are refused."""
+    _, _, agg, _ = _setup(2, 2, 2, 8)
+    ops = tt.pack_trunk_params(agg, 8, 6, 2, 3)
+    for pieces, lin in ((ops[0:3], agg.block1[0]), (ops[6:8], agg.block3[0])):
+        whole = tt._joined(*pieces)
+        assert whole.data_ptr() == pieces[0].data_ptr()
+        assert torch.equal(whole, lin.weight.detach().t())
+    with pytest.raises(ValueError, match="consecutive row blocks"):
+        tt._joined(*(p.clone() for p in ops[0:3]))
+
+
 def test_fused_trunk_relu_head_and_no_grad():
     """act_super off (relu alpha head); inputs that require grad are refused
     (the backward kernel is not ported)."""
