@@ -2,15 +2,25 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from pointnerf_tpu_torch/csrc, holds each
-kernel against its plain PyTorch version at the shapes the serving path
-gives it, then renders one full 800x800 image of the NeRF-Synthetic lego
-preset (random weights from a seeded torch.Generator, a 100k-point
-shell-and-blobs cloud as bench.py builds it) through the port's
-render_image, and re-renders two chunks of it on the CPU with the plain
-versions. Any failed check raises. The last line is a JSON object with the
-device; the line before it lists each kernel's launches, error and times.
-Needs a CUDA device; without one it exits nonzero and prints no result.
+Builds the port's CUDA kernels from pointnerf_tpu_torch/csrc and holds each
+kernel against its plain PyTorch version at the shapes its path gives it
+(K1 and K3 at a serving group's, K2 at a train step's). Then it drives the
+port's two main paths on the NeRF-Synthetic lego preset (random weights
+from a seeded torch.Generator, bench.py's 100k-point shell-and-blobs
+cloud):
+
+- serving: one full 800x800 image through render_image, two chunks of it
+  re-rendered on the CPU with the plain versions;
+- training: bench.py's 3,600-ray batch through create_train_state and
+  train_step, one warm-up step and TRAIN_STEPS timed ones, then one
+  compute_grads on the card against the CPU's plain versions.
+
+Each path runs with the launch counts set to 0 just before it and read just
+after; every kernel a path runs must have launched in it. Any failed check
+raises. The last line is a JSON object with the device; the line before it
+is the card's name and power limit, and the line before that lists each
+kernel's launches (summed over both paths), error and times. Needs a CUDA
+device; without one it exits nonzero and prints no result.
 """
 
 from __future__ import annotations
@@ -32,6 +42,21 @@ GROUP = 8              # chunks per stacked serving group
 K1_TOL = dict(rtol=1e-4, atol=1e-4)   # fp32, other summation order over
                                        # four <=284-term layers
 CPU_TOL = dict(rtol=1e-4, atol=1e-4)  # card vs CPU: summation order differs
+K2_ROW_TOL = K1_TOL                   # K2's per-row cotangents: as K1
+KINK = 1e-5                           # rows with a LeakyReLU input this near
+                                      # 0 get neighbor weight 0 in the K2
+                                      # check: the two summation orders may
+                                      # take different slopes there
+K2_SUM_REL = 1e-4                     # K2's weight gradients sum ~1e5 rows in
+                                      # another order: max error over the
+                                      # gradient's largest entry
+TRAIN_STEPS = 20                      # timed train steps after one warm-up
+LOSS_RTOL = 1e-4                      # card vs CPU loss items
+GRAD_REL = 1e-3                       # card vs CPU gradients, ||diff|| /
+                                      # ||cpu|| per tensor: summation order
+                                      # differs, and a row whose LeakyReLU
+                                      # input lies within rounding of 0 may
+                                      # take the other slope on the card
 
 
 def log(*a):
@@ -61,9 +86,10 @@ def timed_pair(kernel_fn, plain_fn, reps: int = 3):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def make_cloud(opt, n_points=100_000, seed=0):
-    """bench.py::make_workload's synthetic lego-range cloud (numpy only)."""
-    rng = np.random.RandomState(seed)
+def make_cloud(opt, n_points=100_000, rng=None):
+    """bench.py::make_workload's synthetic lego-range cloud (numpy only),
+    drawn from `rng` (RandomState(0), as bench.py, if None)."""
+    rng = np.random.RandomState(0) if rng is None else rng
     mn = np.asarray(opt.ranges[:3], np.float32)
     mx = np.asarray(opt.ranges[3:], np.float32)
     xyz = rng.uniform(mn, mx, (n_points, 3)).astype(np.float32)
@@ -128,6 +154,28 @@ def build_workload(dev):
             make_item(opt), grid_ms)
 
 
+def make_train_batch(opt, dev):
+    """bench.py::make_workload's train batch: random_sample_size² rays from
+    campos (0, 0, 4) looking down -z, pixels spread over ±0.35, and a
+    random gt_image, drawn from the RandomState(0) stream after the cloud,
+    as bench.py draws them."""
+    rng = np.random.RandomState(0)
+    make_cloud(opt, rng=rng)
+    R = opt.random_sample_size ** 2
+    campos = np.array([[0.0, 0.0, 4.0]], np.float32)
+    camrot = np.array([[[1, 0, 0], [0, -1, 0], [0, 0, -1]]], np.float32)
+    px = rng.uniform(-0.35, 0.35, (1, R, 2)).astype(np.float32)
+    raydir = np.concatenate([px, np.ones((1, R, 1), np.float32)], axis=-1)
+    raydir = raydir @ camrot[0].T
+    raydir /= np.linalg.norm(raydir, axis=-1, keepdims=True)
+    gt = rng.uniform(0, 1, (1, R, 3)).astype(np.float32)
+    on = lambda a: torch.as_tensor(a, device=dev)
+    return {"raydir": on(raydir), "campos": on(campos),
+            "camrotc2w": on(camrot), "near": float(opt.near_plane),
+            "far": float(opt.far_plane),
+            "bg_color": torch.ones((1, 3), device=dev), "gt_image": on(gt)}
+
+
 def check_trunk(agg, opt, Ncb: int, NtB: int):
     """K1 against fused_trunk_reference at one serving group's tier shapes."""
     from pointnerf_tpu_torch.ops import trunk as tt
@@ -177,6 +225,86 @@ def check_trunk(agg, opt, Ncb: int, NtB: int):
     return rows
 
 
+def trunk_bwd_inputs(opt, S: int, K: int, gen: torch.Generator, dev):
+    """Seeded per-neighbor rows and per-point cotangents at the trunk's
+    widths: (emb, d, ex3, w, dfeat, dalpha) on `dev`."""
+    Fe, H = opt.point_features_dim, opt.shading_feature_num
+    rnd = lambda *shape: torch.rand(*shape, generator=gen)
+    emb = rnd(S, Fe) - 0.5
+    d = 0.02 * torch.randn(S, 6, generator=gen)
+    ex3 = 2 * rnd(S, 7) - 1
+    w = rnd(S, 1) * (rnd(S, 1) < 0.3)
+    dfeat = torch.randn(S // K, H, generator=gen)
+    dalpha = torch.randn(S // K, 1, generator=gen)
+    return [t.to(dev) for t in (emb, d, ex3, w, dfeat, dalpha)]
+
+
+def check_trunk_bwd(agg, opt, Ncb: int, NtB: int):
+    """K2 against fused_trunk_bwd_reference at one train step's tier
+    shapes (narrow: Ncb rows at K=k_tier, wide: NtB shading points x K),
+    orders 1 and 2. The derivative of LeakyReLU jumps at 0, so rows with a
+    pre-activation within KINK of 0 get neighbor weight 0 (no cotangent
+    reaches their layers; their count is printed). Per-row cotangents are
+    then held at K2_ROW_TOL; each weight gradient sums every row, so it is
+    held relative to its largest entry (K2_SUM_REL). Two launches on the
+    same inputs must give bit-equal weight gradients."""
+    from pointnerf_tpu_torch.ops import trunk as tt
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(2)
+    L1, L3 = opt.shading_feature_mlp_layer1, opt.shading_feature_mlp_layer3
+    nf, nd = opt.num_feat_freqs, abs(opt.dist_xyz_freq)
+    Fe = opt.point_features_dim
+    rows = []
+    for tier, K, n_pts in (("narrow", opt.k_tier if opt.k_tier > 0 else 1,
+                            Ncb), ("wide", opt.K, NtB)):
+        S = n_pts * K
+        emb, d, ex3, w, dfeat, dalpha = trunk_bwd_inputs(opt, S, K, g, dev)
+        for order1 in (False, True):
+            ops = tt.pack_trunk_params(agg, Fe, 6, nf, nd,
+                                       with_alpha=not order1)
+            ops = [o.detach() for o in ops]
+            zs = tt.trunk_activations(L1, L3, nf, nd, emb, d, ex3, ops,
+                                      not order1)
+            smooth = torch.ones(S, dtype=torch.bool, device=dev)
+            for z in zs[2] + zs[4]:
+                smooth &= (z.abs() >= KINK).all(dim=1)
+            w_s = w * smooth[:, None]
+            args = (L1, L3, nf, nd, K, opt.act_super > 0, order1, emb, d, ex3,
+                    w_s, ops, dfeat, None if order1 else dalpha)
+            got = tt.trunk_bwd(*args)
+            again = tt.trunk_bwd(*args)
+            want = tt.fused_trunk_bwd_reference(*args)
+            torch.cuda.synchronize()
+            row_err = row_rel = sum_rel = 0.0
+            for a, b in zip(got[:4], want[:4]):
+                torch.testing.assert_close(a, b, **K2_ROW_TOL)
+                diff = float((a - b).abs().max())
+                row_err = max(row_err, diff)
+                row_rel = max(row_rel, diff / float(b.abs().max()))
+            for a, b, c in zip(got[4], want[4], again[4]):
+                if not torch.equal(a, c):
+                    raise AssertionError("K2 weight gradients differ between "
+                                         "two launches on the same inputs")
+                rel = float((a - b).abs().max() / b.abs().max())
+                if not rel <= K2_SUM_REL:
+                    raise AssertionError(f"K2 weight gradient off by {rel:.3e}"
+                                         f" of its largest entry")
+                sum_rel = max(sum_rel, rel)
+            ms, plain_ms = timed_pair(
+                lambda: tt.trunk_bwd(*args),
+                lambda: tt.fused_trunk_bwd_reference(*args))
+            log(f"K2 trunk_bwd {tier} K={K} order={1 if order1 else 2} "
+                f"rows={S}: per-row max_abs_err={row_err:.3e} "
+                f"({S - int(smooth.sum())} rows within {KINK:g} of a "
+                f"LeakyReLU kink weighted 0) "
+                f"max_abs_err/max|plain|={row_rel:.3e}, weight grads "
+                f"max_abs_err/max|plain|={sum_rel:.3e}, dW bit-equal over two "
+                f"launches; kernel={ms:.3f} ms plain={plain_ms:.3f} ms")
+            rows.append((tier, order1, row_err, ms, plain_ms))
+        del emb, d, ex3, w, dfeat, dalpha
+    return rows
+
+
 def check_occupancy(item, grid, spec, opt, rays: int):
     """K3 against the dense plain mask on the rays x samples of the serving
     group that holds the image's center."""
@@ -206,47 +334,15 @@ def check_occupancy(item, grid, spec, opt, rays: int):
     return ms, plain_ms
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; the port's kernels need one",
-              file=sys.stderr)
-        return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from pointnerf_tpu_torch.models.renderer import effective_sr_budget
+def serve_path(opt, state, spec, grid, agg, ts, item):
+    """The serving main path: one full image through render_image, twice
+    (the first call warms the allocator and cuBLAS; the counts cover the
+    second), then two of its chunks re-rendered on the CPU. Returns the
+    launch counts."""
     from pointnerf_tpu_torch.ops import kernels
     from pointnerf_tpu_torch.run import common
     from pointnerf_tpu_torch.train.trainer import ServeState
-
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout.strip()
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
-        f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-    t0 = time.perf_counter()
-    kernels.library()
-    build_s, build_log = kernels.build_info()
-    log(f"kernel build: {build_s:.1f} s compile, "
-        f"{time.perf_counter() - t0:.1f} s build+load")
-    for line in build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log("  ptxas:", line.strip())
-
-    opt, state, spec, grid, agg, ts, item, grid_ms = build_workload(
-        torch.device("cuda"))
-    log(f"grid build on card: {grid_ms:.1f} ms, "
-        f"vdim {spec.vdim}, occupied voxels {int(grid['num_occ'])}")
-
-    # kernels against their plain versions, at one serving group's shapes
     chunk = opt.random_sample_size ** 2
-    Ncb = effective_sr_budget(opt, GROUP * chunk * opt.SR)
-    NtB = min(Ncb, max(128, int(round(Ncb * opt.k_tier_wide_frac))))
-    with torch.inference_mode():
-        k1 = check_trunk(agg, opt, Ncb, NtB)
-        k3 = check_occupancy(item, grid, spec, opt, GROUP * chunk)
-    torch.cuda.empty_cache()
-
-    # the main path: one full image through render_image, twice (the first
-    # call warms the allocator and cuBLAS); counts cover the timed render
     common.render_image(ts, grid, opt, spec, item, group=GROUP)
     for k in kernels.KERNELS:
         k.launches = 0
@@ -260,14 +356,15 @@ def main() -> int:
     dt = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels.KERNELS}
     rgb, hit = maps["coarse_raycolor"], maps["ray_mask"][..., 0] > 0.5
-    log(f"render 800x800: {1e3 * dt:.1f} ms/image, {H * W / dt:.0f} rays/s, "
+    log(f"serve: render 800x800: {1e3 * dt:.1f} ms/image, "
+        f"{H * W / dt:.0f} rays/s, "
         f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"hit share {hit.mean():.4f}, groups {stats['groups']}, "
         f"sr_overflow {stats['sr_overflow']}, "
         f"occ_overflow {stats['occ_overflow']}, launches {launches}")
-    for k in kernels.KERNELS:
+    for k in (kernels.TRUNK_FWD, kernels.OCCUPANCY):
         if k.launches == 0:
-            raise AssertionError(f"the main path never launched {k.name}")
+            raise AssertionError(f"the serving path never launched {k.name}")
     if rgb.shape != (H, W, 3) or not np.isfinite(rgb).all():
         raise AssertionError("rendered image is not a finite [800,800,3] map")
     if not 0.0 < hit.mean() < 1.0:
@@ -298,25 +395,165 @@ def main() -> int:
                                rgb[py, px], **CPU_TOL)
     cerr = float(np.abs(cpu_maps["coarse_raycolor"][py, px]
                         - rgb[py, px]).max())
-    log(f"CPU re-render of chunks {pick.tolist()} ({len(sel)} rays, "
+    log(f"serve: CPU re-render of chunks {pick.tolist()} ({len(sel)} rays, "
         f"{int(hit.reshape(-1)[sel].sum())} hit): max_abs_err {cerr:.3e} "
         f"in {time.perf_counter() - t0:.1f} s")
+    return launches
 
-    narrow2 = next(r for r in k1 if r[0] == "narrow" and not r[1])
-    wide2 = next(r for r in k1 if r[0] == "wide" and not r[1])
-    report = {"kernels": [
-        {"name": kernels.TRUNK_FWD.name, "route": "cuda",
-         "source": kernels.TRUNK_FWD.source,
-         "replaces": kernels.TRUNK_FWD.replaces,
-         "launches": launches[kernels.TRUNK_FWD.name],
-         "max_abs_err": max(r[2] for r in k1),
-         "ms": narrow2[3] + wide2[3], "plain_ms": narrow2[4] + wide2[4]},
-        {"name": kernels.OCCUPANCY.name, "route": "cuda",
-         "source": kernels.OCCUPANCY.source,
-         "replaces": kernels.OCCUPANCY.replaces,
-         "launches": launches[kernels.OCCUPANCY.name],
-         "max_abs_err": 0.0, "ms": k3[0], "plain_ms": k3[1]},
-    ]}
+
+def train_path(opt, state, spec, grid):
+    """The training main path: create_train_state, one warm-up train_step
+    and TRAIN_STEPS timed ones on bench.py's batch (the counts cover the
+    timed steps). The loss must be finite and fall from the first step to
+    the last. Returns (launch counts, the train state, the batch)."""
+    from pointnerf_tpu_torch.ops import kernels
+    from pointnerf_tpu_torch.train import trainer
+    dev = torch.device("cuda")
+    st = trainer.create_train_state(opt, state,
+                                    torch.Generator().manual_seed(0))
+    batch = make_train_batch(opt, dev)
+    R = batch["raydir"].shape[1]
+    _, items = trainer.train_step(st, grid, batch, opt, spec)
+    steps = [items]
+    for k in kernels.KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        _, items = trainer.train_step(st, grid, batch, opt, spec)
+        steps.append(items)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TRAIN_STEPS
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    losses = [float(i["loss_total"]) for i in steps]
+    over = [int(i["sr_overflow"]) for i in steps[1:]]
+    log(f"train: {R} rays/step, {1e3 * dt:.1f} ms/step, {R / dt:.0f} train "
+        f"rays/s over {TRAIN_STEPS} steps, "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"sr_overflow per step {min(over)}-{max(over)}, launches {launches}")
+    log(f"train: loss_total step 1 {losses[0]:.6f} -> step "
+        f"{len(losses)} {losses[-1]:.6f}; items of the last step "
+        f"{ {k: round(float(v), 6) for k, v in steps[-1].items()} }")
+    for k in kernels.KERNELS:
+        if k.launches == 0:
+            raise AssertionError(f"the train path never launched {k.name}")
+    if not all(np.isfinite(float(v)) for i in steps for v in i.values()):
+        raise AssertionError("a train step gave a non-finite loss item")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    return launches, st, batch
+
+
+def check_train_cpu(st, batch, opt, spec, grid):
+    """One compute_grads on the card against the CPU's plain versions
+    (use_fused_trunk=1) from the same state, batch and jitter draws: equal
+    counters, losses within LOSS_RTOL, each gradient within GRAD_REL."""
+    from pointnerf_tpu_torch.train import trainer
+    u = trainer.jitter_draws(st, batch, opt)
+    card = trainer.compute_grads(st, grid, batch, opt, spec, u)
+    points = {k: (None if v is None else v.detach().cpu())
+              for k, v in st.points.items()}
+    cpu_st = trainer.make_train_state(copy.deepcopy(st.aggregator).cpu(),
+                                      points, opt, torch.Generator(), st.step)
+    on_cpu = lambda d: {k: (v.cpu() if torch.is_tensor(v) else v)
+                        for k, v in d.items()}
+    t0 = time.perf_counter()
+    cpu = trainer.compute_grads(cpu_st, on_cpu(grid), on_cpu(batch),
+                                opt.replace(use_fused_trunk=1), spec, u.cpu())
+    cpu_s = time.perf_counter() - t0
+    for k in ("sr_overflow", "occ_overflow"):
+        if float(card[0][k]) != float(cpu[0][k]):
+            raise AssertionError(f"{k} differs: card {float(card[0][k])}, "
+                                 f"CPU {float(cpu[0][k])}")
+    for k, v in cpu[0].items():
+        np.testing.assert_allclose(float(card[0][k]), float(v),
+                                   rtol=LOSS_RTOL, err_msg=k)
+    worst, worst_abs = ("", 0.0), 0.0
+    for part in (1, 2):
+        for k, g in cpu[part].items():
+            d = card[part][k].cpu() - g
+            rel = float(d.norm() / g.norm()) if g.norm() > 0 \
+                else float(d.norm())
+            if not rel <= GRAD_REL:
+                raise AssertionError(f"gradient of {k} off by {rel:.3e} "
+                                     f"(||card - cpu|| / ||cpu||)")
+            worst = max(worst, (k, rel), key=lambda t: t[1])
+            worst_abs = max(worst_abs, float(d.abs().max()))
+    log(f"train: card vs CPU compute_grads on the full "
+        f"{batch['raydir'].shape[1]}-ray batch: loss_total "
+        f"{float(card[0]['loss_total']):.7f} vs "
+        f"{float(cpu[0]['loss_total']):.7f}; worst gradient {worst[0]} "
+        f"||card - cpu||/||cpu|| {worst[1]:.3e}, max abs error "
+        f"{worst_abs:.3e}; CPU {cpu_s:.1f} s")
+    return worst[1]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels need one",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pointnerf_tpu_torch.models.renderer import effective_sr_budget
+    from pointnerf_tpu_torch.ops import kernels
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+        f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    kernels.library()
+    build_s, build_log = kernels.build_info()
+    log(f"kernel build: {build_s:.1f} s compile, "
+        f"{time.perf_counter() - t0:.1f} s build+load")
+    for line in build_log.splitlines():
+        if ("==" in line or "registers" in line or "spill" in line
+                or "error" in line):
+            log("  ptxas:", line.strip())
+
+    opt, state, spec, grid, agg, ts, item, grid_ms = build_workload(
+        torch.device("cuda"))
+    log(f"grid build on card: {grid_ms:.1f} ms, "
+        f"vdim {spec.vdim}, occupied voxels {int(grid['num_occ'])}")
+
+    # kernels against their plain versions: K1 and K3 at one serving
+    # group's shapes, K2 at one train step's
+    chunk = opt.random_sample_size ** 2
+    tier_rows = lambda rows: (
+        effective_sr_budget(opt, rows),
+        min(effective_sr_budget(opt, rows),
+            max(128, int(round(effective_sr_budget(opt, rows)
+                               * opt.k_tier_wide_frac)))))
+    with torch.inference_mode():
+        k1 = check_trunk(agg, opt, *tier_rows(GROUP * chunk * opt.SR))
+        k3 = check_occupancy(item, grid, spec, opt, GROUP * chunk)
+    k2 = check_trunk_bwd(agg, opt, *tier_rows(chunk * opt.SR))
+    torch.cuda.empty_cache()
+
+    serve = serve_path(opt, state, spec, grid, agg, ts, item)
+    torch.cuda.empty_cache()
+    train, st, batch = train_path(opt, state, spec, grid)
+    check_train_cpu(st, batch, opt, spec, grid)
+
+    def both(k):
+        return serve[k.name] + train[k.name]
+
+    def tiers(rows):
+        n2 = next(r for r in rows if r[0] == "narrow" and not r[1])
+        w2 = next(r for r in rows if r[0] == "wide" and not r[1])
+        return n2[3] + w2[3], n2[4] + w2[4]
+
+    report = {"kernels": []}
+    for k, rows, err in ((kernels.TRUNK_FWD, k1, max(r[2] for r in k1)),
+                         (kernels.TRUNK_BWD, k2, max(r[2] for r in k2)),
+                         (kernels.OCCUPANCY, None, 0.0)):
+        ms, plain_ms = tiers(rows) if rows else k3
+        report["kernels"].append(
+            {"name": k.name, "route": "cuda", "source": k.source,
+             "replaces": k.replaces, "launches": both(k),
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
     log(json.dumps(report))
     log(smi)
     log(json.dumps({"ok": True, "device": {

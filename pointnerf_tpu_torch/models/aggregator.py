@@ -156,8 +156,8 @@ def raw2out_color(opt, raw):
 
 
 def gradient_clamp(x, mn=0.0001, mx=1.0):
-    """clamp (forward only: the port has no backward yet)."""
-    return torch.clamp(x, mn, mx)
+    """clamp forward, identity backward (reference: :722-724)."""
+    return x - (x - torch.clamp(x, mn, mx)).detach()
 
 
 def compute_weights(opt, dists, pnt_mask):

@@ -1,4 +1,5 @@
-"""MLP construction and application (port of `pointnerf_tpu/models/networks.py`).
+"""MLP construction and application, and the learning-rate schedules (port
+of `pointnerf_tpu/models/networks.py`).
 
 Each MLP is an ``nn.Sequential(Linear, act, Linear, act, ...)``, so Linear
 layers sit at even indices and a state_dict carries the reference checkpoint
@@ -10,6 +11,7 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -91,3 +93,29 @@ def apply_mlp_pieces(seq: nn.Sequential, pieces: Sequence[torch.Tensor]
     if off != w.shape[1]:
         raise ValueError(f"pieces span {off} inputs, layer takes {w.shape[1]}")
     return seq[1:](x + first.bias)
+
+
+def make_lr_schedule(opt, base_lr: float):
+    """Step → learning rate (reference: networks.py:41-68), in float32 as
+    the JAX package computes it. "plateau" is constant: the training loop
+    owns the reduction (PlateauTracker), as in the JAX package."""
+    f32 = np.float32
+    if opt.lr_policy == "iter_exponential_decay":
+        def sched(step):
+            return float(f32(base_lr) * np.power(
+                f32(opt.lr_decay_exp), f32(step) / f32(opt.lr_decay_iters)))
+    elif opt.lr_policy == "lambda":
+        def sched(step):
+            frac = f32(1.0) - f32(max(0, step - opt.niter)) \
+                / f32(opt.niter_decay + 1)
+            return float(f32(base_lr) * frac)
+    elif opt.lr_policy == "step":
+        def sched(step):
+            return float(f32(base_lr) * np.power(
+                f32(0.1), f32(step // opt.lr_decay_iters)))
+    elif opt.lr_policy == "plateau":
+        def sched(step):
+            return float(f32(base_lr))
+    else:
+        raise NotImplementedError(f"lr policy {opt.lr_policy}")
+    return sched

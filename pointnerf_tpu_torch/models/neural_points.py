@@ -59,13 +59,42 @@ def create_point_cloud(xyz: np.ndarray,
     }
 
 
+class _GatherRows(torch.autograd.Function):
+    """rows = table[idx] whose backward is one accumulating index_put_ into
+    the [N, C] table. Missing neighbors read row 0, so most of idx can be 0;
+    an accumulating index_put_ sums each run of one index serially on the
+    card, so the missing rows' gradients are summed apart (one column sum,
+    added to row 0) and their index slots spread over the table with zero
+    gradients. The result is the plain scatter-add's, in a fixed order."""
+
+    @staticmethod
+    def forward(ctx, table, idx, present):
+        ctx.save_for_backward(idx, present)
+        ctx.n_rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, ct):
+        idx, present = ctx.saved_tensors
+        keep = present[:, None].to(ct.dtype)
+        spread = torch.arange(idx.shape[0], device=idx.device) % ctx.n_rows
+        d = torch.zeros((ctx.n_rows, ct.shape[1]), dtype=ct.dtype,
+                        device=ct.device)
+        d.index_put_((torch.where(present, idx, spread),), ct * keep,
+                     accumulate=True)
+        d[0] += torch.sum(ct * (1.0 - keep), dim=0)
+        return d, None, None
+
+
 def gather_neighbors(state: Dict, sample_pidx: torch.Tensor,
                      camrotc2w: torch.Tensor, campos: torch.Tensor):
     """Gather per-neighbor attributes for the aggregator.
 
     sample_pidx: [B,R,SR,K] int32 (-1 = missing). All point attributes are
-    packed into one [N, C] row table and gathered once; the perspective
-    coordinates are computed for the gathered points only.
+    packed into one [N, C] row table and gathered once (differentiable in
+    the trainable buffers; see _GatherRows); the perspective coordinates are
+    computed for the gathered points only.
     """
     B = sample_pidx.shape[0]
     shape = tuple(sample_pidx.shape)
@@ -82,7 +111,11 @@ def gather_neighbors(state: Dict, sample_pidx: torch.Tensor,
         if state[k] is not None:
             parts.append((k, state[k].shape[1]))
     packed = torch.cat([state[k] for k, _ in parts], dim=1)
-    rows = packed[safe].reshape(shape + (packed.shape[1],))
+    if torch.is_grad_enabled() and packed.requires_grad:
+        rows = _GatherRows.apply(packed, safe, pnt_mask.reshape(-1))
+    else:
+        rows = packed[safe]
+    rows = rows.reshape(shape + (packed.shape[1],))
     split, off = {}, 0
     for k, w in parts:
         split[k] = rows[..., off:off + w]

@@ -1,10 +1,13 @@
-"""Neural-point ray-marching renderer, forward (port of
+"""Neural-point ray-marching renderer (port of
 `pointnerf_tpu/models/renderer.py`, world-coordinate query).
 
 Shapes stay static as in the JAX package: shading rows are compacted into a
 fixed budget, the compacted rows split into a narrow (K=k_tier) and a wide
 (full-K) neighbor tier, and rays that miss every occupied voxel march
-through zero density, so their color is the background.
+through zero density, so their color is the background. The query phase
+carries no gradient; the shade phase is differentiable in the aggregator's
+weights and the point buffers, with the JAX package's gather-form
+backwards for the tier reassembly and the compaction expansion.
 """
 
 from __future__ import annotations
@@ -27,8 +30,7 @@ def _take_rows(a: torch.Tensor, src: torch.Tensor, valid: torch.Tensor, fill):
     idx = src.long().reshape(src.shape + (1,) * (a.dim() - 2))
     out = torch.gather(a, 1, idx.expand(src.shape + a.shape[2:]))
     v = valid.reshape(valid.shape + (1,) * (a.dim() - 2))
-    return torch.where(v, out, torch.as_tensor(fill, dtype=a.dtype,
-                                               device=a.device))
+    return torch.where(v, out, fill)
 
 
 def _tier_map(m: torch.Tensor, cum: torch.Tensor, Nt: int):
@@ -45,15 +47,50 @@ def _tier_map(m: torch.Tensor, cum: torch.Tensor, Nt: int):
     return src, valid, overflow
 
 
-def _tier_assemble(valsA, valsB, base, mA, inB, rankA_c, rankB_c):
+def _bshape(m: torch.Tensor, ndim: int) -> torch.Tensor:
+    return m.reshape(m.shape + (1,) * (ndim - m.dim()))
+
+
+def _tier_assemble(valsA, valsB, base, mA, inB, rankA_c, rankB_c,
+                   srcA, validA, srcB, validB):
     """Row i reads valsA[rankA[i]] in tier A, valsB[rankB[i]] in tier B
-    (under the wide budget), else `base` (forward only)."""
+    (under the wide budget), else `base`.
+
+    GATHER form of the tier partition's inverse. Its gradient is gathers
+    too (JAX renderer.py:63-77): ct_valsA[r] = ct[srcA[r]] on the valid
+    tier slots, likewise for B, and `base` takes the rows in neither tier
+    (so the masked-slot conf0 keeps its gradient onto point slot 0)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (valsA, valsB, base)):
+        return _TierAssemble.apply(valsA, valsB, base, mA, inB, rankA_c,
+                                   rankB_c, srcA, validA, srcB, validB)
+    return _tier_gather(valsA, valsB, base, mA, inB, rankA_c, rankB_c)
+
+
+def _tier_gather(valsA, valsB, base, mA, inB, rankA_c, rankB_c):
     ones = torch.ones_like(mA)
     gA = _take_rows(valsA, rankA_c, ones, 0)
     gB = _take_rows(valsB, rankB_c, ones, 0)
     nd = valsA.dim()
-    shape = lambda m: m.reshape(m.shape + (1,) * (nd - m.dim()))
-    return torch.where(shape(mA), gA, torch.where(shape(inB), gB, base))
+    return torch.where(_bshape(mA, nd), gA,
+                       torch.where(_bshape(inB, nd), gB, base))
+
+
+class _TierAssemble(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, valsA, valsB, base, mA, inB, rankA_c, rankB_c, srcA,
+                validA, srcB, validB):
+        ctx.save_for_backward(mA, inB, srcA, validA, srcB, validB)
+        return _tier_gather(valsA, valsB, base, mA, inB, rankA_c, rankB_c)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, ct):
+        mA, inB, srcA, validA, srcB, validB = ctx.saved_tensors
+        zero = torch.zeros((), dtype=ct.dtype, device=ct.device)
+        d_base = torch.where(_bshape(~mA & ~inB, ct.dim()), ct, zero)
+        return (_take_rows(ct, srcA, validA, 0),
+                _take_rows(ct, srcB, validB, 0), d_base) + (None,) * 8
 
 
 def _tiered_aggregate(agg, point_state, opt, c_pidx, comp_valid, c_loc,
@@ -116,11 +153,12 @@ def _tiered_aggregate(agg, point_state, opt, c_pidx, comp_valid, c_loc,
     inB = mB & (cumB - 1 < NtB)
     zero4 = torch.zeros((BG, Ncb, 1, decA.shape[-1]), dtype=decA.dtype,
                         device=decA.device)
-    c_decoded = _tier_assemble(decA, decB, zero4, mA, inB, rankA_c, rankB_c)
+    tiers = (mA, inB, rankA_c, rankB_c, srcA, validA, srcB, validB)
+    c_decoded = _tier_assemble(decA, decB, zero4, *tiers)
     zeroW = torch.zeros((BG, Ncb, 1, Kn), dtype=wA.dtype, device=wA.device)
-    c_weight = _tier_assemble(wA, wB, zeroW, mA, inB, rankA_c, rankB_c)
+    c_weight = _tier_assemble(wA, wB, zeroW, *tiers)
     base_cf = conf0.expand((BG, Ncb, 1, Kn)).to(torch.float32)
-    c_conf = _tier_assemble(cfA, cfB, base_cf, mA, inB, rankA_c, rankB_c)
+    c_conf = _tier_assemble(cfA, cfB, base_cf, *tiers)
     return c_decoded, c_weight, c_conf, ovB
 
 
@@ -146,10 +184,15 @@ class QueryOut(NamedTuple):
     occ_overflow: Optional[torch.Tensor] = None  # [] int32, always 0
 
 
+TRAIN_JITTER = 0.3     # depth-sample jitter at train (point_query.py:78-81)
+
+
 def render_query(point_state: Dict, grid: Dict, spec: GridSpec, opt,
-                 batch: Dict) -> QueryOut:
-    """Query phase: ray samples → voxel walk → KNN indices (world coords),
-    with the eval-time (unjittered) depth samples."""
+                 batch: Dict, is_train: bool = False,
+                 u: Optional[torch.Tensor] = None) -> QueryOut:
+    """Query phase: ray samples → voxel walk → KNN indices (world coords).
+    No gradient flows through it. At train the depth samples are jittered
+    by the uniform draws u [B,R,z_depth_dim] (on the rays' device)."""
     if opt.wcoord_query == 0:
         raise NotImplementedError("the frustum querier is not ported")
     if opt.NN < 0:
@@ -157,8 +200,11 @@ def render_query(point_state: Dict, grid: Dict, spec: GridSpec, opt,
     raydir, campos = batch["raydir"], batch["campos"]
     gen = raygen.find_ray_generation_method(
         "near_far_disparity_linear" if opt.inverse > 0 else "near_far_linear")
+    if is_train and u is None:
+        raise ValueError("a train query needs the jitter draws u")
     _, _, _, mid_ts = gen(campos, raydir, opt.z_depth_dim,
-                          near=float(batch["near"]), far=float(batch["far"]))
+                          near=float(batch["near"]), far=float(batch["far"]),
+                          jitter=TRAIN_JITTER if is_train else 0.0, u=u)
     B, R = raydir.shape[0], raydir.shape[1]
     if int(getattr(opt, "comp_groups", 1)) != 1:
         raise NotImplementedError("comp_groups > 1 is not ported")
@@ -172,7 +218,12 @@ def render_query(point_state: Dict, grid: Dict, spec: GridSpec, opt,
 
 def render_shade(agg, point_state: Dict, spec: GridSpec, opt, batch: Dict,
                  query_out: QueryOut) -> Dict:
-    """Shade phase: gather attributes → aggregate → ray march."""
+    """Shade phase: gather attributes → aggregate → ray march.
+
+    Differentiable in `agg` and the point buffers. With compaction the
+    output also holds the compact-form loss leaves (conf_compact,
+    weight_compact, compact_valid, zero_one_total) that compute_losses
+    reads in place of the full-shape conf and weight."""
     raydir, campos = batch["raydir"], batch["campos"]
     camrotc2w = batch["camrotc2w"]
     B, R, _ = raydir.shape
@@ -231,7 +282,16 @@ def render_shade(agg, point_state: Dict, spec: GridSpec, opt, batch: Dict,
         weight = scatter_back(c_weight)
         conf_coefficient = scatter_back(c_conf)
         decoded = decoded * ray_valid[..., None].to(decoded.dtype)
+        compact_losses = {
+            "conf_compact": c_conf,                       # [B,Ncb,1,K]
+            "weight_compact": c_weight.detach(),
+            "compact_valid": comp_valid.reshape(B, Ncb, 1, 1),
+            "zero_one_total": torch.full((), S * c_conf.shape[-1],
+                                         dtype=torch.int64,
+                                         device=c_conf.device),
+        }
     else:
+        compact_losses = {}
         g = npc.gather_neighbors(point_state, sample_pidx, camrotc2w, campos)
         decoded, ray_valid, weight, conf_coefficient = aggregator_forward(
             agg, opt, g["sampled_color"], g["Rw2c"], g["sampled_dir"],
@@ -249,19 +309,20 @@ def render_shade(agg, point_state: Dict, spec: GridSpec, opt, batch: Dict,
     bad = ray_dist < 1e-8
     if opt.raydist_mode_unit > 0:
         bad = bad | (ray_dist > 2 * vz)
-    ray_dist = torch.where(bad, torch.tensor(vz, dtype=zs.dtype,
-                                             device=zs.device), ray_dist)
+    ray_dist = torch.where(bad, vz, ray_dist)
     ray_dist = ray_dist * ray_valid.to(ray_dist.dtype)
 
     render_func = rm.find_render_function(opt.which_render_func)
     blend_func = rm.find_blend_function(opt.which_blend_func)
     tonemap = rm.find_tone_map(opt.which_tonemap_func)
-    (ray_color, _, opacity, _, blend_weight, background_transmission,
-     _) = rm.ray_march(ray_dist, ray_valid, decoded, render_func, blend_func,
-                       batch.get("bg_color"))
+    bg_color = None if "bg_ray" in batch else batch.get("bg_color")
+    (ray_color, _, opacity, acc_transmission, blend_weight,
+     background_transmission, _) = rm.ray_march(
+        ray_dist, ray_valid, decoded, render_func, blend_func, bg_color)
     ray_color = tonemap(ray_color)
 
     output = {
+        **compact_losses,
         "coarse_raycolor": ray_color,                     # [B,R,3]
         "coarse_point_opacity": opacity,                  # [B,R,SR]
         "coarse_is_background": background_transmission,  # [B,R,1]
@@ -270,13 +331,24 @@ def render_shade(agg, point_state: Dict, spec: GridSpec, opt, batch: Dict,
         "queried_shading": torch.logical_not(
             torch.any(ray_valid, dim=-1, keepdim=True)
         ).to(torch.float32).repeat(1, 1, 3),
-        "weight": weight,
-        "blend_weight": blend_weight,
+        "weight": weight.detach(),
+        "blend_weight": blend_weight.detach(),
         "conf_coefficient": conf_coefficient,
         "sr_overflow": sr_overflow,
     }
     if occ_overflow is not None:
         output["occ_overflow"] = occ_overflow
+    if "bg_ray" in batch:
+        # rays that hit keep their color plus bg_ray attenuated by their
+        # transmission; missed rays get bg_ray (reference fill_invalid)
+        output["coarse_raycolor"] = ray_color \
+            + batch["bg_ray"] * background_transmission
+    if opt.compute_depth or opt.depth_loss_items:
+        # camera-space z (cummax of the perspective sample z), as the JAX
+        # package defines it
+        w = opacity * acc_transmission
+        output["coarse_depth"] = torch.sum(w * zs, dim=-1) / (
+            torch.sum(w, dim=-1) + 1e-6)
     return output
 
 

@@ -100,11 +100,20 @@ def fma(a: torch.Tensor, b, c) -> torch.Tensor:
     return (a64 * b64 + c64).float()
 
 
+def host_const(values, dtype, device) -> torch.Tensor:
+    """A small constant tensor on `device`. On a CUDA device it is copied
+    from pinned memory without blocking: a plain copy from pageable memory
+    waits for every kernel queued before it."""
+    t = torch.as_tensor(values, dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def grid_consts(spec: GridSpec, device) -> Tuple[torch.Tensor, torch.Tensor]:
     """(ranges_min, 1/scaled_vsize) as float32 tensors on `device`."""
-    mn = torch.tensor(spec.ranges_min, dtype=torch.float32, device=device)
-    inv = 1.0 / torch.tensor(spec.scaled_vsize, dtype=torch.float32,
-                             device=device)
+    mn = host_const(spec.ranges_min, torch.float32, device)
+    inv = 1.0 / host_const(spec.scaled_vsize, torch.float32, device)
     return mn, inv
 
 
@@ -116,7 +125,7 @@ def voxel_coords(xyz: torch.Tensor, spec: GridSpec
                                   "not ported")
     mn, inv = grid_consts(spec, xyz.device)
     coords = torch.floor((xyz - mn) * inv).to(torch.int32)
-    vdim = torch.tensor(spec.vdim, dtype=torch.int32, device=xyz.device)
+    vdim = host_const(spec.vdim, torch.int32, xyz.device)
     inb = torch.all((coords >= 0) & (coords < vdim), dim=-1)
     return coords, inb
 

@@ -1,11 +1,11 @@
 """The port's hand-written CUDA kernels: build, load and bookkeeping.
 
 The sources in ``pointnerf_tpu_torch/csrc/*.cu`` expose a plain C interface.
-At first use they are compiled by ``nvcc`` for ``sm_90a`` into one shared
-library under ``build/kernels/`` (named by a hash of the sources, so an edit
-rebuilds) and loaded with ctypes. Nothing here runs at import time, so the
-package imports on a machine without CUDA; the CPU paths never call
-`library()`.
+At first use each is compiled by its own ``nvcc`` process for ``sm_90a``,
+all started together, into a shared library under ``build/kernels/``
+(named by a hash of the source, so an edit rebuilds it) and loaded with
+ctypes. Nothing here runs at import time, so the package imports on a
+machine without CUDA; the CPU paths never call `library()`.
 
 Each kernel has a `Kernel` record whose `launches` count its wrapper
 increments once per launch, so a run can show that it went through the
@@ -42,14 +42,17 @@ class Kernel:
 
 TRUNK_FWD = Kernel("trunk_fwd", "pointnerf_tpu_torch/csrc/trunk_fwd.cu",
                    "pointnerf_tpu/ops/pallas_trunk.py:168")
+TRUNK_BWD = Kernel("trunk_bwd", "pointnerf_tpu_torch/csrc/trunk_bwd.cu",
+                   "pointnerf_tpu/ops/pallas_trunk.py:191")
 OCCUPANCY = Kernel("occupancy", "pointnerf_tpu_torch/csrc/occupancy.cu",
                    "pointnerf_tpu/ops/query.py:122")
-KERNELS = (TRUNK_FWD, OCCUPANCY)
+KERNELS = (TRUNK_FWD, TRUNK_BWD, OCCUPANCY)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # pointers..., ints..., stream
     "trunk_fwd": [_P] * 16 + [_I] * 13 + [_P],
+    "trunk_bwd": [_P] * 26 + [_I] * 14 + [_P],
     "occupancy": [_P] * 5 + [ctypes.c_longlong] * 3 + [_I] * 3
     + [ctypes.c_float] * 6 + [_I] * 3 + [_P],
 }
@@ -69,34 +72,57 @@ def _nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
-def library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernels' shared library."""
+class _Library:
+    """The kernels' C entry points by name, each from its own library."""
+
+
+def _so_path(src: Path) -> Path:
+    digest = hashlib.sha1(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}_{digest.hexdigest()[:12]}.so"
+
+
+def library() -> _Library:
+    """Build (once per source hash, one nvcc per source, all in parallel)
+    and load the kernels' shared libraries."""
     if _Build.lib is not None:
         return _Build.lib
-    sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha1()
-    for src in sources:
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"libpointnerf_kernels_{digest.hexdigest()[:12]}.so"
-    if not so.exists():
-        t0 = time.perf_counter()
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        _Build.log = proc.stdout + proc.stderr
+    sos = {src: _so_path(src) for src in sorted(CSRC.glob("*.cu"))}
+    t0 = time.perf_counter()
+    procs = []
+    for src, so in sos.items():
+        if not so.exists():
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            procs.append((so, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+    logs, failed = [], []
+    for so, tmp, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(f"== {so.name}\n{out}")
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{_Build.log}")
-        os.replace(tmp, so)
+            failed.append(so.name)
+        else:
+            os.replace(tmp, so)
+    _Build.log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n{_Build.log}")
+    if procs:
         _Build.seconds = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(so))
-    for name, args in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
+    lib = _Library()
+    for so in sos.values():
+        cdll = ctypes.CDLL(str(so))
+        for name, args in _SIGNATURES.items():
+            fn = getattr(cdll, name, None)
+            if fn is not None:
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+                setattr(lib, name, fn)
+    missing = [n for n in _SIGNATURES if not hasattr(lib, n)]
+    if missing:
+        raise RuntimeError(f"no kernel library exports {missing}")
     _Build.lib = lib
     return lib
 
@@ -117,8 +143,10 @@ def stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require(t: torch.Tensor, name: str, dtype, device, shape=None) -> None:
-    """Validate a kernel operand before its pointer is passed."""
+def require(t: torch.Tensor, name: str, dtype, device, shape=None,
+            aligned: bool = False) -> None:
+    """Validate a kernel operand before its pointer is passed; `aligned`
+    operands are read with 16-byte copies."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -128,3 +156,5 @@ def require(t: torch.Tensor, name: str, dtype, device, shape=None) -> None:
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
+    if aligned and t.data_ptr() % 16:
+        raise ValueError(f"{name} is not 16-byte aligned")

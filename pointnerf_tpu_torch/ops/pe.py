@@ -17,18 +17,41 @@ def positional_encoding(positions: torch.Tensor, freqs: int,
     the cos columns, as the JAX package does. ``ori=True`` → [..., D + 2·D·F]:
     the raw input, then all sins, then all cosines (reference networks.py:187).
     """
-    d = positions.shape[-1]
-    bands = 2.0 ** torch.arange(freqs, dtype=positions.dtype,
-                                device=positions.device)
-    pts = (positions[..., None] * bands).reshape(positions.shape[:-1]
-                                                 + (d * freqs,))
     if ori:
+        pts = _scaled(positions, freqs)
         return torch.cat([positions, torch.sin(pts), torch.cos(pts)], dim=-1)
+    return torch.sin(pe_args(positions, freqs))
+
+
+def _bands(x: torch.Tensor, freqs: int) -> torch.Tensor:
+    return 2.0 ** torch.arange(freqs, dtype=x.dtype, device=x.device)
+
+
+def _scaled(positions: torch.Tensor, freqs: int) -> torch.Tensor:
+    """x·2^f, [..., D·F] channel-major."""
+    d = positions.shape[-1]
+    return (positions[..., None] * _bands(positions, freqs)).reshape(
+        positions.shape[:-1] + (d * freqs,))
+
+
+def pe_args(positions: torch.Tensor, freqs: int) -> torch.Tensor:
+    """The sine arguments of the ``ori=False`` encoding: x·2^f + phase,
+    [..., 2·D·F] in its column order."""
+    d = positions.shape[-1]
+    pts = _scaled(positions, freqs)
     phase = torch.as_tensor(_pe_selection_np(d, freqs)[1],
                             device=positions.device)
     both = pts[..., :, None].expand(pts.shape + (2,)).reshape(
         pts.shape[:-1] + (2 * d * freqs,))
-    return torch.sin(both + phase)
+    return both + phase
+
+
+def pe_input_grad(dargs: torch.Tensor, freqs: int) -> torch.Tensor:
+    """Chain a cotangent of the sine arguments [..., 2·D·F] back to the
+    positions [..., D]: each column carries its channel's 2^f."""
+    d = dargs.shape[-1] // (2 * freqs)
+    per = dargs.reshape(dargs.shape[:-1] + (d, freqs, 2))
+    return torch.sum(per * _bands(dargs, freqs)[:, None], dim=(-2, -1))
 
 
 @functools.lru_cache(maxsize=None)

@@ -32,9 +32,10 @@ def ray_points(campos: torch.Tensor, raydir: torch.Tensor,
     return fma(raydir[:, :, None, :], tvals[..., None], campos[:, None, None, :])
 
 
-def _r2(spec: GridSpec, device) -> torch.Tensor:
-    return torch.tensor(spec.radius_limit * spec.radius_limit,
-                        dtype=torch.float32, device=device)
+def _r2(spec: GridSpec) -> float:
+    """The squared radius limit, rounded to float32 as the comparison
+    against float32 distances rounds it."""
+    return float(np.float32(spec.radius_limit * spec.radius_limit))
 
 
 def mask_raypos(raypos: torch.Tensor, grid, spec: GridSpec) -> torch.Tensor:
@@ -135,7 +136,37 @@ def expand_compacted(SR: int, c: torch.Tensor, counts_g: torch.Tensor,
     """Inverse of the prefix compaction map: [BG,Ncb,...] → [BG,Rg,SR,...].
 
     Row (r, sr) reads compacted slot rayoff[r] + sr, valid iff
-    sr < counts[r] and the slot is inside the budget (forward only)."""
+    sr < counts[r] and the slot is inside the budget. The gradient is the
+    compaction gather itself, ct_c[s] = ct_full[comp_src[s]] on the valid
+    slots (the JAX package's `_expand_bwd`), not the scatter that autograd
+    would make of the expanding gather."""
+    if torch.is_grad_enabled() and c.requires_grad:
+        return _ExpandCompacted.apply(SR, c, counts_g, comp_src, comp_valid)
+    return _expand(SR, c, counts_g)
+
+
+class _ExpandCompacted(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, SR, c, counts_g, comp_src, comp_valid):
+        ctx.save_for_backward(comp_src, comp_valid)
+        return _expand(SR, c, counts_g)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, ct):
+        comp_src, comp_valid = ctx.saved_tensors
+        BG, Ncb = comp_src.shape
+        tail = tuple(ct.shape[3:])
+        RS = ct.shape[1] * ct.shape[2]
+        goff = (torch.arange(BG, device=ct.device) * RS)[:, None]
+        g = ct.reshape((BG * RS,) + tail)[(comp_src + goff).reshape(-1)]
+        g = g.reshape((BG, Ncb) + tail)
+        ct_c = torch.where(comp_valid.reshape((BG, Ncb) + (1,) * len(tail)),
+                           g, torch.zeros((), dtype=g.dtype, device=g.device))
+        return None, ct_c, None, None, None
+
+
+def _expand(SR: int, c: torch.Tensor, counts_g: torch.Tensor) -> torch.Tensor:
     BG, Ncb = c.shape[:2]
     Rg = counts_g.shape[1]
     tail = tuple(c.shape[2:])
@@ -191,7 +222,7 @@ def knn_neighbors_superset(sample_loc: torch.Tensor, sample_mask: torch.Tensor,
     d2 = (sq[0] + sq[1]) + sq[2]                       # [S, P2]
     valid = (slot.reshape(S, 1) >= 0) & (d2 < 1.0e15)
     if spec.radius_limit > 0:
-        valid = valid & (d2 <= _r2(spec, d2.device))
+        valid = valid & (d2 <= _r2(spec))
     d2 = torch.where(valid, d2, BIG)
     best_d, arg = _topk_smallest(d2, K)
     best_i = torch.gather(rows[:, 3 * P2:], 1, arg).to(torch.int32)
@@ -241,7 +272,7 @@ def knn_neighbors(sample_loc: torch.Tensor, sample_mask: torch.Tensor,
              fma(diff[..., 1], diff[..., 1], diff[..., 0] * diff[..., 0]))
     valid = (slot[..., None] >= 0) & (d2 < 1.0e15)
     if spec.radius_limit > 0:
-        valid = valid & (d2 <= _r2(spec, dev))
+        valid = valid & (d2 <= _r2(spec))
     d2 = torch.where(valid, d2, BIG).reshape(B, R, SR, O * P)
     best_d, arg = _topk_smallest(d2, K)
     best_i = torch.gather(cand_idx, -1, arg)

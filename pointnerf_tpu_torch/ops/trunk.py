@@ -1,4 +1,5 @@
-"""Fused per-neighbor shading trunk, forward (port of `ops/pallas_trunk.py`).
+"""Fused per-neighbor shading trunk, forward and backward (port of
+`ops/pallas_trunk.py`).
 
 Per (shading point, neighbor) row:
 
@@ -8,11 +9,11 @@ Per (shading point, neighbor) row:
     a  = raw2out_density(alpha_branch(g))
 
 then the weighted sum over each shading point's K contiguous neighbor rows.
-`fused_trunk` launches the CUDA kernel `csrc/trunk_fwd.cu` on CUDA tensors
-and runs `fused_trunk_reference`, the plain PyTorch composition of the same
-math, on CPU tensors. The backward kernel is not ported yet: inputs that
-require grad are refused rather than differentiated through the plain
-version.
+`fused_trunk` is differentiable through `FusedTrunk`. On CUDA tensors the
+forward launches `csrc/trunk_fwd.cu` (K1) and the backward
+`csrc/trunk_bwd.cu` (K2); on CPU tensors they run their plain PyTorch
+versions, `fused_trunk_reference` and `fused_trunk_bwd_reference`. As in
+the JAX package, the PE selection constants get no gradient.
 """
 
 from __future__ import annotations
@@ -23,9 +24,10 @@ import torch
 import torch.nn.functional as F
 
 from . import kernels
-from .pe import positional_encoding
+from .pe import pe_args, pe_input_grad
 
 NEG_SLOPE = 0.1
+BWD_TILE = 32          # rows per K2 tile (TILE in csrc/trunk_bwd.cu)
 
 
 def pack_trunk_params(agg, F_emb: int, dd: int, n_feat_freqs: int,
@@ -35,14 +37,15 @@ def pack_trunk_params(agg, F_emb: int, dd: int, n_feat_freqs: int,
     in the JAX layout: weights [in, out] contiguous, biases [1, out]. The
     block1 first layer splits by piece [emb | PE(emb) | PE(dists)], block3's
     by [h | ex3]; the pieces are row views of one transposed weight, which
-    the kernel reads whole. with_alpha=False (order 1): the alpha head runs
-    outside."""
+    the kernels read whole. The operands stay differentiable: gradients on
+    them flow back to the Linear weights. with_alpha=False (order 1): the
+    alpha head runs outside."""
     from ..models.networks import linears
     b1, b3 = linears(agg.block1), linears(agg.block3)
     pe_e = 2 * n_feat_freqs * F_emb
     pe_d = 2 * n_dist_freqs * dd
-    wT = lambda lin: lin.weight.detach().t().contiguous()
-    bias = lambda lin: lin.bias.detach().reshape(1, -1)
+    wT = lambda lin: lin.weight.t().contiguous()
+    bias = lambda lin: lin.bias.reshape(1, -1)
     w1 = wT(b1[0])
     if w1.shape[0] != F_emb + pe_e + pe_d:
         raise ValueError(f"block1 takes {w1.shape[0]} inputs, pieces give "
@@ -78,27 +81,53 @@ def _unpack(ops, L1: int, L3: int, with_alpha: bool):
     return w1e, w1p, w1d, b1, extra1, w3x, w3e, b3, extra3, wa, ba
 
 
+def _leaky(x):
+    return F.leaky_relu(x, NEG_SLOPE)
+
+
+def _dleaky(z):
+    return torch.where(z >= 0, 1.0, NEG_SLOPE)
+
+
 def _alpha_act(za: torch.Tensor, act_super: bool) -> torch.Tensor:
     """raw2out_density: softplus(x-1) (mip-NeRF stabilisation) or relu."""
     return F.softplus(za - 1.0) if act_super else torch.relu(za)
+
+
+def _dalpha_act(za: torch.Tensor, act_super: bool) -> torch.Tensor:
+    return torch.sigmoid(za - 1.0) if act_super else (za >= 0).to(za.dtype)
+
+
+def trunk_activations(L1: int, L3: int, n_feat_freqs: int,
+                      n_dist_freqs: int, emb, d, ex3, ops, with_alpha: bool):
+    """The trunk's forward per neighbor row, every layer kept: (t_e, t_d,
+    zs1, hs, zs3, gs) with t_* the PE sine arguments, zs*/hs/gs each
+    LeakyReLU layer's input and output in block1 and block3."""
+    w1e, w1p, w1d, b1, extra1, w3x, w3e, b3, extra3, _, _ = _unpack(
+        ops, L1, L3, with_alpha)
+    t_e = pe_args(emb, n_feat_freqs)
+    t_d = pe_args(d, n_dist_freqs)
+    zs1 = [emb @ w1e + torch.sin(t_e) @ w1p + torch.sin(t_d) @ w1d + b1]
+    hs = [_leaky(zs1[0])]
+    for wl, bl in extra1:
+        zs1.append(hs[-1] @ wl + bl)
+        hs.append(_leaky(zs1[-1]))
+    zs3 = [hs[-1] @ w3x + ex3 @ w3e + b3]
+    gs = [_leaky(zs3[0])]
+    for wl, bl in extra3:
+        zs3.append(gs[-1] @ wl + bl)
+        gs.append(_leaky(zs3[-1]))
+    return t_e, t_d, zs1, hs, zs3, gs
 
 
 def fused_trunk_reference(L1: int, L3: int, n_feat_freqs: int,
                           n_dist_freqs: int, K: int, act_super: bool,
                           order1: bool, emb, d, ex3, w, ops
                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Plain PyTorch version of `fused_trunk` (same arguments, same outputs)."""
-    w1e, w1p, w1d, b1, extra1, w3x, w3e, b3, extra3, wa, ba = _unpack(
-        ops, L1, L3, not order1)
-    leaky = lambda x: F.leaky_relu(x, NEG_SLOPE)
-    pe_e = positional_encoding(emb, n_feat_freqs)
-    pe_d = positional_encoding(d, n_dist_freqs)
-    h = leaky(emb @ w1e + pe_e @ w1p + pe_d @ w1d + b1)
-    for wl, bl in extra1:
-        h = leaky(h @ wl + bl)
-    g = leaky(h @ w3x + ex3 @ w3e + b3)
-    for wl, bl in extra3:
-        g = leaky(g @ wl + bl)
+    """Plain PyTorch version of the trunk forward (K1): same arguments,
+    same outputs as `fused_trunk`."""
+    g = trunk_activations(L1, L3, n_feat_freqs, n_dist_freqs, emb, d, ex3,
+                          ops, not order1)[-1][-1]
     S = emb.shape[0]
 
     def group_sum(x):
@@ -107,7 +136,117 @@ def fused_trunk_reference(L1: int, L3: int, n_feat_freqs: int,
     feat = group_sum(g * w)
     if order1:
         return feat, None
+    wa, ba = ops[-2:]
     return feat, group_sum(_alpha_act(g @ wa + ba, act_super) * w)
+
+
+def fused_trunk_bwd_reference(L1: int, L3: int, n_feat_freqs: int,
+                              n_dist_freqs: int, K: int, act_super: bool,
+                              order1: bool, emb, d, ex3, w, ops, dfeat,
+                              dalpha):
+    """Plain PyTorch version of the trunk backward (K2), a transcription of
+    the Pallas `_bwd_kernel`: recompute the forward, then chain the
+    per-shading-point cotangents dfeat [S/K,H] and dalpha [S/K,1] (None
+    for order 1) back through the alpha head, block3, block1 and the PE
+    sines. Returns (demb, dd, dex3, dw, dops), dops one gradient per op."""
+    w1e, w1p, w1d, b1, extra1, w3x, w3e, b3, extra3, wa, ba = _unpack(
+        ops, L1, L3, not order1)
+    t_e, t_d, zs1, hs, zs3, gs = trunk_activations(
+        L1, L3, n_feat_freqs, n_dist_freqs, emb, d, ex3, ops, not order1)
+    pe_e, pe_d = torch.sin(t_e), torch.sin(t_d)
+    g = gs[-1]
+
+    dfeat_r = dfeat.repeat_interleave(K, dim=0)   # un-group to neighbor rows
+    dw = torch.sum(g * dfeat_r, dim=1, keepdim=True)
+    dg = dfeat_r * w
+    head = []
+    if not order1:
+        za = g @ wa + ba
+        dalpha_r = dalpha.repeat_interleave(K, dim=0)
+        dw = dw + _alpha_act(za, act_super) * dalpha_r
+        dza = dalpha_r * w * _dalpha_act(za, act_super)
+        dg = dg + dza @ wa.t()
+        head = [g.t() @ dza, torch.sum(dza, dim=0, keepdim=True)]
+
+    def back(dcur, zs, acts, extra):
+        """Chain dcur back through the layers after a block's first:
+        returns (dz of the first layer, [(dW, db) of the later layers])."""
+        later = []
+        for li in range(len(extra), 0, -1):
+            dz = dcur * _dleaky(zs[li])
+            later.insert(0, (acts[li - 1].t() @ dz,
+                             torch.sum(dz, dim=0, keepdim=True)))
+            dcur = dz @ extra[li - 1][0].t()
+        return dcur * _dleaky(zs[0]), later
+
+    dz3, later3 = back(dg, zs3, gs, extra3)
+    dex3 = dz3 @ w3e.t()
+    dz1, later1 = back(dz3 @ w3x.t(), zs1, hs, extra1)
+
+    dops = [emb.t() @ dz1, pe_e.t() @ dz1, pe_d.t() @ dz1,
+            torch.sum(dz1, dim=0, keepdim=True)]
+    dops += [t for pair in later1 for t in pair]
+    dops += [hs[-1].t() @ dz3, ex3.t() @ dz3,
+             torch.sum(dz3, dim=0, keepdim=True)]
+    dops += [t for pair in later3 for t in pair]
+    dops += head
+    demb = dz1 @ w1e.t() + pe_input_grad(
+        (dz1 @ w1p.t()) * torch.cos(t_e), n_feat_freqs)
+    dd = pe_input_grad((dz1 @ w1d.t()) * torch.cos(t_d), n_dist_freqs)
+    return demb, dd, dex3, dw, dops
+
+
+def _device_of(emb: torch.Tensor, name: str) -> str:
+    if emb.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {emb.device}")
+    return emb.device.type
+
+
+def _trunk_forward(cfg, emb, d, ex3, w, ops):
+    if _device_of(emb, "fused_trunk") == "cpu":
+        return fused_trunk_reference(*cfg, emb, d, ex3, w, ops)
+    return _launch(*cfg, emb, d, ex3, w, ops)
+
+
+class FusedTrunk(torch.autograd.Function):
+    """`fused_trunk` with the gradient of the Pallas custom VJP: the
+    backward recomputes the forward (nothing but the inputs is saved) and
+    returns demb, dd, dex3, dw and one gradient per trunk op."""
+
+    @staticmethod
+    def forward(ctx, cfg, emb, d, ex3, w, *ops):
+        ctx.cfg = cfg
+        ctx.save_for_backward(emb, d, ex3, w, *ops)
+        return _trunk_forward(cfg, emb, d, ex3, w, ops)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dfeat, dalpha):
+        emb, d, ex3, w, *ops = ctx.saved_tensors
+        order1 = ctx.cfg[-1]
+        S, K = emb.shape[0], ctx.cfg[4]
+        if dfeat is None:
+            dfeat = emb.new_zeros((S // K, ops[-1].shape[1] if order1
+                                   else ops[-2].shape[0]))
+        if not order1 and dalpha is None:
+            dalpha = emb.new_zeros((S // K, 1))
+        demb, dd, dex3, dw, dops = trunk_bwd(
+            *ctx.cfg, emb, d, ex3, w, ops, dfeat.contiguous(),
+            None if order1 else dalpha.contiguous())
+        return (None, demb, dd, dex3, dw, *dops)
+
+
+def trunk_bwd(L1: int, L3: int, n_feat_freqs: int, n_dist_freqs: int,
+              K: int, act_super: bool, order1: bool, emb, d, ex3, w, ops,
+              dfeat, dalpha):
+    """The trunk backward: K2 on CUDA tensors, its plain version
+    `fused_trunk_bwd_reference` on CPU tensors (same arguments, same
+    returns: demb, dd, dex3, dw and one gradient per op)."""
+    args = (L1, L3, n_feat_freqs, n_dist_freqs, K, act_super, order1, emb, d,
+            ex3, w, ops, dfeat, dalpha)
+    if _device_of(emb, "trunk_bwd") == "cpu":
+        return fused_trunk_bwd_reference(*args)
+    return _launch_bwd(*args)
 
 
 def fused_trunk(L1: int, L3: int, n_feat_freqs: int, n_dist_freqs: int,
@@ -120,24 +259,21 @@ def fused_trunk(L1: int, L3: int, n_feat_freqs: int, n_dist_freqs: int,
     pack_trunk_params. Returns per-SHADING-POINT (feat_pt [S/K,H],
     alpha_pt [S/K,1]); order1 returns (feat_pt, None).
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    CPU tensors run the plain versions; CUDA tensors launch the kernels.
+    Differentiable in every tensor argument.
     """
-    if any(t.requires_grad for t in (emb, d, ex3, w, *ops)):
-        raise RuntimeError("fused_trunk has no backward yet: call it under "
-                           "torch.inference_mode() or torch.no_grad()")
-    if emb.device.type == "cpu":
-        return fused_trunk_reference(L1, L3, n_feat_freqs, n_dist_freqs, K,
-                                     act_super, order1, emb, d, ex3, w, ops)
-    if emb.device.type != "cuda":
-        raise ValueError(f"fused_trunk runs on cpu or cuda, not {emb.device}")
-    return _launch(L1, L3, n_feat_freqs, n_dist_freqs, K, act_super, order1,
-                   emb, d, ex3, w, ops)
+    cfg = (L1, L3, n_feat_freqs, n_dist_freqs, K, bool(act_super),
+           bool(order1))
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (emb, d, ex3, w, *ops)):
+        return FusedTrunk.apply(cfg, emb, d, ex3, w, *ops)
+    return _trunk_forward(cfg, emb, d, ex3, w, ops)
 
 
 def _joined(*pieces: torch.Tensor) -> torch.Tensor:
     """The [Σrows, H] matrix whose consecutive row blocks are `pieces`,
     without a copy. pack_trunk_params cuts a first layer's input pieces
-    from one contiguous transposed weight, so the kernel reads that weight
+    from one contiguous transposed weight, so the kernels read that weight
     whole; pieces laid out any other way are refused."""
     first = pieces[0]
     H = first.shape[1]
@@ -155,7 +291,9 @@ def _joined(*pieces: torch.Tensor) -> torch.Tensor:
     return first.as_strided((rows, H), (H, 1))
 
 
-def _launch(L1, L3, nf, nd, K, act_super, order1, emb, d, ex3, w, ops):
+def _kernel_operands(L1, L3, nf, nd, K, order1, emb, d, ex3, w, ops):
+    """Validate the operands both kernels take; returns the joined first
+    layers and the optional second layers (w1, w3, w12, b12, w32, b32)."""
     w1e, w1p, w1d, b1, extra1, w3x, w3e, b3, extra3, wa, ba = _unpack(
         ops, L1, L3, not order1)
     if L1 not in (1, 2) or L3 not in (1, 2):
@@ -178,38 +316,131 @@ def _launch(L1, L3, nf, nd, K, act_super, order1, emb, d, ex3, w, ops):
     kernels.require(ex3, "ex3", f32, dev, (S, E3))
     kernels.require(w, "w", f32, dev, (S, 1))
     kernels.require(w1, "w1", f32, dev,
-                    (Fe + 2 * nf * Fe + 2 * nd * dd, H1))
+                    (Fe + 2 * nf * Fe + 2 * nd * dd, H1), aligned=True)
     kernels.require(b1, "b1", f32, dev, (1, H1))
-    kernels.require(w3, "w3", f32, dev, (H1 + E3, H3))
+    kernels.require(w3, "w3", f32, dev, (H1 + E3, H3), aligned=True)
     kernels.require(b3, "b3", f32, dev, (1, H3))
     w12 = b12 = w32 = b32 = None
     if L1 == 2:
         w12, b12 = extra1[0]
-        kernels.require(w12, "w12", f32, dev, (H1, H1))
+        kernels.require(w12, "w12", f32, dev, (H1, H1), aligned=True)
         kernels.require(b12, "b12", f32, dev, (1, H1))
     if L3 == 2:
         w32, b32 = extra3[0]
-        kernels.require(w32, "w32", f32, dev, (H3, H3))
+        kernels.require(w32, "w32", f32, dev, (H3, H3), aligned=True)
         kernels.require(b32, "b32", f32, dev, (1, H3))
     if not order1:
         kernels.require(wa, "wa", f32, dev, (H3, 1))
         kernels.require(ba, "ba", f32, dev, (1, 1))
-    feat = torch.empty((S // K, H3), dtype=f32, device=dev)
-    alpha = None if order1 else torch.empty((S // K, 1), dtype=f32, device=dev)
-    ptr = lambda t: None if t is None else t.data_ptr()
-    lib = kernels.library()
-    err = lib.trunk_fwd(
-        ptr(emb), ptr(d), ptr(ex3), ptr(w), ptr(w1), ptr(b1), ptr(w12),
-        ptr(b12), ptr(w3), ptr(b3), ptr(w32), ptr(b32), ptr(wa), ptr(ba),
-        ptr(feat), ptr(alpha), S, Fe, dd, E3, nf, nd, H1, H3, L1, L3, K,
-        int(bool(act_super)), int(bool(order1)), kernels.stream_handle(emb))
+    return w1, w3, w12, b12, w32, b32
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(L1, L3, nf, nd, K, act_super, order1, emb, d, ex3, w, ops):
+    w1, w3, w12, b12, w32, b32 = _kernel_operands(
+        L1, L3, nf, nd, K, order1, emb, d, ex3, w, ops)
+    _, _, _, b1, _, _, _, b3, _, wa, ba = _unpack(ops, L1, L3, not order1)
+    S, Fe = emb.shape
+    dd, E3 = d.shape[1], ex3.shape[1]
+    H1, H3 = b1.shape[1], b3.shape[1]
+    feat = torch.empty((S // K, H3), dtype=torch.float32, device=emb.device)
+    alpha = None if order1 else torch.empty((S // K, 1), dtype=torch.float32,
+                                            device=emb.device)
+    err = kernels.library().trunk_fwd(
+        _ptr(emb), _ptr(d), _ptr(ex3), _ptr(w), _ptr(w1), _ptr(b1),
+        _ptr(w12), _ptr(b12), _ptr(w3), _ptr(b3), _ptr(w32), _ptr(b32),
+        _ptr(wa), _ptr(ba), _ptr(feat), _ptr(alpha), S, Fe, dd, E3, nf, nd,
+        H1, H3, L1, L3, K, int(bool(act_super)), int(bool(order1)),
+        kernels.stream_handle(emb))
     kernels.check(err, kernels.TRUNK_FWD)
     kernels.TRUNK_FWD.launches += 1
     return feat, alpha
 
 
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _grad_layout(C1, H1, X3, H3, L1, L3, order1):
+    """(name, shape) of each layer's gradient, in the order K2 writes them
+    into its one flat dW buffer."""
+    out = [("w1", (C1, H1)), ("b1", (1, H1))]
+    if L1 == 2:
+        out += [("w12", (H1, H1)), ("b12", (1, H1))]
+    out += [("w3", (X3, H3)), ("b3", (1, H3))]
+    if L3 == 2:
+        out += [("w32", (H3, H3)), ("b32", (1, H3))]
+    if not order1:
+        out += [("wa", (H3, 1)), ("ba", (1, 1))]
+    return out
+
+
+def _launch_bwd(L1, L3, nf, nd, K, act_super, order1, emb, d, ex3, w, ops,
+                dfeat, dalpha):
+    w1, w3, w12, b12, w32, b32 = _kernel_operands(
+        L1, L3, nf, nd, K, order1, emb, d, ex3, w, ops)
+    _, _, _, b1, _, _, _, b3, _, wa, ba = _unpack(ops, L1, L3, not order1)
+    S, Fe = emb.shape
+    dd, E3 = d.shape[1], ex3.shape[1]
+    H1, H3 = b1.shape[1], b3.shape[1]
+    C1, X3 = w1.shape[0], w3.shape[0]
+    dev, f32 = emb.device, torch.float32
+    kernels.require(dfeat, "dfeat", f32, dev, (S // K, H3))
+    if not order1:
+        kernels.require(dalpha, "dalpha", f32, dev, (S // K, 1))
+
+    def transposed(m, cols):
+        """m [rows, n] -> mᵀ [n, cols], zero columns past rows (the
+        kernel's 16-byte copies need widths that are multiples of 4)."""
+        out = torch.zeros((m.shape[1], cols), dtype=f32, device=dev)
+        out[:, :m.shape[0]] = m.t()
+        return out
+
+    w1t, w3t = transposed(w1, _round4(C1)), transposed(w3, _round4(X3))
+    w12t = None if w12 is None else w12.t().contiguous()
+    w32t = None if w32 is None else w32.t().contiguous()
+    layout = _grad_layout(C1, H1, X3, H3, L1, L3, order1)
+    n_w = sum(a * b for _, (a, b) in layout)
+    tiles = -(-S // BWD_TILE)
+    n_ctas = min(torch.cuda.get_device_properties(dev).multi_processor_count,
+                 tiles)
+    demb, ddist = torch.empty_like(emb), torch.empty_like(d)
+    dex3, dw = torch.empty_like(ex3), torch.empty_like(w)
+    dW = torch.zeros((n_w,), dtype=f32, device=dev)
+    if S > 0:
+        partial = torch.empty((n_ctas, n_w), dtype=f32, device=dev)
+        err = kernels.library().trunk_bwd(
+            _ptr(emb), _ptr(d), _ptr(ex3), _ptr(w), _ptr(dfeat),
+            _ptr(dalpha), _ptr(w1), _ptr(b1), _ptr(w12), _ptr(b12), _ptr(w3),
+            _ptr(b3), _ptr(w32), _ptr(b32), _ptr(wa), _ptr(ba), _ptr(w1t),
+            _ptr(w12t), _ptr(w3t), _ptr(w32t), _ptr(demb), _ptr(ddist),
+            _ptr(dex3), _ptr(dw), _ptr(partial), _ptr(dW), S, Fe, dd, E3, nf,
+            nd, H1, H3, L1, L3, K, int(bool(act_super)), int(bool(order1)),
+            n_ctas, kernels.stream_handle(emb))
+        kernels.check(err, kernels.TRUNK_BWD)
+        kernels.TRUNK_BWD.launches += 1
+    grads, off = {}, 0
+    for name, (a, b) in layout:
+        grads[name] = dW[off:off + a * b].view(a, b)
+        off += a * b
+    pe_e = 2 * nf * Fe
+    dops = [grads["w1"][:Fe], grads["w1"][Fe:Fe + pe_e],
+            grads["w1"][Fe + pe_e:], grads["b1"]]
+    if L1 == 2:
+        dops += [grads["w12"], grads["b12"]]
+    dops += [grads["w3"][:H1], grads["w3"][H1:], grads["b3"]]
+    if L3 == 2:
+        dops += [grads["w32"], grads["b32"]]
+    if not order1:
+        dops += [grads["wa"], grads["ba"]]
+    return demb, ddist, dex3, dw, dops
+
+
 def fused_trunk_ok(opt) -> bool:
-    """Config envelope the kernel supports (the lego/nerf-synth family)."""
+    """Config envelope the kernels support (the lego/nerf-synth family)."""
     return (opt.act_type == "LeakyReLU"
             and opt.shading_feature_mlp_layer1 in (1, 2)
             and opt.shading_feature_mlp_layer2 == 0

@@ -1,14 +1,16 @@
-"""Where the time of one 800x800 lego-preset render goes, on one CUDA GPU.
+"""Where the time of one lego-preset render or train step goes, on one CUDA GPU.
 
-    python3 profile_render.py [--out chiprun_out/render_trace.json]
+    python3 profile_render.py [--train] [--out chiprun_out/render_trace.json]
 
 Builds chip_smoke.py's main-path workload (the lego preset, bench.py's
-100k-point cloud, seeded random weights, one NeRF-Synthetic camera),
-renders the image once to warm up, then profiles a second render_image
-call with torch.profiler (CPU and CUDA activities). Prints the render's
-wall time, the device busy share (the union of the kernel and copy
-intervals over the wall time) and the device time per kernel family, then
-writes the Chrome trace to --out. Needs a CUDA device.
+100k-point cloud, seeded random weights). Without --train it renders one
+800x800 NeRF-Synthetic view once to warm up, then profiles a second
+render_image call; with --train it takes one warm-up train_step on
+chip_smoke's 3,600-ray train batch, then profiles a second. The profile is
+torch.profiler's (CPU and CUDA activities). Prints the wall time, the
+device busy share (the union of the kernel and copy intervals over the wall
+time) and the device time per kernel family, then writes the Chrome trace
+to --out. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -23,7 +25,10 @@ import torch
 
 # kernel families, by a substring of the kernel's name (first match wins)
 FAMILIES = (("K1 trunk_fwd", ("trunk_fwd",)),
+            ("K2 trunk_bwd", ("trunk_bwd", "reduce_partials")),
             ("K3 occupancy", ("occupancy",)),
+            ("Adam", ("adam", "multi_tensor")),
+            ("scatters", ("scatter", "index_put", "indexing_backward")),
             ("gathers", ("gather", "index")),
             ("sorts", ("sort",)),
             ("GEMMs", ("gemm", "xmma", "cutlass")),
@@ -53,16 +58,20 @@ def union_us(intervals) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default="chiprun_out/render_trace.json",
-                    help="where to write the Chrome trace")
+    ap.add_argument("--train", action="store_true",
+                    help="profile a train step instead of a render")
+    ap.add_argument("--out", default=None,
+                    help="where to write the Chrome trace (default "
+                    "chiprun_out/render_trace.json, or train_trace.json)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_render: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from chip_smoke import GROUP, build_workload
+    from chip_smoke import GROUP, build_workload, make_train_batch
     from pointnerf_tpu_torch.ops import kernels
     from pointnerf_tpu_torch.run import common
+    from pointnerf_tpu_torch.train import trainer
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -70,15 +79,28 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip())
     kernels.library()
-    opt, _, spec, grid, _, ts, item, _ = build_workload(torch.device("cuda"))
-    common.render_image(ts, grid, opt, spec, item, group=GROUP)
+    dev = torch.device("cuda")
+    opt, state, spec, grid, _, ts, item, _ = build_workload(dev)
+    if args.train:
+        st = trainer.create_train_state(opt, state,
+                                        torch.Generator().manual_seed(0))
+        batch = make_train_batch(opt, dev)
+        run = lambda: trainer.train_step(st, grid, batch, opt, spec)
+        what = f"train step of {batch['raydir'].shape[1]} rays"
+    else:
+        run = lambda: common.render_image(ts, grid, opt, spec, item,
+                                          group=GROUP)
+        what = "render 800x800"
+    out = args.out or ("chiprun_out/train_trace.json" if args.train
+                       else "chiprun_out/render_trace.json")
+    run()
     for k in kernels.KERNELS:
         k.launches = 0
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        common.render_image(ts, grid, opt, spec, item, group=GROUP)
+        run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
 
@@ -93,7 +115,7 @@ def main() -> int:
         by_family[fam] = by_family.get(fam, 0.0) + e.time_range.elapsed_us()
         launches[fam] = launches.get(fam, 0) + 1
     total_ms = sum(by_family.values()) / 1e3
-    print(f"render 800x800 under the profiler: wall {wall_ms:.1f} ms, device "
+    print(f"{what} under the profiler: wall {wall_ms:.1f} ms, device "
           f"busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% of wall), "
           f"device time summed over kernels {total_ms:.1f} ms; port launch "
           f"counts {({k.name: k.launches for k in kernels.KERNELS})}")
@@ -107,9 +129,9 @@ def main() -> int:
     print("top device kernels (ms):")
     for name, us in sorted(names.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {us / 1e3:9.1f}  {name[:110]}")
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    prof.export_chrome_trace(args.out)
-    print(f"trace written to {args.out}")
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    prof.export_chrome_trace(out)
+    print(f"trace written to {out}")
     return 0
 
 

@@ -5,9 +5,16 @@ CPU mode). Run on a GPU machine, where JAX may be absent, with
 
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
-Tolerance for the trunk: rtol = atol = 1e-4 (fp32, another summation order
-over four layers); masks must be equal.
+Tolerances: the trunk's outputs and per-row cotangents rtol = atol = 1e-4
+(fp32, another summation order over four layers); its weight gradients,
+which sum every row, within 1e-4 of their largest entry; masks equal. Rows
+whose LeakyReLU input lies within KINK of 0 get neighbor weight 0 in the
+backward checks: the derivative jumps there, and the two summation orders
+may take different slopes. Card against CPU: losses rtol 1e-4, gradients
+within GRAD_REL in norm.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -25,6 +32,12 @@ from pointnerf_tpu_torch.train import trainer
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-4, atol=1e-4)
+SUM_REL = 1e-4
+KINK = 1e-5
+GRAD_REL = 1e-3
+TRUNK_GRID = [(K, L1, L3, order, True) for K in (1, 8)
+              for L1, L3 in ((1, 1), (2, 2), (1, 2))
+              for order in (1, 2)] + [(8, 2, 2, 2, False)]
 
 
 @pytest.fixture
@@ -43,10 +56,7 @@ def _opt(L1=2, L3=2, order=2, **kw):
                    agg_dist_pers=20, **kw)
 
 
-@pytest.mark.parametrize("K,L1,L3,order,act_super", [
-    (K, L1, L3, order, True) for K in (1, 8) for L1, L3 in ((1, 1), (2, 2),
-                                                             (1, 2))
-    for order in (1, 2)] + [(8, 2, 2, 2, False)])
+@pytest.mark.parametrize("K,L1,L3,order,act_super", TRUNK_GRID)
 def test_trunk_kernel_matches_plain(dev, K, L1, L3, order, act_super):
     opt = _opt(L1, L3, order)
     agg = init_aggregator_params(opt, torch.Generator().manual_seed(K),
@@ -71,6 +81,54 @@ def test_trunk_kernel_matches_plain(dev, K, L1, L3, order, act_super):
         torch.testing.assert_close(got[1], want[1], **TOL)
     else:
         assert got[1] is None
+
+
+def _bwd_args(dev, K, L1, L3, order, act_super):
+    """K2's arguments at small widths: seeded rows and cotangents, and rows
+    near a LeakyReLU kink weighted 0."""
+    opt = _opt(L1, L3, order)
+    agg = init_aggregator_params(opt, torch.Generator().manual_seed(K),
+                                 device=dev)
+    g = torch.Generator().manual_seed(L1 + 2 * L3)
+    S = 37 * K                                  # ragged against the tile
+    emb = (torch.rand(S, 8, generator=g) - 0.5).to(dev)
+    d = (0.05 * torch.randn(S, 6, generator=g)).to(dev)
+    ex3 = (2 * torch.rand(S, 7, generator=g) - 1).to(dev)
+    w = torch.rand(S, 1, generator=g).to(dev)
+    dfeat = torch.randn(S // K, 32, generator=g).to(dev)
+    dalpha = None if order == 1 else torch.randn(S // K, 1,
+                                                 generator=g).to(dev)
+    ops = [o.detach() for o in tt.pack_trunk_params(agg, 8, 6, 2, 3,
+                                                    with_alpha=order == 2)]
+    zs = tt.trunk_activations(L1, L3, 2, 3, emb, d, ex3, ops, order == 2)
+    for z in zs[2] + zs[4]:
+        w = w * (z.abs() >= KINK).all(dim=1, keepdim=True)
+    return (L1, L3, 2, 3, K, act_super, order == 1, emb, d, ex3, w, ops,
+            dfeat, dalpha)
+
+
+@pytest.mark.parametrize("K,L1,L3,order,act_super", TRUNK_GRID)
+def test_trunk_bwd_kernel_matches_plain(dev, K, L1, L3, order, act_super):
+    args = _bwd_args(dev, K, L1, L3, order, act_super)
+    before = kernels.TRUNK_BWD.launches
+    got = tt.trunk_bwd(*args)
+    want = tt.fused_trunk_bwd_reference(*args)
+    torch.cuda.synchronize()
+    assert kernels.TRUNK_BWD.launches == before + 1
+    for a, b in zip(got[:4], want[:4]):
+        torch.testing.assert_close(a, b, **TOL)
+    assert len(got[4]) == len(want[4])
+    for a, b in zip(got[4], want[4]):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= SUM_REL * float(b.abs().max())
+
+
+def test_trunk_bwd_weight_grads_are_reproducible(dev):
+    """No float atomics: two launches give bit-equal weight gradients."""
+    args = _bwd_args(dev, 8, 2, 2, 2, True)
+    first, second = tt.trunk_bwd(*args), tt.trunk_bwd(*args)
+    for a, b in zip(first[4], second[4]):
+        assert torch.equal(a, b)
 
 
 def test_occupancy_kernel_matches_plain(dev):
@@ -131,10 +189,85 @@ def test_render_goes_through_both_kernels_and_matches_cpu(dev,
         for k in kernels.KERNELS:
             k.launches = 0
         outs[str(device)] = trainer.eval_step(st, grid, batch, opt, spec)
-        launched = [k.launches for k in kernels.KERNELS]
+        launched = [k.launches for k in (kernels.TRUNK_FWD,
+                                         kernels.OCCUPANCY)]
         assert all(launched) if device == dev else not any(launched)
+        assert kernels.TRUNK_BWD.launches == 0
     cpu, gpu = outs["cpu"], outs[str(dev)]
     assert torch.equal(cpu["ray_mask"], gpu["ray_mask"].cpu())
     assert bool(cpu["ray_mask"].any())
     torch.testing.assert_close(gpu["coarse_raycolor"].cpu(),
                                cpu["coarse_raycolor"], **TOL)
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """compute_grads and then one train_step from the same state, batch and
+    jitter draws on the card (all three kernels) and on the CPU (plain
+    versions): equal counters, close losses and gradients, and after the
+    Adam step parameters that agree wherever the gradient is well above
+    Adam's eps (nearer to 0, Adam's step turns last-digit gradient
+    differences into step differences of up to lr)."""
+    rng = np.random.RandomState(0)
+    xyz = rng.uniform(-0.4, 0.4, (800, 3)).astype(np.float32)
+    xyz[:, 2] *= 0.1
+    n = len(xyz)
+    opt = _opt(vsize=(0.04, 0.04, 0.04), vscale=(1, 1, 1),
+               kernel_size=(3, 3, 3), query_size=(3, 3, 3), max_o=2048, P=8,
+               K=8, SR=8, z_depth_dim=64, superset_P=16, SR_budget=-1,
+               k_tier=-1, ranges=(-0.5, -0.5, -0.5, 0.5, 0.5, 0.5),
+               radius_limit_scale=4.0, use_fused_trunk=1, lr=0.01, plr=0.02,
+               color_loss_items=("ray_masked_coarse_raycolor",),
+               color_loss_weights=(1.0,),
+               zero_one_loss_items=("conf_coefficient",),
+               zero_one_loss_weights=(0.0001,))
+    cloud = dict(xyz=xyz, embedding=rng.uniform(-0.5, 0.5, (n, 8)),
+                 color=rng.uniform(0, 1, (n, 3)),
+                 direction=rng.normal(size=(n, 3)),
+                 conf=rng.uniform(0.5, 1.2, (n, 1)))
+    px = np.linspace(-0.15, 0.15, 24, dtype=np.float32)
+    dx, dy = np.meshgrid(px, px, indexing="ij")
+    rd = np.stack([dx, dy, np.ones_like(dx)], -1).reshape(1, -1, 3)
+    gt = rng.uniform(0, 1, (1, rd.shape[1], 3)).astype(np.float32)
+    u = torch.rand((1, rd.shape[1], 64), generator=torch.Generator())
+    agg = init_aggregator_params(opt, torch.Generator().manual_seed(0))
+    runs = {}
+    for device in ("cpu", dev):
+        state = npc.create_point_cloud(**cloud, device=device)
+        spec = tgrid.make_grid_spec(opt, xyz.min(0), xyz.max(0), n)
+        grid = tgrid.build_grid(state["xyz"], state["mask"], spec)
+        batch = {"raydir": torch.as_tensor(rd, device=device),
+                 "campos": torch.tensor([[0.0, 0.0, -3.0]], device=device),
+                 "camrotc2w": torch.eye(3, device=device)[None],
+                 "near": 2.0, "far": 4.0,
+                 "bg_color": torch.ones(1, 3, device=device),
+                 "gt_image": torch.as_tensor(gt, device=device)}
+        st = trainer.make_train_state(copy.deepcopy(agg).to(device), state,
+                                      opt, torch.Generator(device=device))
+        for k in kernels.KERNELS:
+            k.launches = 0
+        grads = trainer.compute_grads(st, grid, batch, opt, spec,
+                                      u.to(device))
+        _, items = trainer.train_step(st, grid, batch, opt, spec,
+                                      u=u.to(device))
+        launched = [k.launches for k in kernels.KERNELS]
+        assert all(launched) if device == dev else not any(launched)
+        runs[str(device)] = (grads, items, st)
+    (g_cpu, i_cpu, s_cpu), (g_gpu, i_gpu, s_gpu) = runs["cpu"], runs[str(dev)]
+    assert float(i_cpu["sr_overflow"]) == float(i_gpu["sr_overflow"])
+    for k, v in i_cpu.items():
+        np.testing.assert_allclose(float(i_gpu[k]), float(v), rtol=1e-4,
+                                   err_msg=k)
+    for part in (1, 2):
+        for k, g in g_cpu[part].items():
+            d = g_gpu[part][k].cpu() - g
+            assert float(d.norm()) <= GRAD_REL * float(g.norm()), k
+    params = lambda st: {**dict(st.aggregator.named_parameters()),
+                         **st.pt_train}
+    p_cpu, p_gpu = params(s_cpu), params(s_gpu)
+    g_all = {**g_cpu[1], **g_cpu[2]}
+    for k, p in p_cpu.items():
+        q = p_gpu[k].detach().cpu()
+        big = g_all[k].abs() > 1e-6
+        torch.testing.assert_close(q[big], p.detach()[big], rtol=1e-5,
+                                   atol=1e-6, msg=k)
+        assert float((q - p.detach()).abs().max()) <= 2 * 0.02 + 1e-6, k
