@@ -4,23 +4,28 @@
 
 Builds the port's CUDA kernels from pointnerf_tpu_torch/csrc and holds each
 kernel against its plain PyTorch version at the shapes its path gives it
-(K1 and K3 at a serving group's, K2 at a train step's). Then it drives the
-port's two main paths on the NeRF-Synthetic lego preset (random weights
-from a seeded torch.Generator, bench.py's 100k-point shell-and-blobs
-cloud):
+(K1, K3 and K4 at a serving group's, K2 and K5 at a train step's). Then it
+drives the port's main paths on the NeRF-Synthetic lego preset (random
+weights from a seeded torch.Generator, bench.py's 100k-point
+shell-and-blobs cloud), each in the default configuration (fused_shade=0:
+K1, K2, K3) and in the fused_shade configuration (fused_shade=1: K4, K5,
+K3):
 
 - serving: one full 800x800 image through render_image, two chunks of it
-  re-rendered on the CPU with the plain versions;
+  re-rendered on the CPU with the plain versions; the fused_shade image is
+  held against the default one;
 - training: bench.py's 3,600-ray batch through create_train_state and
   train_step, one warm-up step and TRAIN_STEPS timed ones, then one
-  compute_grads on the card against the CPU's plain versions.
+  compute_grads on the card against the CPU's plain versions; the
+  fused_shade step-1 loss is held against the default one.
 
 Each path runs with the launch counts set to 0 just before it and read just
-after; every kernel a path runs must have launched in it. Any failed check
+after; every kernel of the path's configuration must have launched in it,
+and the other configuration's trunk kernels not at all. Any failed check
 raises. The last line is a JSON object with the device; the line before it
 is the card's name and power limit, and the line before that lists each
-kernel's launches (summed over both paths), error and times. Needs a CUDA
-device; without one it exits nonzero and prints no result.
+kernel's launches (summed over the paths), error, times and bound. Needs a
+CUDA device; without one it exits nonzero and prints no result.
 """
 
 from __future__ import annotations
@@ -57,6 +62,13 @@ GRAD_REL = 1e-3                       # card vs CPU gradients, ||diff|| /
                                       # differs, and a row whose LeakyReLU
                                       # input lies within rounding of 0 may
                                       # take the other slope on the card
+SHADE_IMAGE_TOL = 1e-4                # fused_shade=1 image vs the default
+                                      # one: the same math, other order
+STEP1_RTOL = 1e-5                     # fused_shade=1 step-1 loss vs default
+SHADE_GRADS = ("demb", "dxyz", "dxyzp", "dcolor", "ddir", "dconf")
+PEAK_FP32 = 67e12                     # H100 SXM fp32 FLOP/s outside the
+                                      # tensor cores, at 700 W (data sheet)
+PEAK_BYTES = 3.35e12                  # H100 SXM HBM3 bytes/s (data sheet)
 
 
 def log(*a):
@@ -84,6 +96,35 @@ def timed_pair(kernel_fn, plain_fn, reps: int = 3):
     k2 = cuda_time(kernel_fn, reps)
     p2 = cuda_time(plain_fn, reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def bound(flops: float, nbytes: float):
+    """(least ms the card could take, what bounds it): the larger of the
+    operations over the fp32 peak and the bytes over the memory rate."""
+    ops_ms, bytes_ms = 1e3 * flops / PEAK_FP32, 1e3 * nbytes / PEAK_BYTES
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors (each read or written once; None counts 0)."""
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def trunk_macs(ops) -> int:
+    """Multiply-adds per row of the trunk's products (every weight matrix
+    of the packed operands, the alpha head's included; the biases, the PE
+    sines and the shade kernels' front half, under 1%, are not counted)."""
+    return sum(t.numel() for t in ops if t.shape[0] > 1)
+
+
+def tier_sums(rows):
+    """(ms, plain_ms, bound_ms) of the order-2 checks at the narrow and the
+    wide tier summed: one group's or one step's work of the kernel."""
+    picked = [r for r in rows if r["order"] == 2 and r.get("mode", 20) == 20]
+    assert {r["tier"] for r in picked} == {"narrow", "wide"}
+    return tuple(sum(r[k] for r in picked)
+                 for k in ("ms", "plain_ms", "bound_ms"))
 
 
 def make_cloud(opt, n_points=100_000, rng=None):
@@ -213,14 +254,16 @@ def check_trunk(agg, opt, Ncb: int, NtB: int):
                 rel = max(rel, float(diff.max() / b.abs().max()))
             ms, plain_ms = timed_pair(lambda: tt.fused_trunk(*args),
                                       lambda: tt.fused_trunk_reference(*args))
-            mac = S * sum(t.numel() for t in ops if t.shape[0] > 1)
+            mac = S * trunk_macs(ops)
+            b_ms, b_by = bound(2 * mac, nbytes(emb, d, ex3, w, *ops, *got))
             log(f"K1 trunk_fwd {tier} K={K} order={1 if order1 else 2} "
                 f"rows={S}: max_abs_err={err:.3e} "
                 f"max_abs_err/max|plain|={rel:.3e} "
                 f"kernel={ms:.3f} ms "
                 f"plain={plain_ms:.3f} ms ({2 * mac / ms / 1e9:.2f} TFLOP/s "
-                f"kernel)")
-            rows.append((tier, order1, err, ms, plain_ms))
+                f"kernel) bound={b_ms:.3f} ms ({b_by})")
+            rows.append(dict(tier=tier, order=1 if order1 else 2, err=err,
+                             ms=ms, plain_ms=plain_ms, bound_ms=b_ms))
         del emb, d, ex3, w
     return rows
 
@@ -293,15 +336,217 @@ def check_trunk_bwd(agg, opt, Ncb: int, NtB: int):
             ms, plain_ms = timed_pair(
                 lambda: tt.trunk_bwd(*args),
                 lambda: tt.fused_trunk_bwd_reference(*args))
+            b_ms, b_by = bound(
+                3 * 2 * S * trunk_macs(ops),
+                nbytes(*args[7:11], *ops, *args[12:], *got[:4], *got[4]))
             log(f"K2 trunk_bwd {tier} K={K} order={1 if order1 else 2} "
                 f"rows={S}: per-row max_abs_err={row_err:.3e} "
                 f"({S - int(smooth.sum())} rows within {KINK:g} of a "
                 f"LeakyReLU kink weighted 0) "
                 f"max_abs_err/max|plain|={row_rel:.3e}, weight grads "
                 f"max_abs_err/max|plain|={sum_rel:.3e}, dW bit-equal over two "
-                f"launches; kernel={ms:.3f} ms plain={plain_ms:.3f} ms")
-            rows.append((tier, order1, row_err, ms, plain_ms))
+                f"launches; kernel={ms:.3f} ms plain={plain_ms:.3f} ms "
+                f"bound={b_ms:.3f} ms ({b_by})")
+            rows.append(dict(tier=tier, order=1 if order1 else 2,
+                             err=row_err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b_ms))
         del emb, d, ex3, w, dfeat, dalpha
+    return rows
+
+
+def shade_inputs(opt, S: int, K: int, gen: torch.Generator, dev):
+    """Seeded fused_shade row arguments shaped like the path's: neighbors
+    within a few voxels of their sample, validity a prefix of each K-group
+    (mostly short), confs across [0, 1.2] (past both clamp edges), unit
+    point and view directions, a random rotation. Returns the 11 tensors
+    emb, xyz, xyzp, color, pdir, conf, mask, sl, slw, ovd, RT on `dev`."""
+    n = S // K
+    rnd = lambda *shape: torch.rand(*shape, generator=gen)
+    up = lambda x: x.repeat_interleave(K, dim=0)
+
+    def unit(m):
+        v = torch.randn(m, 3, generator=gen)
+        return v / v.norm(dim=1, keepdim=True)
+
+    mn = torch.tensor(opt.ranges[:3])
+    mx = torch.tensor(opt.ranges[3:])
+    slw = mn + (mx - mn) * rnd(n, 3)
+    sl = torch.cat([0.6 * rnd(n, 2) - 0.3, 2.0 + 4.0 * rnd(n, 1)], dim=1)
+    n_valid = torch.floor((K + 1) * rnd(n) ** 2)       # 0..K, mostly short
+    mask = (torch.arange(S) % K < up(n_valid)).float()[:, None]
+    vox = float(np.linalg.norm(opt.vsize))
+    rt, _ = torch.linalg.qr(torch.randn(3, 3, generator=gen))
+    rows = [rnd(S, opt.point_features_dim) - 0.5,
+            up(slw) + 2 * vox * torch.randn(S, 3, generator=gen),
+            up(sl) + 0.01 * torch.randn(S, 3, generator=gen), rnd(S, 3),
+            unit(S), 1.2 * rnd(S, 1), mask, sl, slw, unit(n), rt]
+    return [t.to(dev).contiguous() for t in rows]
+
+
+def check_shade(aggs, opt, Ncb: int, NtB: int):
+    """K4 against fused_shade_reference at one serving group's tier shapes
+    (narrow: Ncb rows at K=k_tier, wide: NtB shading points x K), orders 1
+    and 2 at dist mode 20 and dist mode 0 at the narrow shape (aggs: the
+    aggregator of each mode). All four outputs are held at K1_TOL."""
+    from pointnerf_tpu_torch.ops import trunk as tt
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(3)
+    L1, L3 = opt.shading_feature_mlp_layer1, opt.shading_feature_mlp_layer3
+    nf, nd = opt.num_feat_freqs, abs(opt.dist_xyz_freq)
+    Fe = opt.point_features_dim
+    rows = []
+    for tier, K, n_pts, modes in (
+            ("narrow", opt.k_tier if opt.k_tier > 0 else 1, Ncb, (20, 0)),
+            ("wide", opt.K, NtB, (20,))):
+        S = n_pts * K
+        ins = shade_inputs(opt, S, K, g, dev)
+        for mode in modes:
+            for order1 in (False, True) if mode == 20 else (False,):
+                ops = tt.pack_trunk_params(aggs[mode], Fe, tt.DIST_COLS[mode],
+                                           nf, nd, with_alpha=not order1)
+                args = (L1, L3, nf, nd, K, opt.act_super > 0, order1, mode,
+                        *ins, ops)
+                got = tt.fused_shade(*args)
+                want = tt.fused_shade_reference(*args)
+                torch.cuda.synchronize()
+                if (got[1] is None) != (want[1] is None):
+                    raise AssertionError("K4 alpha output presence differs")
+                err = rel = 0.0
+                for a, b in zip(got, want):
+                    if b is None:
+                        continue
+                    torch.testing.assert_close(a, b, **K1_TOL)
+                    diff = (a - b).abs()
+                    err = max(err, float(diff.max()))
+                    rel = max(rel, float(diff.max() / b.abs().max()))
+                ms, plain_ms = timed_pair(
+                    lambda: tt.fused_shade(*args),
+                    lambda: tt.fused_shade_reference(*args))
+                mac = S * trunk_macs(ops)
+                b_ms, b_by = bound(2 * mac, nbytes(*ins, *ops, *got))
+                live = float(ins[6].mean())
+                log(f"K4 shade_fwd {tier} K={K} order={1 if order1 else 2} "
+                    f"dist_mode={mode} rows={S} (valid share {live:.3f}): "
+                    f"max_abs_err={err:.3e} max_abs_err/max|plain|={rel:.3e} "
+                    f"kernel={ms:.3f} ms plain={plain_ms:.3f} ms "
+                    f"({2 * mac / ms / 1e9:.2f} TFLOP/s kernel) "
+                    f"bound={b_ms:.3f} ms ({b_by})")
+                rows.append(dict(tier=tier, order=1 if order1 else 2,
+                                 mode=mode, err=err, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=b_ms))
+        del ins
+    return rows
+
+
+def shade_bwd_scales(rows, K: int):
+    """Per row, how much the front's backward scales an error of K2's
+    per-row cotangents (dd_raw, dex3, dw_eff), each within K2_ROW_TOL:
+    dxyzp = [ddp0·zp, ddp1·zp, ddp0·xp + ddp1·yp + ddp2], so up to
+    1 + |xp| + |yp| + |zp|; dxyz = dd_raw[:3]·RTᵀ − (w_raw/nc)·dw_raw·d/nc
+    with dw_raw = (dw_n − Σ_K dw_n·w_n)/S_w, so up to √3 + 2·w_n/nc (the
+    weight of a near neighbor amplifies dw_eff's rounding). The other four
+    outputs are not scaled."""
+    from pointnerf_tpu_torch.ops import trunk as tt
+    f = tt.shade_front(*rows[1:], 20, K)
+    return {"dxyzp": 1.0 + rows[2].abs().sum(dim=1),
+            "dxyz": 3 ** 0.5 + 2.0 * (f.w_n / f.nc)[:, 0]}
+
+
+def assert_rows_close(what, a, b, scale=None):
+    """|a − b| <= K2_ROW_TOL's atol (times `scale` [S] per row, if given)
+    + its rtol·|b|, entry by entry."""
+    atol = K2_ROW_TOL["atol"] * (1.0 if scale is None else scale[:, None])
+    bad = (a - b).abs() > atol + K2_ROW_TOL["rtol"] * b.abs()
+    if bool(bad.any()):
+        i = int(bad.any(dim=1).nonzero()[0])
+        raise AssertionError(f"{what}: {int(bad.sum())} entries past the "
+                             f"tolerance, first in row {i}: "
+                             f"{a[i].tolist()} vs {b[i].tolist()}")
+
+
+def check_shade_bwd(agg, opt, Ncb: int, NtB: int):
+    """K5 against fused_shade_bwd_reference at one train step's tier shapes,
+    orders 1 and 2 at dist mode 20, with nonzero cotangents on all four
+    outputs (dwout and dconfout exercise the weight and conf chains). Rows
+    with a LeakyReLU input within KINK of 0 are masked out (no cotangent
+    reaches their layers; see check_trunk_bwd). The six per-row cotangents
+    are held at K2_ROW_TOL, with the atol of dxyz and dxyzp scaled per row
+    as the front's backward scales K2's per-row errors (shade_bwd_scales),
+    the weight gradients at K2_SUM_REL of their largest entry, and two
+    launches must give bit-equal weight gradients."""
+    from pointnerf_tpu_torch.ops import trunk as tt
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(4)
+    L1, L3 = opt.shading_feature_mlp_layer1, opt.shading_feature_mlp_layer3
+    nf, nd = opt.num_feat_freqs, abs(opt.dist_xyz_freq)
+    Fe, H = opt.point_features_dim, opt.shading_feature_num
+    rows = []
+    for tier, K, n_pts in (("narrow", opt.k_tier if opt.k_tier > 0 else 1,
+                            Ncb), ("wide", opt.K, NtB)):
+        S = n_pts * K
+        ins = shade_inputs(opt, S, K, g, dev)
+        cts = [torch.randn(S // K, H, generator=g),
+               torch.randn(S // K, 1, generator=g),
+               torch.randn(S, 1, generator=g),
+               torch.randn(S, 1, generator=g)]
+        cts = [c.to(dev) for c in cts]
+        for order1 in (False, True):
+            ops = [o.detach() for o in tt.pack_trunk_params(
+                agg, Fe, 6, nf, nd, with_alpha=not order1)]
+            f = tt.shade_front(*ins[1:], 20, K)
+            zs = tt.trunk_activations(L1, L3, nf, nd, ins[0], f.d_raw, f.ex3,
+                                      ops, not order1)
+            smooth = torch.ones(S, dtype=torch.bool, device=dev)
+            for z in zs[2] + zs[4]:
+                smooth &= (z.abs() >= KINK).all(dim=1)
+            del f, zs
+            rows_in = list(ins)
+            rows_in[6] = ins[6] * smooth[:, None]
+            args = (L1, L3, nf, nd, K, opt.act_super > 0, order1, 20,
+                    *rows_in, ops, cts[0], None if order1 else cts[1],
+                    cts[2], cts[3])
+            got = tt.shade_bwd(*args)
+            again = tt.shade_bwd(*args)
+            want = tt.fused_shade_bwd_reference(*args)
+            torch.cuda.synchronize()
+            scales = shade_bwd_scales(rows_in, K)
+            row_err = row_rel = sum_rel = 0.0
+            errs = {}
+            for name, a, b in zip(SHADE_GRADS, got[:6], want[:6]):
+                assert_rows_close(f"K5 {name}", a, b, scales.get(name))
+                diff = float((a - b).abs().max())
+                errs[name] = f"{diff:.2e}"
+                row_err = max(row_err, diff)
+                row_rel = max(row_rel, diff / max(float(b.abs().max()),
+                                                  1e-30))
+            for a, b, c in zip(got[6], want[6], again[6]):
+                if not torch.equal(a, c):
+                    raise AssertionError("K5 weight gradients differ between "
+                                         "two launches on the same inputs")
+                rel = float((a - b).abs().max() / b.abs().max())
+                if not rel <= K2_SUM_REL:
+                    raise AssertionError(f"K5 weight gradient off by {rel:.3e}"
+                                         f" of its largest entry")
+                sum_rel = max(sum_rel, rel)
+            ms, plain_ms = timed_pair(
+                lambda: tt.shade_bwd(*args),
+                lambda: tt.fused_shade_bwd_reference(*args))
+            b_ms, b_by = bound(3 * 2 * S * trunk_macs(ops),
+                               nbytes(*rows_in, *ops, *args[20:], *got[:6],
+                                      *got[6]))
+            log(f"K5 shade_bwd {tier} K={K} order={1 if order1 else 2} "
+                f"dist_mode=20 rows={S}: per-row max_abs_err={row_err:.3e} "
+                f"{errs} (atol scaled up to x{float(scales['dxyz'].max()):.0f}"
+                f" for dxyz, x{float(scales['dxyzp'].max()):.2f} for dxyzp) "
+                f"({S - int(smooth.sum())} rows within {KINK:g} of a "
+                f"LeakyReLU kink masked) max_abs_err/max|plain|={row_rel:.3e},"
+                f" weight grads max_abs_err/max|plain|={sum_rel:.3e}, dW "
+                f"bit-equal over two launches; kernel={ms:.3f} ms "
+                f"plain={plain_ms:.3f} ms bound={b_ms:.3f} ms ({b_by})")
+            rows.append(dict(tier=tier, order=1 if order1 else 2,
+                             err=row_err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b_ms))
+        del ins, cts
     return rows
 
 
@@ -328,17 +573,26 @@ def check_occupancy(item, grid, spec, opt, rays: int):
         raise AssertionError(f"K3 occupancy differs from the plain mask on "
                              f"{n_diff} samples")
     ms, plain_ms = timed_pair(kern, plain, reps=5)
+    # bytes: the depths (a broadcast axis read once), the rays and the mask;
+    # the table lookups (one byte of a 9 MB L2-resident table per in-range
+    # sample) are not counted. Operations: a dozen per sample.
+    depths = int(np.prod([n for n, st in zip(t.shape, t.stride()) if st]))
+    b_ms, b_by = bound(12 * t.numel(), 4 * depths + nbytes(campos, raydir)
+                       + t.numel())
     log(f"K3 occupancy rays={rays} samples={t.numel()}: equal "
         f"(occupied share {float(want.float().mean()):.4f}) "
-        f"kernel={ms:.3f} ms plain={plain_ms:.3f} ms")
-    return ms, plain_ms
+        f"kernel={ms:.3f} ms plain={plain_ms:.3f} ms bound={b_ms:.4f} ms "
+        f"({b_by})")
+    return dict(err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by)
 
 
-def serve_path(opt, state, spec, grid, agg, ts, item):
+def serve_path(opt, state, spec, grid, agg, ts, item, label, kerns):
     """The serving main path: one full image through render_image, twice
     (the first call warms the allocator and cuBLAS; the counts cover the
-    second), then two of its chunks re-rendered on the CPU. Returns the
-    launch counts."""
+    second), then two of its chunks re-rendered on the CPU. Every kernel of
+    `kerns` must launch, no other trunk kernel. Returns (launch counts, the
+    image's maps, render stats)."""
     from pointnerf_tpu_torch.ops import kernels
     from pointnerf_tpu_torch.run import common
     from pointnerf_tpu_torch.train.trainer import ServeState
@@ -356,15 +610,13 @@ def serve_path(opt, state, spec, grid, agg, ts, item):
     dt = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels.KERNELS}
     rgb, hit = maps["coarse_raycolor"], maps["ray_mask"][..., 0] > 0.5
-    log(f"serve: render 800x800: {1e3 * dt:.1f} ms/image, "
+    log(f"{label}: render 800x800: {1e3 * dt:.1f} ms/image, "
         f"{H * W / dt:.0f} rays/s, "
         f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"hit share {hit.mean():.4f}, groups {stats['groups']}, "
         f"sr_overflow {stats['sr_overflow']}, "
         f"occ_overflow {stats['occ_overflow']}, launches {launches}")
-    for k in (kernels.TRUNK_FWD, kernels.OCCUPANCY):
-        if k.launches == 0:
-            raise AssertionError(f"the serving path never launched {k.name}")
+    check_launches(label, kerns)
     if rgb.shape != (H, W, 3) or not np.isfinite(rgb).all():
         raise AssertionError("rendered image is not a finite [800,800,3] map")
     if not 0.0 < hit.mean() < 1.0:
@@ -395,17 +647,31 @@ def serve_path(opt, state, spec, grid, agg, ts, item):
                                rgb[py, px], **CPU_TOL)
     cerr = float(np.abs(cpu_maps["coarse_raycolor"][py, px]
                         - rgb[py, px]).max())
-    log(f"serve: CPU re-render of chunks {pick.tolist()} ({len(sel)} rays, "
-        f"{int(hit.reshape(-1)[sel].sum())} hit): max_abs_err {cerr:.3e} "
+    log(f"{label}: CPU re-render of chunks {pick.tolist()} ({len(sel)} rays,"
+        f" {int(hit.reshape(-1)[sel].sum())} hit): max_abs_err {cerr:.3e} "
         f"in {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, maps, stats
 
 
-def train_path(opt, state, spec, grid):
+def check_launches(label, kerns):
+    """Every kernel of `kerns` launched since the counts were reset, and no
+    trunk kernel outside it (K1/K2 on the default paths, K4/K5 on the
+    fused_shade ones)."""
+    from pointnerf_tpu_torch.ops import kernels
+    for k in kernels.KERNELS:
+        if k in kerns and k.launches == 0:
+            raise AssertionError(f"{label} never launched {k.name}")
+        if k not in kerns and k is not kernels.OCCUPANCY and k.launches:
+            raise AssertionError(f"{label} launched {k.name} "
+                                 f"{k.launches} times")
+
+
+def train_path(opt, state, spec, grid, label, kerns):
     """The training main path: create_train_state, one warm-up train_step
     and TRAIN_STEPS timed ones on bench.py's batch (the counts cover the
-    timed steps). The loss must be finite and fall from the first step to
-    the last. Returns (launch counts, the train state, the batch)."""
+    timed steps; every kernel of `kerns` must launch, no other trunk
+    kernel). The loss must be finite and fall from the first step to the
+    last. Returns (launch counts, the train state, the batch, the losses)."""
     from pointnerf_tpu_torch.ops import kernels
     from pointnerf_tpu_torch.train import trainer
     dev = torch.device("cuda")
@@ -428,27 +694,26 @@ def train_path(opt, state, spec, grid):
     launches = {k.name: k.launches for k in kernels.KERNELS}
     losses = [float(i["loss_total"]) for i in steps]
     over = [int(i["sr_overflow"]) for i in steps[1:]]
-    log(f"train: {R} rays/step, {1e3 * dt:.1f} ms/step, {R / dt:.0f} train "
-        f"rays/s over {TRAIN_STEPS} steps, "
+    log(f"{label}: {R} rays/step, {1e3 * dt:.1f} ms/step, "
+        f"{R / dt:.0f} train rays/s over {TRAIN_STEPS} steps, "
         f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"sr_overflow per step {min(over)}-{max(over)}, launches {launches}")
-    log(f"train: loss_total step 1 {losses[0]:.6f} -> step "
+    log(f"{label}: loss_total step 1 {losses[0]:.6f} -> step "
         f"{len(losses)} {losses[-1]:.6f}; items of the last step "
         f"{ {k: round(float(v), 6) for k, v in steps[-1].items()} }")
-    for k in kernels.KERNELS:
-        if k.launches == 0:
-            raise AssertionError(f"the train path never launched {k.name}")
+    check_launches(label, kerns)
     if not all(np.isfinite(float(v)) for i in steps for v in i.values()):
         raise AssertionError("a train step gave a non-finite loss item")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
-    return launches, st, batch
+    return launches, st, batch, losses
 
 
-def check_train_cpu(st, batch, opt, spec, grid):
+def check_train_cpu(st, batch, opt, spec, grid, label):
     """One compute_grads on the card against the CPU's plain versions
-    (use_fused_trunk=1) from the same state, batch and jitter draws: equal
-    counters, losses within LOSS_RTOL, each gradient within GRAD_REL."""
+    (use_fused_trunk=1; fused_shade as `opt` says) from the same state,
+    batch and jitter draws: equal counters, losses within LOSS_RTOL, each
+    gradient within GRAD_REL."""
     from pointnerf_tpu_torch.train import trainer
     u = trainer.jitter_draws(st, batch, opt)
     card = trainer.compute_grads(st, grid, batch, opt, spec, u)
@@ -480,7 +745,7 @@ def check_train_cpu(st, batch, opt, spec, grid):
                                      f"(||card - cpu|| / ||cpu||)")
             worst = max(worst, (k, rel), key=lambda t: t[1])
             worst_abs = max(worst_abs, float(d.abs().max()))
-    log(f"train: card vs CPU compute_grads on the full "
+    log(f"{label}: card vs CPU compute_grads on the full "
         f"{batch['raydir'].shape[1]}-ray batch: loss_total "
         f"{float(card[0]['loss_total']):.7f} vs "
         f"{float(cpu[0]['loss_total']):.7f}; worst gradient {worst[0]} "
@@ -518,42 +783,81 @@ def main() -> int:
     log(f"grid build on card: {grid_ms:.1f} ms, "
         f"vdim {spec.vdim}, occupied voxels {int(grid['num_occ'])}")
 
-    # kernels against their plain versions: K1 and K3 at one serving
-    # group's shapes, K2 at one train step's
+    # kernels against their plain versions: K1, K3 and K4 at one serving
+    # group's shapes, K2 and K5 at one train step's
+    from pointnerf_tpu_torch.models.aggregator import init_aggregator_params
+    dev = torch.device("cuda")
     chunk = opt.random_sample_size ** 2
     tier_rows = lambda rows: (
         effective_sr_budget(opt, rows),
         min(effective_sr_budget(opt, rows),
             max(128, int(round(effective_sr_budget(opt, rows)
                                * opt.k_tier_wide_frac)))))
+    agg0 = init_aggregator_params(opt.replace(agg_dist_pers=0),
+                                  torch.Generator().manual_seed(5), device=dev)
     with torch.inference_mode():
         k1 = check_trunk(agg, opt, *tier_rows(GROUP * chunk * opt.SR))
         k3 = check_occupancy(item, grid, spec, opt, GROUP * chunk)
+        k4 = check_shade({20: agg, 0: agg0}, opt,
+                         *tier_rows(GROUP * chunk * opt.SR))
     k2 = check_trunk_bwd(agg, opt, *tier_rows(chunk * opt.SR))
+    k5 = check_shade_bwd(agg, opt, *tier_rows(chunk * opt.SR))
+    del agg0
     torch.cuda.empty_cache()
 
-    serve = serve_path(opt, state, spec, grid, agg, ts, item)
+    # the main paths, default (K1, K2, K3) then fused_shade (K4, K5, K3)
+    shade_opt = opt.replace(fused_shade=1)
+    default_k = (kernels.TRUNK_FWD, kernels.TRUNK_BWD, kernels.OCCUPANCY)
+    shade_k = (kernels.SHADE_FWD, kernels.SHADE_BWD, kernels.OCCUPANCY)
+    serve, maps, stats = serve_path(opt, state, spec, grid, agg, ts, item,
+                                    "serve", default_k[::2])
     torch.cuda.empty_cache()
-    train, st, batch = train_path(opt, state, spec, grid)
-    check_train_cpu(st, batch, opt, spec, grid)
+    serve_s, maps_s, stats_s = serve_path(shade_opt, state, spec, grid, agg,
+                                          ts, item, "serve fused_shade",
+                                          shade_k[::2])
+    diff = float(np.abs(maps_s["coarse_raycolor"]
+                        - maps["coarse_raycolor"]).max())
+    log(f"serve fused_shade vs default image: max_abs_diff {diff:.3e}; "
+        f"sr_overflow {stats_s['sr_overflow']} vs {stats['sr_overflow']}, "
+        f"occ_overflow {stats_s['occ_overflow']} vs {stats['occ_overflow']}")
+    if not diff <= SHADE_IMAGE_TOL:
+        raise AssertionError(f"the fused_shade image differs by {diff:.3e}")
+    for k in ("sr_overflow", "occ_overflow"):
+        if stats_s[k] != stats[k]:
+            raise AssertionError(f"{k} differs between the configurations")
+    del maps, maps_s
+    torch.cuda.empty_cache()
+    train, st, batch, losses = train_path(opt, state, spec, grid, "train",
+                                          default_k)
+    check_train_cpu(st, batch, opt, spec, grid, "train")
+    del st
+    torch.cuda.empty_cache()
+    train_s, st, batch, losses_s = train_path(shade_opt, state, spec, grid,
+                                              "train fused_shade", shade_k)
+    check_train_cpu(st, batch, shade_opt, spec, grid, "train fused_shade")
+    rel = abs(losses_s[0] - losses[0]) / abs(losses[0])
+    log(f"train fused_shade vs default: step-1 loss_total {losses_s[0]:.7f} "
+        f"vs {losses[0]:.7f} (relative difference {rel:.3e})")
+    if not rel <= STEP1_RTOL:
+        raise AssertionError(f"the fused_shade step-1 loss differs by {rel}")
 
-    def both(k):
-        return serve[k.name] + train[k.name]
-
-    def tiers(rows):
-        n2 = next(r for r in rows if r[0] == "narrow" and not r[1])
-        w2 = next(r for r in rows if r[0] == "wide" and not r[1])
-        return n2[3] + w2[3], n2[4] + w2[4]
-
+    runs = (serve, serve_s, train, train_s)
     report = {"kernels": []}
-    for k, rows, err in ((kernels.TRUNK_FWD, k1, max(r[2] for r in k1)),
-                         (kernels.TRUNK_BWD, k2, max(r[2] for r in k2)),
-                         (kernels.OCCUPANCY, None, 0.0)):
-        ms, plain_ms = tiers(rows) if rows else k3
+    for k, rows in ((kernels.TRUNK_FWD, k1), (kernels.TRUNK_BWD, k2),
+                    (kernels.OCCUPANCY, None), (kernels.SHADE_FWD, k4),
+                    (kernels.SHADE_BWD, k5)):
+        if rows is None:
+            err, by = k3["err"], k3["bound_by"]
+            ms, plain_ms, b_ms = k3["ms"], k3["plain_ms"], k3["bound_ms"]
+        else:
+            err, by = max(r["err"] for r in rows), "operations"
+            ms, plain_ms, b_ms = tier_sums(rows)
         report["kernels"].append(
             {"name": k.name, "route": "cuda", "source": k.source,
-             "replaces": k.replaces, "launches": both(k),
-             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+             "replaces": k.replaces,
+             "launches": sum(run[k.name] for run in runs),
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": b_ms, "bound_by": by, "library_ms": None})
     log(json.dumps(report))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """Point aggregator: per-neighbor shading MLP + inverse-distance interpolation.
 
 PyTorch port of `pointnerf_tpu/models/aggregator.py` on the lego envelope:
-the mode-20 distances, the linear distance kernel, the conf clamp, orders 1
-and 2 of the plain path, and the fused-trunk branch (`ops/trunk.py`).
-Every (shading point, neighbor) row is computed; invalid neighbors are
-removed by the weight mask, so shapes stay static.
+the mode-0 and mode-20 distances, the linear distance kernel, the conf
+clamp, orders 1 and 2 of the plain path, the fused-trunk branch and the
+fused-shade branch (`ops/trunk.py`). Every (shading point, neighbor) row is
+computed; invalid neighbors are removed by the weight mask, so shapes stay
+static.
 """
 
 from __future__ import annotations
@@ -95,8 +96,9 @@ class Aggregator(nn.Module):
 
 
 def init_aggregator_params(opt, generator: torch.Generator = None,
-                           device="cpu") -> Aggregator:
-    """Build and initialize the aggregator (reference: viewmlp_init :276-348)."""
+                           device="cuda") -> Aggregator:
+    """Build and initialize the aggregator (reference: viewmlp_init :276-348)
+    on `device` (the card unless the caller names another)."""
     if opt.agg_distance_kernel == "feat_intrp":
         raise NotImplementedError("the feat_intrp weight MLP is not ported")
     dims = aggregator_dims(opt)
@@ -160,13 +162,19 @@ def gradient_clamp(x, mn=0.0001, mx=1.0):
     return x - (x - torch.clamp(x, mn, mx)).detach()
 
 
+def unit_axis_weight(opt) -> bool:
+    """agg_axis_weight is unset or all ones (the JAX `_axis_weight_arr`
+    returns None)."""
+    aw = opt.agg_axis_weight
+    return aw is None or bool(np.allclose(np.asarray(aw, np.float32), 1.0))
+
+
 def compute_weights(opt, dists, pnt_mask):
     """Linear distance kernel (reference: :355-375): 1/‖d‖ per neighbor."""
     if opt.agg_distance_kernel != "linear":
         raise NotImplementedError(
             f"agg_distance_kernel {opt.agg_distance_kernel} is not ported")
-    aw = opt.agg_axis_weight
-    if aw is not None and not np.allclose(np.asarray(aw, np.float32), 1.0):
+    if not unit_axis_weight(opt):
         raise NotImplementedError("non-unit agg_axis_weight is not ported")
     w = 1.0 / torch.clamp(torch.linalg.norm(dists[..., :3], dim=-1), min=1e-6)
     return pnt_mask * w
@@ -174,7 +182,10 @@ def compute_weights(opt, dists, pnt_mask):
 
 def compute_dists(opt, sampled_xyz, sampled_xyz_pers, sample_loc,
                   sample_loc_w):
-    """agg_dist_pers 20: [world diff, perspective diff] (reference :748-796)."""
+    """agg_dist_pers 0: the world diff; 20: [world diff, perspective diff]
+    (reference :748-796)."""
+    if opt.agg_dist_pers == 0:
+        return sampled_xyz - sample_loc_w[..., None, :]
     if opt.agg_dist_pers != 20:
         raise NotImplementedError(f"agg_dist_pers {opt.agg_dist_pers} is not "
                                   "ported")
@@ -204,7 +215,8 @@ def aggregator_forward(agg: Aggregator, opt,
     [B,R,SR,4], ray_valid [B,R,SR] bool, weight [B,R,SR,K],
     conf_coefficient [B,R,SR,K]).
     """
-    from ..ops.trunk import fused_trunk, fused_trunk_ok, pack_trunk_params
+    from ..ops.trunk import (fused_shade, fused_shade_ok, fused_trunk,
+                             fused_trunk_ok, pack_trunk_params)
     if sampled_Rw2c.dim() != 2:
         raise NotImplementedError("per-point Rw2c is not ported")
     if opt.agg_intrp_order not in (1, 2):
@@ -220,6 +232,51 @@ def aggregator_forward(agg: Aggregator, opt,
     B, R, SR, K, _ = sampled_xyz.shape
     mask_f = sample_pnt_mask.to(torch.float32)
     ray_valid = torch.any(sample_pnt_mask, dim=-1)
+    S_pt = B * R * SR
+    order1 = opt.agg_intrp_order == 1
+
+    RT = sampled_Rw2c.t().to(sample_ray_dirs.dtype)
+    viewdirs = _rot3(sample_ray_dirs, RT)
+    if opt.num_viewdir_freqs > 0:
+        vd = positional_encoding(viewdirs, opt.num_viewdir_freqs, ori=True)
+        ori_viewdirs, viewdirs_pe = vd[..., :3], vd[..., 3:]
+    else:
+        ori_viewdirs, viewdirs_pe = viewdirs, viewdirs
+
+    def heads(feat_pt, alpha):
+        if alpha is None:
+            alpha = raw2out_density(opt, apply_mlp(agg.alpha_branch, feat_pt))
+        color = raw2out_color(opt, apply_mlp_pieces(
+            agg.color_branch, [feat_pt, viewdirs_pe.reshape(S_pt, -1)]))
+        out = torch.cat([alpha, color], dim=-1).reshape(B, R, SR, 4)
+        return out * ray_valid[..., None].to(out.dtype)
+
+    # fused shade (ops/trunk.py): distances, weights, conf and the trunk in
+    # one kernel, whose backward emits the per-attribute cotangents, so
+    # dists, weight and w_eff are never formed here. As in the JAX package:
+    # on CUDA it runs when fused_shade != 0 and the config is inside
+    # fused_shade_ok; on the CPU when fused_shade > 0 (the plain versions);
+    # outside the envelope the paths below run.
+    fs = int(getattr(opt, "fused_shade", 0))
+    use_shade = (fs != 0 and fused_shade_ok(opt)
+                 and (sampled_xyz.device.type == "cuda" or fs > 0)
+                 and all(t is not None for t in (sampled_conf, sampled_color,
+                                                 sampled_dir)))
+    if use_shade:
+        Fd = sampled_embedding.shape[-1]
+        rows = lambda t: t.reshape(-1, t.shape[-1]).contiguous()
+        ops = pack_trunk_params(agg, Fd, dist_dim(opt), opt.num_feat_freqs,
+                                abs(opt.dist_xyz_freq), with_alpha=not order1)
+        feat_pt, alpha, w_row, conf_row = fused_shade(
+            opt.shading_feature_mlp_layer1, opt.shading_feature_mlp_layer3,
+            opt.num_feat_freqs, abs(opt.dist_xyz_freq), K, opt.act_super > 0,
+            order1, opt.agg_dist_pers, rows(sampled_embedding),
+            rows(sampled_xyz), rows(sampled_xyz_pers), rows(sampled_color),
+            rows(sampled_dir), rows(sampled_conf), mask_f.reshape(-1, 1),
+            rows(sample_loc), rows(sample_loc_w), rows(ori_viewdirs),
+            RT.to(torch.float32).contiguous(), ops)
+        return (heads(feat_pt, alpha), ray_valid, w_row.reshape(B, R, SR, K),
+                conf_row.reshape(B, R, SR, K))
 
     dists = compute_dists(opt, sampled_xyz, sampled_xyz_pers, sample_loc,
                           sample_loc_w)
@@ -232,16 +289,7 @@ def aggregator_forward(agg: Aggregator, opt,
         conf_coefficient = gradient_clamp(sampled_conf[..., 0], 0.0001, 1.0)
     w_eff = weight * conf_coefficient                          # [B,R,SR,K]
 
-    RT = sampled_Rw2c.t().to(sample_ray_dirs.dtype)
-    viewdirs = _rot3(sample_ray_dirs, RT)
-    if opt.num_viewdir_freqs > 0:
-        vd = positional_encoding(viewdirs, opt.num_viewdir_freqs, ori=True)
-        ori_viewdirs, viewdirs_pe = vd[..., :3], vd[..., 3:]
-    else:
-        ori_viewdirs, viewdirs_pe = viewdirs, viewdirs
-
     d_raw = torch.cat([_rot3(dists[..., :3], RT), dists[..., 3:]], dim=-1)
-    S_pt = B * R * SR
     color_feats = []             # block3's extra inputs (ex3 for the kernel)
     if sampled_color is not None and "1" in list(opt.point_color_mode):
         color_feats.append(sampled_color.reshape(-1, 3))
@@ -249,14 +297,6 @@ def aggregator_forward(agg: Aggregator, opt,
         sdir = _rot3(sampled_dir.reshape(-1, 3), RT)
         ovd = ori_viewdirs[..., None, :].expand(B, R, SR, K, 3).reshape(-1, 3)
         color_feats += [sdir - ovd, torch.sum(sdir * ovd, dim=-1, keepdim=True)]
-
-    def heads(feat_pt, alpha):
-        if alpha is None:
-            alpha = raw2out_density(opt, apply_mlp(agg.alpha_branch, feat_pt))
-        color = raw2out_color(opt, apply_mlp_pieces(
-            agg.color_branch, [feat_pt, viewdirs_pe.reshape(S_pt, -1)]))
-        out = torch.cat([alpha, color], dim=-1).reshape(B, R, SR, 4)
-        return out * ray_valid[..., None].to(out.dtype)
 
     # fused trunk (ops/trunk.py): on CUDA, K1 runs wherever the config is
     # inside its envelope, whatever use_fused_trunk says. On the CPU,
@@ -268,7 +308,6 @@ def aggregator_forward(agg: Aggregator, opt,
                          "config")
     use_fused = fused_trunk_ok(opt) and (sampled_xyz.device.type == "cuda"
                                          or uf > 0)
-    order1 = opt.agg_intrp_order == 1
     if use_fused:
         Fd = sampled_embedding.shape[-1]
         ex3 = torch.cat(color_feats, dim=-1)

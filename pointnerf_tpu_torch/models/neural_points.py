@@ -26,9 +26,10 @@ def create_point_cloud(xyz: np.ndarray,
                        conf: Optional[np.ndarray] = None,
                        Rw2c: Optional[np.ndarray] = None,
                        capacity: Optional[int] = None,
-                       device="cpu") -> Dict[str, Optional[torch.Tensor]]:
+                       device="cuda") -> Dict[str, Optional[torch.Tensor]]:
     """Build the padded state dict from host arrays: xyz [N,3], embedding
-    [N,C], color/direction [N,3], conf [N,1], Rw2c [3,3] (identity if None)."""
+    [N,C], color/direction [N,3], conf [N,1], Rw2c [3,3] (identity if None),
+    on `device` (the card unless the caller names another)."""
     n = xyz.shape[0]
     cap = capacity or round_capacity(n)
     if cap < n:

@@ -3,7 +3,8 @@
 The sources in ``pointnerf_tpu_torch/csrc/*.cu`` expose a plain C interface.
 At first use each is compiled by its own ``nvcc`` process for ``sm_90a``,
 all started together, into a shared library under ``build/kernels/``
-(named by a hash of the source, so an edit rebuilds it) and loaded with
+(named by a hash of the source and the shared ``csrc/*.cuh`` headers, so
+an edit rebuilds it) and loaded with
 ctypes. Nothing here runs at import time, so the package imports on a
 machine without CUDA; the CPU paths never call `library()`.
 
@@ -46,7 +47,11 @@ TRUNK_BWD = Kernel("trunk_bwd", "pointnerf_tpu_torch/csrc/trunk_bwd.cu",
                    "pointnerf_tpu/ops/pallas_trunk.py:191")
 OCCUPANCY = Kernel("occupancy", "pointnerf_tpu_torch/csrc/occupancy.cu",
                    "pointnerf_tpu/ops/query.py:122")
-KERNELS = (TRUNK_FWD, TRUNK_BWD, OCCUPANCY)
+SHADE_FWD = Kernel("shade_fwd", "pointnerf_tpu_torch/csrc/shade_fwd.cu",
+                   "pointnerf_tpu/ops/pallas_trunk.py:512")
+SHADE_BWD = Kernel("shade_bwd", "pointnerf_tpu_torch/csrc/shade_bwd.cu",
+                   "pointnerf_tpu/ops/pallas_trunk.py:543")
+KERNELS = (TRUNK_FWD, TRUNK_BWD, OCCUPANCY, SHADE_FWD, SHADE_BWD)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -55,6 +60,8 @@ _SIGNATURES = {
     "trunk_bwd": [_P] * 26 + [_I] * 14 + [_P],
     "occupancy": [_P] * 5 + [ctypes.c_longlong] * 3 + [_I] * 3
     + [ctypes.c_float] * 6 + [_I] * 3 + [_P],
+    "shade_fwd": [_P] * 25 + [_I] * 12 + [_P],
+    "shade_bwd": [_P] * 37 + [_I] * 13 + [_P],
 }
 
 
@@ -77,7 +84,11 @@ class _Library:
 
 
 def _so_path(src: Path) -> Path:
+    """The library of `src`, named by a hash of the source, the headers it
+    may include and the flags."""
     digest = hashlib.sha1(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}_{digest.hexdigest()[:12]}.so"
 

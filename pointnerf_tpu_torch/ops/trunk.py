@@ -14,11 +14,20 @@ forward launches `csrc/trunk_fwd.cu` (K1) and the backward
 `csrc/trunk_bwd.cu` (K2); on CPU tensors they run their plain PyTorch
 versions, `fused_trunk_reference` and `fused_trunk_bwd_reference`. As in
 the JAX package, the PE selection constants get no gradient.
+
+`fused_shade` (port of the JAX `fused_shade`, the `fused_shade`
+configuration) moves the front half in front of the trunk: from the
+neighbors' positions, colors, directions, confs and validity it forms the
+distances, the 1/‖d‖ weights normalized over each K-group, the clamped conf
+and ex3, then runs the trunk on them, and its backward returns the
+per-attribute cotangents. `FusedShade` launches `csrc/shade_fwd.cu` (K4)
+and `csrc/shade_bwd.cu` (K5) on CUDA tensors and runs
+`fused_shade_reference` / `fused_shade_bwd_reference` on CPU tensors.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,7 +36,7 @@ from . import kernels
 from .pe import pe_args, pe_input_grad
 
 NEG_SLOPE = 0.1
-BWD_TILE = 32          # rows per K2 tile (TILE in csrc/trunk_bwd.cu)
+BWD_TILE = 32          # rows per K2/K5 tile (TILE in csrc/trunk_bwd.cuh)
 
 
 def pack_trunk_params(agg, F_emb: int, dd: int, n_feat_freqs: int,
@@ -270,6 +279,205 @@ def fused_trunk(L1: int, L3: int, n_feat_freqs: int, n_dist_freqs: int,
     return _trunk_forward(cfg, emb, d, ex3, w, ops)
 
 
+# ------------------------------------------------------------ fused shade
+DIST_COLS = {0: 3, 20: 6}   # distance columns of each supported dist mode
+SHADE_E3 = 7                # ex3 = [color | sdir - ovd | <sdir, ovd>]
+
+
+class ShadeFront(NamedTuple):
+    """The front half's values on [S,*] neighbor rows (S_w per group)."""
+    d_world: torch.Tensor   # [S,3] neighbor minus sample, world frame
+    n: torch.Tensor         # [S,1] ‖d_world‖
+    nc: torch.Tensor        # [S,1] max(n, 1e-6)
+    w_raw: torch.Tensor     # [S,1] mask / nc
+    S_w: torch.Tensor       # [S/K,1] Σ_K w_raw
+    S_wr: torch.Tensor      # [S,1] max(S_w, 1e-8), per row
+    w_n: torch.Tensor       # [S,1] w_raw / S_wr
+    conf_c: torch.Tensor    # [S,1] conf clamped to [1e-4, 1] (identity bwd)
+    w_eff: torch.Tensor     # [S,1] w_n · conf_c
+    d_raw: torch.Tensor     # [S,dd] [d_world·RT | perspective diffs]
+    ex3: torch.Tensor       # [S,7]
+
+
+def shade_front(xyz, xyzp, color, pdir, conf, mask, sl, slw, ovd, RT,
+                dist_mode: int, K: int) -> ShadeFront:
+    """The front half of the shade kernels (JAX `_shade_front`): neighbor
+    rows [S,*] (xyz world, xyzp perspective, color, pdir, conf, mask as
+    float validity), per-shading-point rows [S/K,3] (sl perspective and
+    slw world sample location, ovd camera-frame view direction), RT =
+    Rw2cᵀ [3,3]. Dist mode 20 appends the perspective diffs to the rotated
+    world diff; mode 0 is the rotated world diff alone."""
+    if dist_mode not in DIST_COLS:
+        raise ValueError(f"fused_shade takes dist modes {sorted(DIST_COLS)},"
+                         f" not {dist_mode}")
+    S = xyz.shape[0]
+    up = lambda x: x.repeat_interleave(K, dim=0)
+    slr, ovdr = up(sl), up(ovd)
+    d_world = xyz - up(slw)
+    n = torch.sqrt(torch.sum(d_world * d_world, dim=1, keepdim=True))
+    nc = torch.clamp(n, min=1e-6)
+    w_raw = mask / nc
+    S_w = torch.sum(w_raw.reshape(S // K, K, 1), dim=1)
+    S_wr = up(torch.clamp(S_w, min=1e-8))
+    w_n = w_raw / S_wr
+    conf_c = conf - (conf - torch.clamp(conf, 1e-4, 1.0)).detach()
+    d_raw = d_world @ RT
+    if dist_mode == 20:
+        xd = xyzp[:, 0:1] * xyzp[:, 2:3] - slr[:, 0:1] * slr[:, 2:3]
+        yd = xyzp[:, 1:2] * xyzp[:, 2:3] - slr[:, 1:2] * slr[:, 2:3]
+        zd = xyzp[:, 2:3] - slr[:, 2:3]
+        d_raw = torch.cat([d_raw, xd, yd, zd], dim=1)
+    sdir = pdir @ RT
+    ex3 = torch.cat([color, sdir - ovdr,
+                     torch.sum(sdir * ovdr, dim=1, keepdim=True)], dim=1)
+    return ShadeFront(d_world, n, nc, w_raw, S_w, S_wr, w_n, conf_c,
+                      w_n * conf_c, d_raw, ex3)
+
+
+def fused_shade_reference(L1: int, L3: int, n_feat_freqs: int,
+                          n_dist_freqs: int, K: int, act_super: bool,
+                          order1: bool, dist_mode: int, emb, xyz, xyzp,
+                          color, pdir, conf, mask, sl, slw, ovd, RT, ops):
+    """Plain PyTorch version of the shade forward (K4): shade_front, then
+    the trunk, the K-sum and (order 2) the alpha head. Returns (feat
+    [S/K,H], alpha [S/K,1] | None, w_n [S,1], conf_c [S,1]), as the JAX
+    `_shade_fwd_impl`."""
+    f = shade_front(xyz, xyzp, color, pdir, conf, mask, sl, slw, ovd, RT,
+                    dist_mode, K)
+    feat, alpha = fused_trunk_reference(
+        L1, L3, n_feat_freqs, n_dist_freqs, K, act_super, order1, emb,
+        f.d_raw, f.ex3, f.w_eff, ops)
+    return feat, alpha, f.w_n, f.conf_c
+
+
+def fused_shade_bwd_reference(L1: int, L3: int, n_feat_freqs: int,
+                              n_dist_freqs: int, K: int, act_super: bool,
+                              order1: bool, dist_mode: int, emb, xyz, xyzp,
+                              color, pdir, conf, mask, sl, slw, ovd, RT, ops,
+                              dfeat, dalpha, dwout, dconfout):
+    """Plain PyTorch version of the shade backward (K5), a transcription of
+    the Pallas `_shade_bwd_kernel`: the trunk backward on the recomputed
+    front, then the front's own backward from the cotangents dfeat [S/K,H],
+    dalpha [S/K,1] (None for order 1), dwout and dconfout [S,1]. Returns
+    (demb, dxyz, dxyzp, dcolor, ddir, dconf, dops), dops one gradient per
+    op."""
+    f = shade_front(xyz, xyzp, color, pdir, conf, mask, sl, slw, ovd, RT,
+                    dist_mode, K)
+    demb, dd_raw, dex3, dw_eff, dops = fused_trunk_bwd_reference(
+        L1, L3, n_feat_freqs, n_dist_freqs, K, act_super, order1, emb,
+        f.d_raw, f.ex3, f.w_eff, ops, dfeat, dalpha)
+    S = emb.shape[0]
+    up = lambda x: x.repeat_interleave(K, dim=0)
+    dcolor = dex3[:, :3]
+    ddir = (dex3[:, 3:6] + dex3[:, 6:7] * up(ovd)) @ RT.t()
+    if dist_mode == 20:
+        ddp = dd_raw[:, 3:6]
+        xp, yp, zp = xyzp[:, 0:1], xyzp[:, 1:2], xyzp[:, 2:3]
+        dxyzp = torch.cat([ddp[:, 0:1] * zp, ddp[:, 1:2] * zp,
+                           ddp[:, 0:1] * xp + ddp[:, 1:2] * yp + ddp[:, 2:3]],
+                          dim=1)
+    else:
+        dxyzp = torch.zeros_like(xyzp)
+    # w_eff = w_n·conf_c, w_n = w_raw / max(Σ_K w_raw, 1e-8),
+    # w_raw = mask / max(‖d_world‖, 1e-6); the conf clamp is identity-bwd
+    dconf = dw_eff * f.w_n + dconfout
+    dw_n = dw_eff * f.conf_c + dwout
+    gate = up((f.S_w > 1e-8).to(dw_n.dtype))
+    dwn_wn = up(torch.sum((dw_n * f.w_n).reshape(S // K, K, 1), dim=1))
+    dw_raw = (dw_n - dwn_wn * gate) / f.S_wr
+    dnc = -f.w_raw / f.nc * dw_raw * (f.n > 1e-6).to(dw_n.dtype)
+    dxyz = dd_raw[:, :3] @ RT.t() + dnc * f.d_world / f.nc
+    return demb, dxyz, dxyzp, dcolor, ddir, dconf, dops
+
+
+SHADE_ROW_ARGS = 11     # emb, xyz, xyzp, color, pdir, conf, mask, sl, slw,
+                        # ovd, RT
+
+
+def _shade_forward(cfg, args, ops):
+    if _device_of(args[0], "fused_shade") == "cpu":
+        return fused_shade_reference(*cfg, *args, ops)
+    return _launch_shade(*cfg, *args, ops)
+
+
+class FusedShade(torch.autograd.Function):
+    """`fused_shade` with the gradient of the Pallas custom VJP: the
+    backward recomputes the forward and returns demb, dxyz, dxyzp, dcolor,
+    ddir, dconf and one gradient per trunk op; mask, sl, slw, ovd and RT
+    get none (query outputs, constant under the gradient)."""
+
+    @staticmethod
+    def forward(ctx, cfg, *args_ops):
+        ctx.cfg = cfg
+        ctx.save_for_backward(*args_ops)
+        return _shade_forward(cfg, args_ops[:SHADE_ROW_ARGS],
+                              args_ops[SHADE_ROW_ARGS:])
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dfeat, dalpha, dwout, dconfout):
+        saved = ctx.saved_tensors
+        args, ops = saved[:SHADE_ROW_ARGS], saved[SHADE_ROW_ARGS:]
+        order1, K = ctx.cfg[6], ctx.cfg[4]
+        emb = args[0]
+        S = emb.shape[0]
+        H = ops[-1].shape[1] if order1 else ops[-2].shape[0]
+        zeros = lambda rows, cols: emb.new_zeros((rows, cols))
+        dfeat = zeros(S // K, H) if dfeat is None else dfeat.contiguous()
+        if order1:
+            dalpha = None
+        elif dalpha is None:
+            dalpha = zeros(S // K, 1)
+        else:
+            dalpha = dalpha.contiguous()
+        dwout = zeros(S, 1) if dwout is None else dwout.contiguous()
+        dconfout = zeros(S, 1) if dconfout is None else dconfout.contiguous()
+        demb, dxyz, dxyzp, dcolor, ddir, dconf, dops = shade_bwd(
+            *ctx.cfg, *args, ops, dfeat, dalpha, dwout, dconfout)
+        return (None, demb, dxyz, dxyzp, dcolor, ddir, dconf,
+                None, None, None, None, None, *dops)
+
+
+def shade_bwd(L1: int, L3: int, n_feat_freqs: int, n_dist_freqs: int,
+              K: int, act_super: bool, order1: bool, dist_mode: int, emb,
+              xyz, xyzp, color, pdir, conf, mask, sl, slw, ovd, RT, ops,
+              dfeat, dalpha, dwout, dconfout):
+    """The shade backward: K5 on CUDA tensors, its plain version
+    `fused_shade_bwd_reference` on CPU tensors (same arguments, same
+    returns)."""
+    args = (L1, L3, n_feat_freqs, n_dist_freqs, K, act_super, order1,
+            dist_mode, emb, xyz, xyzp, color, pdir, conf, mask, sl, slw, ovd,
+            RT, ops, dfeat, dalpha, dwout, dconfout)
+    if _device_of(emb, "shade_bwd") == "cpu":
+        return fused_shade_bwd_reference(*args)
+    return _launch_shade_bwd(*args)
+
+
+def fused_shade(L1: int, L3: int, n_feat_freqs: int, n_dist_freqs: int,
+                K: int, act_super: bool, order1: bool, dist_mode: int,
+                emb, xyz, xyzp, color, pdir, conf, mask, sl, slw, ovd, RT,
+                ops: Sequence[torch.Tensor]):
+    """Front half + trunk in one kernel (the JAX `fused_shade`, without its
+    TPU tile and interpret arguments).
+
+    Per-NEIGHBOR rows [S,*]: emb, xyz (world), xyzp (perspective), color,
+    pdir (point dirs), conf, mask (float validity). Per-SHADING-POINT rows
+    [S/K,3]: sl (perspective sample location), slw (world sample
+    location), ovd (camera-frame view dirs). RT = Rw2cᵀ [3,3]. Returns
+    (feat_pt [S/K,H], alpha_pt [S/K,1] | None, weight [S,1] post-norm
+    pre-conf, conf_coefficient [S,1]). CPU tensors run the plain versions;
+    CUDA tensors launch K4 (and K5 in the backward). Differentiable in
+    emb, xyz, xyzp, color, pdir, conf and the ops.
+    """
+    cfg = (L1, L3, n_feat_freqs, n_dist_freqs, K, bool(act_super),
+           bool(order1), int(dist_mode))
+    args = (emb, xyz, xyzp, color, pdir, conf, mask, sl, slw, ovd, RT)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (*args, *ops)):
+        return FusedShade.apply(cfg, *args, *ops)
+    return _shade_forward(cfg, args, ops)
+
+
 def _joined(*pieces: torch.Tensor) -> torch.Tensor:
     """The [Σrows, H] matrix whose consecutive row blocks are `pieces`,
     without a copy. pack_trunk_params cuts a first layer's input pieces
@@ -291,30 +499,36 @@ def _joined(*pieces: torch.Tensor) -> torch.Tensor:
     return first.as_strided((rows, H), (H, 1))
 
 
-def _kernel_operands(L1, L3, nf, nd, K, order1, emb, d, ex3, w, ops):
-    """Validate the operands both kernels take; returns the joined first
-    layers and the optional second layers (w1, w3, w12, b12, w32, b32)."""
+def _trunk_rows(emb, d, ex3, w):
+    """Validate the row inputs K1 and K2 take; returns (S, Fe, dd, E3)."""
+    S, Fe = emb.shape
+    dd, E3 = d.shape[1], ex3.shape[1]
+    dev, f32 = emb.device, torch.float32
+    kernels.require(emb, "emb", f32, dev, (S, Fe))
+    kernels.require(d, "d", f32, dev, (S, dd))
+    kernels.require(ex3, "ex3", f32, dev, (S, E3))
+    kernels.require(w, "w", f32, dev, (S, 1))
+    return S, Fe, dd, E3
+
+
+def _weight_operands(L1, L3, nf, nd, K, order1, S, Fe, dd, E3, dev, ops):
+    """Validate the trunk weights every trunk kernel takes, for S rows of
+    Fe embedding, dd distance and E3 ex3 columns; returns (w1, w3, w12,
+    b12, w32, b32)."""
     w1e, w1p, w1d, b1, extra1, w3x, w3e, b3, extra3, wa, ba = _unpack(
         ops, L1, L3, not order1)
     if L1 not in (1, 2) or L3 not in (1, 2):
         raise ValueError(f"kernel supports 1-2 layers per block, got "
                          f"L1={L1} L3={L3}")
-    S, Fe = emb.shape
-    dd, E3 = d.shape[1], ex3.shape[1]
     H1, H3 = b1.shape[1], b3.shape[1]
     if K < 1 or 64 % K or S % K:
         raise ValueError(f"K={K} must divide the 64-row tile and S={S}")
     if max(H1, H3) > 256 or H1 % 4 or H3 % 4:
         raise ValueError(f"kernel widths are multiples of 4 up to 256, got "
                          f"{H1}, {H3}")
-    dev = emb.device
     f32 = torch.float32
     w1 = _joined(w1e, w1p, w1d)
     w3 = _joined(w3x, w3e)
-    kernels.require(emb, "emb", f32, dev, (S, Fe))
-    kernels.require(d, "d", f32, dev, (S, dd))
-    kernels.require(ex3, "ex3", f32, dev, (S, E3))
-    kernels.require(w, "w", f32, dev, (S, 1))
     kernels.require(w1, "w1", f32, dev,
                     (Fe + 2 * nf * Fe + 2 * nd * dd, H1), aligned=True)
     kernels.require(b1, "b1", f32, dev, (1, H1))
@@ -340,11 +554,10 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _launch(L1, L3, nf, nd, K, act_super, order1, emb, d, ex3, w, ops):
-    w1, w3, w12, b12, w32, b32 = _kernel_operands(
-        L1, L3, nf, nd, K, order1, emb, d, ex3, w, ops)
+    S, Fe, dd, E3 = _trunk_rows(emb, d, ex3, w)
+    w1, w3, w12, b12, w32, b32 = _weight_operands(
+        L1, L3, nf, nd, K, order1, S, Fe, dd, E3, emb.device, ops)
     _, _, _, b1, _, _, _, b3, _, wa, ba = _unpack(ops, L1, L3, not order1)
-    S, Fe = emb.shape
-    dd, E3 = d.shape[1], ex3.shape[1]
     H1, H3 = b1.shape[1], b3.shape[1]
     feat = torch.empty((S // K, H3), dtype=torch.float32, device=emb.device)
     alpha = None if order1 else torch.empty((S // K, 1), dtype=torch.float32,
@@ -378,16 +591,28 @@ def _grad_layout(C1, H1, X3, H3, L1, L3, order1):
     return out
 
 
-def _launch_bwd(L1, L3, nf, nd, K, act_super, order1, emb, d, ex3, w, ops,
-                dfeat, dalpha):
-    w1, w3, w12, b12, w32, b32 = _kernel_operands(
-        L1, L3, nf, nd, K, order1, emb, d, ex3, w, ops)
+class _BwdOperands(NamedTuple):
+    """What K2 and K5 take beside their row inputs: the weights, their
+    transposes, the per-CTA dW partials and the flat dW they sum into. The
+    tensors are held here until the launch: the transposes are new
+    buffers, which the allocator would hand to the outputs if they were
+    freed first."""
+    weights: tuple    # w1, b1, w12, b12, w3, b3, w32, b32, wa, ba,
+                      # w1t, w12t, w3t, w32t (None where absent)
+    partial: torch.Tensor
+    dW: torch.Tensor
+    n_ctas: int
+    dims: tuple       # (H1, H3)
+
+
+def _bwd_operands(L1, L3, nf, nd, K, order1, S, Fe, dd, E3, dev, ops,
+                  dfeat, dalpha) -> _BwdOperands:
+    w1, w3, w12, b12, w32, b32 = _weight_operands(
+        L1, L3, nf, nd, K, order1, S, Fe, dd, E3, dev, ops)
     _, _, _, b1, _, _, _, b3, _, wa, ba = _unpack(ops, L1, L3, not order1)
-    S, Fe = emb.shape
-    dd, E3 = d.shape[1], ex3.shape[1]
     H1, H3 = b1.shape[1], b3.shape[1]
     C1, X3 = w1.shape[0], w3.shape[0]
-    dev, f32 = emb.device, torch.float32
+    f32 = torch.float32
     kernels.require(dfeat, "dfeat", f32, dev, (S // K, H3))
     if not order1:
         kernels.require(dalpha, "dalpha", f32, dev, (S // K, 1))
@@ -402,28 +627,24 @@ def _launch_bwd(L1, L3, nf, nd, K, act_super, order1, emb, d, ex3, w, ops,
     w1t, w3t = transposed(w1, _round4(C1)), transposed(w3, _round4(X3))
     w12t = None if w12 is None else w12.t().contiguous()
     w32t = None if w32 is None else w32.t().contiguous()
-    layout = _grad_layout(C1, H1, X3, H3, L1, L3, order1)
-    n_w = sum(a * b for _, (a, b) in layout)
+    n_w = sum(a * b for _, (a, b) in
+              _grad_layout(C1, H1, X3, H3, L1, L3, order1))
     tiles = -(-S // BWD_TILE)
     n_ctas = min(torch.cuda.get_device_properties(dev).multi_processor_count,
                  tiles)
-    demb, ddist = torch.empty_like(emb), torch.empty_like(d)
-    dex3, dw = torch.empty_like(ex3), torch.empty_like(w)
-    dW = torch.zeros((n_w,), dtype=f32, device=dev)
-    if S > 0:
-        partial = torch.empty((n_ctas, n_w), dtype=f32, device=dev)
-        err = kernels.library().trunk_bwd(
-            _ptr(emb), _ptr(d), _ptr(ex3), _ptr(w), _ptr(dfeat),
-            _ptr(dalpha), _ptr(w1), _ptr(b1), _ptr(w12), _ptr(b12), _ptr(w3),
-            _ptr(b3), _ptr(w32), _ptr(b32), _ptr(wa), _ptr(ba), _ptr(w1t),
-            _ptr(w12t), _ptr(w3t), _ptr(w32t), _ptr(demb), _ptr(ddist),
-            _ptr(dex3), _ptr(dw), _ptr(partial), _ptr(dW), S, Fe, dd, E3, nf,
-            nd, H1, H3, L1, L3, K, int(bool(act_super)), int(bool(order1)),
-            n_ctas, kernels.stream_handle(emb))
-        kernels.check(err, kernels.TRUNK_BWD)
-        kernels.TRUNK_BWD.launches += 1
+    partial = torch.empty((max(n_ctas, 1), n_w), dtype=f32, device=dev)
+    weights = (w1, b1, w12, b12, w3, b3, w32, b32, wa, ba, w1t, w12t, w3t,
+               w32t)
+    return _BwdOperands(weights, partial,
+                        torch.zeros((n_w,), dtype=f32, device=dev), n_ctas,
+                        (H1, H3))
+
+
+def _split_dW(dW, L1, L3, Fe, nf, C1, H1, X3, H3, order1):
+    """The flat dW a backward kernel wrote, as one gradient per trunk op
+    (pack_trunk_params order)."""
     grads, off = {}, 0
-    for name, (a, b) in layout:
+    for name, (a, b) in _grad_layout(C1, H1, X3, H3, L1, L3, order1):
         grads[name] = dW[off:off + a * b].view(a, b)
         off += a * b
     pe_e = 2 * nf * Fe
@@ -436,7 +657,103 @@ def _launch_bwd(L1, L3, nf, nd, K, act_super, order1, emb, d, ex3, w, ops,
         dops += [grads["w32"], grads["b32"]]
     if not order1:
         dops += [grads["wa"], grads["ba"]]
+    return dops
+
+
+def _launch_bwd(L1, L3, nf, nd, K, act_super, order1, emb, d, ex3, w, ops,
+                dfeat, dalpha):
+    S, Fe, dd, E3 = _trunk_rows(emb, d, ex3, w)
+    b = _bwd_operands(L1, L3, nf, nd, K, order1, S, Fe, dd, E3, emb.device,
+                      ops, dfeat, dalpha)
+    demb, ddist = torch.empty_like(emb), torch.empty_like(d)
+    dex3, dw = torch.empty_like(ex3), torch.empty_like(w)
+    if S > 0:
+        err = kernels.library().trunk_bwd(
+            _ptr(emb), _ptr(d), _ptr(ex3), _ptr(w), _ptr(dfeat),
+            _ptr(dalpha), *map(_ptr, b.weights), _ptr(demb), _ptr(ddist),
+            _ptr(dex3), _ptr(dw), _ptr(b.partial), _ptr(b.dW), S, Fe, dd, E3,
+            nf, nd, *b.dims, L1, L3, K, int(bool(act_super)),
+            int(bool(order1)), b.n_ctas, kernels.stream_handle(emb))
+        kernels.check(err, kernels.TRUNK_BWD)
+        kernels.TRUNK_BWD.launches += 1
+    H1, H3 = b.dims
+    C1 = Fe + 2 * nf * Fe + 2 * nd * dd
+    dops = _split_dW(b.dW, L1, L3, Fe, nf, C1, H1, H1 + E3, H3, order1)
     return demb, ddist, dex3, dw, dops
+
+
+def _shade_rows(K, dist_mode, emb, xyz, xyzp, color, pdir, conf, mask, sl,
+                slw, ovd, RT):
+    """Validate the row inputs K4 and K5 take; returns (S, Fe, dd)."""
+    if dist_mode not in DIST_COLS:
+        raise ValueError(f"fused_shade takes dist modes {sorted(DIST_COLS)},"
+                         f" not {dist_mode}")
+    S, Fe = emb.shape
+    dev, f32 = emb.device, torch.float32
+    kernels.require(emb, "emb", f32, dev, (S, Fe))
+    for t, name, cols in ((xyz, "xyz", 3), (xyzp, "xyzp", 3),
+                          (color, "color", 3), (pdir, "pdir", 3),
+                          (conf, "conf", 1), (mask, "mask", 1)):
+        kernels.require(t, name, f32, dev, (S, cols))
+    if K < 1 or S % K:
+        raise ValueError(f"K={K} must divide S={S}")
+    for t, name in ((sl, "sl"), (slw, "slw"), (ovd, "ovd")):
+        kernels.require(t, name, f32, dev, (S // K, 3))
+    kernels.require(RT, "RT", f32, dev, (3, 3))
+    return S, Fe, DIST_COLS[dist_mode]
+
+
+def _launch_shade(L1, L3, nf, nd, K, act_super, order1, dist_mode, emb, xyz,
+                  xyzp, color, pdir, conf, mask, sl, slw, ovd, RT, ops):
+    rows = (emb, xyz, xyzp, color, pdir, conf, mask, sl, slw, ovd, RT)
+    S, Fe, dd = _shade_rows(K, dist_mode, *rows)
+    w1, w3, w12, b12, w32, b32 = _weight_operands(
+        L1, L3, nf, nd, K, order1, S, Fe, dd, SHADE_E3, emb.device, ops)
+    _, _, _, b1, _, _, _, b3, _, wa, ba = _unpack(ops, L1, L3, not order1)
+    H1, H3 = b1.shape[1], b3.shape[1]
+    new = lambda rows_, cols: torch.empty((rows_, cols), dtype=torch.float32,
+                                          device=emb.device)
+    feat = new(S // K, H3)
+    alpha = None if order1 else new(S // K, 1)
+    w_n, conf_c = new(S, 1), new(S, 1)
+    err = kernels.library().shade_fwd(
+        *(_ptr(t) for t in rows), _ptr(w1), _ptr(b1), _ptr(w12), _ptr(b12),
+        _ptr(w3), _ptr(b3), _ptr(w32), _ptr(b32), _ptr(wa), _ptr(ba),
+        _ptr(feat), _ptr(alpha), _ptr(w_n), _ptr(conf_c), S, Fe, dist_mode,
+        nf, nd, H1, H3, L1, L3, K, int(bool(act_super)), int(bool(order1)),
+        kernels.stream_handle(emb))
+    kernels.check(err, kernels.SHADE_FWD)
+    kernels.SHADE_FWD.launches += 1
+    return feat, alpha, w_n, conf_c
+
+
+def _launch_shade_bwd(L1, L3, nf, nd, K, act_super, order1, dist_mode, emb,
+                      xyz, xyzp, color, pdir, conf, mask, sl, slw, ovd, RT,
+                      ops, dfeat, dalpha, dwout, dconfout):
+    rows = (emb, xyz, xyzp, color, pdir, conf, mask, sl, slw, ovd, RT)
+    S, Fe, dd = _shade_rows(K, dist_mode, *rows)
+    if BWD_TILE % K:
+        raise ValueError(f"K={K} must divide K5's {BWD_TILE}-row tile: its "
+                         "group sums stay inside a tile")
+    dev = emb.device
+    for t, name in ((dwout, "dwout"), (dconfout, "dconfout")):
+        kernels.require(t, name, torch.float32, dev, (S, 1))
+    b = _bwd_operands(L1, L3, nf, nd, K, order1, S, Fe, dd, SHADE_E3, dev,
+                      ops, dfeat, dalpha)
+    outs = [torch.empty_like(t) for t in (emb, xyz, xyzp, color, pdir, conf)]
+    if S > 0:
+        err = kernels.library().shade_bwd(
+            *(_ptr(t) for t in rows), _ptr(dfeat), _ptr(dalpha),
+            _ptr(dwout), _ptr(dconfout), *map(_ptr, b.weights),
+            *(_ptr(t) for t in outs), _ptr(b.partial), _ptr(b.dW), S, Fe,
+            dist_mode, nf, nd, *b.dims, L1, L3, K, int(bool(act_super)),
+            int(bool(order1)), b.n_ctas, kernels.stream_handle(emb))
+        kernels.check(err, kernels.SHADE_BWD)
+        kernels.SHADE_BWD.launches += 1
+    H1, H3 = b.dims
+    C1 = Fe + 2 * nf * Fe + 2 * nd * dd
+    dops = _split_dW(b.dW, L1, L3, Fe, nf, C1, H1, H1 + SHADE_E3, H3, order1)
+    return (*outs, dops)
 
 
 def fused_trunk_ok(opt) -> bool:
@@ -455,3 +772,18 @@ def fused_trunk_ok(opt) -> bool:
             and "1" in list(opt.point_dir_mode)
             and opt.agg_distance_kernel not in ("feat_intrp", "meta_intrp",
                                                 "sh_intrp", "gau_intrp"))
+
+
+def fused_shade_ok(opt) -> bool:
+    """Envelope of the shade kernels (JAX `fused_shade_ok`): fused_trunk_ok
+    plus the linear distance kernel with unit axis weights, weight
+    normalization on, dist mode 0 or 20, no distance scaling and the conf
+    channel on: the nerf_synth, scannet, tt, dtu_ft and dtu_inf presets."""
+    from ..models.aggregator import unit_axis_weight
+    return (fused_trunk_ok(opt)
+            and opt.agg_distance_kernel == "linear"
+            and unit_axis_weight(opt)
+            and opt.agg_weight_norm > 0
+            and opt.agg_dist_pers in DIST_COLS
+            and float(opt.dist_xyz_deno) == 0.0
+            and "1" in list(opt.point_conf_mode))

@@ -32,9 +32,10 @@ _LINEAR = re.compile(r"^aggregator\.(\w+)\.(\d+)\.(weight|bias)$")
 
 
 def from_jax_params(agg_params: Dict, point_arrays: Dict,
-                    act_type: str = "LeakyReLU", device="cpu"
+                    act_type: str = "LeakyReLU", device="cuda"
                     ) -> Tuple[Aggregator, Dict[str, torch.Tensor]]:
-    """JAX aggregator pytree + point arrays → (Aggregator, point state).
+    """JAX aggregator pytree + point arrays → (Aggregator, point state), on
+    `device` (the card unless the caller names another).
 
     point_arrays is either a padded JAX point state (with "mask") or the
     unpadded host arrays of an exported checkpoint (xyz [N,3], embedding
@@ -111,7 +112,7 @@ def _load_adam(optim: torch.optim.Adam, params: Dict[str, torch.Tensor],
                                           device=p.device)}
 
 
-def from_jax_train_state(ts, opt, device="cpu") -> "trainer.TrainState":
+def from_jax_train_state(ts, opt, device="cuda") -> "trainer.TrainState":
     """A JAX `TrainState` (leaves as numpy) → the port's TrainState: the
     aggregator, the point buffers, both optimizers' moments and counts,
     and the step. The point moments may come in either JAX layout (see

@@ -1,9 +1,12 @@
 """Where the time of one lego-preset render or train step goes, on one CUDA GPU.
 
-    python3 profile_render.py [--train] [--out chiprun_out/render_trace.json]
+    python3 profile_render.py [--train] [--fused-shade]
+                              [--out build/traces/render_trace.json]
 
 Builds chip_smoke.py's main-path workload (the lego preset, bench.py's
-100k-point cloud, seeded random weights). Without --train it renders one
+100k-point cloud, seeded random weights), in the fused_shade configuration
+with --fused-shade (the shade kernels K4 and K5 in place of K1 and K2).
+Without --train it renders one
 800x800 NeRF-Synthetic view once to warm up, then profiles a second
 render_image call; with --train it takes one warm-up train_step on
 chip_smoke's 3,600-ray train batch, then profiles a second. The profile is
@@ -23,10 +26,14 @@ import time
 
 import torch
 
-# kernel families, by a substring of the kernel's name (first match wins)
+# kernel families, by a substring of the kernel's name (first match wins);
+# K2's and K5's weight-gradient sum `reduce_partials` goes to the backward
+# kernel of the configuration profiled
 FAMILIES = (("K1 trunk_fwd", ("trunk_fwd",)),
             ("K2 trunk_bwd", ("trunk_bwd", "reduce_partials")),
             ("K3 occupancy", ("occupancy",)),
+            ("K4 shade_fwd", ("shade_fwd",)),
+            ("K5 shade_bwd", ("shade_bwd",)),
             ("Adam", ("adam", "multi_tensor")),
             ("scatters", ("scatter", "index_put", "indexing_backward")),
             ("gathers", ("gather", "index")),
@@ -35,8 +42,10 @@ FAMILIES = (("K1 trunk_fwd", ("trunk_fwd",)),
             ("scans", ("scan", "cumsum")))
 
 
-def family(name: str) -> str:
+def family(name: str, shade: bool = False) -> str:
     low = name.lower()
+    if shade and "reduce_partials" in low:
+        return "K5 shade_bwd"
     for fam, keys in FAMILIES:
         if any(k in low for k in keys):
             return fam
@@ -60,9 +69,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--train", action="store_true",
                     help="profile a train step instead of a render")
+    ap.add_argument("--fused-shade", action="store_true",
+                    help="profile the fused_shade configuration")
     ap.add_argument("--out", default=None,
                     help="where to write the Chrome trace (default "
-                    "chiprun_out/render_trace.json, or train_trace.json)")
+                    "build/traces/{render,train}[_shade]_trace.json)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_render: no CUDA device", file=sys.stderr)
@@ -81,18 +92,24 @@ def main() -> int:
     kernels.library()
     dev = torch.device("cuda")
     opt, state, spec, grid, _, ts, item, _ = build_workload(dev)
+    if args.fused_shade:
+        opt = opt.replace(fused_shade=1)
     if args.train:
         st = trainer.create_train_state(opt, state,
                                         torch.Generator().manual_seed(0))
         batch = make_train_batch(opt, dev)
         run = lambda: trainer.train_step(st, grid, batch, opt, spec)
         what = f"train step of {batch['raydir'].shape[1]} rays"
+        if args.fused_shade:
+            what += " (fused_shade)"
     else:
         run = lambda: common.render_image(ts, grid, opt, spec, item,
                                           group=GROUP)
-        what = "render 800x800"
-    out = args.out or ("chiprun_out/train_trace.json" if args.train
-                       else "chiprun_out/render_trace.json")
+        what = "render 800x800" + (" (fused_shade)" if args.fused_shade
+                                   else "")
+    out = args.out or "build/traces/{}{}_trace.json".format(
+        "train" if args.train else "render",
+        "_shade" if args.fused_shade else "")
     run()
     for k in kernels.KERNELS:
         k.launches = 0
@@ -104,14 +121,18 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
 
-    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # device kernels and copies; the spans of record_function annotations
+    # (e.g. Optimizer.step) that the profiler also puts on the device
+    # cover kernels already counted, and the gaps between them
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
     if not dev_events:
         raise RuntimeError("the profiler recorded no device activity")
     spans = [(e.time_range.start, e.time_range.end) for e in dev_events]
     busy_ms = union_us(spans) / 1e3
     by_family, launches = {}, {}
     for e in dev_events:
-        fam = family(e.name)
+        fam = family(e.name, args.fused_shade)
         by_family[fam] = by_family.get(fam, 0.0) + e.time_range.elapsed_us()
         launches[fam] = launches.get(fam, 0) + 1
     total_ms = sum(by_family.values()) / 1e3

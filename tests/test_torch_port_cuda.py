@@ -5,9 +5,10 @@ CPU mode). Run on a GPU machine, where JAX may be absent, with
 
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
-Tolerances: the trunk's outputs and per-row cotangents rtol = atol = 1e-4
-(fp32, another summation order over four layers); its weight gradients,
-which sum every row, within 1e-4 of their largest entry; masks equal. Rows
+Tolerances: the trunk's and the shade kernels' outputs and per-row
+cotangents rtol = atol = 1e-4 (fp32, another summation order over four
+layers); weight gradients, which sum every row, within 1e-4 of their
+largest entry; masks equal. Rows
 whose LeakyReLU input lies within KINK of 0 get neighbor weight 0 in the
 backward checks: the derivative jumps there, and the two summation orders
 may take different slopes. Card against CPU: losses rtol 1e-4, gradients
@@ -48,12 +49,12 @@ def dev():
 
 
 def _opt(L1=2, L3=2, order=2, **kw):
-    return Options(point_features_dim=8, num_feat_freqs=2, dist_xyz_freq=3,
-                   num_viewdir_freqs=2, shading_feature_num=32,
-                   shading_feature_mlp_layer1=L1,
-                   shading_feature_mlp_layer3=L3, shading_alpha_mlp_layer=1,
-                   shading_color_mlp_layer=2, agg_intrp_order=order,
-                   agg_dist_pers=20, **kw)
+    return Options(**{**dict(
+        point_features_dim=8, num_feat_freqs=2, dist_xyz_freq=3,
+        num_viewdir_freqs=2, shading_feature_num=32,
+        shading_feature_mlp_layer1=L1, shading_feature_mlp_layer3=L3,
+        shading_alpha_mlp_layer=1, shading_color_mlp_layer=2,
+        agg_intrp_order=order, agg_dist_pers=20), **kw})
 
 
 @pytest.mark.parametrize("K,L1,L3,order,act_super", TRUNK_GRID)
@@ -131,6 +132,96 @@ def test_trunk_bwd_weight_grads_are_reproducible(dev):
         assert torch.equal(a, b)
 
 
+SHADE_GRID = [(K, order, mode, L) for K in (1, 8) for order in (1, 2)
+              for mode in (20, 0) for L in (1, 2)]
+
+
+def _shade_args(dev, K, order, mode, L, n_pts, seed=0):
+    """fused_shade's arguments at small widths, shaped like the path's:
+    neighbors within a few voxels of their sample, validity a prefix of each
+    K-group (some groups all masked), confs across [0, 1.2], unit point and
+    view directions, a random rotation. Rows whose LeakyReLU input lies
+    within KINK of 0 are masked (then no cotangent reaches their layers)."""
+    rng = np.random.RandomState(seed)
+    S = n_pts * K
+    up = lambda x: np.repeat(x, K, axis=0)
+
+    def unit(n):
+        v = rng.normal(size=(n, 3))
+        return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+    slw = rng.uniform(-0.5, 0.5, (n_pts, 3))
+    sl = np.concatenate([rng.uniform(-0.3, 0.3, (n_pts, 2)),
+                         rng.uniform(2.0, 4.0, (n_pts, 1))], axis=1)
+    valid = rng.randint(0, K + 1, n_pts) if K > 1 else rng.rand(n_pts) < 0.7
+    mask = (np.arange(S) % K < up(np.asarray(valid, np.int64)))[:, None]
+    q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+    rows = [rng.uniform(-0.5, 0.5, (S, 8)),
+            up(slw) + rng.normal(0, 0.02, (S, 3)),
+            up(sl) + rng.normal(0, 0.01, (S, 3)), rng.uniform(0, 1, (S, 3)),
+            unit(S), rng.uniform(0, 1.2, (S, 1)), mask, sl, slw, unit(n_pts),
+            q]
+    args = [torch.as_tensor(np.asarray(a, np.float32), device=dev)
+            for a in rows]
+    opt = _opt(L, L, order, agg_dist_pers=mode)
+    agg = init_aggregator_params(opt, torch.Generator().manual_seed(K + L),
+                                 device=dev)
+    ops = [o.detach() for o in tt.pack_trunk_params(
+        agg, 8, tt.DIST_COLS[mode], 2, 3, with_alpha=order == 2)]
+    f = tt.shade_front(*args[1:], mode, K)
+    zs = tt.trunk_activations(L, L, 2, 3, args[0], f.d_raw, f.ex3, ops,
+                              order == 2)
+    for z in zs[2] + zs[4]:
+        args[6] = args[6] * (z.abs() >= KINK).all(dim=1, keepdim=True)
+    return (L, L, 2, 3, K, True, order == 1, mode), args, ops
+
+
+@pytest.mark.parametrize("K,order,mode,L", SHADE_GRID)
+def test_shade_kernel_matches_plain(dev, K, order, mode, L):
+    """K4 against fused_shade_reference: feat, alpha, w_n and conf_c."""
+    cfg, args, ops = _shade_args(dev, K, order, mode, L, 2001 if K == 1
+                                 else 375)
+    before = [kernels.SHADE_FWD.launches, kernels.TRUNK_FWD.launches]
+    with torch.inference_mode():
+        got = tt.fused_shade(*cfg, *args, ops)
+        want = tt.fused_shade_reference(*cfg, *args, ops)
+    torch.cuda.synchronize()
+    assert [kernels.SHADE_FWD.launches,
+            kernels.TRUNK_FWD.launches] == [before[0] + 1, before[1]]
+    assert (got[1] is None) == (order == 1) == (want[1] is None)
+    for a, b in zip(got, want):
+        if b is not None:
+            torch.testing.assert_close(a, b, **TOL)
+
+
+@pytest.mark.parametrize("K,order,mode,L", SHADE_GRID)
+def test_shade_bwd_kernel_matches_plain(dev, K, order, mode, L):
+    """K5 against fused_shade_bwd_reference, with nonzero cotangents on all
+    four outputs: the six per-row cotangents at TOL, every weight gradient
+    within SUM_REL of its largest entry, and bit-equal weight gradients
+    over two launches."""
+    cfg, args, ops = _shade_args(dev, K, order, mode, L, 2001 if K == 1
+                                 else 375, seed=1)
+    S = args[0].shape[0]
+    g = torch.Generator().manual_seed(7)
+    cts = [torch.randn(S // K, 32, generator=g),
+           None if order == 1 else torch.randn(S // K, 1, generator=g),
+           torch.randn(S, 1, generator=g), torch.randn(S, 1, generator=g)]
+    cts = [None if c is None else c.to(dev) for c in cts]
+    before = kernels.SHADE_BWD.launches
+    got = tt.shade_bwd(*cfg, *args, ops, *cts)
+    again = tt.shade_bwd(*cfg, *args, ops, *cts)
+    want = tt.fused_shade_bwd_reference(*cfg, *args, ops, *cts)
+    torch.cuda.synchronize()
+    assert kernels.SHADE_BWD.launches == before + 2
+    for a, b in zip(got[:6], want[:6]):
+        torch.testing.assert_close(a, b, **TOL)
+    assert len(got[6]) == len(want[6])
+    for a, b, c in zip(got[6], want[6], again[6]):
+        assert a.shape == b.shape and torch.equal(a, c)
+        assert float((a - b).abs().max()) <= SUM_REL * float(b.abs().max())
+
+
 def test_occupancy_kernel_matches_plain(dev):
     rng = np.random.RandomState(3)
     xyz = rng.uniform(-0.4, 0.4, (600, 3)).astype(np.float32)
@@ -158,6 +249,21 @@ def test_render_goes_through_both_kernels_and_matches_cpu(dev,
     """A small scene rendered on the card (kernels) and on the CPU (plain
     versions) gives the same image; on the card K1 runs whatever
     use_fused_trunk says."""
+    _render_card_vs_cpu(dev, use_fused_trunk=use_fused_trunk)
+
+
+@pytest.mark.parametrize("dist_mode", [20, 0])
+def test_shade_render_goes_through_k4_and_matches_cpu(dev, dist_mode):
+    """fused_shade=1: the card renders through K4 (not K1) and K3, the CPU
+    through K4's plain version, and the images agree."""
+    _render_card_vs_cpu(dev, fused_shade=1, agg_dist_pers=dist_mode)
+
+
+def _render_card_vs_cpu(dev, **kw):
+    """Render a small scene on the CPU and on the card with options `kw`;
+    the card launches the forward kernels of the configuration (K4 with
+    fused_shade, else K1) and K3, the CPU none, and the outputs agree."""
+    shade = kw.get("fused_shade", 0) > 0
     rng = np.random.RandomState(0)
     xyz = rng.uniform(-0.4, 0.4, (800, 3)).astype(np.float32)
     xyz[:, 2] *= 0.1
@@ -166,12 +272,13 @@ def test_render_goes_through_both_kernels_and_matches_cpu(dev,
                kernel_size=(3, 3, 3), query_size=(3, 3, 3), max_o=2048, P=8,
                K=8, SR=8, z_depth_dim=64, superset_P=16, SR_budget=-1,
                ranges=(-0.5, -0.5, -0.5, 0.5, 0.5, 0.5),
-               radius_limit_scale=4.0, use_fused_trunk=use_fused_trunk)
+               radius_limit_scale=4.0, **kw)
     cloud = dict(xyz=xyz, embedding=rng.uniform(-0.5, 0.5, (n, 8)),
                  color=rng.uniform(0, 1, (n, 3)),
                  direction=rng.normal(size=(n, 3)),
                  conf=np.full((n, 1), 0.8))
-    agg = init_aggregator_params(opt, torch.Generator().manual_seed(0))
+    agg = init_aggregator_params(opt, torch.Generator().manual_seed(0),
+                                 device="cpu")
     px = np.linspace(-0.15, 0.15, 24, dtype=np.float32)
     dx, dy = np.meshgrid(px, px, indexing="ij")
     rd = np.stack([dx, dy, np.ones_like(dx)], -1).reshape(1, -1, 3)
@@ -189,10 +296,9 @@ def test_render_goes_through_both_kernels_and_matches_cpu(dev,
         for k in kernels.KERNELS:
             k.launches = 0
         outs[str(device)] = trainer.eval_step(st, grid, batch, opt, spec)
-        launched = [k.launches for k in (kernels.TRUNK_FWD,
-                                         kernels.OCCUPANCY)]
-        assert all(launched) if device == dev else not any(launched)
-        assert kernels.TRUNK_BWD.launches == 0
+        fwd = kernels.SHADE_FWD if shade else kernels.TRUNK_FWD
+        on = {fwd.name, kernels.OCCUPANCY.name} if device == dev else set()
+        assert {k.name for k in kernels.KERNELS if k.launches} == on
     cpu, gpu = outs["cpu"], outs[str(dev)]
     assert torch.equal(cpu["ray_mask"], gpu["ray_mask"].cpu())
     assert bool(cpu["ray_mask"].any())
@@ -202,11 +308,21 @@ def test_render_goes_through_both_kernels_and_matches_cpu(dev,
 
 def test_train_step_on_card_matches_cpu(dev):
     """compute_grads and then one train_step from the same state, batch and
-    jitter draws on the card (all three kernels) and on the CPU (plain
-    versions): equal counters, close losses and gradients, and after the
-    Adam step parameters that agree wherever the gradient is well above
-    Adam's eps (nearer to 0, Adam's step turns last-digit gradient
-    differences into step differences of up to lr)."""
+    jitter draws on the card (K1, K2, K3) and on the CPU (plain versions):
+    equal counters, close losses and gradients, and after the Adam step
+    parameters that agree wherever the gradient is well above Adam's eps
+    (nearer to 0, Adam's step turns last-digit gradient differences into
+    step differences of up to lr)."""
+    _train_step_card_vs_cpu(dev, fused_shade=0)
+
+
+def test_shade_train_step_on_card_matches_cpu(dev):
+    """As test_train_step_on_card_matches_cpu with fused_shade=1: the card
+    runs K4, K5 and K3 (not K1, K2), the CPU their plain versions."""
+    _train_step_card_vs_cpu(dev, fused_shade=1)
+
+
+def _train_step_card_vs_cpu(dev, fused_shade):
     rng = np.random.RandomState(0)
     xyz = rng.uniform(-0.4, 0.4, (800, 3)).astype(np.float32)
     xyz[:, 2] *= 0.1
@@ -219,7 +335,7 @@ def test_train_step_on_card_matches_cpu(dev):
                color_loss_items=("ray_masked_coarse_raycolor",),
                color_loss_weights=(1.0,),
                zero_one_loss_items=("conf_coefficient",),
-               zero_one_loss_weights=(0.0001,))
+               zero_one_loss_weights=(0.0001,), fused_shade=fused_shade)
     cloud = dict(xyz=xyz, embedding=rng.uniform(-0.5, 0.5, (n, 8)),
                  color=rng.uniform(0, 1, (n, 3)),
                  direction=rng.normal(size=(n, 3)),
@@ -229,7 +345,8 @@ def test_train_step_on_card_matches_cpu(dev):
     rd = np.stack([dx, dy, np.ones_like(dx)], -1).reshape(1, -1, 3)
     gt = rng.uniform(0, 1, (1, rd.shape[1], 3)).astype(np.float32)
     u = torch.rand((1, rd.shape[1], 64), generator=torch.Generator())
-    agg = init_aggregator_params(opt, torch.Generator().manual_seed(0))
+    agg = init_aggregator_params(opt, torch.Generator().manual_seed(0),
+                                 device="cpu")
     runs = {}
     for device in ("cpu", dev):
         state = npc.create_point_cloud(**cloud, device=device)
@@ -249,8 +366,11 @@ def test_train_step_on_card_matches_cpu(dev):
                                       u.to(device))
         _, items = trainer.train_step(st, grid, batch, opt, spec,
                                       u=u.to(device))
-        launched = [k.launches for k in kernels.KERNELS]
-        assert all(launched) if device == dev else not any(launched)
+        used = ((kernels.SHADE_FWD, kernels.SHADE_BWD) if fused_shade
+                else (kernels.TRUNK_FWD, kernels.TRUNK_BWD))
+        on = ({k.name for k in used} | {kernels.OCCUPANCY.name}
+              if device == dev else set())
+        assert {k.name for k in kernels.KERNELS if k.launches} == on
         runs[str(device)] = (grads, items, st)
     (g_cpu, i_cpu, s_cpu), (g_gpu, i_gpu, s_gpu) = runs["cpu"], runs[str(dev)]
     assert float(i_cpu["sr_overflow"]) == float(i_gpu["sr_overflow"])

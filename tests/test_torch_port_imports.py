@@ -1,6 +1,8 @@
-"""Package hygiene: the port never imports JAX (nor a JAX-importing module of
-the JAX package), and CPU runs never launch a CUDA kernel."""
+"""Package hygiene: the port never imports JAX nor any module of the JAX
+package, its constructors default to the card, and CPU runs never launch a
+CUDA kernel."""
 
+import inspect
 import os
 import subprocess
 import sys
@@ -21,11 +23,8 @@ import pointnerf_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in mods:
     importlib.import_module(name)
-allowed = {"pointnerf_tpu", "pointnerf_tpu.config", "pointnerf_tpu.utils",
-           "pointnerf_tpu.utils.cache"}
 bad = [m for m in sys.modules
-       if m.split(".")[0] in ("jax", "jaxlib", "optax")
-       or (m.startswith("pointnerf_tpu.") and m not in allowed)]
+       if m.split(".")[0] in ("jax", "jaxlib", "optax", "pointnerf_tpu")]
 print(len(mods), bad)
 sys.exit(1 if bad or len(mods) < 14 else 0)
 """
@@ -37,6 +36,28 @@ def test_port_modules_import_without_jax():
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_constructors_default_to_the_card():
+    """The four constructors of the port's state place it on the card
+    unless told otherwise; where there is none, the default raises as
+    torch raises, with no fallback to the CPU."""
+    from pointnerf_tpu_torch.config import Options
+    from pointnerf_tpu_torch.models import neural_points as npc
+    from pointnerf_tpu_torch.models.aggregator import init_aggregator_params
+    from pointnerf_tpu_torch.utils import checkpoint
+    for fn in (npc.create_point_cloud, init_aggregator_params,
+               checkpoint.from_jax_params, checkpoint.from_jax_train_state):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present, so the default does not raise")
+    xyz, emb = np.zeros((4, 3), np.float32), np.zeros((4, 8), np.float32)
+    with pytest.raises((AssertionError, RuntimeError)):
+        npc.create_point_cloud(xyz, emb)
+    with pytest.raises((AssertionError, RuntimeError)):
+        init_aggregator_params(Options(point_features_dim=8))
+    state = npc.create_point_cloud(xyz, emb, device="cpu")
+    assert state["xyz"].device.type == "cpu"
 
 
 def test_cpu_paths_launch_no_kernel_and_other_devices_are_refused():
@@ -61,6 +82,16 @@ def test_cpu_paths_launch_no_kernel_and_other_devices_are_refused():
     meta = [a.to("meta") for a in args]
     with pytest.raises(ValueError, match="cpu or cuda"):
         tt.fused_trunk(1, 1, 1, 1, 8, True, False, *meta, ops)
+    # fused_shade: dist mode 0 (3 distance columns), K=8, one shading point
+    rows = [lin(8, 4), lin(8, 3), lin(8, 3), lin(8, 3), lin(8, 3), lin(8, 1),
+            torch.ones(8, 1), lin(1, 3), lin(1, 3), lin(1, 3), lin(3, 3)]
+    ops0 = [lin(4, 16), lin(8, 16), lin(6, 16)] + ops[3:]
+    out = tt.fused_shade(1, 1, 1, 1, 8, True, False, 0, *rows, ops0)
+    assert [tuple(o.shape) for o in out] == [(1, 16), (1, 1), (8, 1), (8, 1)]
+    assert not any(k.launches for k in kernels.KERNELS)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tt.fused_shade(1, 1, 1, 1, 8, True, False, 0,
+                       *(r.to("meta") for r in rows), ops0)
     with pytest.raises(ValueError, match="cpu or cuda"):
         tq.mask_raypos_segmented(torch.zeros(1, 3, device="meta"),
                                  torch.zeros(1, 4, 3, device="meta"),

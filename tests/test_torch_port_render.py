@@ -2,7 +2,8 @@
 the JAX package's, on a lego-envelope variant of the tiny plane scene
 (superset query, auto compaction budget, K-tier split, two-layer blocks,
 fused trunk forced: JAX runs the Pallas trunk in interpret mode, the port
-its plain version).
+its plain version; likewise the fused_shade configuration's shade
+kernel).
 
 Tolerances: floats rtol = atol = 1e-5 (float32, summation order differs);
 masks and counters exactly.
@@ -21,6 +22,7 @@ from pointnerf_tpu.train import trainer as jtrainer
 from pointnerf_tpu.utils.checkpoint import export_reference_npz
 from pointnerf_tpu_torch.ops import grid as tgrid
 from pointnerf_tpu_torch.ops import kernels
+from pointnerf_tpu_torch.ops import trunk as tt
 from pointnerf_tpu_torch.run import common as tcommon
 from pointnerf_tpu_torch.train import trainer as ttrainer
 from pointnerf_tpu_torch.utils.checkpoint import (from_jax_params,
@@ -48,7 +50,7 @@ def _port_state(ts):
     agg_np = jax.tree.map(np.asarray, ts.agg_params)
     pts_np = {k: (None if v is None else np.asarray(v))
               for k, v in jtrainer.point_state_of(ts).items()}
-    agg, pts = from_jax_params(agg_np, pts_np)
+    agg, pts = from_jax_params(agg_np, pts_np, device="cpu")
     return ttrainer.ServeState(agg, pts)
 
 
@@ -59,13 +61,23 @@ def _port_grid(opt, state):
     return spec, tgrid.build_grid(state["xyz"], state["mask"], spec)
 
 
-@pytest.mark.parametrize("fused,order", [(1, 2), (0, 2), (1, 1)])
-def test_eval_step_matches_jax(fused, order):
+@pytest.mark.parametrize("fused,order,shade", [
+    pytest.param(1, 2, 0, id="1-2"), pytest.param(0, 2, 0, id="0-2"),
+    pytest.param(1, 1, 0, id="1-1"), pytest.param(1, 2, 1, id="shade-2"),
+    pytest.param(1, 1, 1, id="shade-1")])
+def test_eval_step_matches_jax(fused, order, shade, monkeypatch):
     """fused=1: JAX's Pallas trunk (interpret) vs the port's fused_trunk
-    plain version; fused=0: both packages' unfused MLP paths."""
+    plain version; fused=0: both packages' unfused MLP paths; shade=1: the
+    fused_shade configuration, JAX's Pallas shade kernel (interpret) vs the
+    port's fused_shade plain version."""
     opt, ts, spec_j, grid_j, batch = _lego_like(use_fused_trunk=fused,
-                                                agg_intrp_order=order)
+                                                agg_intrp_order=order,
+                                                fused_shade=shade)
     want = jtrainer.eval_step(ts, grid_j, batch, opt, spec_j)
+    plain_shade = tt.fused_shade_reference
+    calls = []
+    monkeypatch.setattr(tt, "fused_shade_reference",
+                        lambda *a: calls.append(1) or plain_shade(*a))
     st = _port_state(ts)
     spec_t, grid_t = _port_grid(opt, st.points)
     tb = {k: (torch.tensor(np.asarray(v)) if hasattr(v, "shape") else v)
@@ -82,7 +94,8 @@ def test_eval_step_matches_jax(fused, order):
               "blend_weight", "conf_coefficient"):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
                                    err_msg=k, **TOL)
-    assert kernels.TRUNK_FWD.launches == 0 == kernels.OCCUPANCY.launches
+    assert not any(k.launches for k in kernels.KERNELS)
+    assert bool(calls) == bool(shade)    # the shade path ran its plain version
 
 
 def _image_item(H=12, W=10, focal=30.0):
@@ -118,7 +131,8 @@ def test_render_image_matches_jax_through_ckpt(tmp_path, capsys):
     # a JAX-written export serves the same image through the port
     path = os.path.join(tmp_path, "7_net_ray_marching.npz")
     export_reference_npz(path, ts.agg_params, jtrainer.point_state_of(ts))
-    agg, pts = from_jax_params(*load_net_ray_marching_npz(path))
+    agg, pts = from_jax_params(*load_net_ray_marching_npz(path),
+                               device="cpu")
     st2 = ttrainer.ServeState(agg, pts)
     spec2, grid2 = tcommon.make_spec_and_grid(opt, st2.points)
     got2 = tcommon.render_image(st2, grid2, opt, spec2, item, group=3)

@@ -5,7 +5,9 @@ The scene is a lego-envelope variant of the tiny plane scene (superset
 query, auto compaction budget, K-tier split, two-layer blocks) and the
 sparse variant whose rows fill both tiers. JAX runs its Pallas trunk in
 interpret mode (use_fused_trunk=1) or its XLA composition (0); the port its
-fused trunk's plain versions or its unfused path. A few point confs lie
+fused trunk's plain versions or its unfused path; with fused_shade=1 JAX
+runs its Pallas shade kernel in interpret mode and the port its fused
+shade's plain versions. A few point confs lie
 outside [1e-4, 1], where the conf clamp passes the gradient through.
 
 Tolerances: gradients rtol 2e-4, atol 2e-5 (the bar tests/test_pallas_trunk.py
@@ -36,7 +38,9 @@ from pointnerf_tpu_torch.models import losses as tlosses
 from pointnerf_tpu_torch.models import renderer as trend
 from pointnerf_tpu_torch.models.networks import make_lr_schedule
 from pointnerf_tpu_torch.ops import grid as tgrid
+from pointnerf_tpu_torch.ops import kernels
 from pointnerf_tpu_torch.ops import query as tq
+from pointnerf_tpu_torch.ops import trunk as tt
 from pointnerf_tpu_torch.train import trainer as ttr
 from pointnerf_tpu_torch.utils.checkpoint import (_net_tensors,
                                                   from_jax_train_state)
@@ -83,7 +87,7 @@ def _scene(scene="tiny", **kw):
 def _port(opt, ts, batch):
     """The JAX state carried across, its grid rebuilt by the port, and the
     batch as tensors."""
-    st = from_jax_train_state(_np_tree(ts), opt)
+    st = from_jax_train_state(_np_tree(ts), opt, device="cpu")
     mask = st.points["mask"].numpy()
     xyz = st.points["xyz"].detach().numpy()[mask]
     spec = tgrid.make_grid_spec(opt, xyz.min(0), xyz.max(0), int(mask.sum()))
@@ -208,7 +212,7 @@ def test_gather_neighbors_backward_is_the_scatter_add():
     want = jax.grad(jax_loss)({k: js[k] for k in trainable},
                               {k: v for k, v in js.items()
                                if k not in trainable})
-    ts = tnpc.create_point_cloud(**cloud, capacity=32)
+    ts = tnpc.create_point_cloud(**cloud, capacity=32, device="cpu")
     for k in trainable:
         ts[k].requires_grad_(True)
     g = tnpc.gather_neighbors(ts, torch.tensor(pidx),
@@ -311,11 +315,22 @@ def test_lr_schedules_match_jax():
 
 
 @pytest.mark.parametrize("scene", ["tiny", "sparse"])
-@pytest.mark.parametrize("fused", [1, 0])
-def test_compute_grads_matches_jax(scene, fused):
-    opt, ts, spec, grid, batch = _scene(scene, use_fused_trunk=fused)
+@pytest.mark.parametrize("fused,shade", [
+    pytest.param(1, 0, id="1"), pytest.param(0, 0, id="0"),
+    pytest.param(1, 1, id="shade")])
+def test_compute_grads_matches_jax(scene, fused, shade, monkeypatch):
+    """shade=1: the fused_shade configuration, JAX's Pallas shade kernel
+    (interpret) against the port's fused_shade plain versions, which must
+    run (forward and backward) and launch nothing."""
+    opt, ts, spec, grid, batch = _scene(scene, use_fused_trunk=fused,
+                                        fused_shade=shade)
     key = jax.random.PRNGKey(5)
     want, jn, jp = jtr.compute_grads(ts, grid, batch, key, opt, spec)
+    calls = {}
+    for name in ("fused_shade_reference", "fused_shade_bwd_reference"):
+        plain = getattr(tt, name)
+        monkeypatch.setattr(tt, name, lambda *a, _n=name, _f=plain: (
+            calls.__setitem__(_n, calls.get(_n, 0) + 1) or _f(*a)))
     st, spec_t, grid_t, tb = _port(opt, ts, batch)
     B, R = batch["raydir"].shape[:2]
     u = torch.tensor(_uniform(key, B, R, opt.z_depth_dim))
@@ -329,6 +344,8 @@ def test_compute_grads_matches_jax(scene, fused):
     conf = st.points["conf"].detach().numpy()[:, 0]
     out_of_range = (conf > 1.0) | (conf < 1e-4)
     assert np.abs(g_pts["conf"].numpy()[out_of_range]).max() > 0
+    assert len(calls) == (2 if shade else 0)
+    assert not any(k.launches for k in kernels.KERNELS)
 
 
 def test_depth_bg_losses_and_bg_ray_match_jax():
@@ -380,7 +397,7 @@ def test_train_steps_match_jax(alter_step):
         np.testing.assert_allclose(st.pt_train[k].detach().numpy(), v,
                                    err_msg=k, **STEP_TOL)
     # the moments, carried across from JAX, match the port's own
-    again = from_jax_train_state(jstate, opt)
+    again = from_jax_train_state(jstate, opt, device="cpu")
     for mine, theirs in ((st.opt_pts, again.opt_pts),
                          (st.opt_net, again.opt_net)):
         for p, q in zip(mine.param_groups[0]["params"],
@@ -465,4 +482,4 @@ def test_resume_from_jax_train_state(packed):
                               pt_static=dict(jstate.pt_static,
                                              dir=jstate.pt_train["dir"]))
         with pytest.raises(ValueError, match="packed point moments"):
-            from_jax_train_state(bad, opt.replace(dir_grad=0))
+            from_jax_train_state(bad, opt.replace(dir_grad=0), device="cpu")

@@ -54,7 +54,8 @@ def _setup(L1, L3, order, K, n_pts=37, seed=0):
     np_params = jax.tree.map(np.asarray, params)
     agg, _ = from_jax_params(np_params, {"xyz": np.zeros((1, 3), np.float32),
                                          "embedding": np.zeros((1, 8),
-                                                               np.float32)})
+                                                               np.float32)},
+                              device="cpu")
     rng = np.random.RandomState(seed)
     S = n_pts * K
     ins = dict(emb=rng.uniform(-0.5, 0.5, (S, 8)),
