@@ -4,12 +4,13 @@
 
 Builds the port's CUDA kernels from pointnerf_tpu_torch/csrc and holds each
 kernel against its plain PyTorch version at the shapes its path gives it
-(K1, K3 and K4 at a serving group's, K2 and K5 at a train step's). Then it
-drives the port's main paths on the NeRF-Synthetic lego preset (random
-weights from a seeded torch.Generator, bench.py's 100k-point
+(K1, K3 and K4 at a serving group's, K2 and K5 at a train step's, K6 at
+its micro-benchmark's and at a train step's, K7 at its micro-benchmark's).
+Then it drives the port's main paths on the NeRF-Synthetic lego preset
+(random weights from a seeded torch.Generator, bench.py's 100k-point
 shell-and-blobs cloud), each in the default configuration (fused_shade=0:
-K1, K2, K3) and in the fused_shade configuration (fused_shade=1: K4, K5,
-K3):
+K1, K2, K3, K6) and in the fused_shade configuration (fused_shade=1: K4,
+K5, K3, K6):
 
 - serving: one full 800x800 image through render_image, two chunks of it
   re-rendered on the CPU with the plain versions; the fused_shade image is
@@ -17,15 +18,22 @@ K3):
 - training: bench.py's 3,600-ray batch through create_train_state and
   train_step, one warm-up step and TRAIN_STEPS timed ones, then one
   compute_grads on the card against the CPU's plain versions; the
-  fused_shade step-1 loss is held against the default one.
+  fused_shade step-1 loss is held against the default one;
+
+and last the finetune driver, run/train_ft.main, at the lego preset's
+widths on a 400x400 plate scene it writes in the NeRF-Synthetic layout
+(FT_STEPS steps with a prune, probe-and-grows and a final checkpoint; the
+test PSNR must pass FT_PSNR and the PSNR before training), then main again,
+which must resume and stop at once.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; every kernel of the path's configuration must have launched in it,
 and the other configuration's trunk kernels not at all. Any failed check
 raises. The last line is a JSON object with the device; the line before it
 is the card's name and power limit, and the line before that lists each
-kernel's launches (summed over the paths), error, times and bound. Needs a
-CUDA device; without one it exits nonzero and prints no result.
+kernel's launches (summed over the paths; K7's from its micro-benchmark's
+segmented pipeline), error, times, bound and library call. Needs a CUDA
+device; without one it exits nonzero and prints no result.
 """
 
 from __future__ import annotations
@@ -66,6 +74,21 @@ SHADE_IMAGE_TOL = 1e-4                # fused_shade=1 image vs the default
                                       # one: the same math, other order
 STEP1_RTOL = 1e-5                     # fused_shade=1 step-1 loss vs default
 SHADE_GRADS = ("demb", "dxyz", "dxyzp", "dcolor", "ddir", "dconf")
+SCATTER_REL = 1e-4                    # K6 vs plain, per entry, of the sum
+                                      # of |updates| reaching it: duplicate
+                                      # indices sum in another order
+SCATTER_SCRIPT = dict(S=384000, cap=102400, C=42, dup=6.0)  # scatter_pallas
+OCC_U = 96                            # occ_micro3's distinct-row budget
+FT_WH = 400                           # finetune views (plate scene)
+FT_STEPS = 800                        # finetune steps
+FT_PRUNE = 200                        # the one prune
+FT_PROBE = 250                        # probe-and-grow every FT_PROBE steps
+FT_PSNR = 16.0                        # final test PSNR bar (dB)
+PHASES = ("train_s", "prune_s", "grow_s", "test_s", "save_s")
+FT_PROB_THRESH = -0.7                 # probe opacity gate off, as the ficus
+                                      # preset sets it: after 800 steps at
+                                      # the preset's lr no sample reaches
+                                      # lego's 0.7 (no candidates at all)
 PEAK_FP32 = 67e12                     # H100 SXM fp32 FLOP/s outside the
                                       # tensor cores, at 700 W (data sheet)
 PEAK_BYTES = 3.35e12                  # H100 SXM HBM3 bytes/s (data sheet)
@@ -127,26 +150,6 @@ def tier_sums(rows):
                  for k in ("ms", "plain_ms", "bound_ms"))
 
 
-def make_cloud(opt, n_points=100_000, rng=None):
-    """bench.py::make_workload's synthetic lego-range cloud (numpy only),
-    drawn from `rng` (RandomState(0), as bench.py, if None)."""
-    rng = np.random.RandomState(0) if rng is None else rng
-    mn = np.asarray(opt.ranges[:3], np.float32)
-    mx = np.asarray(opt.ranges[3:], np.float32)
-    xyz = rng.uniform(mn, mx, (n_points, 3)).astype(np.float32)
-    shell = xyz / (np.linalg.norm(xyz / (mx - mn), axis=-1, keepdims=True)
-                   + 1e-6) * 0.6
-    take = rng.rand(n_points) < 0.5
-    xyz[take] = shell[take].astype(np.float32)
-    emb = rng.uniform(-0.5, 0.5, (n_points, opt.point_features_dim)
-                      ).astype(np.float32)
-    color = rng.uniform(0, 1, (n_points, 3)).astype(np.float32)
-    dirs = rng.normal(size=(n_points, 3)).astype(np.float32)
-    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
-    conf = np.full((n_points, 1), 0.8, np.float32)
-    return xyz, emb, color, dirs, conf
-
-
 def make_item(opt, azimuth=0.7, elevation=0.5):
     """One full-image camera on the NeRF-Synthetic test sphere, looking at
     the origin (Blender convention: camera -z forward, +z up)."""
@@ -175,13 +178,12 @@ def build_workload(dev):
     """The main path's inputs on `dev`: the lego preset, bench.py's cloud,
     its grid (built there), seeded aggregator weights and one camera.
     Returns (opt, state, spec, grid, agg, serve_state, item, grid_ms)."""
-    from pointnerf_tpu_torch.config import nerf_synth_preset
     from pointnerf_tpu_torch.models import neural_points as npc
     from pointnerf_tpu_torch.models.aggregator import init_aggregator_params
     from pointnerf_tpu_torch.run import common
+    from pointnerf_tpu_torch.run.workload import lego_options, make_cloud
     from pointnerf_tpu_torch.train.trainer import ServeState
-    opt = nerf_synth_preset("lego").replace(max_o=280000,
-                                            random_sample_size=60)
+    opt = lego_options()
     xyz, emb, color, dirs, conf = make_cloud(opt)
     state = npc.create_point_cloud(xyz, emb, color, dirs, conf, device=dev)
     torch.cuda.synchronize()
@@ -193,28 +195,6 @@ def build_workload(dev):
     agg = init_aggregator_params(opt, generator=gen, device=dev)
     return (opt, state, spec, grid, agg, ServeState(agg, state),
             make_item(opt), grid_ms)
-
-
-def make_train_batch(opt, dev):
-    """bench.py::make_workload's train batch: random_sample_size² rays from
-    campos (0, 0, 4) looking down -z, pixels spread over ±0.35, and a
-    random gt_image, drawn from the RandomState(0) stream after the cloud,
-    as bench.py draws them."""
-    rng = np.random.RandomState(0)
-    make_cloud(opt, rng=rng)
-    R = opt.random_sample_size ** 2
-    campos = np.array([[0.0, 0.0, 4.0]], np.float32)
-    camrot = np.array([[[1, 0, 0], [0, -1, 0], [0, 0, -1]]], np.float32)
-    px = rng.uniform(-0.35, 0.35, (1, R, 2)).astype(np.float32)
-    raydir = np.concatenate([px, np.ones((1, R, 1), np.float32)], axis=-1)
-    raydir = raydir @ camrot[0].T
-    raydir /= np.linalg.norm(raydir, axis=-1, keepdims=True)
-    gt = rng.uniform(0, 1, (1, R, 3)).astype(np.float32)
-    on = lambda a: torch.as_tensor(a, device=dev)
-    return {"raydir": on(raydir), "campos": on(campos),
-            "camrotc2w": on(camrot), "near": float(opt.near_plane),
-            "far": float(opt.far_plane),
-            "bg_color": torch.ones((1, 3), device=dev), "gt_image": on(gt)}
 
 
 def check_trunk(agg, opt, Ncb: int, NtB: int):
@@ -673,6 +653,7 @@ def train_path(opt, state, spec, grid, label, kerns):
     kernel). The loss must be finite and fall from the first step to the
     last. Returns (launch counts, the train state, the batch, the losses)."""
     from pointnerf_tpu_torch.ops import kernels
+    from pointnerf_tpu_torch.run.workload import make_train_batch
     from pointnerf_tpu_torch.train import trainer
     dev = torch.device("cuda")
     st = trainer.create_train_state(opt, state,
@@ -754,6 +735,253 @@ def check_train_cpu(st, batch, opt, spec, grid, label):
     return worst[1]
 
 
+# ------------------------------------------------------------ K6, K7 checks
+def scatter_bad(got, want, abs_sum):
+    """Entries of `got` off from `want` by more than SCATTER_REL of the sum
+    of |updates| that reach them (the scale of a float sum's rounding in
+    any order; 1e-30 absorbs denormals)."""
+    return (got - want).abs() > SCATTER_REL * abs_sum + 1e-30
+
+
+def check_scatter(label, idx, upd, n_rows):
+    """K6 against scatter_add_rows_reference on the same inputs, each entry
+    within SCATTER_REL of the sum of |updates| that reach it, so the
+    tolerance follows the data at every shape (a train step's point
+    gradients are ~1e-4, the script's updates ~1). The check must catch a
+    scatter that drops one kept entry in 97: it is run on the plain version
+    of such a scatter, which must fail it; the share of kept entries whose
+    loss alone would fail it is printed. Also: the largest difference
+    between two launches (float atomics sum in no fixed order), and the
+    times of the kernel, the plain version and the library call
+    `torch.zeros(n_rows, C).index_add_(0, idx, upd)` over the kept entries
+    (filtered outside the timed region: index_add_ cannot skip). Bound:
+    bytes, the indices and the kept updates read once and the table
+    written once."""
+    from pointnerf_tpu_torch.ops.scatter import (scatter_add_rows,
+                                                 scatter_add_rows_reference)
+    kern = lambda: scatter_add_rows(idx, upd, n_rows)
+    plain = lambda: scatter_add_rows_reference(idx, upd, n_rows)
+    keep = idx >= 0
+    lib_idx, lib_upd = idx[keep].long(), upd[keep]
+    library = lambda: torch.zeros((n_rows, upd.shape[1]),
+                                  device=upd.device).index_add_(
+        0, lib_idx, lib_upd)
+    got, again, want = kern(), kern(), plain()
+    abs_sum = scatter_add_rows_reference(idx, upd.abs(), n_rows)
+    kept_at = torch.nonzero(keep)[:, 0]
+    dropped = idx.clone()
+    dropped[kept_at[::97]] = -1
+    torch.cuda.synchronize()
+    for what, out in (("K6", got), ("K6 again", again),
+                      ("index_add_", library())):
+        bad = scatter_bad(out, want, abs_sum)
+        if bool(bad.any()):
+            raise AssertionError(f"{what} differs from the plain version on "
+                                 f"{int(bad.sum())} entries")
+    if not bool(scatter_bad(scatter_add_rows_reference(dropped, upd, n_rows),
+                            want, abs_sum).any()):
+        raise AssertionError("the K6 check passes a scatter that drops one "
+                             "kept entry in 97")
+    caught = float((upd[keep].abs() > SCATTER_REL * abs_sum[idx[keep].long()]
+                    ).any(dim=1).float().mean())
+    err = float((got - want).abs().max())
+    rerun = float((got - again).abs().max())
+    top = float(want.abs().max())
+    ms, plain_ms = timed_pair(kern, plain, reps=10)
+    library_ms = cuda_time(library, 10)
+    C = upd.shape[1]
+    n_skip = int((~keep).sum())
+    # skipped rows' updates are never read
+    b_ms, b_by = bound(0, nbytes(idx) + 4 * C * (idx.shape[0] - n_skip)
+                       + 4 * C * n_rows)
+    log(f"K6 scatter_rows {label} S={idx.shape[0]} ({n_skip} skipped) "
+        f"cap={n_rows} C={C}: max_abs_err={err:.3e} (max|plain| {top:.3e}; "
+        f"each entry within {SCATTER_REL:g} of its sum of |updates|; a "
+        f"scatter dropping one kept entry in 97 fails; the loss of any one "
+        f"of {100 * caught:.2f}% of the kept entries alone would), two "
+        f"launches differ by {rerun:.3e}; kernel={ms:.4f} ms "
+        f"plain={plain_ms:.4f} ms index_add_ over the kept entries="
+        f"{library_ms:.4f} ms bound={b_ms:.4f} ms ({b_by})")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms)
+
+
+class ScatterRecorder:
+    """Records the arguments of the point-gradient scatter calls of one
+    compute_grads (neural_points' scatter_add_rows, wrapped for the call),
+    so K6 is checked at the shapes and indices a train step gives it."""
+
+    def __enter__(self):
+        from pointnerf_tpu_torch.models import neural_points as npc
+        self.calls, self._orig = [], npc.scatter_add_rows
+
+        def record(idx, upd, n_rows):
+            self.calls.append((idx.clone(), upd.clone(), n_rows))
+            return self._orig(idx, upd, n_rows)
+        npc.scatter_add_rows = record
+        return self
+
+    def __exit__(self, *exc):
+        from pointnerf_tpu_torch.models import neural_points as npc
+        npc.scatter_add_rows = self._orig
+
+
+def check_row_select(dev):
+    """K7 against row_select_reference at occ_micro3's shapes (bench.py's
+    3,600-ray batch with jittered depths, D = 400, U = 96, LW = 128): each
+    ray's gathered rows in int8 and bf16, Rt = 8/16/32/120 rays per CTA; the
+    kernel must equal the plain version exactly. Then the segmented pipeline
+    with K7 (its micro-benchmark's path; its launches are the ones
+    reported) against the dense mask, equal on every ray with at most U
+    distinct rows. Times the int8 Rt=16 launch against the plain version
+    and the library call, one torch.gather over rows_g viewed [N, U·LW] at
+    rank·LW + lane (the index computed outside the timed region). Bound:
+    bytes of rows_g, rank, lane and the output."""
+    from pointnerf_tpu_torch.ops import kernels
+    from pointnerf_tpu_torch.ops.query import (mask_raypos, row_select,
+                                               row_select_reference)
+    from pointnerf_tpu_torch.scripts import occ_micro3 as om
+    _, grid, spec, _, raypos, _ = om.bench_workload(dev)
+    rows = grid["coor_occ_rows"]
+    U, LW = OCC_U, rows.shape[-1]
+    inb, rid, lane, is_start, rank = om.stages(raypos, spec, LW)
+    rank_c = torch.clamp(rank, max=U - 1)
+    c = om.ray_rows(rid, is_start, rank, U).reshape(-1).long()
+    N, D = rank.shape
+    out = None
+    for dtype in (torch.int8, torch.bfloat16):
+        rows_g = rows.to(dtype)[c].reshape(N, U, LW)
+        want = row_select_reference(rows_g, rank_c, lane)
+        for Rt in (8, 16, 32, 120):
+            got = row_select(rows_g, rank_c, lane, Rt)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"K7 {dtype} Rt={Rt} differs from the "
+                                     f"plain version on "
+                                     f"{int((got != want).sum())} samples")
+        if dtype == torch.int8:
+            flat = rows_g.reshape(N, U * LW)
+            gidx = (rank_c * LW + lane).long()
+            ms, plain_ms = timed_pair(
+                lambda: row_select(rows_g, rank_c, lane, 16),
+                lambda: row_select_reference(rows_g, rank_c, lane), reps=10)
+            library_ms = cuda_time(lambda: torch.gather(flat, 1, gidx), 10)
+            # int32 rank and lane in, float32 out
+            b_ms, b_by = bound(0, nbytes(rows_g) + 12 * N * D)
+            out = dict(err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=library_ms)
+            log(f"K7 row_select int8 and bf16 rows, Rt 8/16/32/120, N={N} "
+                f"D={D} U={U} LW={LW}: equal to the plain version; int8 Rt=16 "
+                f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
+                f"gather={library_ms:.4f} ms bound={b_ms:.4f} ms ({b_by})")
+        del rows_g
+    dense = mask_raypos(raypos, grid, spec)
+    kernels.ROW_SELECT.launches = 0
+    seg, over = om.segmented_mask(raypos, grid, spec, U, torch.int8, 16)
+    out["launches"] = kernels.ROW_SELECT.launches
+    keep = ~over.reshape(dense.shape[:2])
+    if not torch.equal(dense[keep], seg[keep]):
+        raise AssertionError("the segmented mask with K7 differs from the "
+                             "dense mask on rays within U rows")
+    log(f"K7 segmented pipeline vs dense mask: equal on the "
+        f"{int(keep.sum())} rays within U={U} distinct rows; "
+        f"{int(over.sum())} rays past U (max distinct rows "
+        f"{int(rank.max()) + 1})")
+    return out
+
+
+# ------------------------------------------------------- the finetune phase
+def finetune_options(root):
+    """The lego preset at full widths on the plate scene, with the
+    finetune phase's cadence: FT_STEPS steps, one prune, a probe-and-grow
+    every FT_PROBE steps (opacity gate FT_PROB_THRESH), one checkpoint at
+    the end, test renders of the 4 test views before and after."""
+    from pointnerf_tpu_torch.config import nerf_synth_preset
+    return nerf_synth_preset("lego").replace(
+        data_root=root, scan="plate", img_wh=(FT_WH, FT_WH), load_points=1,
+        checkpoints_dir=os.path.join(root, "checkpoints"),
+        experiment="plate_ft", maximum_step=FT_STEPS, prune_iter=FT_PRUNE,
+        prune_max_iter=FT_PRUNE, prob_freq=FT_PROBE, print_freq=100,
+        save_iter_freq=10 * FT_STEPS, save_point_freq=0, test_freq=0,
+        test_num=4, prob_thresh=FT_PROB_THRESH)
+
+
+def finetune_path(root):
+    """The finetune driver's main path on the card: train_ft.main at the
+    lego preset's widths on the plate scene (prune, probe-and-grow, final
+    checkpoint), with the PSNR of a test render of the initial state before
+    it, then main again, which must resume from the checkpoint and stop at
+    once. Returns the launch counts of the first main."""
+    from pointnerf_tpu_torch.data import create_dataset
+    from pointnerf_tpu_torch.ops import kernels
+    from pointnerf_tpu_torch.run import common, train_ft
+    from pointnerf_tpu_torch.run.workload import make_plate_scene
+    from pointnerf_tpu_torch.train import trainer
+    from pointnerf_tpu_torch.utils.visualizer import Visualizer
+    n_written = make_plate_scene(root, wh=(FT_WH, FT_WH))
+    opt = finetune_options(root)
+    dev = torch.device("cuda")
+    train_ds = create_dataset(opt, "train")
+    state = common.init_point_state_from_dataset(opt, train_ds, device=dev)
+    n_init = int(state["mask"].sum())
+    st = trainer.create_train_state(opt, state,
+                                    torch.Generator().manual_seed(opt.seed))
+    spec, grid = common.make_spec_and_grid(opt, state)
+    psnr0 = train_ft.test(st, grid, opt, spec, create_dataset(opt, "test"),
+                          Visualizer(opt), 0, write_images=False)
+    del st, state, grid, train_ds
+    torch.cuda.empty_cache()
+    log(f"finetune: plate scene {FT_WH}x{FT_WH}, 12 train / 4 test views, "
+        f"{n_written} init points -> {n_init} after the voxel downsample "
+        f"(vox_res {opt.vox_res}); lr {opt.lr} plr {opt.plr}; test PSNR "
+        f"before training {psnr0:.3f}")
+    for k in kernels.KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train_ft.main(opt)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    tm = res["timing"]
+    ms = 1e3 * tm["train_s"] / tm["steps"]
+    R = opt.random_sample_size ** 2
+    log(f"finetune: {tm['steps']} steps, {ms:.1f} ms/step, {1e3 * R / ms:.0f}"
+        f" train rays/s ({R} rays a step, host clock around each step and "
+        f"its items' fetch), wall {wall:.1f} s (prunes {tm['prune_s']:.1f} s, "
+        f"probe-and-grows {tm['grow_s']:.1f} s, test renders "
+        f"{tm['test_s']:.1f} s, checkpoints {tm['save_s']:.1f} s, the rest "
+        f"{wall - sum(tm[k] for k in PHASES):.1f} s); prune (step, before, "
+        f"after) "
+        f"{tm['prune']}, grow {tm['grow']}; final test PSNR "
+        f"{res['final_psnr']:.3f} (before training {psnr0:.3f}), scores "
+        f"{ {k: round(v, 4) for k, v in res['scores'].items()} }; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{launches}")
+    check_launches("finetune", (kernels.TRUNK_FWD, kernels.TRUNK_BWD,
+                                kernels.OCCUPANCY, kernels.SCATTER_ROWS))
+    ckpt = os.path.join(opt.checkpoints_dir, opt.experiment)
+    for f in (f"{FT_STEPS}_net_ray_marching.npz", f"{FT_STEPS}_states.npz",
+              f"{FT_STEPS}_full.npz", "log.txt"):
+        if not os.path.exists(os.path.join(ckpt, f)):
+            raise AssertionError(f"finetune wrote no {f}")
+    if res["total_steps"] != FT_STEPS or not tm["prune"] or not tm["grow"]:
+        raise AssertionError("the finetune did not run its steps, one prune "
+                             "and a probe-and-grow")
+    if not (res["final_psnr"] > FT_PSNR and res["final_psnr"] > psnr0):
+        raise AssertionError(f"final test PSNR {res['final_psnr']:.3f} not "
+                             f"above {FT_PSNR} and the initial {psnr0:.3f}")
+    del res
+    torch.cuda.empty_cache()
+    res2 = train_ft.main(opt)
+    log(f"finetune resume: total_steps {res2['total_steps']}, "
+        f"{res2['timing']['steps']} steps run, final test PSNR "
+        f"{res2['final_psnr']:.3f}")
+    if res2["total_steps"] != FT_STEPS or res2["timing"]["steps"] != 0:
+        raise AssertionError("the second main did not resume and stop")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -804,17 +1032,30 @@ def main() -> int:
     k5 = check_shade_bwd(agg, opt, *tier_rows(chunk * opt.SR))
     del agg0
     torch.cuda.empty_cache()
+    # K6 at its script's shapes (its train-step shapes follow the train
+    # path), K7 at occ_micro3's
+    from pointnerf_tpu_torch.scripts.scatter_pallas import script_inputs
+    idx_np, upd_np = script_inputs(**SCATTER_SCRIPT)
+    check_scatter("scatter_pallas.py shapes (dup 6)",
+                  torch.as_tensor(idx_np, device=dev),
+                  torch.as_tensor(upd_np, device=dev), SCATTER_SCRIPT["cap"])
+    del idx_np, upd_np
+    k7 = check_row_select(dev)
+    torch.cuda.empty_cache()
 
-    # the main paths, default (K1, K2, K3) then fused_shade (K4, K5, K3)
+    # the main paths, default (K1, K2, K3, K6 in training) then fused_shade
+    # (K4, K5, K3, K6 in training)
     shade_opt = opt.replace(fused_shade=1)
-    default_k = (kernels.TRUNK_FWD, kernels.TRUNK_BWD, kernels.OCCUPANCY)
-    shade_k = (kernels.SHADE_FWD, kernels.SHADE_BWD, kernels.OCCUPANCY)
+    default_k = (kernels.TRUNK_FWD, kernels.OCCUPANCY, kernels.TRUNK_BWD,
+                 kernels.SCATTER_ROWS)
+    shade_k = (kernels.SHADE_FWD, kernels.OCCUPANCY, kernels.SHADE_BWD,
+               kernels.SCATTER_ROWS)
     serve, maps, stats = serve_path(opt, state, spec, grid, agg, ts, item,
-                                    "serve", default_k[::2])
+                                    "serve", default_k[:2])
     torch.cuda.empty_cache()
     serve_s, maps_s, stats_s = serve_path(shade_opt, state, spec, grid, agg,
                                           ts, item, "serve fused_shade",
-                                          shade_k[::2])
+                                          shade_k[:2])
     diff = float(np.abs(maps_s["coarse_raycolor"]
                         - maps["coarse_raycolor"]).max())
     log(f"serve fused_shade vs default image: max_abs_diff {diff:.3e}; "
@@ -830,7 +1071,15 @@ def main() -> int:
     train, st, batch, losses = train_path(opt, state, spec, grid, "train",
                                           default_k)
     check_train_cpu(st, batch, opt, spec, grid, "train")
-    del st
+    from pointnerf_tpu_torch.train import trainer
+    with ScatterRecorder() as rec:
+        trainer.compute_grads(st, grid, batch, opt, spec,
+                              trainer.jitter_draws(st, batch, opt))
+    log(f"train step's point-gradient scatters: S "
+        f"{[c[0].shape[0] for c in rec.calls]}, cap {rec.calls[0][2]}")
+    k6 = check_scatter("one train step's wide tier",
+                       *max(rec.calls, key=lambda c: c[0].shape[0]))
+    del st, rec
     torch.cuda.empty_cache()
     train_s, st, batch, losses_s = train_path(shade_opt, state, spec, grid,
                                               "train fused_shade", shade_k)
@@ -840,24 +1089,36 @@ def main() -> int:
         f"vs {losses[0]:.7f} (relative difference {rel:.3e})")
     if not rel <= STEP1_RTOL:
         raise AssertionError(f"the fused_shade step-1 loss differs by {rel}")
+    del st, batch, state, grid, ts, agg
+    torch.cuda.empty_cache()
 
-    runs = (serve, serve_s, train, train_s)
+    # the finetune driver at lego widths: K1, K2, K3, K6
+    import tempfile
+    with tempfile.TemporaryDirectory() as root:
+        finetune = finetune_path(root)
+
+    runs = (serve, serve_s, train, train_s, finetune)
     report = {"kernels": []}
     for k, rows in ((kernels.TRUNK_FWD, k1), (kernels.TRUNK_BWD, k2),
-                    (kernels.OCCUPANCY, None), (kernels.SHADE_FWD, k4),
-                    (kernels.SHADE_BWD, k5)):
-        if rows is None:
-            err, by = k3["err"], k3["bound_by"]
-            ms, plain_ms, b_ms = k3["ms"], k3["plain_ms"], k3["bound_ms"]
+                    (kernels.OCCUPANCY, k3), (kernels.SHADE_FWD, k4),
+                    (kernels.SHADE_BWD, k5), (kernels.SCATTER_ROWS, k6),
+                    (kernels.ROW_SELECT, k7)):
+        if isinstance(rows, dict):
+            err, by, library_ms = rows["err"], rows["bound_by"], \
+                rows.get("library_ms")
+            ms, plain_ms, b_ms = rows["ms"], rows["plain_ms"], \
+                rows["bound_ms"]
         else:
-            err, by = max(r["err"] for r in rows), "operations"
+            err, by, library_ms = max(r["err"] for r in rows), \
+                "operations", None
             ms, plain_ms, b_ms = tier_sums(rows)
+        launches = rows["launches"] if k is kernels.ROW_SELECT else \
+            sum(run[k.name] for run in runs)
         report["kernels"].append(
             {"name": k.name, "route": "cuda", "source": k.source,
-             "replaces": k.replaces,
-             "launches": sum(run[k.name] for run in runs),
+             "replaces": k.replaces, "launches": launches,
              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": b_ms, "bound_by": by, "library_ms": None})
+             "bound_ms": b_ms, "bound_by": by, "library_ms": library_ms})
     log(json.dumps(report))
     log(smi)
     log(json.dumps({"ok": True, "device": {

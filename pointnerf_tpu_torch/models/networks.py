@@ -119,3 +119,51 @@ def make_lr_schedule(opt, base_lr: float):
     else:
         raise NotImplementedError(f"lr policy {opt.lr_policy}")
     return sched
+
+
+class PlateauTracker:
+    """Host-side ReduceLROnPlateau decision logic with a relative threshold
+    (copy of `pointnerf_tpu/models/networks.py::PlateauTracker`; reference
+    helpers/networks.py:50-55: factor 0.2, threshold 0.01, patience 5).
+    update(metric) returns True when the lr should be multiplied by the
+    factor now. mode="min" tracks a loss (improves iff metric <
+    best·(1 − threshold)); mode="max" a quality score such as PSNR
+    (improves iff metric > best·(1 + threshold)). A negated score in min
+    mode never fires, as in torch: the relative test assumes positive
+    metrics."""
+
+    def __init__(self, factor: float = 0.2, threshold: float = 0.01,
+                 patience: int = 5, mode: str = "min"):
+        if mode not in ("min", "max"):
+            raise ValueError(f"mode must be min or max, not {mode}")
+        self.factor = factor
+        self.threshold = threshold
+        self.patience = patience
+        self.mode = mode
+        self.best = float("inf") if mode == "min" else float("-inf")
+        self.num_bad = 0
+
+    def _is_better(self, metric: float) -> bool:
+        if self.mode == "min":
+            return metric < self.best * (1.0 - self.threshold)
+        return metric > self.best * (1.0 + self.threshold)
+
+    def update(self, metric: float) -> bool:
+        if self._is_better(metric):
+            self.best = metric
+            self.num_bad = 0
+            return False
+        self.num_bad += 1
+        if self.num_bad > self.patience:
+            self.num_bad = 0
+            return True
+        return False
+
+    def state_dict(self) -> dict:
+        return {"plateau_best": self.best, "plateau_num_bad": self.num_bad}
+
+    def load_state_dict(self, d: dict) -> None:
+        if "plateau_best" in d:
+            self.best = float(d["plateau_best"])
+        if "plateau_num_bad" in d:
+            self.num_bad = int(d["plateau_num_bad"])

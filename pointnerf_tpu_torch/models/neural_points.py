@@ -1,16 +1,21 @@
 """Neural point cloud state: fixed-capacity buffers with an active-slot mask.
 
-PyTorch port of `pointnerf_tpu/models/neural_points.py` (the serving side:
-building the padded state and gathering neighbor attributes). Padded slots
-sit at SENTINEL, far outside every grid range, with conf 0.
+PyTorch port of `pointnerf_tpu/models/neural_points.py`: building the
+padded state, gathering neighbor attributes, and the masked prune and grow.
+Padded slots sit at SENTINEL, far outside every grid range, with conf 0.
+Prune and grow write the buffers in place (under no_grad), so an optimizer
+that holds them as parameters keeps them; the JAX package returns new
+arrays instead.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..ops.scatter import scatter_add_rows
 
 SENTINEL = 1.0e6  # parked position for inactive slots (outside any scene range)
 
@@ -60,13 +65,53 @@ def create_point_cloud(xyz: np.ndarray,
     }
 
 
+def num_active(state: Dict) -> torch.Tensor:
+    return state["mask"].sum(dtype=torch.int32)
+
+
+@torch.no_grad()
+def prune(state: Dict, thresh: float) -> Dict:
+    """Deactivate the slots whose conf is below `thresh` and park them at
+    SENTINEL (reference: neural_points.py:347-370), in place; returns
+    `state`."""
+    keep = state["mask"] & (state["conf"][:, 0] >= thresh)
+    state["mask"].copy_(keep)
+    state["xyz"][~keep] = SENTINEL
+    return state
+
+
+@torch.no_grad()
+def grow(state: Dict, add_xyz, add_embedding, add_color, add_dir, add_conf,
+         add_mask) -> Tuple[Dict, int]:
+    """Write candidates into free slots (reference: neural_points.py:373-
+    399), in place. add_* [M, ...] tensors, add_mask [M] marks the real
+    ones. The k-th real candidate goes to the k-th free slot in index order
+    (the JAX package's cumsum ranking); those past the free slots are
+    dropped and counted. Returns (state, n_dropped). A reused slot's other
+    buffers (and any optimizer moments) keep what the pruned point left."""
+    mask = state["mask"]
+    free_slots = torch.nonzero(~mask).reshape(-1)
+    add_mask = add_mask.to(device=mask.device, dtype=torch.bool)
+    cand_rank = torch.cumsum(add_mask.to(torch.int64), 0) - 1
+    ok = add_mask & (cand_rank < free_slots.shape[0])
+    target = free_slots[cand_rank[ok]]
+    for k, add in (("xyz", add_xyz), ("embedding", add_embedding),
+                   ("color", add_color), ("dir", add_dir), ("conf", add_conf)):
+        if state.get(k) is not None:
+            buf = state[k]
+            buf[target] = add.to(device=buf.device, dtype=buf.dtype)[ok]
+    mask[target] = True
+    return state, int(add_mask.sum()) - int(ok.sum())
+
+
 class _GatherRows(torch.autograd.Function):
-    """rows = table[idx] whose backward is one accumulating index_put_ into
-    the [N, C] table. Missing neighbors read row 0, so most of idx can be 0;
-    an accumulating index_put_ sums each run of one index serially on the
-    card, so the missing rows' gradients are summed apart (one column sum,
-    added to row 0) and their index slots spread over the table with zero
-    gradients. The result is the plain scatter-add's, in a fixed order."""
+    """rows = table[idx] whose backward is one row scatter-add into the
+    [N, C] table (`ops.scatter.scatter_add_rows`: K6 on the card, an
+    accumulating index_put_ on the CPU). Missing neighbors read row 0, so
+    most of idx can be 0, and a run of one index serializes (index_put_ on
+    the card) or contends (K6's atomics): the missing rows' gradients are
+    summed apart, one column sum added to row 0, and their slots are passed
+    to the scatter as -1, which it skips."""
 
     @staticmethod
     def forward(ctx, table, idx, present):
@@ -78,12 +123,8 @@ class _GatherRows(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, ct):
         idx, present = ctx.saved_tensors
+        d = scatter_add_rows(torch.where(present, idx, -1), ct, ctx.n_rows)
         keep = present[:, None].to(ct.dtype)
-        spread = torch.arange(idx.shape[0], device=idx.device) % ctx.n_rows
-        d = torch.zeros((ctx.n_rows, ct.shape[1]), dtype=ct.dtype,
-                        device=ct.device)
-        d.index_put_((torch.where(present, idx, spread),), ct * keep,
-                     accumulate=True)
         d[0] += torch.sum(ct * (1.0 - keep), dim=0)
         return d, None, None
 

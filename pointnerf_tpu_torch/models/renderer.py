@@ -189,10 +189,12 @@ TRAIN_JITTER = 0.3     # depth-sample jitter at train (point_query.py:78-81)
 
 def render_query(point_state: Dict, grid: Dict, spec: GridSpec, opt,
                  batch: Dict, is_train: bool = False,
-                 u: Optional[torch.Tensor] = None) -> QueryOut:
+                 u: Optional[torch.Tensor] = None,
+                 prob: bool = False) -> QueryOut:
     """Query phase: ray samples → voxel walk → KNN indices (world coords).
     No gradient flows through it. At train the depth samples are jittered
-    by the uniform draws u [B,R,z_depth_dim] (on the rays' device)."""
+    by the uniform draws u [B,R,z_depth_dim] (on the rays' device). Probe
+    mode needs every row's statistics, so it runs uncompacted."""
     if opt.wcoord_query == 0:
         raise NotImplementedError("the frustum querier is not ported")
     if opt.NN < 0:
@@ -208,7 +210,7 @@ def render_query(point_state: Dict, grid: Dict, spec: GridSpec, opt,
     B, R = raydir.shape[0], raydir.shape[1]
     if int(getattr(opt, "comp_groups", 1)) != 1:
         raise NotImplementedError("comp_groups > 1 is not ported")
-    Nc = effective_sr_budget(opt, B * R * opt.SR)
+    Nc = effective_sr_budget(opt, B * R * opt.SR) if not prob else 0
     (sample_pidx, sample_loc_w, ray_mask, q_overflow, comp,
      occ_over) = query_grid_points(
         campos, raydir, mid_ts, grid, spec, SR=opt.SR, K=opt.K, Nc=Nc)
@@ -217,13 +219,17 @@ def render_query(point_state: Dict, grid: Dict, spec: GridSpec, opt,
 
 
 def render_shade(agg, point_state: Dict, spec: GridSpec, opt, batch: Dict,
-                 query_out: QueryOut) -> Dict:
+                 query_out: QueryOut, prob: bool = False) -> Dict:
     """Shade phase: gather attributes → aggregate → ray march.
 
     Differentiable in `agg` and the point buffers. With compaction the
     output also holds the compact-form loss leaves (conf_compact,
     weight_compact, compact_valid, zero_one_total) that compute_losses
-    reads in place of the full-shape conf and weight."""
+    reads in place of the full-shape conf and weight. With `prob` (an
+    uncompacted query) it adds the probe statistics of point growing
+    (reference: neural_points_volumetric_model.py:331-362): per ray the
+    sample of largest opacity, its location, its distance to the nearest
+    of its neighbors and the weight·conf-weighted neighbor attributes."""
     raydir, campos = batch["raydir"], batch["campos"]
     camrotc2w = batch["camrotc2w"]
     B, R, _ = raydir.shape
@@ -234,7 +240,10 @@ def render_shade(agg, point_state: Dict, spec: GridSpec, opt, batch: Dict,
     sample_ray_dirs = raydir[:, :, None, :].expand(sample_loc.shape)
     SR = sample_loc.shape[2]
     S = B * R * SR
-    if q_comp is None and 0 < effective_sr_budget(opt, S) < S:
+    if prob and q_comp is not None:
+        raise ValueError("probe mode needs an uncompacted query "
+                         "(render_query(prob=True))")
+    if q_comp is None and 0 < effective_sr_budget(opt, S) < S and not prob:
         raise NotImplementedError("shade-side compaction (frustum path) is "
                                   "not ported")
     if q_comp is not None:
@@ -349,16 +358,48 @@ def render_shade(agg, point_state: Dict, spec: GridSpec, opt, batch: Dict,
         w = opacity * acc_transmission
         output["coarse_depth"] = torch.sum(w * zs, dim=-1) / (
             torch.sum(w, dim=-1) + 1e-6)
+    if prob:
+        output.update(_probe_stats(opacity, sample_loc_w, weight,
+                                   conf_coefficient, g))
     return output
 
 
+def _probe_stats(opacity, sample_loc_w, weight, conf_coefficient,
+                 g) -> Dict:
+    """Per ray, at the sample of largest opacity (the first on ties, as
+    jnp.argmax): the opacity, the world location, the distance to its
+    nearest neighbor and each attribute's weight·conf-weighted neighbor
+    sum (JAX renderer.py:573-601)."""
+    op_max, op_ind = torch.max(opacity, dim=-1, keepdim=True)     # [B,R,1]
+    B, R = op_ind.shape[:2]
+
+    def take(a):                      # [B,R,SR,*] → [B,R,*] at op_ind
+        idx = op_ind.reshape((B, R, 1) + (1,) * (a.dim() - 3))
+        return torch.gather(a, 2, idx.expand((B, R, 1) + a.shape[3:]))[:, :, 0]
+
+    loc = take(sample_loc_w)                                        # [B,R,3]
+    sel_w = take(weight * conf_coefficient)[..., None]              # [B,R,K,1]
+    out = {"ray_max_shading_opacity": op_max, "ray_max_sample_loc_w": loc}
+    sxyz = take(g["sampled_xyz"])                                   # [B,R,K,3]
+    out["ray_max_far_dist"] = torch.min(torch.linalg.norm(
+        sxyz - loc[..., None, :], dim=-1), dim=-1, keepdim=True).values
+    for name, key in (("shading_avg_color", "sampled_color"),
+                      ("shading_avg_dir", "sampled_dir"),
+                      ("shading_avg_conf", "sampled_conf"),
+                      ("shading_avg_embedding", "sampled_embedding")):
+        if g.get(key) is not None:
+            out[name] = torch.sum(take(g[key]) * sel_w, dim=-2)
+    return out
+
+
 def render_forward(agg, point_state: Dict, grid: Dict, spec: GridSpec, opt,
-                   batch: Dict) -> Dict:
+                   batch: Dict, prob: bool = False) -> Dict:
     """Render a batch of rays (query + shade).
 
     batch: raydir [B,R,3], campos [B,3], camrotc2w [B,3,3], near/far
     scalars, bg_color [B,3]. Returns the reference output dict
-    (coarse_raycolor, ray_mask, coarse_point_opacity, ...).
+    (coarse_raycolor, ray_mask, coarse_point_opacity, ...), with the probe
+    statistics when `prob` is set (see render_shade).
     """
-    q = render_query(point_state, grid, spec, opt, batch)
-    return render_shade(agg, point_state, spec, opt, batch, q)
+    q = render_query(point_state, grid, spec, opt, batch, prob=prob)
+    return render_shade(agg, point_state, spec, opt, batch, q, prob=prob)

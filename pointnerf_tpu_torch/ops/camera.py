@@ -1,7 +1,7 @@
 """Camera / ray utilities (port of `pointnerf_tpu/ops/camera.py`).
 
-`w2pers` works on tensors; `get_blender_raydir` is the numpy host-side ray
-generator the NeRF-Synthetic data pipeline uses.
+`w2pers` works on tensors; `get_blender_raydir` and `get_dtu_raydir` are
+the numpy host-side ray generators of the data pipeline.
 """
 
 from __future__ import annotations
@@ -35,6 +35,21 @@ def get_blender_raydir(pixelcoords, height, width, focal, rot_c2w,
     z = np.ones_like(x)
     dirs = np.stack([x, -y, -z], axis=-1)
     dirs = np.sum(dirs[..., None, :] * rot_c2w[:, :], axis=-1)
+    if dir_norm:
+        dirs = dirs / (np.linalg.norm(dirs, axis=-1, keepdims=True) + 1e-5)
+    return dirs.astype(np.float32)
+
+
+def get_dtu_raydir(pixelcoords, intrinsic, rot_c2w,
+                   dir_norm: bool = True) -> np.ndarray:
+    """Pixel coords → world ray dirs, OpenCV convention with the +0.5 pixel
+    center (reference data_utils.py:55-69). pixelcoords [..., 2] (x, y),
+    intrinsic [3,3], rot_c2w [3,3]; numpy, for the host data pipeline."""
+    x = (pixelcoords[..., 0] + 0.5 - intrinsic[0, 2]) / intrinsic[0, 0]
+    y = (pixelcoords[..., 1] + 0.5 - intrinsic[1, 2]) / intrinsic[1, 1]
+    z = np.ones_like(x)
+    dirs = np.stack([x, y, z], axis=-1)
+    dirs = dirs @ rot_c2w.T
     if dir_norm:
         dirs = dirs / (np.linalg.norm(dirs, axis=-1, keepdims=True) + 1e-5)
     return dirs.astype(np.float32)

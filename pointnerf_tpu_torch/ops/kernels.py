@@ -51,7 +51,12 @@ SHADE_FWD = Kernel("shade_fwd", "pointnerf_tpu_torch/csrc/shade_fwd.cu",
                    "pointnerf_tpu/ops/pallas_trunk.py:512")
 SHADE_BWD = Kernel("shade_bwd", "pointnerf_tpu_torch/csrc/shade_bwd.cu",
                    "pointnerf_tpu/ops/pallas_trunk.py:543")
-KERNELS = (TRUNK_FWD, TRUNK_BWD, OCCUPANCY, SHADE_FWD, SHADE_BWD)
+SCATTER_ROWS = Kernel("scatter_rows", "pointnerf_tpu_torch/csrc/scatter_rows.cu",
+                      "scripts/scatter_pallas.py:68")
+ROW_SELECT = Kernel("row_select", "pointnerf_tpu_torch/csrc/row_select.cu",
+                    "scripts/occ_micro3.py:134")
+KERNELS = (TRUNK_FWD, TRUNK_BWD, OCCUPANCY, SHADE_FWD, SHADE_BWD,
+           SCATTER_ROWS, ROW_SELECT)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -62,6 +67,9 @@ _SIGNATURES = {
     + [ctypes.c_float] * 6 + [_I] * 3 + [_P],
     "shade_fwd": [_P] * 25 + [_I] * 12 + [_P],
     "shade_bwd": [_P] * 37 + [_I] * 13 + [_P],
+    "scatter_rows": [_P] * 3 + [_I] * 3 + [_P],
+    "row_select": [_P] * 4 + [_I] * 4 + [ctypes.c_longlong] + [_I] * 2
+    + [_P],
 }
 
 

@@ -9,7 +9,9 @@ the JAX package's exactly.
 
 The occupancy test `mask_raypos_segmented` launches the CUDA kernel
 `csrc/occupancy.cu` on CUDA tensors; its plain version is the dense
-`mask_raypos`.
+`mask_raypos`. `row_select`, the per-sample select of the segment-cached
+occupancy experiment (`pointnerf_tpu_torch/scripts/occ_micro3.py`; no
+production path runs it), launches `csrc/row_select.cu`.
 """
 
 from __future__ import annotations
@@ -90,6 +92,56 @@ def _occupancy_launch(campos, raydir, tvals, grid, spec: GridSpec):
                         *mn, *inv, *spec.vdim, kernels.stream_handle(tvals))
     kernels.check(err, kernels.OCCUPANCY)
     kernels.OCCUPANCY.launches += 1
+    return out
+
+
+def row_select_reference(rows_g: torch.Tensor, rank: torch.Tensor,
+                         lane: torch.Tensor) -> torch.Tensor:
+    """The plain version of `row_select`: advanced indexing."""
+    N, U, LW = rows_g.shape
+    n = torch.arange(N, device=rank.device)[:, None]
+    r = rank.long().clamp(0, U - 1)
+    return rows_g[n, r, lane.long().clamp(0, LW - 1)].to(torch.float32)
+
+
+def row_select(rows_g: torch.Tensor, rank: torch.Tensor, lane: torch.Tensor,
+               rays_per_cta: int = 16) -> torch.Tensor:
+    """Segmented occupancy row select: occ[n, d] = rows_g[n, rank[n, d],
+    lane[n, d]] as float32.
+
+    rows_g [N, U, LW] int8 or bf16 (each ray's cached occupancy rows; a
+    ray stride of 0, as from `expand`, shares one row set across rays),
+    rank/lane [N, D] integers, clamped to [0, U) and [0, LW). On CUDA
+    tensors it launches `csrc/row_select.cu` (K7, replaces
+    `scripts/occ_micro3.py::run_kernel`) with `rays_per_cta` rays per CTA
+    (the TPU's Rt); on CPU tensors it runs `row_select_reference`."""
+    if rank.device.type == "cpu":
+        return row_select_reference(rows_g, rank, lane)
+    if rank.device.type != "cuda":
+        raise ValueError(f"row_select runs on cpu or cuda, not {rank.device}")
+    dev = rank.device
+    N, U, LW = rows_g.shape
+    D = rank.shape[1]
+    codes = {torch.int8: 0, torch.bfloat16: 1}
+    if rows_g.dtype not in codes:
+        raise ValueError(f"rows_g has dtype {rows_g.dtype}, expected int8 or "
+                         f"bfloat16")
+    if rows_g.device != dev:
+        raise ValueError(f"rows_g is on {rows_g.device}, expected {dev}")
+    if rows_g.stride()[1:] != (LW, 1) or rows_g.stride(0) not in (0, U * LW):
+        raise ValueError("rows_g must be [N, U, LW] with contiguous rows and "
+                         "a ray stride of U·LW or 0")
+    rank = rank.to(torch.int32).contiguous()
+    lane = lane.to(torch.int32).contiguous()
+    kernels.require(rank, "rank", torch.int32, dev, (N, D))
+    kernels.require(lane, "lane", torch.int32, dev, (N, D))
+    out = torch.empty((N, D), dtype=torch.float32, device=dev)
+    err = kernels.library().row_select(
+        rows_g.data_ptr(), rank.data_ptr(), lane.data_ptr(), out.data_ptr(),
+        N, D, U, LW, rows_g.stride(0), int(rays_per_cta),
+        codes[rows_g.dtype], kernels.stream_handle(rank))
+    kernels.check(err, kernels.ROW_SELECT)
+    kernels.ROW_SELECT.launches += 1
     return out
 
 

@@ -1,17 +1,215 @@
-"""Full-image rendering (port of the serving half of `pointnerf_tpu/run/common.py`)."""
+"""Shared driver machinery: CLI options, point-cloud init, full-image
+rendering (port of `pointnerf_tpu/run/common.py`).
+
+Reference anchors: run/train_ft.py:636-732 (BRANCH C point loading),
+:252-414 (chunked test render), models/mvs/mvs_utils.py:537-561 (voxel
+downsample). Not ported (raise): the pickled surface cloud (`cloud_path`),
+sensor-depth points (`load_points` 2 and 3), `comb_file`, and the MVS
+init (`load_points 0`, ROADMAP §1 item 9).
+"""
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
+import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..config import PRESETS, Options, validate_options
+from ..data.ply import read_ply_points
+from ..models import neural_points as npc
 from ..models.renderer import effective_sr_budget
 from ..ops.grid import build_grid, make_grid_spec
 from ..train import trainer
 
 CONST_BATCH_KEYS = ("campos", "camrotc2w", "bg_color")
+# the probe render's maps (reference probe_hole, train_ft.py:470-494)
+PROBE_KEYS = ("coarse_raycolor", "ray_mask", "ray_max_sample_loc_w",
+              "ray_max_far_dist", "ray_max_shading_opacity",
+              "shading_avg_color", "shading_avg_dir", "shading_avg_conf",
+              "shading_avg_embedding")
+
+
+# ----------------------------------------------------------------- CLI plumbing
+def options_from_cli(argv=None, base: Optional[Options] = None) -> Options:
+    """argparse over the Options dataclass, one flag per field with the
+    reference's names (reference: options/base_options.py), on top of
+    --preset name[:scan] or --config opt.json."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--preset", type=str, default="",
+                        help="preset name, e.g. nerf_synth:lego")
+    parser.add_argument("--config", type=str, default="",
+                        help="path to an Options json")
+    known, unknown = parser.parse_known_args(argv)
+    if known.config:
+        with open(known.config) as f:
+            base = Options.from_json(f.read())
+    elif known.preset:
+        name, _, scan = known.preset.partition(":")
+        base = PRESETS[name](scan or "lego")
+    base = base or Options()
+
+    fields = {f.name: f for f in dataclasses.fields(Options)}
+    over = argparse.ArgumentParser()
+    for name in fields:
+        cur = getattr(base, name)
+        if isinstance(cur, bool):
+            over.add_argument(f"--{name}", type=int, default=None)
+        elif isinstance(cur, tuple):
+            elem = float if (len(cur) and isinstance(cur[0], float)) else \
+                (int if (len(cur) and isinstance(cur[0], int)) else str)
+            over.add_argument(f"--{name}", type=elem, nargs="*", default=None)
+        elif cur is None:
+            over.add_argument(f"--{name}", type=str, default=None)
+        else:
+            over.add_argument(f"--{name}", type=type(cur), default=None)
+    ns = over.parse_args(unknown)
+    kw = {}
+    for name in fields:
+        v = getattr(ns, name)
+        if v is None:
+            continue
+        cur = getattr(base, name)
+        if isinstance(cur, bool):
+            v = bool(v)
+        elif isinstance(cur, tuple):
+            v = tuple(v)
+        elif cur is None and name == "max_o":
+            v = int(v)
+        elif cur is None and name in ("mvs_lr", "far_plane_shift"):
+            v = float(v)
+        kw[name] = v
+    return validate_options(base.replace(**kw) if kw else base)
+
+
+# ------------------------------------------------------------- point-cloud init
+def construct_vox_points_closest(xyz: np.ndarray, vox_res: int,
+                                 ranges: Optional[np.ndarray] = None
+                                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """Voxel downsample keeping the point nearest each voxel's centroid
+    (reference: mvs_utils.construct_vox_points_closest, mvs_utils.py:537-
+    561). A sort keyed (voxel, distance) makes each voxel's first element
+    its winner, ties to the lowest original index. Returns (kept xyz
+    float32, kept indices, ascending)."""
+    xyz = np.asarray(xyz, np.float64)
+    if ranges is None:
+        mn, mx = xyz.min(0), xyz.max(0)
+    else:
+        mn, mx = np.asarray(ranges[:3]), np.asarray(ranges[3:])
+    vsize = np.maximum(mx - mn, 1e-9).max() / vox_res
+    coords = np.floor((xyz - mn) / vsize).astype(np.int64)
+    dims = coords.max(0) + 1
+    lin = (coords[:, 0] * dims[1] + coords[:, 1]) * dims[2] + coords[:, 2]
+
+    order = np.argsort(lin, kind="stable")
+    lin_s = lin[order]
+    starts = np.flatnonzero(np.concatenate([[True], lin_s[1:] != lin_s[:-1]]))
+    counts = np.diff(np.concatenate([starts, [len(lin_s)]]))
+    xyz_s = xyz[order]
+    centroids = np.add.reduceat(xyz_s, starts, axis=0) / counts[:, None]
+    seg_id = np.repeat(np.arange(len(starts)), counts)
+    d = np.sum((xyz_s - centroids[seg_id]) ** 2, axis=-1)
+    keep = order[np.lexsort((d, lin_s))][starts]
+    keep.sort()
+    return xyz[keep].astype(np.float32), keep
+
+
+def _vox_partition(xyz: np.ndarray, vox_res: int, space_min=None,
+                   space_max=None):
+    """Centered cubic voxel partition (reference mvs_utils.py:484-500: edge
+    1.05× the largest extent, centered on the cloud; given space_min/max
+    the per-axis edge is reused so two clouds share one partition).
+    Returns (int32 voxel coords, space_min, space_max)."""
+    xyz = np.asarray(xyz, np.float64)
+    if space_min is None:
+        mn, mx = xyz.min(0), xyz.max(0)
+        edge = np.max(mx - mn) * 1.05
+        mid = (mx + mn) / 2
+        space_min, space_max = mid - edge / 2, mid + edge / 2
+    else:
+        space_min = np.asarray(space_min, np.float64)
+        space_max = np.asarray(space_max, np.float64)
+        edge = space_max - space_min
+    coords = np.floor((xyz - space_min) / (edge / vox_res)).astype(np.int32)
+    return coords, space_min, space_max
+
+
+def init_point_state_from_dataset(opt, dataset, device="cuda") -> Dict:
+    """BRANCH C of the reference driver (train_ft.py:636-732) with the
+    provided cloud (load_points 1): the dataset's points cropped to
+    opt.ranges, voxel-downsampled, optionally resampled, then the
+    per-point attributes (`_finish_point_state`), on `device`."""
+    if opt.cloud_path:
+        raise NotImplementedError("the pickled surface cloud (cloud_path) "
+                                  "is not ported")
+    if opt.load_points != 1:
+        raise NotImplementedError(f"load_points {opt.load_points} is not "
+                                  f"ported (sensor-depth points; MVS init "
+                                  f"is ROADMAP §1 item 9)")
+    if opt.comb_file:
+        raise NotImplementedError("comb_file is not ported")
+    xyz = np.asarray(dataset.load_init_points())
+    rgb = None
+    path = os.path.join(opt.data_root, opt.scan,
+                        "colmap_results/dense/fused.ply")
+    if os.path.exists(path):
+        _, rgb = read_ply_points(path)
+        if rgb is not None and len(rgb) != len(xyz):
+            rgb = None
+    ranges = np.asarray(opt.ranges, np.float32)
+    if ranges[0] > -99.0:
+        keep = np.all((xyz >= ranges[:3]) & (xyz <= ranges[3:]), axis=-1)
+        xyz = xyz[keep]
+        rgb = rgb[keep] if rgb is not None else None
+    if opt.vox_res > 0:
+        xyz, idx = construct_vox_points_closest(xyz, opt.vox_res)
+        rgb = rgb[idx] if rgb is not None else None
+    if opt.resample_pnts > 0:
+        # reference train_ft.py:698-704: 1 keeps the point nearest the
+        # origin, N a random subsample of N points
+        if opt.resample_pnts == 1:
+            idx = np.argmin(np.linalg.norm(xyz, axis=-1))[None]
+        else:
+            idx = np.random.RandomState(opt.seed).permutation(
+                len(xyz))[: opt.resample_pnts]
+        xyz = xyz[idx]
+        rgb = rgb[idx] if rgb is not None else None
+    return _finish_point_state(opt, dataset, xyz, rgb, device)
+
+
+def _finish_point_state(opt, dataset, xyz: np.ndarray,
+                        rgb: Optional[np.ndarray], device="cuda") -> Dict:
+    """Per-point attribute init (reference train_ft.py:706-732): the
+    direction to the nearest train camera, embeddings by
+    opt.feature_init_method from RandomState(opt.seed), conf
+    opt.default_conf (0.3 if unset), colors from the ply or 0.5."""
+    n = xyz.shape[0]
+    campos, _ = dataset.get_campos_ray()
+    d = xyz[:, None, :] - campos[None]                    # [N,V,3]
+    nearest = np.argmin(np.linalg.norm(d, axis=-1), axis=-1)
+    dirs = d[np.arange(n), nearest]
+    dirs = dirs / (np.linalg.norm(dirs, axis=-1, keepdims=True) + 1e-6)
+
+    method = opt.feature_init_method
+    rng = np.random.RandomState(opt.seed)
+    C = opt.point_features_dim
+    if opt.point_init_emb_std > 0:
+        emb = rng.normal(0, opt.point_init_emb_std, (n, C)).astype(np.float32)
+    elif method == "zeros":
+        emb = np.zeros((n, C), np.float32)
+    elif method.startswith("gau"):
+        emb = rng.normal(0, float(method.split("_")[1]), (n, C)).astype(
+            np.float32)
+    else:                                   # "rand" and the rest
+        emb = rng.uniform(-0.5, 0.5, (n, C)).astype(np.float32)
+    conf_val = opt.default_conf if opt.default_conf > 0 else 0.3
+    conf = np.full((n, 1), conf_val, np.float32)
+    color = rgb if rgb is not None else np.full((n, 3), 0.5, np.float32)
+    return npc.create_point_cloud(xyz, emb, color, dirs.astype(np.float32),
+                                  conf, device=device)
 
 
 def chunks_of_item(item: Dict, chunk_rays: int):
@@ -51,13 +249,16 @@ def make_spec_and_grid(opt, state: Dict):
 @torch.inference_mode()
 def render_image(ts: trainer.ServeState, grid, opt, spec, item: Dict,
                  keys: Tuple[str, ...] = ("coarse_raycolor", "ray_mask"),
-                 group: int = 8, stats: Optional[Dict] = None
-                 ) -> Dict[str, np.ndarray]:
+                 group: int = 8, stats: Optional[Dict] = None,
+                 prob: bool = False) -> Dict[str, np.ndarray]:
     """Chunked full-image render into [H,W,C] host maps (reference
-    run/train_ft.py:283-322).
+    run/train_ft.py:283-322 test, :470-494 probe_hole).
 
     Chunks of random_sample_size² rays render `group` at a time as one wide
-    eval_step over group·chunk rays. Eval never drops a
+    eval_step over group·chunk rays. The probe render (`prob`, with
+    keys=PROBE_KEYS) is uncompacted, so it renders chunk by chunk: one
+    wide uncompacted group would gather [1, group·chunk, SR, K, 42] rows
+    (≈390 MB a 3,600-ray chunk at lego widths). Eval never drops a
     valid shading row: a group whose compaction budget overflows is
     re-rendered up a static budget ladder (2x the budget, then compaction
     off), and the raised rung persists for the rest of the image.
@@ -91,16 +292,16 @@ def render_image(ts: trainer.ServeState, grid, opt, spec, item: Dict,
     def run_group(pending, opt_used):
         stacked = {"raydir": torch.as_tensor(
             np.stack([p[0]["raydir"] for p in pending]), device=dev)}
-        if int(opt_used.SR_budget) != 0:
+        if int(opt_used.SR_budget) != 0 and not prob:
             # explicit budgets are per-chunk numbers: scale by the group
             if int(opt_used.SR_budget) > 0:
                 opt_used = opt_used.replace(
                     SR_budget=int(opt_used.SR_budget) * len(pending))
             return trainer.eval_chunks_stacked(ts, grid, stacked, const_batch,
                                                opt_used, spec)
-        # budget-off rung: chunk-sized uncompacted renders
+        # budget-off rung or probe: chunk-sized uncompacted renders
         return trainer.eval_chunks(ts, grid, stacked, const_batch, opt_used,
-                                   spec)
+                                   spec, prob=prob)
 
     def finish(pending, rung_used):
         nonlocal rung, overflow, occ_overflow, n_groups

@@ -11,7 +11,10 @@ with the group's lr set from the schedule before each step is the same
 update. The JAX package packs the point moments into one [cap, 42] array
 for the TPU's lane tiling; Adam is elementwise, so the port keeps one
 moment per buffer. The port updates the state in place (`train_step`
-returns the same object). Not ported: the multi-step `lax.scan` dispatch.
+returns the same object). `expand_capacity` grows the point buffers: new
+leaf tensors, a rebuilt point optimizer whose moments are padded with
+zeros and whose step count carries over. Not ported: the multi-step
+`lax.scan` dispatch.
 """
 
 from __future__ import annotations
@@ -25,7 +28,9 @@ from torch.utils.checkpoint import checkpoint
 from ..models.aggregator import Aggregator, init_aggregator_params
 from ..models.losses import compute_losses
 from ..models.networks import make_lr_schedule
+from ..models.neural_points import SENTINEL
 from ..models.renderer import render_forward, render_query, render_shade
+from ..ops.grid import build_grid
 
 POINT_TRAINABLE_FLAGS = {
     "embedding": "feat_grad",
@@ -241,15 +246,17 @@ def train_step(state: TrainState, grid, batch: Dict, opt, spec,
 
 
 @torch.inference_mode()
-def eval_step(state, grid: Dict, batch: Dict, opt, spec) -> Dict:
-    """No-grad forward for test/render (reference base_model.test)."""
+def eval_step(state, grid: Dict, batch: Dict, opt, spec,
+              prob: bool = False) -> Dict:
+    """No-grad forward for test/render (reference base_model.test); with
+    `prob` the uncompacted probe render of point growing."""
     return render_forward(state.aggregator, point_state_of(state), grid, spec,
-                          opt, batch)
+                          opt, batch, prob=prob)
 
 
 @torch.inference_mode()
 def eval_chunks(state, grid: Dict, stacked: Dict, const_batch: Dict, opt,
-                spec) -> Dict:
+                spec, prob: bool = False) -> Dict:
     """Render n ray chunks of one camera one after another.
 
     stacked: ray-dependent leaves [n, 1, C, ...]; const_batch: per-camera
@@ -257,9 +264,9 @@ def eval_chunks(state, grid: Dict, stacked: Dict, const_batch: Dict, opt,
     n = next(iter(stacked.values())).shape[0]
     outs = [eval_step(state, grid,
                       dict(const_batch, **{k: v[i] for k, v in stacked.items()}),
-                      opt, spec) for i in range(n)]
+                      opt, spec, prob=prob) for i in range(n)]
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]
-            if k not in COMPACT_KEYS}
+            if k not in COMPACT_KEYS and outs[0][k] is not None}
 
 
 @torch.inference_mode()
@@ -287,3 +294,51 @@ def eval_chunks_stacked(state, grid: Dict, stacked: Dict, const_batch: Dict,
             split[k] = torch.zeros((n,), dtype=v.dtype, device=v.device)
             split[k][0] = v
     return split
+
+
+@torch.no_grad()
+def rebuild_grid(state, spec) -> Dict:
+    """The voxel grid of the state's live points (after a prune or grow)."""
+    points = point_state_of(state)
+    return build_grid(points["xyz"], points["mask"], spec)
+
+
+def expand_capacity(state: TrainState, new_cap: int) -> TrainState:
+    """Grow the padded point buffers to `new_cap` slots (JAX trainer.py:
+    392-438), in place; a no-op unless new_cap exceeds the capacity.
+
+    New slots are inactive: xyz at SENTINEL, mask False, the rest 0. The
+    trainable buffers become new leaf tensors, so the point optimizer is
+    rebuilt around them with each buffer's moments padded with zeros (what
+    Adam's init gives a fresh slot) and its step count carried over, so the
+    bias correction does not restart."""
+    old_cap = state.pt_static["mask"].shape[0]
+    if new_cap <= old_cap:
+        return state
+
+    def pad(v, fill):
+        if v is None or v.dim() == 0 or v.shape[0] != old_cap:
+            return v
+        ext = torch.full((new_cap - old_cap,) + tuple(v.shape[1:]), fill,
+                         dtype=v.dtype, device=v.device)
+        return torch.cat([v.detach(), ext])
+
+    def fill_of(k):
+        return SENTINEL if k == "xyz" else (False if k == "mask" else 0.0)
+
+    state.pt_static = {k: pad(v, fill_of(k)) for k, v in
+                       state.pt_static.items()}
+    old = state.opt_pts
+    new_train = {k: pad(p, fill_of(k)).requires_grad_(True)
+                 for k, p in state.pt_train.items()}
+    opt_pts = torch.optim.Adam(list(new_train.values()),
+                               lr=old.param_groups[0]["lr"], **ADAM)
+    for k, p in state.pt_train.items():
+        st = old.state.get(p)
+        if st:
+            opt_pts.state[new_train[k]] = {
+                "step": st["step"].clone(),
+                "exp_avg": pad(st["exp_avg"], 0.0),
+                "exp_avg_sq": pad(st["exp_avg_sq"], 0.0)}
+    state.pt_train, state.opt_pts = new_train, opt_pts
+    return state

@@ -7,17 +7,38 @@ a whole JAX `TrainState` across, Adam moments and step included.
 `load_net_ray_marching_npz` reads the ``{step}_net_ray_marching.npz`` every
 JAX checkpoint writes (reference key names; torch Linear weights [out, in])
 with numpy alone.
+
+The driver's checkpoints (port of `pointnerf_tpu/utils/checkpoint.py:106-
+214`) use the JAX package's files, so either side resumes the other's:
+
+  {step}_net_ray_marching.npz  reference key names, active points only
+  {step}_states.npz            counters (total_steps, best_PSNR, ...)
+  {step}_full.npz              the whole train state under the JAX
+                               `TrainState`'s key paths (`save_pytree_npz`),
+                               both Adam states included
+
+The port writes the point-Adam moments per buffer
+(``.opt_state_pts/0/.mu/{buffer}``) and reads that layout or the packed
+one (``.opt_state_pts/0/.mu`` [cap, ΣC], sorted-key columns); JAX's
+`load_pytree_npz` converts between them. Loading validates every width
+against the options; the capacity follows the file. The jitter generator
+is not part of the JAX state: a resumed run reseeds it from the seed and
+the step.
 """
 
 from __future__ import annotations
 
+import glob
+import os
 import re
-from typing import Dict, Tuple
+from types import SimpleNamespace
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..models.aggregator import Aggregator, aggregator_from_layers
+from ..models.aggregator import (Aggregator, aggregator_from_layers,
+                                 init_aggregator_params)
 from ..models.neural_points import create_point_cloud
 from ..train import trainer
 
@@ -137,11 +158,10 @@ def from_jax_train_state(ts, opt, device="cuda") -> "trainer.TrainState":
     return state
 
 
-def load_net_ray_marching_npz(path: str) -> Tuple[Dict, Dict]:
-    """Read a ``{step}_net_ray_marching.npz`` into (agg_params, point_arrays)
-    numpy dicts in the JAX layout (w [in,out]; unpadded [N,C] point arrays),
-    ready for `from_jax_params`."""
-    raw = dict(np.load(path))
+def import_reference_dict(raw: Dict[str, np.ndarray], opt=None
+                          ) -> Tuple[Dict, Dict]:
+    """Reference-style key dict → (agg_params in the JAX layout, w [in,out];
+    unpadded point arrays), ready for `from_jax_params`."""
     agg: Dict = {}
     for key, arr in raw.items():
         m = _LINEAR.match(key)
@@ -162,3 +182,192 @@ def load_net_ray_marching_npz(path: str) -> Tuple[Dict, Dict]:
     if "neural_points.Rw2c" in raw:
         pts["Rw2c"] = np.asarray(raw["neural_points.Rw2c"], np.float32)
     return agg, pts
+
+
+def load_net_ray_marching_npz(path: str) -> Tuple[Dict, Dict]:
+    """Read a ``{step}_net_ray_marching.npz`` into (agg_params, point_arrays)
+    numpy dicts in the JAX layout (w [in,out]; unpadded [N,C] point arrays),
+    ready for `from_jax_params`."""
+    return import_reference_dict(dict(np.load(path)))
+
+
+def export_reference_npz(path: str, agg: Aggregator, point_state: Dict
+                         ) -> None:
+    """Write the user-facing checkpoint with reference key names: the
+    aggregator's Linear layers ([out, in]) and the active points in slot
+    order, [1, N, C] each."""
+    out = {f"aggregator.{k}": v.detach().cpu().numpy()
+           for k, v in agg.state_dict().items()}
+    mask = point_state["mask"].cpu().numpy()
+    order = np.argsort(~mask, kind="stable")[:int(mask.sum())]
+    for ours, ref in _POINT_KEYS.items():
+        if point_state.get(ours) is not None:
+            out[ref] = point_state[ours].detach().cpu().numpy()[order][None]
+    out["neural_points.Rw2c"] = point_state["Rw2c"].cpu().numpy()
+    np.savez_compressed(path, **out)
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _jax_tree(agg: Aggregator, per_param) -> Dict[str, np.ndarray]:
+    """{"{branch}/{i}/w": [in,out], "{branch}/{i}/b"} from the aggregator's
+    parameters mapped through per_param (a tensor → tensor function)."""
+    out = {}
+    for name, p in agg.named_parameters():
+        branch, pos, kind = name.split(".")
+        v = _np(per_param(p))
+        out[f"{branch}/{int(pos) // 2}/{'w' if kind == 'weight' else 'b'}"] \
+            = v.T if kind == "weight" else v
+    return out
+
+
+def _adam_leaves(optim: torch.optim.Adam, p: torch.Tensor):
+    """(count, exp_avg, exp_avg_sq) of one parameter; zeros before the
+    first update."""
+    st = optim.state.get(p, {})
+    if "step" not in st:
+        z = torch.zeros_like(p)
+        return 0, z, z
+    return int(st["step"]), st["exp_avg"], st["exp_avg_sq"]
+
+
+def train_state_arrays(state: "trainer.TrainState") -> Dict[str, np.ndarray]:
+    """The train state flattened under the JAX `TrainState`'s key paths
+    (`pointnerf_tpu/utils/checkpoint.py::save_pytree_npz`), the point-Adam
+    moments per buffer."""
+    agg = state.aggregator
+    out = {f".agg_params/{k}": v for k, v in _jax_tree(agg, lambda p: p).items()}
+    for part, d in ((".pt_train", state.pt_train),
+                    (".pt_static", state.pt_static)):
+        for k, v in d.items():
+            if v is not None:
+                out[f"{part}/{k}"] = _np(v)
+    net = dict(agg.named_parameters())
+    count = _adam_leaves(state.opt_net, next(iter(net.values())))[0]
+    for slot, i in ((".mu", 1), (".nu", 2)):
+        tree = _jax_tree(agg, lambda p, i=i: _adam_leaves(state.opt_net,
+                                                          p)[i])
+        out.update({f".opt_state_net/0/{slot}/{k}": v
+                    for k, v in tree.items()})
+    pts_count = 0
+    for k, p in state.pt_train.items():
+        c, mu, nu = _adam_leaves(state.opt_pts, p)
+        pts_count = max(pts_count, c)
+        out[f".opt_state_pts/0/.mu/{k}"] = _np(mu)
+        out[f".opt_state_pts/0/.nu/{k}"] = _np(nu)
+    for chain, c in ((".opt_state_net", count), (".opt_state_pts", pts_count)):
+        out[f"{chain}/0/.count"] = np.int32(c)
+        out[f"{chain}/1/.count"] = np.int32(c)
+    out[".step"] = np.int32(state.step)
+    return out
+
+
+def _nest(flat: Dict[str, np.ndarray], prefix: str):
+    """The keys under `prefix/` as a nested dict (digit keys → lists)."""
+    root: Dict = {}
+    for key, v in flat.items():
+        if not key.startswith(prefix + "/"):
+            continue
+        parts = key[len(prefix) + 1:].split("/")
+        node = root
+        for q in parts[:-1]:
+            node = node.setdefault(q, {})
+        node[parts[-1]] = v
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[k]) for k in sorted(node, key=int)]
+        return {k: lists(v) for k, v in node.items()}
+    return lists(root)
+
+
+def train_state_from_arrays(flat: Dict[str, np.ndarray], opt,
+                            device="cuda") -> "trainer.TrainState":
+    """Inverse of `train_state_arrays`, reading either point-Adam layout.
+    Every width is checked against `opt`: the aggregator's parameters
+    against `init_aggregator_params(opt)`, the point buffers' columns
+    against the feature width, the trainable buffers against the *_grad
+    flags."""
+    want = {k: tuple(v.shape) for k, v in
+            init_aggregator_params(opt, device="cpu").state_dict().items()}
+    tree = _nest(flat, ".agg_params")
+    got = {k: tuple(v.shape) for k, v in _net_tensors(tree).items()}
+    if got != want:
+        raise ValueError(f"checkpoint aggregator {got} does not match the "
+                         f"options' {want}")
+    pt_train = _nest(flat, ".pt_train")
+    pt_static = _nest(flat, ".pt_static")
+    for k in ("color", "dir", "conf"):
+        if k not in pt_train:
+            pt_static.setdefault(k, None)
+    emb = {**pt_static, **pt_train}["embedding"]
+    if emb.shape[1] != opt.point_features_dim:
+        raise ValueError(f"checkpoint embedding width {emb.shape[1]}, "
+                         f"options {opt.point_features_dim}")
+
+    def chain(name):
+        mu_key = f".opt_state_{name}/0/.mu"
+        if mu_key in flat:               # packed point moments
+            mu, nu = flat[mu_key], flat[f".opt_state_{name}/0/.nu"]
+        else:
+            mu, nu = _nest(flat, mu_key), _nest(flat, f".opt_state_{name}/0/.nu")
+        return [SimpleNamespace(count=flat[f".opt_state_{name}/0/.count"],
+                                mu=mu, nu=nu)]
+
+    ts = SimpleNamespace(agg_params=tree, pt_train=pt_train,
+                         pt_static=pt_static, opt_state_net=chain("net"),
+                         opt_state_pts=chain("pts"), step=flat[".step"])
+    return from_jax_train_state(ts, opt, device)
+
+
+def save_checkpoint(ckpt_dir: str, step: int, state, opt,
+                    best_psnr: float = 0.0, best_iter: int = 0,
+                    epoch_count: int = 0,
+                    extra_counters: Optional[Dict] = None) -> None:
+    """Write the export, the counters and the full-resume file (reference:
+    train_ft.py:955-966). extra_counters carries driver state beyond the
+    reference's four (the plateau-reduced lr/plr, the PlateauTracker)."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    export_reference_npz(os.path.join(ckpt_dir,
+                                      f"{step}_net_ray_marching.npz"),
+                         state.aggregator, state.points)
+    np.savez(os.path.join(ckpt_dir, f"{step}_states.npz"),
+             epoch_count=epoch_count, total_steps=step,
+             best_PSNR=best_psnr, best_iter=best_iter,
+             **(extra_counters or {}))
+    np.savez_compressed(os.path.join(ckpt_dir, f"{step}_full.npz"),
+                        **train_state_arrays(state))
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    """The newest step with a *_states.npz (reference: train_ft.py:542-546)."""
+    steps = []
+    for p in glob.glob(os.path.join(ckpt_dir, "*_states.npz")):
+        m = re.match(r"^(\d+)_states\.npz$", os.path.basename(p))
+        if m:
+            steps.append(int(m.group(1)))
+    return max(steps) if steps else None
+
+
+_INT_COUNTERS = ("epoch_count", "total_steps", "best_iter", "plateau_num_bad")
+
+
+def load_checkpoint(ckpt_dir: str, opt, device="cuda",
+                    step: Optional[int] = None):
+    """Resume: (train state on `device`, counters). step None: the newest.
+    The jitter generator is reseeded from opt.seed and the step."""
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
+    flat = dict(np.load(os.path.join(ckpt_dir, f"{step}_full.npz")))
+    state = train_state_from_arrays(flat, opt, device)
+    state.generator.manual_seed(int(opt.seed) * 1_000_003 + state.step)
+    counters = dict(np.load(os.path.join(ckpt_dir, f"{step}_states.npz")))
+    counters = {k: (int(v) if k in _INT_COUNTERS else float(v))
+                for k, v in counters.items()}
+    return state, counters

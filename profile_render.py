@@ -34,6 +34,8 @@ FAMILIES = (("K1 trunk_fwd", ("trunk_fwd",)),
             ("K3 occupancy", ("occupancy",)),
             ("K4 shade_fwd", ("shade_fwd",)),
             ("K5 shade_bwd", ("shade_bwd",)),
+            ("K6 scatter_rows", ("scatter_rows",)),
+            ("K7 row_select", ("row_select",)),
             ("Adam", ("adam", "multi_tensor")),
             ("scatters", ("scatter", "index_put", "indexing_backward")),
             ("gathers", ("gather", "index")),
@@ -79,7 +81,8 @@ def main() -> int:
         print("profile_render: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from chip_smoke import GROUP, build_workload, make_train_batch
+    from chip_smoke import GROUP, build_workload
+    from pointnerf_tpu_torch.run.workload import make_train_batch
     from pointnerf_tpu_torch.ops import kernels
     from pointnerf_tpu_torch.run import common
     from pointnerf_tpu_torch.train import trainer

@@ -5,6 +5,12 @@ CPU mode). Run on a GPU machine, where JAX may be absent, with
 
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
+K6 (the row scatter-add) is held at rtol = atol = 1e-4: its float atomics
+sum duplicates in no fixed order. K7 (the row select) must equal its plain
+version. The driver tests train a few lego-width steps on a small plate
+scene written by `run/workload.make_plate_scene` (no JAX, no imageio on a
+GPU machine).
+
 Tolerances: the trunk's and the shade kernels' outputs and per-row
 cotangents rtol = atol = 1e-4 (fp32, another summation order over four
 layers); weight gradients, which sum every row, within 1e-4 of their
@@ -16,6 +22,9 @@ within GRAD_REL in norm.
 """
 
 import copy
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -29,6 +38,8 @@ from pointnerf_tpu_torch.ops import kernels
 from pointnerf_tpu_torch.ops import query as tq
 from pointnerf_tpu_torch.ops import raygen
 from pointnerf_tpu_torch.ops import trunk as tt
+from pointnerf_tpu_torch.ops.scatter import (scatter_add_rows,
+                                             scatter_add_rows_reference)
 from pointnerf_tpu_torch.train import trainer
 
 pytestmark = pytest.mark.cuda
@@ -368,7 +379,8 @@ def _train_step_card_vs_cpu(dev, fused_shade):
                                       u=u.to(device))
         used = ((kernels.SHADE_FWD, kernels.SHADE_BWD) if fused_shade
                 else (kernels.TRUNK_FWD, kernels.TRUNK_BWD))
-        on = ({k.name for k in used} | {kernels.OCCUPANCY.name}
+        on = ({k.name for k in used} | {kernels.OCCUPANCY.name,
+                                         kernels.SCATTER_ROWS.name}
               if device == dev else set())
         assert {k.name for k in kernels.KERNELS if k.launches} == on
         runs[str(device)] = (grads, items, st)
@@ -391,3 +403,108 @@ def _train_step_card_vs_cpu(dev, fused_shade):
         torch.testing.assert_close(q[big], p.detach()[big], rtol=1e-5,
                                    atol=1e-6, msg=k)
         assert float((q - p.detach()).abs().max()) <= 2 * 0.02 + 1e-6, k
+
+
+@pytest.mark.parametrize("C", [42, 7])
+def test_scatter_rows_kernel_matches_plain(dev, C):
+    """K6 with duplicate indices (each row drawn ~6 times) and skipped
+    negative ones, against the plain version; an odd C takes the
+    one-float path."""
+    rng = np.random.RandomState(C)
+    S, cap = 20_011, 3_001
+    idx = rng.randint(0, cap // 6, S).astype(np.int32) * 6
+    idx[rng.rand(S) < 0.3] = -1
+    upd = rng.uniform(-1, 1, (S, C)).astype(np.float32)
+    idx_t, upd_t = torch.as_tensor(idx, device=dev), \
+        torch.as_tensor(upd, device=dev)
+    before = kernels.SCATTER_ROWS.launches
+    got = scatter_add_rows(idx_t, upd_t, cap)
+    torch.cuda.synchronize()
+    assert kernels.SCATTER_ROWS.launches == before + 1
+    want = scatter_add_rows_reference(idx_t, upd_t, cap)
+    torch.testing.assert_close(got, want, **TOL)
+    ref = np.zeros((cap, C), np.float32)
+    keep = idx >= 0
+    np.add.at(ref, idx[keep], upd[keep])
+    np.testing.assert_allclose(got.cpu().numpy(), ref, **TOL)
+
+
+def test_scatter_rows_kernel_traps_on_an_index_past_the_table(dev):
+    """An index at or past n_rows stops K6 with an error, as index_put_
+    does, instead of dropping the update. Run in a child process: the trap
+    loses the CUDA context."""
+    scatter_add_rows(torch.zeros(1, dtype=torch.int32, device=dev),
+                     torch.ones(1, 42, device=dev), 50)   # built before
+    code = ("import torch\n"
+            "from pointnerf_tpu_torch.ops.scatter import scatter_add_rows\n"
+            "idx = torch.tensor([0, 3, 50], dtype=torch.int32, device='cuda')\n"
+            "upd = torch.ones(3, 42, device='cuda')\n"
+            "print('launching', flush=True)\n"
+            "scatter_add_rows(idx, upd, 50)\n"
+            "torch.cuda.synchronize()\n")
+    res = subprocess.run([sys.executable, "-c", code],
+                         cwd=Path(__file__).resolve().parents[1],
+                         capture_output=True, text=True, timeout=600)
+    assert "launching" in res.stdout, res.stderr[-2000:]
+    assert res.returncode != 0
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("Rt", [8, 16, 32, 120])
+def test_row_select_kernel_matches_plain(dev, dtype, Rt):
+    """K7 equals its plain version for both row types, per-ray row sets and
+    one row set shared by every ray (ray stride 0), ragged N against Rt."""
+    g = torch.Generator().manual_seed(Rt)
+    N, D, U, LW = 37, 50, 9, 128
+    rows = (torch.rand(N, U, LW, generator=g) < 0.3).to(dtype).to(dev)
+    rank = torch.randint(0, U, (N, D), generator=g, dtype=torch.int32)
+    lane = torch.randint(0, LW, (N, D), generator=g, dtype=torch.int32)
+    rank, lane = rank.to(dev), lane.to(dev)
+    for rows_g in (rows, rows[:1].expand(N, U, LW)):
+        got = tq.row_select(rows_g, rank, lane, Rt)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tq.row_select_reference(rows_g, rank, lane))
+
+
+def _plate_driver_opt(root, **kw):
+    from pointnerf_tpu_torch.run.workload import make_plate_scene
+    make_plate_scene(root, wh=(64, 64), side=120)
+    from pointnerf_tpu_torch.config import nerf_synth_preset
+    return nerf_synth_preset("lego").replace(
+        data_root=root, scan="plate", img_wh=(64, 64),
+        checkpoints_dir=str(root) + "/ckpt", experiment="plate",
+        load_points=1, random_sample_size=24, vox_res=120, maximum_step=6,
+        prune_iter=2,
+        prune_max_iter=2, prob_freq=4, prob_mode=2, prob_thresh=-1.0,
+        print_freq=3, save_iter_freq=100, save_point_freq=0, test_freq=0,
+        test_num=1, **kw)
+
+
+def test_driver_steps_prune_grow_and_checkpoint_on_card(dev, tmp_path):
+    """A few finetune steps at lego widths on the card: one prune, one
+    probe-and-grow (every probed hit ray a candidate), K6 on every step, a
+    checkpoint written and loaded back on the card, and a resume that
+    stops at once."""
+    from pointnerf_tpu_torch.run import train_ft
+    from pointnerf_tpu_torch.utils.checkpoint import load_checkpoint
+    opt = _plate_driver_opt(str(tmp_path))
+    for k in kernels.KERNELS:
+        k.launches = 0
+    res = train_ft.main(opt)
+    assert res["total_steps"] == 6 and res["timing"]["steps"] == 6
+    assert res["timing"]["prune"] and res["timing"]["grow"]
+    assert kernels.SCATTER_ROWS.launches >= 6
+    assert np.isfinite(res["final_psnr"])
+    st, counters = load_checkpoint(str(tmp_path) + "/ckpt/plate", opt,
+                                   device=dev)
+    assert counters["total_steps"] == 6 and st.step == 6
+    for k, v in res["state"].points.items():
+        if v is not None:
+            torch.testing.assert_close(st.points[k], v, rtol=0, atol=0)
+    for p, q in zip(st.opt_pts.param_groups[0]["params"],
+                    res["state"].opt_pts.param_groups[0]["params"]):
+        a, b = st.opt_pts.state[p], res["state"].opt_pts.state[q]
+        assert float(a["step"]) == float(b["step"])
+        torch.testing.assert_close(a["exp_avg"], b["exp_avg"], rtol=0, atol=0)
+    again = train_ft.main(opt)
+    assert again["total_steps"] == 6 and again["timing"]["steps"] == 0
