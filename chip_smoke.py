@@ -32,8 +32,12 @@ and the other configuration's trunk kernels not at all. Any failed check
 raises. The last line is a JSON object with the device; the line before it
 is the card's name and power limit, and the line before that lists each
 kernel's launches (summed over the paths; K7's from its micro-benchmark's
-segmented pipeline), error, times, bound and library call. Needs a CUDA
-device; without one it exits nonzero and prints no result.
+segmented pipeline), error, times, bound and library call. K1, K2, K4 and
+K5 (milliseconds a call) are timed over eager loops; K3, K6 and K7, their
+plain versions and library calls (tens of microseconds) from CUDA graphs
+of captured calls (`graph_time`), each line naming its method beside the
+eager, host-paced time. Needs a CUDA device; without one it exits nonzero
+and prints no result.
 """
 
 from __future__ import annotations
@@ -92,6 +96,10 @@ FT_PROB_THRESH = -0.7                 # probe opacity gate off, as the ficus
 PEAK_FP32 = 67e12                     # H100 SXM fp32 FLOP/s outside the
                                       # tensor cores, at 700 W (data sheet)
 PEAK_BYTES = 3.35e12                  # H100 SXM HBM3 bytes/s (data sheet)
+GRAPH_REPS = 100                      # calls captured in one CUDA graph
+GRAPH_REPLAYS = 5                     # timed replays of it
+EAGER_REPS = 200                      # eager calls of a function that cannot
+                                      # be captured
 
 
 def log(*a):
@@ -119,6 +127,52 @@ def timed_pair(kernel_fn, plain_fn, reps: int = 3):
     k2 = cuda_time(kernel_fn, reps)
     p2 = cuda_time(plain_fn, reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def graph_time(fn, eager_why: str = ""):
+    """(ms per call, method) of a call under about 1 ms, timed on the card:
+    GRAPH_REPS calls captured in one torch.cuda.CUDAGraph, one warm-up
+    replay, then GRAPH_REPLAYS replays between two CUDA events (an eager
+    loop of such calls measures how fast the host enqueues them). A
+    function that cannot be captured (it syncs, or stages host data through
+    pinned memory) is named so by `eager_why` and timed eagerly over
+    EAGER_REPS calls. The launch counts are restored afterwards: no warm-up,
+    capture or timed call counts."""
+    from pointnerf_tpu_torch.ops import kernels
+    counts = [k.launches for k in kernels.KERNELS]
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        if eager_why:
+            return (cuda_time(fn, EAGER_REPS),
+                    f"eager, {EAGER_REPS} calls ({eager_why})")
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(GRAPH_REPS):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        return (cuda_time(graph.replay, GRAPH_REPLAYS) / GRAPH_REPS,
+                f"graph of {GRAPH_REPS} calls x {GRAPH_REPLAYS} replays")
+    finally:
+        for k, c in zip(kernels.KERNELS, counts):
+            k.launches = c
+
+
+def graph_pair(kernel_fn, plain_fn, plain_eager_why: str = ""):
+    """graph_time of plain, kernel, kernel, plain in turns: (kernel ms,
+    plain ms, "kernel (method) plain (method)" for the printed line)."""
+    p1, plain_how = graph_time(plain_fn, plain_eager_why)
+    k1, how = graph_time(kernel_fn)
+    k2, _ = graph_time(kernel_fn)
+    p2, _ = graph_time(plain_fn, plain_eager_why)
+    k, p = (k1 + k2) / 2, (p1 + p2) / 2
+    return k, p, f"kernel={k:.4f} ms ({how}) plain={p:.4f} ms ({plain_how})"
 
 
 def bound(flops: float, nbytes: float):
@@ -552,7 +606,10 @@ def check_occupancy(item, grid, spec, opt, rays: int):
     if n_diff:
         raise AssertionError(f"K3 occupancy differs from the plain mask on "
                              f"{n_diff} samples")
-    ms, plain_ms = timed_pair(kern, plain, reps=5)
+    host_ms, host_plain_ms = timed_pair(kern, plain, reps=5)
+    ms, plain_ms, timed = graph_pair(
+        kern, plain, "host_const stages the grid's constants through pinned "
+        "memory")
     # bytes: the depths (a broadcast axis read once), the rays and the mask;
     # the table lookups (one byte of a 9 MB L2-resident table per in-range
     # sample) are not counted. Operations: a dozen per sample.
@@ -561,8 +618,9 @@ def check_occupancy(item, grid, spec, opt, rays: int):
                        + t.numel())
     log(f"K3 occupancy rays={rays} samples={t.numel()}: equal "
         f"(occupied share {float(want.float().mean()):.4f}) "
-        f"kernel={ms:.3f} ms plain={plain_ms:.3f} ms bound={b_ms:.4f} ms "
-        f"({b_by})")
+        f"{timed} bound={b_ms:.4f} ms ({b_by}); host-paced (5 eager "
+        f"calls, CUDA events): kernel={host_ms:.4f} ms "
+        f"plain={host_plain_ms:.4f} ms")
     return dict(err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by)
 
@@ -787,8 +845,10 @@ def check_scatter(label, idx, upd, n_rows):
     err = float((got - want).abs().max())
     rerun = float((got - again).abs().max())
     top = float(want.abs().max())
-    ms, plain_ms = timed_pair(kern, plain, reps=10)
-    library_ms = cuda_time(library, 10)
+    host_ms, host_plain_ms = timed_pair(kern, plain, reps=10)
+    host_library_ms = cuda_time(library, 10)
+    ms, plain_ms, timed = graph_pair(kern, plain)
+    library_ms, library_how = graph_time(library)
     C = upd.shape[1]
     n_skip = int((~keep).sum())
     # skipped rows' updates are never read
@@ -799,9 +859,11 @@ def check_scatter(label, idx, upd, n_rows):
         f"each entry within {SCATTER_REL:g} of its sum of |updates|; a "
         f"scatter dropping one kept entry in 97 fails; the loss of any one "
         f"of {100 * caught:.2f}% of the kept entries alone would), two "
-        f"launches differ by {rerun:.3e}; kernel={ms:.4f} ms "
-        f"plain={plain_ms:.4f} ms index_add_ over the kept entries="
-        f"{library_ms:.4f} ms bound={b_ms:.4f} ms ({b_by})")
+        f"launches differ by {rerun:.3e}; {timed} index_add_ over the "
+        f"kept entries={library_ms:.4f} ms ({library_how}) bound="
+        f"{b_ms:.4f} ms ({b_by}); host-paced (10 eager calls, CUDA events): "
+        f"kernel={host_ms:.4f} ms plain={host_plain_ms:.4f} ms "
+        f"index_add_={host_library_ms:.4f} ms")
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=library_ms)
 
@@ -836,7 +898,8 @@ def check_row_select(dev):
     distinct rows. Times the int8 Rt=16 launch against the plain version
     and the library call, one torch.gather over rows_g viewed [N, U·LW] at
     rank·LW + lane (the index computed outside the timed region). Bound:
-    bytes of rows_g, rank, lane and the output."""
+    bytes of rank, lane, the output and the 32-byte sectors of rows_g that
+    the samples reach."""
     from pointnerf_tpu_torch.ops import kernels
     from pointnerf_tpu_torch.ops.query import (mask_raypos, row_select,
                                                row_select_reference)
@@ -846,6 +909,7 @@ def check_row_select(dev):
     U, LW = OCC_U, rows.shape[-1]
     inb, rid, lane, is_start, rank = om.stages(raypos, spec, LW)
     rank_c = torch.clamp(rank, max=U - 1)
+    rank32, lane32 = rank_c.to(torch.int32), lane.to(torch.int32)
     c = om.ray_rows(rid, is_start, rank, U).reshape(-1).long()
     N, D = rank.shape
     out = None
@@ -862,18 +926,35 @@ def check_row_select(dev):
         if dtype == torch.int8:
             flat = rows_g.reshape(N, U * LW)
             gidx = (rank_c * LW + lane).long()
-            ms, plain_ms = timed_pair(
-                lambda: row_select(rows_g, rank_c, lane, 16),
-                lambda: row_select_reference(rows_g, rank_c, lane), reps=10)
-            library_ms = cuda_time(lambda: torch.gather(flat, 1, gidx), 10)
-            # int32 rank and lane in, float32 out
-            b_ms, b_by = bound(0, nbytes(rows_g) + 12 * N * D)
+            kern = lambda: row_select(rows_g, rank32, lane32, 16)
+            plain = lambda: row_select_reference(rows_g, rank32, lane32)
+            library = lambda: torch.gather(flat, 1, gidx)
+            host_ms, host_plain_ms = timed_pair(kern, plain, reps=10)
+            host_library_ms = cuda_time(library, 10)
+            ms, plain_ms, timed = graph_pair(kern, plain)
+            library_ms, library_how = graph_time(library)
+            # int32 rank and lane in, float32 out, and of rows_g the 32-byte
+            # sectors the samples reach: what this run's data needs (all of
+            # rows_g is more than a gather reads)
+            off = (torch.arange(N, device=dev)[:, None] * (U * LW)
+                   + rank_c.clamp(0, U - 1) * LW + lane.clamp(0, LW - 1))
+            sectors = int(torch.unique(off // 32).numel())
+            b_ms, b_by = bound(0, 32 * sectors + 12 * N * D)
+            whole_ms, _ = bound(0, nbytes(rows_g) + 12 * N * D)
+            span = rank_c.max(dim=1).values - rank_c.min(dim=1).values + 1
             out = dict(err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                        bound_by=b_by, library_ms=library_ms)
             log(f"K7 row_select int8 and bf16 rows, Rt 8/16/32/120, N={N} "
                 f"D={D} U={U} LW={LW}: equal to the plain version; int8 Rt=16 "
-                f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
-                f"gather={library_ms:.4f} ms bound={b_ms:.4f} ms ({b_by})")
+                f"(int32 rank and lane, gather's int64 index, both made "
+                f"outside the timed calls) {timed} gather={library_ms:.4f} ms "
+                f"({library_how}) bound={b_ms:.4f} ms ({b_by}: {sectors} "
+                f"sectors of rows_g, {100 * b_ms / ms:.0f}% of the kernel's "
+                f"time; {whole_ms:.4f} ms with all of rows_g read); staged "
+                f"rows a ray {float(span.float().mean()):.1f} of U={U} on "
+                f"average; host-paced "
+                f"(10 eager calls, CUDA events): kernel={host_ms:.4f} ms "
+                f"plain={host_plain_ms:.4f} ms gather={host_library_ms:.4f} ms")
         del rows_g
     dense = mask_raypos(raypos, grid, spec)
     kernels.ROW_SELECT.launches = 0

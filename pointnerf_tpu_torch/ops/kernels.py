@@ -67,8 +67,8 @@ _SIGNATURES = {
     + [ctypes.c_float] * 6 + [_I] * 3 + [_P],
     "shade_fwd": [_P] * 25 + [_I] * 12 + [_P],
     "shade_bwd": [_P] * 37 + [_I] * 13 + [_P],
-    "scatter_rows": [_P] * 3 + [_I] * 3 + [_P],
-    "row_select": [_P] * 4 + [_I] * 4 + [ctypes.c_longlong] + [_I] * 2
+    "scatter_rows": [_P] * 3 + [_I] * 4 + [_P],
+    "row_select": [_P] * 4 + [_I] * 4 + [ctypes.c_longlong] + [_I] * 3
     + [_P],
 }
 

@@ -113,8 +113,14 @@ def row_select(rows_g: torch.Tensor, rank: torch.Tensor, lane: torch.Tensor,
     ray stride of 0, as from `expand`, shares one row set across rays),
     rank/lane [N, D] integers, clamped to [0, U) and [0, LW). On CUDA
     tensors it launches `csrc/row_select.cu` (K7, replaces
-    `scripts/occ_micro3.py::run_kernel`) with `rays_per_cta` rays per CTA
-    (the TPU's Rt); on CPU tensors it runs `row_select_reference`."""
+    `scripts/occ_micro3.py::run_kernel`): each CTA walks `rays_per_cta`
+    rays (the TPU's Rt), bulk-copying the rows of each ray's [U, LW] block
+    that its ranks reach into shared memory (the whole block once per CTA
+    at ray stride 0) while the ray before it is selected, four samples a
+    thread. The copy takes only 16-byte aligned blocks: rows_g must start
+    16-byte aligned, and U·LW and the ray stride must be multiples of 16
+    bytes; anything else raises ValueError (`check_bulk_copy`). On CPU
+    tensors it runs `row_select_reference`."""
     if rank.device.type == "cpu":
         return row_select_reference(rows_g, rank, lane)
     if rank.device.type != "cuda":
@@ -131,18 +137,45 @@ def row_select(rows_g: torch.Tensor, rank: torch.Tensor, lane: torch.Tensor,
     if rows_g.stride()[1:] != (LW, 1) or rows_g.stride(0) not in (0, U * LW):
         raise ValueError("rows_g must be [N, U, LW] with contiguous rows and "
                          "a ray stride of U·LW or 0")
+    check_bulk_copy(rows_g, rays_per_cta)
     rank = rank.to(torch.int32).contiguous()
     lane = lane.to(torch.int32).contiguous()
     kernels.require(rank, "rank", torch.int32, dev, (N, D))
     kernels.require(lane, "lane", torch.int32, dev, (N, D))
     out = torch.empty((N, D), dtype=torch.float32, device=dev)
+    vec = all(t.data_ptr() % 16 == 0 for t in (rank, lane, out))
     err = kernels.library().row_select(
         rows_g.data_ptr(), rank.data_ptr(), lane.data_ptr(), out.data_ptr(),
         N, D, U, LW, rows_g.stride(0), int(rays_per_cta),
-        codes[rows_g.dtype], kernels.stream_handle(rank))
+        codes[rows_g.dtype], int(vec), kernels.stream_handle(rank))
     kernels.check(err, kernels.ROW_SELECT)
     kernels.ROW_SELECT.launches += 1
     return out
+
+
+SMEM_MAX = 231424       # dynamic shared memory K7 asks for at most: sm_90's
+                        # 227 KiB a CTA, less 1 KiB for its barriers
+
+
+def check_bulk_copy(rows_g: torch.Tensor, rays_per_cta: int = 16) -> None:
+    """Raise ValueError unless K7's bulk copy can stage rows_g's [U, LW]
+    blocks: each starts 16-byte aligned, spans a multiple of 16 bytes, and
+    two of them with the CTA's table of row spans (one block at ray stride
+    0) fit in a CTA's shared memory."""
+    N, U, LW = rows_g.shape
+    block = U * LW * rows_g.element_size()
+    stride = rows_g.stride(0) * rows_g.element_size()
+    if rows_g.data_ptr() % 16 or stride % 16 or block % 16:
+        raise ValueError(
+            f"row_select stages each ray's rows with a 16-byte bulk copy: "
+            f"rows_g must start 16-byte aligned (offset "
+            f"{rows_g.data_ptr() % 16}) with a block of U·LW = {block} bytes "
+            f"and a ray stride of {stride} bytes, both multiples of 16")
+    need = block if stride == 0 else 2 * block + 8 * rays_per_cta
+    if need > SMEM_MAX:
+        raise ValueError(f"{need} bytes of [U, LW] blocks ({block} bytes "
+                         f"each) do not fit in shared memory ({SMEM_MAX} "
+                         f"bytes)")
 
 
 def select_shading_t(tvals: torch.Tensor, valid: torch.Tensor, SR: int

@@ -3,10 +3,13 @@
 `scatter_add_rows(idx, upd, n_rows)` returns out [n_rows, C] with
 out[idx[i]] += upd[i] over a zeroed table, entries whose index is negative
 skipped. It is the backward of the packed point-attribute gather
-(`models/neural_points._GatherRows`). On CUDA tensors it launches
+(`models/neural_points._GatherRows`). On CUDA tensors it makes one call into
 `csrc/scatter_rows.cu` (replaces `scripts/scatter_pallas.py::pallas_scatter`,
-kernel `_kernel` :68); on CPU tensors it runs `scatter_add_rows_reference`,
-an accumulating `index_put_` in a fixed order.
+kernel `_kernel` :68), which zeroes the table and launches the kernel on the
+current stream: the indices go in as they come, int32 or int64, with no
+conversion, and each warp walks only the kept entries of its 32. On CPU
+tensors it runs `scatter_add_rows_reference`, an accumulating `index_put_`
+in a fixed order.
 
 The kernel sums with float atomics, so on the card the result differs from
 launch to launch in the last bits; the plain version's order is fixed.
@@ -47,16 +50,18 @@ def scatter_add_rows(idx: torch.Tensor, upd: torch.Tensor,
                          f"{upd.device}")
     dev = upd.device
     S, C = upd.shape
-    idx = idx.to(torch.int32).contiguous()
+    if idx.dtype not in (torch.int32, torch.int64):
+        idx = idx.to(torch.int32)
+    idx = idx.contiguous()
     upd = upd.contiguous()
     if upd.data_ptr() % 8:            # pairs of columns go out as float2
         upd = upd.clone()
-    kernels.require(idx, "idx", torch.int32, dev, (S,))
+    kernels.require(idx, "idx", idx.dtype, dev, (S,))
     kernels.require(upd, "upd", torch.float32, dev, (S, C))
-    out = torch.zeros((n_rows, C), dtype=torch.float32, device=dev)
+    out = torch.empty((n_rows, C), dtype=torch.float32, device=dev)
     err = kernels.library().scatter_rows(
         idx.data_ptr(), upd.data_ptr(), out.data_ptr(), S, C, n_rows,
-        kernels.stream_handle(upd))
+        idx.element_size(), kernels.stream_handle(upd))
     kernels.check(err, kernels.SCATTER_ROWS)
     kernels.SCATTER_ROWS.launches += 1
     return out

@@ -5,8 +5,9 @@ CPU mode). Run on a GPU machine, where JAX may be absent, with
 
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
-K6 (the row scatter-add) is held at rtol = atol = 1e-4: its float atomics
-sum duplicates in no fixed order. K7 (the row select) must equal its plain
+K6 (the row scatter-add) is held at rtol = atol = 1e-4, and each entry
+within 1e-4 of the sum of |updates| reaching it: its float atomics sum
+duplicates in no fixed order. K7 (the row select) must equal its plain
 version. The driver tests train a few lego-width steps on a small plate
 scene written by `run/workload.make_plate_scene` (no JAX, no imageio on a
 GPU machine).
@@ -405,28 +406,69 @@ def _train_step_card_vs_cpu(dev, fused_shade):
         assert float((q - p.detach()).abs().max()) <= 2 * 0.02 + 1e-6, k
 
 
-@pytest.mark.parametrize("C", [42, 7])
-def test_scatter_rows_kernel_matches_plain(dev, C):
-    """K6 with duplicate indices (each row drawn ~6 times) and skipped
-    negative ones, against the plain version; an odd C takes the
-    one-float path."""
+def _scatter_case(case, C):
+    """(idx [S] numpy, upd [S, C] numpy, cap) of one K6 case."""
     rng = np.random.RandomState(C)
     S, cap = 20_011, 3_001
-    idx = rng.randint(0, cap // 6, S).astype(np.int32) * 6
+    idx = rng.randint(0, cap // 6, S).astype(np.int64) * 6
     idx[rng.rand(S) < 0.3] = -1
+    if case == "none kept":
+        idx[:] = -1
+    elif case == "one row":
+        idx[:] = 17
+    elif case == "train-like":            # a train step's wide tier
+        S, cap = 96_000, 102_400
+        idx = rng.randint(0, cap, S).astype(np.int64)
+        idx[rng.rand(S) < 0.684] = -1
     upd = rng.uniform(-1, 1, (S, C)).astype(np.float32)
-    idx_t, upd_t = torch.as_tensor(idx, device=dev), \
-        torch.as_tensor(upd, device=dev)
+    if case == "train-like":
+        upd *= 1e-4                       # a train step's gradient scale
+    return idx, upd, cap
+
+
+@pytest.mark.parametrize("case,C,idx_dtype", [
+    ("dup", 42, torch.int32), ("dup", 7, torch.int32),
+    ("dup", 42, torch.int64), ("dup", 7, torch.int64),
+    ("dup", 130, torch.int64), ("none kept", 42, torch.int64),
+    ("one row", 42, torch.int32), ("one row", 7, torch.int64),
+    ("misaligned upd", 42, torch.int64), ("train-like", 42, torch.int64)])
+def test_scatter_rows_kernel_matches_plain(dev, case, C, idx_dtype):
+    """K6 with duplicate indices (each row drawn ~6 times) and skipped
+    negative ones, int32 or int64 indices (taken unconverted), against the
+    plain version and np.add.at; an odd C takes the one-float path, C 130
+    several column passes a warp. Also: every entry skipped (the table
+    stays zero), every entry on one row, an upd 4 bytes off an 8-byte
+    boundary (the wrapper copies it for the float2 loads), and a train
+    step's wide tier (68% skipped, gradients ~1e-4). Each entry within
+    TOL, and within 1e-4 of the sum of |updates| reaching it (the scale of
+    the atomics' rounding in any order; the one-row sum of 20,011 updates
+    is held to that alone)."""
+    idx, upd, cap = _scatter_case(case, C)
+    S = idx.shape[0]
+    idx_t = torch.as_tensor(idx, device=dev).to(idx_dtype)
+    upd_t = torch.as_tensor(upd, device=dev)
+    if case == "misaligned upd":
+        buf = torch.zeros(S * C + 1, device=dev)
+        buf[1:] = upd_t.reshape(-1)
+        upd_t = buf[1:].view(S, C)
+        assert upd_t.data_ptr() % 8 == 4
     before = kernels.SCATTER_ROWS.launches
     got = scatter_add_rows(idx_t, upd_t, cap)
     torch.cuda.synchronize()
     assert kernels.SCATTER_ROWS.launches == before + 1
     want = scatter_add_rows_reference(idx_t, upd_t, cap)
-    torch.testing.assert_close(got, want, **TOL)
+    abs_sum = scatter_add_rows_reference(idx_t, upd_t.abs(), cap)
+    assert bool(((got - want).abs() <= SUM_REL * abs_sum + 1e-30).all())
+    if case == "none kept":
+        assert not bool(got.any())
+    if case != "one row":
+        torch.testing.assert_close(got, want, **TOL)
     ref = np.zeros((cap, C), np.float32)
     keep = idx >= 0
     np.add.at(ref, idx[keep], upd[keep])
-    np.testing.assert_allclose(got.cpu().numpy(), ref, **TOL)
+    np.testing.assert_allclose(got.cpu().numpy(), ref,
+                               **(TOL if case != "one row"
+                                  else dict(rtol=1e-4, atol=1e-2)))
 
 
 def test_scatter_rows_kernel_traps_on_an_index_past_the_table(dev):
@@ -449,17 +491,39 @@ def test_scatter_rows_kernel_traps_on_an_index_past_the_table(dev):
     assert res.returncode != 0
 
 
+@pytest.mark.parametrize("case", ["base", "D397", "clamps", "offset",
+                                  "misaligned rows"])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
 @pytest.mark.parametrize("Rt", [8, 16, 32, 120])
-def test_row_select_kernel_matches_plain(dev, dtype, Rt):
+def test_row_select_kernel_matches_plain(dev, dtype, Rt, case):
     """K7 equals its plain version for both row types, per-ray row sets and
-    one row set shared by every ray (ray stride 0), ragged N against Rt."""
+    one row set shared by every ray (ray stride 0), N = 37 ragged against
+    Rt. Cases: D 397 (rays off 16-byte boundaries: scalar heads and
+    tails), rank and lane at and past both ends of their clamps, rank and
+    lane starting one element off a 16-byte boundary (the scalar path),
+    and rows_g off a 16-byte boundary, which the bulk copy cannot take:
+    ValueError."""
     g = torch.Generator().manual_seed(Rt)
-    N, D, U, LW = 37, 50, 9, 128
+    N, D, U, LW = 37, 397 if case == "D397" else 50, 9, 128
     rows = (torch.rand(N, U, LW, generator=g) < 0.3).to(dtype).to(dev)
-    rank = torch.randint(0, U, (N, D), generator=g, dtype=torch.int32)
-    lane = torch.randint(0, LW, (N, D), generator=g, dtype=torch.int32)
+    lo, hi = (-3, U + 3) if case == "clamps" else (0, U)
+    rank = torch.randint(lo, hi, (N, D), generator=g, dtype=torch.int32)
+    lo, hi = (-3, LW + 3) if case == "clamps" else (0, LW)
+    lane = torch.randint(lo, hi, (N, D), generator=g, dtype=torch.int32)
+    if case == "clamps":
+        rank[:, :4] = torch.tensor([-1, 0, U - 1, U])
+        lane[:, :4] = torch.tensor([LW, LW - 1, 0, -1])
     rank, lane = rank.to(dev), lane.to(dev)
+    if case == "offset":
+        rank = torch.cat([rank.new_zeros(1), rank.reshape(-1)])[1:].view(N, D)
+        lane = torch.cat([lane.new_zeros(1), lane.reshape(-1)])[1:].view(N, D)
+        assert rank.data_ptr() % 16 and lane.data_ptr() % 16
+    if case == "misaligned rows":
+        flat = torch.zeros(N * U * LW + 1, dtype=dtype, device=dev)
+        bad = flat[1:].view(N, U, LW)
+        with pytest.raises(ValueError, match="16-byte"):
+            tq.row_select(bad, rank, lane, Rt)
+        return
     for rows_g in (rows, rows[:1].expand(N, U, LW)):
         got = tq.row_select(rows_g, rank, lane, Rt)
         torch.cuda.synchronize()

@@ -78,3 +78,49 @@ def test_segmented_pipeline_matches_dense_mask(U):
     np.testing.assert_array_equal(seg[~over], dense[~over])
     assert (seg | ~dense).all()              # never drops a valid sample
     assert over.any() == (U == 3)
+
+
+def _rows_view(N, U, LW, dtype, offset):
+    """An [N, U, LW] view of a flat buffer, starting `offset` elements in."""
+    flat = torch.zeros(N * U * LW + offset, dtype=dtype)
+    return flat[offset:].view(N, U, LW)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_bulk_copy_check_takes_aligned_blocks(dtype):
+    """K7's wrapper passes a block the bulk copy can stage: 16-byte aligned,
+    a multiple of 16 bytes, per ray or shared (ray stride 0)."""
+    rows = _rows_view(5, 9, 128, dtype, 0)
+    tq.check_bulk_copy(rows)
+    tq.check_bulk_copy(rows[:1].expand(5, 9, 128))
+
+
+@pytest.mark.parametrize("dtype,offset", [(torch.int8, 1), (torch.int8, 8),
+                                          (torch.bfloat16, 1)])
+def test_bulk_copy_check_rejects_a_misaligned_block(dtype, offset):
+    """rows_g starting off a 16-byte boundary raises ValueError (the card
+    route takes no other path for it)."""
+    rows = _rows_view(5, 9, 128, dtype, offset)
+    assert rows.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        tq.check_bulk_copy(rows)
+
+
+def test_bulk_copy_check_rejects_a_ragged_block():
+    """A block of U·LW bytes that is not a multiple of 16 raises."""
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tq.check_bulk_copy(_rows_view(4, 3, 12, torch.int8, 0))
+
+
+def test_bulk_copy_check_rejects_a_block_past_shared_memory():
+    """Two blocks and the CTA's row spans (8 bytes a ray) must fit a CTA's
+    shared memory; one block shared by every ray (stride 0) need only fit
+    once."""
+    rows = _rows_view(2, 1024, 128, torch.int8, 0)      # 128 KiB a block
+    with pytest.raises(ValueError, match="shared memory"):
+        tq.check_bulk_copy(rows)
+    tq.check_bulk_copy(rows[:1].expand(2, 1024, 128))
+    rows = _rows_view(2, 800, 128, torch.int8, 0)       # 100 KiB a block
+    tq.check_bulk_copy(rows, rays_per_cta=16)
+    with pytest.raises(ValueError, match="shared memory"):
+        tq.check_bulk_copy(rows, rays_per_cta=4096)

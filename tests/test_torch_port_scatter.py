@@ -52,6 +52,26 @@ def test_plain_scatter_skips_negative_indices():
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
+@pytest.mark.parametrize("C", [42, 7])
+def test_plain_scatter_takes_int64_indices(C):
+    """int64 indices, as the point gather's backward passes them (the
+    kernel takes them unconverted), with duplicates and skipped negative
+    ones: equal to np.add.at and to JAX's base over the kept entries."""
+    idx, upd = scatter_pallas.script_inputs(S=6000, cap=1600, C=C, dup=6.0)
+    idx = idx.astype(np.int64)
+    idx[np.random.RandomState(5).rand(idx.shape[0]) < 0.68] = -1
+    keep = idx >= 0
+    want = np.zeros((1600, C), np.float32)
+    np.add.at(want, idx[keep], upd[keep])
+    base = jnp.zeros((1600, C), jnp.float32).at[jnp.asarray(idx[keep])].add(
+        jnp.asarray(upd[keep]))
+    got = scatter_add_rows(torch.as_tensor(idx), torch.as_tensor(upd), 1600)
+    assert torch.as_tensor(idx).dtype == torch.int64
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(base), **TOL)
+    assert kernels.SCATTER_ROWS.launches == 0
+
+
 def test_plain_scatter_rejects_an_index_past_the_table():
     """An index at or past n_rows raises (the kernel traps on the card)."""
     idx = torch.tensor([0, 3, 50, -1], dtype=torch.int32)
