@@ -1,5 +1,6 @@
-// Fused shade, backward (Hopper, fp32): the front half, the trunk's
-// backward and the front's backward in one kernel.
+// Fused shade, backward (Hopper, fp32 in 3xTF32 on the tensor cores): the
+// front half, the trunk's backward and the front's backward in one kernel,
+// then K2's weight-gradient phase.
 //
 // Replaces: pointnerf_tpu/ops/pallas_trunk.py::_shade_bwd_kernel (:543),
 // launched by _shade_bwd_rule (:758, pallas_call :794). Per tile it
@@ -18,23 +19,23 @@
 // with S_w = Σ_K w_raw over the row's K-group, as _shade_bwd_kernel's
 // :630-656. The weight and bias gradients are K2's.
 //
-// What bounds it: as K2, fp32 FMA issue — about 3x the forward's ≈271k
-// multiply-adds a row at lego widths — plus the read-modify-write of each
-// block's dW partial once per tile; the front and its backward add about
-// 150 flops a row, and a row reads 48 floats and writes 45 where K2's
-// reads 46 and writes 46, so the bound is K2's at the same rows. On an
-// H100 80GB HBM3 at 700 W it runs within 2% of K2's time (≈13 TFLOP/s).
+// What bounds it: as K2, about 3x the forward's ≈271k multiply-adds a row
+// at lego widths in 3xTF32 on the tensor cores, plus the scratch between
+// its two phases; the front and its backward add about 150 flops a row,
+// and a row reads 48 floats and writes 45 where K2's reads 46 and writes
+// 46, so the bound is K2's at the same rows.
 //
-// Design: K2's, with a prologue and an epilogue. Each block walks 32-row
-// tiles (a multiple of K, so every K-group's sums are taken over the
-// block's own rows). Prologue: one thread per row computes d_raw and ex3
+// Design: K2's, with a prologue and an epilogue in phase 1. Each block
+// takes a 32-row tile (a multiple of K, so every K-group's sums are taken
+// over the block's own rows). Prologue: one thread per row computes d_raw and ex3
 // into shared memory (where K2 reads them from global memory) and w_raw;
 // after a barrier it sums its group's w_raw and sets w_eff. The trunk
 // backward then writes dd_raw, dex3 and dw_eff of the tile to shared
 // memory, where the epilogue (one thread per row again, a barrier between
 // the two group sums) reads them. The front arrays add 31 floats a row
-// (4.0 KB) to K2's 182 KB. dW keeps K2's fixed summation order, so two runs
-// give bit-identical weight gradients.
+// (4.0 KB) to K2's 76 KB. The weight gradients are K2's phase 2
+// (trunk_bwd.cuh::launch_wgrad) over the scratch phase 1 wrote, in its
+// fixed summation order, so two runs give bit-identical weight gradients.
 
 #include "shade_front.cuh"
 #include "trunk_bwd.cuh"
@@ -46,7 +47,7 @@ struct Cotangents {
   float *dxyz, *dxyzp, *dcolor, *ddir, *dconf;  // [S, 3] x 4, [S, 1]
 };
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 shade_bwd_kernel(Params p, shade::Front f, Cotangents o) {
   extern __shared__ float smem[];
   const Smem s = smem_layout(p, smem);
@@ -60,7 +61,6 @@ shade_bwd_kernel(Params p, shade::Front f, Cotangents o) {
   float* wn_s = wraw + TILE;           // [TILE] w_n
   float* cc_s = wn_s + TILE;           // [TILE] conf_c
   float* prod = cc_s + TILE;           // [TILE] dw_n·w_n
-  float* part = p.partial + (size_t)blockIdx.x * p.nW;
   const int r = threadIdx.x;
   const int ntiles = (p.S + TILE - 1) / TILE;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
@@ -85,7 +85,7 @@ shade_bwd_kernel(Params p, shade::Front f, Cotangents o) {
 
     // ---- trunk backward (ends with a barrier)
     const Tile t{d_s, ex3_s, dd_s, dex3_s, dw_s};
-    trunk_bwd_tile(p, row0, tile == blockIdx.x, t, s, part);
+    trunk_bwd_tile(p, tile, t, s);
 
     // ---- front backward
     float dw_n = 0.f;
@@ -144,8 +144,9 @@ shade_bwd_kernel(Params p, shade::Front f, Cotangents o) {
 }  // namespace
 
 // dweights receives every layer's gradient, flat, in trunk_bwd's order;
-// partial holds n_ctas such sets. Returns cudaGetLastError() after the
-// launches (0 = launched).
+// ws holds ws_floats floats (trunk_bwd_workspace's count at Dd = 6 for
+// dist mode 20, 3 for mode 0, and E3 = 7). Returns cudaGetLastError()
+// after the launches (0 = launched).
 extern "C" int shade_bwd(const float* emb, const float* xyz, const float* xyzp,
                          const float* color, const float* pdir,
                          const float* conf, const float* mask, const float* sl,
@@ -155,20 +156,17 @@ extern "C" int shade_bwd(const float* emb, const float* xyz, const float* xyzp,
                          const float* w1, const float* b1, const float* w12,
                          const float* b12, const float* w3, const float* b3,
                          const float* w32, const float* b32, const float* wa,
-                         const float* ba, const float* w1t, const float* w12t,
-                         const float* w3t, const float* w32t, float* demb,
-                         float* dxyz, float* dxyzp, float* dcolor, float* ddir,
-                         float* dconf, float* partial, float* dweights, int S,
-                         int Fe, int dist_mode, int nf, int nd, int H1, int H3,
-                         int L1, int L3, int K, int act_super, int order1,
-                         int n_ctas, void* stream) {
+                         const float* ba, float* demb, float* dxyz,
+                         float* dxyzp, float* dcolor, float* ddir,
+                         float* dconf, float* ws, long long ws_floats,
+                         float* dweights, int S, int Fe, int dist_mode, int nf,
+                         int nd, int H1, int H3, int L1, int L3, int K,
+                         int act_super, int order1, void* stream) {
   const int dd = dist_mode == 20 ? 6 : 3;
   Params p{};
   p.emb = emb; p.dfeat = dfeat; p.dalpha = dalpha;
-  p.w1 = w1; p.b1 = b1; p.w12 = w12; p.b12 = b12;
-  p.w3 = w3; p.b3 = b3; p.w32 = w32; p.b32 = b32; p.wa = wa; p.ba = ba;
-  p.w1t = w1t; p.w12t = w12t; p.w3t = w3t; p.w32t = w32t;
-  p.demb = demb; p.partial = partial;
+  p.b1 = b1; p.b12 = b12; p.b3 = b3; p.b32 = b32; p.wa = wa; p.ba = ba;
+  p.demb = demb;
   p.S = S; p.Fe = Fe; p.Dd = dd; p.E3 = shade::E3; p.nf = nf; p.nd = nd;
   p.H1 = H1; p.H3 = H3; p.L1 = L1; p.L3 = L3; p.K = K;
   p.act_super = act_super; p.order1 = order1;
@@ -177,13 +175,16 @@ extern "C" int shade_bwd(const float* emb, const float* xyz, const float* xyzp,
   const Cotangents o{dwout, dconfout, dxyz, dxyzp, dcolor, ddir, dconf};
   const size_t smem = setup(p) +
       (size_t)TILE * (2 * dd + 2 * shade::E3 + 5) * sizeof(float);
+  const Plan pl = plan(p, ws, sm_count(), w1, w12, w3, w32);
+  if (check_plan(p, pl, ws_floats)) return (int)cudaErrorInvalidValue;
   cudaFuncSetAttribute(shade_bwd_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (S <= 0 || n_ctas <= 0) return (int)cudaGetLastError();
-  shade_bwd_kernel<<<n_ctas, THREADS, smem, (cudaStream_t)stream>>>(p, f, o);
-  const cudaError_t err = cudaGetLastError();
+  if (S <= 0) return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = tf32::launch_split(pl.job, st);
   if (err != cudaSuccess) return (int)err;
-  reduce_partials<<<(p.nW + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      partial, n_ctas, p.nW, dweights);
-  return (int)cudaGetLastError();
+  shade_bwd_kernel<<<pl.tiles, THREADS, smem, st>>>(p, f, o);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_wgrad(p, pl, dweights, st);
 }

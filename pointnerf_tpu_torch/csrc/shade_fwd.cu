@@ -1,5 +1,5 @@
-// Fused shade, forward (Hopper, fp32): the front half and the trunk in one
-// kernel.
+// Fused shade, forward (Hopper, fp32 in 3xTF32 on the tensor cores): the
+// front half and the trunk in one kernel.
 //
 // Replaces: pointnerf_tpu/ops/pallas_trunk.py::_shade_fwd_kernel (:512),
 // launched by _shade_fwd_impl (:703, pallas_call :728). Per neighbor row it
@@ -9,11 +9,10 @@
 // weighted K-sum. Outputs feat [S/K, H3], alpha [S/K] (order 2), and per
 // row w_n (post-norm, pre-conf) and conf_c.
 //
-// What bounds it: as K1, fp32 FMA issue — the trunk's ≈271k multiply-adds a
-// row at lego widths; the front adds ≈60 flops a row, and a row reads 46
-// floats (emb, xyz, xyzp, color, pdir, conf, mask) as K1's reads 46 (emb,
-// d, ex3, w), so the bound is K1's at the same rows. On an H100 80GB HBM3
-// at 700 W it runs within 1% of K1's time (≈21.5-23.3 TFLOP/s).
+// What bounds it: as K1, the trunk's ≈271k multiply-adds a row at lego
+// widths, in 3xTF32 on the tensor cores; the front adds ≈60 flops a row,
+// and a row reads 46 floats (emb, xyz, xyzp, color, pdir, conf, mask) as
+// K1's reads 46 (emb, d, ex3, w), so the bound is K1's at the same rows.
 //
 // Design: K1's, with a prologue. One 256-thread block takes 64 rows, a
 // multiple of K, so each K-group's weight sum is taken over the block's own
@@ -21,15 +20,16 @@
 // memory (where K1 reads them from global memory) and w_raw. Phase 2: one
 // thread per row sums its group's w_raw, writes w_n and conf_c, and sets the
 // row's weight w_n·conf_c. Then the shared trunk tile: activations in
-// shared memory, weights staged with double-buffered cp.async, 8×8 register
-// tiles. The front arrays add 14 floats a row (3.6 KB) to K1's 179 KB.
+// shared memory, the weights split once per launch into TF32 hi and lo
+// planes and staged with double-buffered cp.async, mma.sync products. The
+// front arrays add 14 floats a row (3.6 KB) to K1's 109 KB.
 
 #include "shade_front.cuh"
 #include "trunk_fwd.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 shade_fwd_kernel(Params p, shade::Front f, float* w_n, float* conf_c) {
   extern __shared__ float smem[];
   const Smem s = smem_layout(p, smem);
@@ -58,7 +58,9 @@ shade_fwd_kernel(Params p, shade::Front f, float* w_n, float* conf_c) {
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 = launched).
+// Splits the weights into ws (ws_floats floats, trunk_fwd_workspace's
+// count), then runs the kernel. Returns cudaGetLastError() after the
+// launches (0 = launched).
 extern "C" int shade_fwd(const float* emb, const float* xyz, const float* xyzp,
                          const float* color, const float* pdir,
                          const float* conf, const float* mask, const float* sl,
@@ -67,23 +69,32 @@ extern "C" int shade_fwd(const float* emb, const float* xyz, const float* xyzp,
                          const float* b12, const float* w3, const float* b3,
                          const float* w32, const float* b32, const float* wa,
                          const float* ba, float* feat, float* alpha,
-                         float* w_n, float* conf_c, int S, int Fe,
+                         float* w_n, float* conf_c, float* ws,
+                         long long ws_floats, int S, int Fe,
                          int dist_mode, int nf, int nd, int H1, int H3, int L1,
                          int L3, int K, int act_super, int order1,
                          void* stream) {
   const int dd = dist_mode == 20 ? 6 : 3;
-  Params p{emb, nullptr, nullptr, nullptr, w1, b1, w12, b12, w3, b3, w32,
-           b32, wa, ba, feat, alpha, S, Fe, dd, shade::E3, nf, nd, H1, H3,
-           L1, L3, K, act_super, order1, 0, 0};
+  Params p{};
+  p.emb = emb;
+  p.b1 = b1; p.b12 = b12; p.b3 = b3; p.b32 = b32; p.wa = wa; p.ba = ba;
+  p.feat = feat; p.alpha = alpha;
+  p.S = S; p.Fe = Fe; p.dd = dd; p.E3 = shade::E3; p.nf = nf; p.nd = nd;
+  p.H1 = H1; p.H3 = H3; p.L1 = L1; p.L3 = L3; p.K = K;
+  p.act_super = act_super; p.order1 = order1;
   const shade::Front f{xyz, xyzp, color, pdir, conf, mask, sl, slw, ovd, RT,
                        dist_mode};
   const size_t smem =
       setup(p) + (size_t)TILE * (dd + shade::E3 + 1) * sizeof(float);
+  const tf32::SplitJob job = split_job(p, w1, w12, w3, w32, ws, ws_floats);
+  if (job.n < 0) return (int)cudaErrorInvalidValue;
   cudaFuncSetAttribute(shade_fwd_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   const int blocks = (S + TILE - 1) / TILE;
-  if (blocks > 0)
-    shade_fwd_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-        p, f, w_n, conf_c);
+  if (blocks <= 0) return (int)cudaGetLastError();
+  const cudaError_t err = tf32::launch_split(job, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  shade_fwd_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      p, f, w_n, conf_c);
   return (int)cudaGetLastError();
 }

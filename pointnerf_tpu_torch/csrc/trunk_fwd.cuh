@@ -14,49 +14,82 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tf32_mma.cuh"
+#include "trunk_pe.cuh"
+
 namespace {
 
 constexpr int TILE = 64;      // rows per block (multiple of every supported K)
-constexpr int THREADS = 256;  // 8 warps
-constexpr int RPW = 8;        // rows per warp: 8 warps x 8 = 64
-constexpr int CPL = 8;        // columns per lane: 32 lanes x 8 = 256 max width
-constexpr int KC = 16;        // weight rows per staged chunk
-constexpr float HALF_PI = 1.57079637050628662109375f;  // float32(pi/2)
+constexpr int THREADS = tf32::GEMM_THREADS;   // 8 warps
+constexpr int RPW = TILE / (THREADS / 32);    // rows per warp in the epilogues
+constexpr int NT = 8;         // n-tiles per warp: 4 x 8 x 8 = 256 columns a pass
+constexpr int KC = 8;         // weight rows per staged chunk
+constexpr int MIN_BLOCKS = 2; // blocks an SM holds (109 KB of shared memory
+                              // and <= 128 registers a thread each): two
+                              // hide each other's barriers, PE, epilogues
 
 struct Params {
   const float *emb, *d, *ex3, *w;     // d, ex3, w: K1's row inputs
-  const float *w1, *b1, *w12, *b12;   // w1 [C1, H1] = [w1e; w1p; w1d]
-  const float *w3, *b3, *w32, *b32;   // w3 [H1 + E3, H3] = [w3x; w3e]
+  tf32::Mat m1, m12, m3, m32;         // split w1 [C1, H1] = [w1e; w1p; w1d],
+                                      // w12, w3 [H1 + E3, H3] = [w3x; w3e], w32
+  const float *b1, *b12, *b3, *b32;
   const float *wa, *ba;               // [H3], [1]
   float *feat, *alpha;                // [S/K, H3], [S/K]
   int S, Fe, dd, E3, nf, nd, H1, H3, L1, L3, K, act_super, order1;
   int C1, ld;                         // first-layer width, smem row stride
 };
 
+// Floats of the workspace the split weights take (the wrapper allocates
+// it; trunk_fwd_workspace exports it).
+inline size_t fwd_workspace_floats(int C1, int H1, int E3, int H3, int L1,
+                                   int L3) {
+  return tf32::split_floats(C1, H1) + (L1 == 2 ? tf32::split_floats(H1, H1) : 0)
+       + tf32::split_floats(H1 + E3, H3)
+       + (L3 == 2 ? tf32::split_floats(H3, H3) : 0);
+}
+
 // Fills p.C1 and p.ld; returns the bytes of shared memory trunk_tile uses.
 inline size_t setup(Params& p) {
   p.C1 = p.Fe + 2 * p.nf * p.Fe + 2 * p.nd * p.dd;
-  int ld = p.C1;
-  if (p.H1 + p.E3 > ld) ld = p.H1 + p.E3;
-  if (p.H3 > ld) ld = p.H3;
-  p.ld = (ld + 3) & ~3;   // 16-byte aligned rows for the float4 reads
-  const int hmax = p.H1 > p.H3 ? p.H1 : p.H3;
-  return (size_t)(2 * TILE * p.ld + 2 * KC * hmax + 2 * TILE) * sizeof(float);
+  int w = tf32::round8(p.C1);
+  if (tf32::round8(p.H1 + p.E3) > w) w = tf32::round8(p.H1 + p.E3);
+  if (tf32::round8(p.H3) > w) w = tf32::round8(p.H3);
+  p.ld = tf32::stride_mod32(w, 4);   // conflict-free A fragments
+  return (size_t)(TILE * p.ld + tf32::ws_floats(NT, KC) + 2 * TILE) *
+         sizeof(float);
 }
 
-// The tile's shared memory: two activation buffers, the weight chunks, the
-// rows' neighbor weights and activated alphas. A kernel's own shared
-// arrays start at `end`.
+// Splits the weights into `ws` (ws_floats of them) and points p's Mats at
+// them; returns the split job for tf32::launch_split, n = -1 when the
+// workspace is too small or a layer wider than one pass of the products.
+inline tf32::SplitJob split_job(Params& p, const float* w1, const float* w12,
+                                const float* w3, const float* w32, float* ws,
+                                size_t ws_floats) {
+  tf32::SplitJob job{};
+  if (fwd_workspace_floats(p.C1, p.H1, p.E3, p.H3, p.L1, p.L3) > ws_floats ||
+      tf32::round8(p.H1) > 32 * NT || tf32::round8(p.H3) > 32 * NT) {
+    job.n = -1;
+    return job;
+  }
+  p.m1 = tf32::add_split(job, w1, p.C1, p.H1, false, ws);
+  if (p.L1 == 2) p.m12 = tf32::add_split(job, w12, p.H1, p.H1, false, ws);
+  p.m3 = tf32::add_split(job, w3, p.H1 + p.E3, p.H3, false, ws);
+  if (p.L3 == 2) p.m32 = tf32::add_split(job, w32, p.H3, p.H3, false, ws);
+  return job;
+}
+
+// The tile's shared memory: one activation buffer (every layer runs in
+// place), the weight chunks, the rows' neighbor weights and activated
+// alphas. A kernel's own shared arrays start at `end`.
 struct Smem {
-  float *buf0, *buf1, *ws, *wrow, *arow, *end;
+  float *buf, *ws, *wrow, *arow, *end;
 };
 
 __device__ __forceinline__ Smem smem_layout(const Params& p, float* smem) {
   Smem s;
-  s.buf0 = smem;
-  s.buf1 = s.buf0 + TILE * p.ld;
-  s.ws = s.buf1 + TILE * p.ld;      // [2, KC, max(H1, H3)] weight chunks
-  s.wrow = s.ws + 2 * KC * max(p.H1, p.H3);  // [TILE] neighbor weights
+  s.buf = smem;
+  s.ws = s.buf + TILE * p.ld;       // 2 stages x (hi, lo) weight chunks
+  s.wrow = s.ws + tf32::ws_floats(NT, KC);   // [TILE] neighbor weights
   s.arow = s.wrow + TILE;           // [TILE] activated alpha per row
   s.end = s.arow + TILE;
   return s;
@@ -64,112 +97,20 @@ __device__ __forceinline__ Smem smem_layout(const Params& p, float* smem) {
 
 __device__ __forceinline__ float leaky(float x) { return x >= 0.f ? x : 0.1f * x; }
 
-// Copy W rows [k0, k0 + rows) of a [cin, H] matrix into dst [KC, H] with
-// 16-byte asynchronous copies (H % 4 == 0; the wrapper checks), as one
-// commit group.
-__device__ __forceinline__ void stage_rows(const float* __restrict__ W, int k0,
-                                           int rows, int H, float* dst) {
-  const int n4 = rows * H / 4;
-  const float4* src = reinterpret_cast<const float4*>(W + (size_t)k0 * H);
-  for (int i = threadIdx.x; i < n4; i += THREADS) {
-    const unsigned saddr =
-        static_cast<unsigned>(__cvta_generic_to_shared(dst + 4 * i));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(saddr),
-                 "l"(src + i));
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// out[r, c] = act(Σ_k in[r, k] W[k, c] + b[c]) for the block's 64 rows.
-// `in` rows are 16-byte aligned (ld is a multiple of 4). W streams through
-// `ws` (2 x KC rows, double-buffered): chunk c+1 is in flight while chunk c
-// is multiplied, so the inner loop reads shared memory only.
-__device__ void dense(const float* in, int cin, const float* __restrict__ W,
-                      const float* __restrict__ b, int H, float* out, int ld,
-                      bool act, float* ws) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float acc[RPW][CPL];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i)
-#pragma unroll
-    for (int j = 0; j < CPL; ++j) acc[i][j] = 0.f;
-  const float* x = in + warp * RPW * ld;
-  const int nchunks = (cin + KC - 1) / KC;
-  stage_rows(W, 0, min(KC, cin), H, ws);
-  for (int ch = 0; ch < nchunks; ++ch) {
-    const int k0 = ch * KC, kn = min(KC, cin - k0);
-    if (ch + 1 < nchunks) {
-      stage_rows(W, k0 + KC, min(KC, cin - k0 - KC), H,
-                 ws + ((ch + 1) & 1) * KC * H);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();
-    const float* wc = ws + (ch & 1) * KC * H;
-    if (kn == KC) {
-#pragma unroll
-      for (int k4 = 0; k4 < KC; k4 += 4) {
-        float4 xv[RPW];
-#pragma unroll
-        for (int i = 0; i < RPW; ++i)
-          xv[i] = *reinterpret_cast<const float4*>(x + i * ld + k0 + k4);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          float wv[CPL];
-#pragma unroll
-          for (int j = 0; j < CPL; ++j) {
-            const int c = lane + 32 * j;
-            wv[j] = c < H ? wc[(k4 + kk) * H + c] : 0.f;
-          }
-#pragma unroll
-          for (int i = 0; i < RPW; ++i) {
-            const float xs = kk == 0 ? xv[i].x : kk == 1 ? xv[i].y
-                           : kk == 2 ? xv[i].z : xv[i].w;
-#pragma unroll
-            for (int j = 0; j < CPL; ++j) acc[i][j] = fmaf(xs, wv[j], acc[i][j]);
-          }
-        }
-      }
-    } else {
-      for (int kk = 0; kk < kn; ++kk) {
-        float wv[CPL];
-#pragma unroll
-        for (int j = 0; j < CPL; ++j) {
-          const int c = lane + 32 * j;
-          wv[j] = c < H ? wc[kk * H + c] : 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < RPW; ++i) {
-          const float xs = x[i * ld + k0 + kk];
-#pragma unroll
-          for (int j = 0; j < CPL; ++j) acc[i][j] = fmaf(xs, wv[j], acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();   // chunk ch's buffer is refilled two chunks later
-  }
-#pragma unroll
-  for (int j = 0; j < CPL; ++j) {
-    const int c = lane + 32 * j;
-    if (c < H) {
-      const float bc = __ldg(b + c);
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        const float v = acc[i][j] + bc;
-        out[(warp * RPW + i) * ld + c] = act ? leaky(v) : v;
-      }
-    }
-  }
-}
-
-// PE column j of a D-channel input with F frequencies: channel j/(2F),
-// frequency (j/2)%F, sin for even j and cos (= sin(t + pi/2)) for odd j.
-__device__ __forceinline__ float pe_value(const float* row, int j, int F) {
-  const int ch = j / (2 * F), f = (j >> 1) % F;
-  const float t = __fadd_rn(__fmul_rn(row[ch], (float)(1 << f)),
-                            (j & 1) ? HALF_PI : 0.f);
-  return sinf(t);
+// buf[r, n] = leaky(Σ_k buf[r, k] W[k, n] + b[n]) for the block's 64 rows
+// and n < W.np (zero for n >= H), in place: the products (tensor cores,
+// 3xTF32, tf32::tile_gemm, one pass as H <= 256) read buf before the
+// epilogue writes it.
+__device__ __forceinline__ void dense(float* buf, const tf32::Mat& W,
+                                      const float* __restrict__ b, int H,
+                                      int ld, float* ws) {
+  tf32::tile_gemm<TILE, NT, KC, false>(
+      buf, ld, W, ws, [&](int r, int n, float v0, float v1) {
+        float2 o;
+        o.x = n < H ? leaky(v0 + __ldg(b + n)) : 0.f;
+        o.y = n + 1 < H ? leaky(v1 + __ldg(b + n + 1)) : 0.f;
+        *reinterpret_cast<float2*>(buf + r * ld + n) = o;
+      });
 }
 
 // The trunk of the tile whose first row is row0. Row r of the tile reads
@@ -181,46 +122,25 @@ __device__ __forceinline__ void trunk_tile(const Params& p, int row0,
                                            const float* d_t,
                                            const float* ex3_t,
                                            const Smem& s) {
-  const int pe_e = 2 * p.nf * p.Fe;
-
-  // first-layer input [emb, PE(emb), PE(d)] into buf0; rows past S are zero
-  for (int idx = threadIdx.x; idx < TILE * p.C1; idx += THREADS) {
-    const int r = idx / p.C1, c = idx - r * p.C1, g = row0 + r;
-    float v = 0.f;
-    if (g < p.S) {
-      const float* e = p.emb + (size_t)g * p.Fe;
-      if (c < p.Fe) v = e[c];
-      else if (c < p.Fe + pe_e) v = pe_value(e, c - p.Fe, p.nf);
-      else v = pe_value(d_t + r * p.dd, c - p.Fe - pe_e, p.nd);
-    }
-    s.buf0[r * p.ld + c] = v;
+  // first-layer input [emb, PE(emb), PE(d)]; rows past S and the padding
+  // columns up to the product's depth are zero
+  float* cur = s.buf;
+  pe::build_x0<TILE, THREADS>(p.emb, p.Fe, d_t, p.dd, p.nf, p.nd, row0, p.S,
+                              p.C1, p.m1.kp, cur, p.ld);
+  __syncthreads();
+  dense(cur, p.m1, p.b1, p.H1, p.ld, s.ws);
+  if (p.L1 == 2) dense(cur, p.m12, p.b12, p.H1, p.ld, s.ws);
+  // park ex3 beside h: block3's input row is [h, ex3], zero-padded to the
+  // product's depth
+  const int e3p = p.m3.kp - p.H1;
+  for (int idx = threadIdx.x; idx < TILE * e3p; idx += THREADS) {
+    const int r = idx / e3p, c = idx - r * e3p, g = row0 + r;
+    cur[r * p.ld + p.H1 + c] =
+        g < p.S && c < p.E3 ? ex3_t[r * p.E3 + c] : 0.f;
   }
   __syncthreads();
-
-  float* cur = s.buf0;
-  float* nxt = s.buf1;
-  dense(cur, p.C1, p.w1, p.b1, p.H1, nxt, p.ld, true, s.ws);
-  __syncthreads();
-  { float* t = cur; cur = nxt; nxt = t; }
-  if (p.L1 == 2) {
-    dense(cur, p.H1, p.w12, p.b12, p.H1, nxt, p.ld, true, s.ws);
-    __syncthreads();
-    float* t = cur; cur = nxt; nxt = t;
-  }
-  // park ex3 beside h: block3's input row is [h, ex3]
-  for (int idx = threadIdx.x; idx < TILE * p.E3; idx += THREADS) {
-    const int r = idx / p.E3, c = idx - r * p.E3, g = row0 + r;
-    cur[r * p.ld + p.H1 + c] = g < p.S ? ex3_t[r * p.E3 + c] : 0.f;
-  }
-  __syncthreads();
-  dense(cur, p.H1 + p.E3, p.w3, p.b3, p.H3, nxt, p.ld, true, s.ws);
-  __syncthreads();
-  { float* t = cur; cur = nxt; nxt = t; }
-  if (p.L3 == 2) {
-    dense(cur, p.H3, p.w32, p.b32, p.H3, nxt, p.ld, true, s.ws);
-    __syncthreads();
-    float* t = cur; cur = nxt; nxt = t;
-  }
+  dense(cur, p.m3, p.b3, p.H3, p.ld, s.ws);
+  if (p.L3 == 2) dense(cur, p.m32, p.b32, p.H3, p.ld, s.ws);
 
   if (!p.order1) {
     // alpha head per row: warp-wide dot product, then the density activation

@@ -58,19 +58,22 @@ ROW_SELECT = Kernel("row_select", "pointnerf_tpu_torch/csrc/row_select.cu",
 KERNELS = (TRUNK_FWD, TRUNK_BWD, OCCUPANCY, SHADE_FWD, SHADE_BWD,
            SCATTER_ROWS, ROW_SELECT)
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    # pointers..., ints..., stream
-    "trunk_fwd": [_P] * 16 + [_I] * 13 + [_P],
-    "trunk_bwd": [_P] * 26 + [_I] * 14 + [_P],
-    "occupancy": [_P] * 5 + [ctypes.c_longlong] * 3 + [_I] * 3
+    # pointers..., ints..., stream; the launches return a cudaError_t
+    "trunk_fwd": [_P] * 17 + [_L] + [_I] * 13 + [_P],
+    "trunk_bwd": [_P] * 21 + [_L, _P] + [_I] * 13 + [_P],
+    "occupancy": [_P] * 5 + [_L] * 3 + [_I] * 3
     + [ctypes.c_float] * 6 + [_I] * 3 + [_P],
-    "shade_fwd": [_P] * 25 + [_I] * 12 + [_P],
-    "shade_bwd": [_P] * 37 + [_I] * 13 + [_P],
+    "shade_fwd": [_P] * 26 + [_L] + [_I] * 12 + [_P],
+    "shade_bwd": [_P] * 32 + [_L, _P] + [_I] * 12 + [_P],
     "scatter_rows": [_P] * 3 + [_I] * 4 + [_P],
-    "row_select": [_P] * 4 + [_I] * 4 + [ctypes.c_longlong] + [_I] * 3
-    + [_P],
+    "row_select": [_P] * 4 + [_I] * 4 + [_L] + [_I] * 3 + [_P],
+    # workspace sizes in floats
+    "trunk_fwd_workspace": [_I] * 6,
+    "trunk_bwd_workspace": [_I] * 11,
 }
+_RESTYPES = {"trunk_fwd_workspace": _L, "trunk_bwd_workspace": _L}
 
 
 class _Build:
@@ -99,6 +102,11 @@ def _so_path(src: Path) -> Path:
         digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}_{digest.hexdigest()[:12]}.so"
+
+
+def library_path(kernel: Kernel) -> Path:
+    """The shared library `library()` builds for `kernel`'s source."""
+    return _so_path(_PKG.parent / kernel.source)
 
 
 def library() -> _Library:
@@ -137,7 +145,7 @@ def library() -> _Library:
             fn = getattr(cdll, name, None)
             if fn is not None:
                 fn.argtypes = args
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
                 setattr(lib, name, fn)
     missing = [n for n in _SIGNATURES if not hasattr(lib, n)]
     if missing:
@@ -162,10 +170,8 @@ def stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require(t: torch.Tensor, name: str, dtype, device, shape=None,
-            aligned: bool = False) -> None:
-    """Validate a kernel operand before its pointer is passed; `aligned`
-    operands are read with 16-byte copies."""
+def require(t: torch.Tensor, name: str, dtype, device, shape=None) -> None:
+    """Validate a kernel operand before its pointer is passed."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -175,5 +181,3 @@ def require(t: torch.Tensor, name: str, dtype, device, shape=None,
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
-    if aligned and t.data_ptr() % 16:
-        raise ValueError(f"{name} is not 16-byte aligned")

@@ -37,6 +37,7 @@ from .pe import pe_args, pe_input_grad
 
 NEG_SLOPE = 0.1
 BWD_TILE = 32          # rows per K2/K5 tile (TILE in csrc/trunk_bwd.cuh)
+BWD_MAX_WIDTH = 288    # widest product K2/K5 run in place (MAX_N there)
 
 
 def pack_trunk_params(agg, F_emb: int, dd: int, n_feat_freqs: int,
@@ -530,18 +531,18 @@ def _weight_operands(L1, L3, nf, nd, K, order1, S, Fe, dd, E3, dev, ops):
     w1 = _joined(w1e, w1p, w1d)
     w3 = _joined(w3x, w3e)
     kernels.require(w1, "w1", f32, dev,
-                    (Fe + 2 * nf * Fe + 2 * nd * dd, H1), aligned=True)
+                    (Fe + 2 * nf * Fe + 2 * nd * dd, H1))
     kernels.require(b1, "b1", f32, dev, (1, H1))
-    kernels.require(w3, "w3", f32, dev, (H1 + E3, H3), aligned=True)
+    kernels.require(w3, "w3", f32, dev, (H1 + E3, H3))
     kernels.require(b3, "b3", f32, dev, (1, H3))
     w12 = b12 = w32 = b32 = None
     if L1 == 2:
         w12, b12 = extra1[0]
-        kernels.require(w12, "w12", f32, dev, (H1, H1), aligned=True)
+        kernels.require(w12, "w12", f32, dev, (H1, H1))
         kernels.require(b12, "b12", f32, dev, (1, H1))
     if L3 == 2:
         w32, b32 = extra3[0]
-        kernels.require(w32, "w32", f32, dev, (H3, H3), aligned=True)
+        kernels.require(w32, "w32", f32, dev, (H3, H3))
         kernels.require(b32, "b32", f32, dev, (1, H3))
     if not order1:
         kernels.require(wa, "wa", f32, dev, (H3, 1))
@@ -553,6 +554,13 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _fwd_workspace(C1, H1, E3, H3, L1, L3, dev) -> torch.Tensor:
+    """The workspace K1 and K4 split their weights into (TF32 hi and lo
+    planes, csrc/tf32_mma.cuh)."""
+    n = kernels.library().trunk_fwd_workspace(C1, H1, E3, H3, L1, L3)
+    return torch.empty((n,), dtype=torch.float32, device=dev)
+
+
 def _launch(L1, L3, nf, nd, K, act_super, order1, emb, d, ex3, w, ops):
     S, Fe, dd, E3 = _trunk_rows(emb, d, ex3, w)
     w1, w3, w12, b12, w32, b32 = _weight_operands(
@@ -562,19 +570,16 @@ def _launch(L1, L3, nf, nd, K, act_super, order1, emb, d, ex3, w, ops):
     feat = torch.empty((S // K, H3), dtype=torch.float32, device=emb.device)
     alpha = None if order1 else torch.empty((S // K, 1), dtype=torch.float32,
                                             device=emb.device)
+    ws = _fwd_workspace(w1.shape[0], H1, E3, H3, L1, L3, emb.device)
     err = kernels.library().trunk_fwd(
         _ptr(emb), _ptr(d), _ptr(ex3), _ptr(w), _ptr(w1), _ptr(b1),
         _ptr(w12), _ptr(b12), _ptr(w3), _ptr(b3), _ptr(w32), _ptr(b32),
-        _ptr(wa), _ptr(ba), _ptr(feat), _ptr(alpha), S, Fe, dd, E3, nf, nd,
-        H1, H3, L1, L3, K, int(bool(act_super)), int(bool(order1)),
-        kernels.stream_handle(emb))
+        _ptr(wa), _ptr(ba), _ptr(feat), _ptr(alpha), _ptr(ws), ws.numel(), S,
+        Fe, dd, E3, nf, nd, H1, H3, L1, L3, K, int(bool(act_super)),
+        int(bool(order1)), kernels.stream_handle(emb))
     kernels.check(err, kernels.TRUNK_FWD)
     kernels.TRUNK_FWD.launches += 1
     return feat, alpha
-
-
-def _round4(n: int) -> int:
-    return -(-n // 4) * 4
 
 
 def _grad_layout(C1, H1, X3, H3, L1, L3, order1):
@@ -592,16 +597,14 @@ def _grad_layout(C1, H1, X3, H3, L1, L3, order1):
 
 
 class _BwdOperands(NamedTuple):
-    """What K2 and K5 take beside their row inputs: the weights, their
-    transposes, the per-CTA dW partials and the flat dW they sum into. The
-    tensors are held here until the launch: the transposes are new
-    buffers, which the allocator would hand to the outputs if they were
-    freed first."""
-    weights: tuple    # w1, b1, w12, b12, w3, b3, w32, b32, wa, ba,
-                      # w1t, w12t, w3t, w32t (None where absent)
-    partial: torch.Tensor
+    """What K2 and K5 take beside their row inputs: the weights, the
+    workspace (the weights' TF32 planes, the scratch between the kernels'
+    two phases, their partial sums; sized by the library) and the flat dW
+    they sum into."""
+    weights: tuple    # w1, b1, w12, b12, w3, b3, w32, b32, wa, ba
+                      # (None where absent)
+    ws: torch.Tensor
     dW: torch.Tensor
-    n_ctas: int
     dims: tuple       # (H1, H3)
 
 
@@ -616,28 +619,19 @@ def _bwd_operands(L1, L3, nf, nd, K, order1, S, Fe, dd, E3, dev, ops,
     kernels.require(dfeat, "dfeat", f32, dev, (S // K, H3))
     if not order1:
         kernels.require(dalpha, "dalpha", f32, dev, (S // K, 1))
-
-    def transposed(m, cols):
-        """m [rows, n] -> mᵀ [n, cols], zero columns past rows (the
-        kernel's 16-byte copies need widths that are multiples of 4)."""
-        out = torch.zeros((m.shape[1], cols), dtype=f32, device=dev)
-        out[:, :m.shape[0]] = m.t()
-        return out
-
-    w1t, w3t = transposed(w1, _round4(C1)), transposed(w3, _round4(X3))
-    w12t = None if w12 is None else w12.t().contiguous()
-    w32t = None if w32 is None else w32.t().contiguous()
+    if max(-(-C1 // 8), -(-X3 // 8)) * 8 > BWD_MAX_WIDTH:
+        raise ValueError(f"the backward kernels take first-layer widths up "
+                         f"to {BWD_MAX_WIDTH}, got {C1} and {X3}")
     n_w = sum(a * b for _, (a, b) in
               _grad_layout(C1, H1, X3, H3, L1, L3, order1))
-    tiles = -(-S // BWD_TILE)
-    n_ctas = min(torch.cuda.get_device_properties(dev).multi_processor_count,
-                 tiles)
-    partial = torch.empty((max(n_ctas, 1), n_w), dtype=f32, device=dev)
-    weights = (w1, b1, w12, b12, w3, b3, w32, b32, wa, ba, w1t, w12t, w3t,
-               w32t)
-    return _BwdOperands(weights, partial,
-                        torch.zeros((n_w,), dtype=f32, device=dev), n_ctas,
-                        (H1, H3))
+    n_ws = kernels.library().trunk_bwd_workspace(
+        S, Fe, dd, E3, nf, nd, H1, H3, L1, L3, int(bool(order1)))
+    weights = (w1, b1, w12, b12, w3, b3, w32, b32, wa, ba)
+    # every dW entry is written by the kernels' sums when S > 0
+    dW = (torch.empty if S > 0 else torch.zeros)((n_w,), dtype=f32,
+                                                 device=dev)
+    return _BwdOperands(weights, torch.empty((n_ws,), dtype=f32, device=dev),
+                        dW, (H1, H3))
 
 
 def _split_dW(dW, L1, L3, Fe, nf, C1, H1, X3, H3, order1):
@@ -671,9 +665,9 @@ def _launch_bwd(L1, L3, nf, nd, K, act_super, order1, emb, d, ex3, w, ops,
         err = kernels.library().trunk_bwd(
             _ptr(emb), _ptr(d), _ptr(ex3), _ptr(w), _ptr(dfeat),
             _ptr(dalpha), *map(_ptr, b.weights), _ptr(demb), _ptr(ddist),
-            _ptr(dex3), _ptr(dw), _ptr(b.partial), _ptr(b.dW), S, Fe, dd, E3,
-            nf, nd, *b.dims, L1, L3, K, int(bool(act_super)),
-            int(bool(order1)), b.n_ctas, kernels.stream_handle(emb))
+            _ptr(dex3), _ptr(dw), _ptr(b.ws), b.ws.numel(), _ptr(b.dW), S,
+            Fe, dd, E3, nf, nd, *b.dims, L1, L3, K, int(bool(act_super)),
+            int(bool(order1)), kernels.stream_handle(emb))
         kernels.check(err, kernels.TRUNK_BWD)
         kernels.TRUNK_BWD.launches += 1
     H1, H3 = b.dims
@@ -716,12 +710,13 @@ def _launch_shade(L1, L3, nf, nd, K, act_super, order1, dist_mode, emb, xyz,
     feat = new(S // K, H3)
     alpha = None if order1 else new(S // K, 1)
     w_n, conf_c = new(S, 1), new(S, 1)
+    ws = _fwd_workspace(w1.shape[0], H1, SHADE_E3, H3, L1, L3, emb.device)
     err = kernels.library().shade_fwd(
         *(_ptr(t) for t in rows), _ptr(w1), _ptr(b1), _ptr(w12), _ptr(b12),
         _ptr(w3), _ptr(b3), _ptr(w32), _ptr(b32), _ptr(wa), _ptr(ba),
-        _ptr(feat), _ptr(alpha), _ptr(w_n), _ptr(conf_c), S, Fe, dist_mode,
-        nf, nd, H1, H3, L1, L3, K, int(bool(act_super)), int(bool(order1)),
-        kernels.stream_handle(emb))
+        _ptr(feat), _ptr(alpha), _ptr(w_n), _ptr(conf_c), _ptr(ws),
+        ws.numel(), S, Fe, dist_mode, nf, nd, H1, H3, L1, L3, K,
+        int(bool(act_super)), int(bool(order1)), kernels.stream_handle(emb))
     kernels.check(err, kernels.SHADE_FWD)
     kernels.SHADE_FWD.launches += 1
     return feat, alpha, w_n, conf_c
@@ -745,9 +740,10 @@ def _launch_shade_bwd(L1, L3, nf, nd, K, act_super, order1, dist_mode, emb,
         err = kernels.library().shade_bwd(
             *(_ptr(t) for t in rows), _ptr(dfeat), _ptr(dalpha),
             _ptr(dwout), _ptr(dconfout), *map(_ptr, b.weights),
-            *(_ptr(t) for t in outs), _ptr(b.partial), _ptr(b.dW), S, Fe,
-            dist_mode, nf, nd, *b.dims, L1, L3, K, int(bool(act_super)),
-            int(bool(order1)), b.n_ctas, kernels.stream_handle(emb))
+            *(_ptr(t) for t in outs), _ptr(b.ws), b.ws.numel(), _ptr(b.dW),
+            S, Fe, dist_mode, nf, nd, *b.dims, L1, L3, K,
+            int(bool(act_super)), int(bool(order1)),
+            kernels.stream_handle(emb))
         kernels.check(err, kernels.SHADE_BWD)
         kernels.SHADE_BWD.launches += 1
     H1, H3 = b.dims

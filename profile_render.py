@@ -27,10 +27,13 @@ import time
 import torch
 
 # kernel families, by a substring of the kernel's name (first match wins);
-# K2's and K5's weight-gradient sum `reduce_partials` goes to the backward
-# kernel of the configuration profiled
+# K2's and K5's weight-gradient phase (`wgrad_kernel`, `reduce_splits`,
+# `reduce_head`) goes to the backward kernel of the configuration profiled,
+# and the trunk kernels' weight splits to a family of their own
+WGRAD = ("wgrad_kernel", "reduce_splits", "reduce_head")
 FAMILIES = (("K1 trunk_fwd", ("trunk_fwd",)),
-            ("K2 trunk_bwd", ("trunk_bwd", "reduce_partials")),
+            ("K2 trunk_bwd", ("trunk_bwd",) + WGRAD),
+            ("TF32 weight splits", ("split_weights",)),
             ("K3 occupancy", ("occupancy",)),
             ("K4 shade_fwd", ("shade_fwd",)),
             ("K5 shade_bwd", ("shade_bwd",)),
@@ -46,7 +49,7 @@ FAMILIES = (("K1 trunk_fwd", ("trunk_fwd",)),
 
 def family(name: str, shade: bool = False) -> str:
     low = name.lower()
-    if shade and "reduce_partials" in low:
+    if shade and any(k in low for k in WGRAD):
         return "K5 shade_bwd"
     for fam, keys in FAMILIES:
         if any(k in low for k in keys):

@@ -144,6 +144,74 @@ def test_trunk_bwd_weight_grads_are_reproducible(dev):
         assert torch.equal(a, b)
 
 
+# the tile kernels' edges: S below one tile (32 rows in K2, 64 in K1) and
+# ragged, K = 4, widths that are not multiples of 8 (H 36 and 252; C1 = 76
+# and X3 = H + 7 at these widths), and enough rows that K2's weight-gradient
+# phase splits them (8,008 rows: 8 splits)
+EDGES = {"short": (8, 3, 2, 2, 2, 32), "one-row": (1, 1, 1, 1, 1, 32),
+         "h36": (4, 50, 2, 2, 2, 36), "h36-l1-order1": (4, 50, 1, 2, 1, 36),
+         "k4": (4, 37, 2, 1, 2, 32), "h252": (8, 40, 2, 2, 2, 252),
+         "splits": (8, 1001, 2, 2, 2, 32)}
+
+
+@pytest.mark.parametrize("case", sorted(EDGES))
+def test_trunk_kernels_at_the_tiles_edges(dev, case):
+    """K1 and K2 against their plain versions at the edges of their tiles
+    and products; K2's weight gradients bit-equal over two launches."""
+    K, n_pts, L1, L3, order, H = EDGES[case]
+    opt = _opt(L1, L3, order, shading_feature_num=H)
+    agg = init_aggregator_params(opt, torch.Generator().manual_seed(n_pts),
+                                 device=dev)
+    rng = np.random.RandomState(n_pts)
+    S = n_pts * K
+    rows = [rng.uniform(-0.5, 0.5, (S, 8)), 0.05 * rng.normal(size=(S, 6)),
+            rng.uniform(-1, 1, (S, 7)), rng.uniform(0, 1, (S, 1)),
+            rng.normal(size=(S // K, H)), rng.normal(size=(S // K, 1))]
+    emb, d, ex3, w, dfeat, dalpha = [
+        torch.as_tensor(r.astype(np.float32), device=dev) for r in rows]
+    ops = [o.detach() for o in tt.pack_trunk_params(agg, 8, 6, 2, 3,
+                                                    with_alpha=order == 2)]
+    zs = tt.trunk_activations(L1, L3, 2, 3, emb, d, ex3, ops, order == 2)
+    for z in zs[2] + zs[4]:
+        w = w * (z.abs() >= KINK).all(dim=1, keepdim=True)
+    fwd = (L1, L3, 2, 3, K, True, order == 1, emb, d, ex3, w, ops)
+    with torch.inference_mode():
+        got, want = tt.fused_trunk(*fwd), tt.fused_trunk_reference(*fwd)
+    bwd = (*fwd, dfeat, None if order == 1 else dalpha)
+    gb, again = tt.trunk_bwd(*bwd), tt.trunk_bwd(*bwd)
+    wb = tt.fused_trunk_bwd_reference(*bwd)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+        else:
+            torch.testing.assert_close(a, b, **TOL)
+    for a, b in zip(gb[:4], wb[:4]):
+        torch.testing.assert_close(a, b, **TOL)
+    for a, b, c in zip(gb[4], wb[4], again[4]):
+        assert a.shape == b.shape and torch.equal(a, c)
+        assert float((a - b).abs().max()) <= SUM_REL * float(b.abs().max())
+
+
+def test_shade_bwd_weight_grads_are_reproducible_over_splits(dev):
+    """K5 on 8,008 rows (its weight-gradient phase splits them 8 ways):
+    two launches give bit-equal weight gradients."""
+    cfg, args, ops = _shade_args(dev, 8, 2, 20, 2, 1001, seed=2)
+    S = args[0].shape[0]
+    g = torch.Generator().manual_seed(8)
+    cts = [torch.randn(S // 8, 32, generator=g),
+           torch.randn(S // 8, 1, generator=g),
+           torch.randn(S, 1, generator=g), torch.randn(S, 1, generator=g)]
+    cts = [c.to(dev) for c in cts]
+    first = tt.shade_bwd(*cfg, *args, ops, *cts)
+    second = tt.shade_bwd(*cfg, *args, ops, *cts)
+    want = tt.fused_shade_bwd_reference(*cfg, *args, ops, *cts)
+    torch.cuda.synchronize()
+    for a, b, c in zip(first[6], second[6], want[6]):
+        assert torch.equal(a, b)
+        assert float((a - c).abs().max()) <= SUM_REL * float(c.abs().max())
+
+
 SHADE_GRID = [(K, order, mode, L) for K in (1, 8) for order in (1, 2)
               for mode in (20, 0) for L in (1, 2)]
 
