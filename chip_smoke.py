@@ -4,8 +4,9 @@
 
 Builds the port's CUDA kernels from pointnerf_tpu_torch/csrc and holds each
 kernel against its plain PyTorch version at the shapes its path gives it
-(K1, K3 and K4 at a serving group's, K2 and K5 at a train step's, K6 at
-its micro-benchmark's and at a train step's, K7 at its micro-benchmark's).
+(K1, K3 and K4 at a serving group's, K2 and K5 at a train step's, K3's
+select mode also at a train batch's, K6 at its micro-benchmark's and at a
+train step's, K7 at its micro-benchmark's).
 Then it drives the port's main paths on the NeRF-Synthetic lego preset
 (random weights from a seeded torch.Generator, bench.py's 100k-point
 shell-and-blobs cloud), each in the default configuration (fused_shade=0:
@@ -28,10 +29,12 @@ which must resume and stop at once.
 
 Before the checks it counts the HMMA instructions in the SASS of each
 trunk kernel's library (K1, K2, K4, K5 run their products on the tensor
-cores in a 3xTF32 split; none fails) and turns TF32 off in cuBLAS and
-cuDNN, so the plain versions stay full fp32. The trunk kernels' bound is
-their 3xTF32 tensor-core products (`bound_ms`), with the fp32 SIMT bound
-beside it (`bound_fp32_ms`).
+cores in a 3xTF32 split; a count of 0 fails) and the subroutine calls in
+K3's (its indices are 32-bit; a call, such as 64-bit integer division,
+fails), and turns TF32 off in cuBLAS and cuDNN, so the plain versions
+stay full fp32. The trunk kernels' bound is their 3xTF32 tensor-core
+products (`bound_ms`), with the fp32 SIMT bound beside it
+(`bound_fp32_ms`).
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; every kernel of the path's configuration must have launched in it,
@@ -232,20 +235,26 @@ def scratch_text(L1: int, L3: int, ops, S: int) -> str:
             f"{PEAK_BYTES / 1e12:.2f} TB/s)")
 
 
+def sass(kernel) -> str:
+    """The SASS of `kernel`'s built library (cuobjdump -sass)."""
+    import shutil
+    from pointnerf_tpu_torch.ops import kernels
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([tool, "-sass", str(kernels.library_path(kernel))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+
+
 def tensor_core_products():
     """HMMA instructions in the SASS of each trunk kernel's library
     (cuobjdump -sass): K1, K2, K4 and K5 must issue their products on the
     tensor cores. Returns {kernel name: count}."""
-    import shutil
     from pointnerf_tpu_torch.ops import kernels
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     counts = {}
     for k in (kernels.TRUNK_FWD, kernels.TRUNK_BWD, kernels.SHADE_FWD,
               kernels.SHADE_BWD):
-        sass = subprocess.run([tool, "-sass", str(kernels.library_path(k))],
-                              capture_output=True, text=True, check=True,
-                              timeout=120).stdout
-        counts[k.name] = sum("HMMA" in line for line in sass.splitlines())
+        counts[k.name] = sum("HMMA" in line
+                             for line in sass(k).splitlines())
         if not counts[k.name]:
             raise AssertionError(f"{k.name} issues no HMMA instruction")
     return counts
@@ -669,10 +678,43 @@ def check_shade_bwd(agg, opt, Ncb: int, NtB: int):
     return rows
 
 
-def check_occupancy(item, grid, spec, opt, rays: int):
-    """K3 against the dense plain mask on the rays x samples of the serving
-    group that holds the image's center."""
+def route_before(campos, raydir, t, grid, spec, SR: int):
+    """The query's shading-point route before K3 selected them itself: K3
+    in mask mode, select_shading_t, then campos + raydir·t of the picked
+    depths in float64 (`ray_points`)."""
     from pointnerf_tpu_torch.ops import query as tq
+    valid, _ = tq.mask_raypos_segmented(campos, raydir, t, grid, spec)
+    t_sel, mask, counts = tq.select_shading_t(t, valid, SR)
+    return torch.where(mask[..., None], tq.ray_points(campos, raydir, t_sel),
+                       0.0), mask, counts
+
+
+def occupancy_bound(t, valid, SR, campos, raydir):
+    """(bound ms, by, samples the function must test) of K3 on these
+    inputs. Bytes: the depths it needs (a broadcast axis read once; with
+    SR, only each ray's depths up to its SR-th occupied one), the rays, and
+    the outputs (SR None: the [B,R,D] mask; else positions, mask bits and
+    counts). The table lookups (one byte of a 9 MB
+    L2-resident table per in-range sample) are not counted. Operations: a
+    dozen per tested sample."""
+    B, R, D = t.shape
+    if SR is None:
+        tested = valid.numel()
+    else:
+        cum = torch.cumsum(valid.to(torch.int32), dim=-1, dtype=torch.int32)
+        tested = int(((cum - valid.to(torch.int32)) < SR).sum())
+    bcast = t.stride()[:2] == (0, 0)
+    depths = D if bcast else tested
+    out = valid.numel() if SR is None else B * R * (SR * 13 + 4)
+    b_ms, b_by = bound(12 * tested, 4 * depths + nbytes(campos, raydir)
+                       + out)
+    return b_ms, b_by, tested
+
+
+def serving_group(item, opt, rays: int):
+    """(campos, raydir, tvals) of the serving group of `rays` rays that
+    holds the image's center, on the card; tvals broadcast over the rays
+    (strides 0, 0, 1), as the serving path builds them."""
     from pointnerf_tpu_torch.ops import raygen
     dev = torch.device("cuda")
     start = (H * W // 2) // rays * rays
@@ -682,6 +724,14 @@ def check_occupancy(item, grid, spec, opt, rays: int):
     _, _, _, t = raygen.near_far_linear_ray_generation(
         campos, raydir, opt.z_depth_dim, near=float(item["near"]),
         far=float(item["far"]))
+    return campos, raydir, t
+
+
+def check_occupancy_mask(campos, raydir, t, grid, spec, SR: int):
+    """K3 in mask mode (`mask_raypos_segmented`) against the dense plain
+    mask, and the route the query ran before K3 selected (`route_before`),
+    each timed. Returns [(shape, row)] for both."""
+    from pointnerf_tpu_torch.ops import query as tq
     kern = lambda: tq.mask_raypos_segmented(campos, raydir, t, grid, spec)[0]
     plain = lambda: tq.mask_raypos(tq.ray_points(campos, raydir, t), grid,
                                    spec)
@@ -695,19 +745,99 @@ def check_occupancy(item, grid, spec, opt, rays: int):
     ms, plain_ms, timed = graph_pair(
         kern, plain, "host_const stages the grid's constants through pinned "
         "memory")
-    # bytes: the depths (a broadcast axis read once), the rays and the mask;
-    # the table lookups (one byte of a 9 MB L2-resident table per in-range
-    # sample) are not counted. Operations: a dozen per sample.
-    depths = int(np.prod([n for n, st in zip(t.shape, t.stride()) if st]))
-    b_ms, b_by = bound(12 * t.numel(), 4 * depths + nbytes(campos, raydir)
-                       + t.numel())
-    log(f"K3 occupancy rays={rays} samples={t.numel()}: equal "
-        f"(occupied share {float(want.float().mean()):.4f}) "
-        f"{timed} bound={b_ms:.4f} ms ({b_by}); host-paced (5 eager "
-        f"calls, CUDA events): kernel={host_ms:.4f} ms "
-        f"plain={host_plain_ms:.4f} ms")
-    return dict(err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by)
+    b_ms, b_by, _ = occupancy_bound(t, want, None, campos, raydir)
+    log(f"K3 occupancy mask mode rays={raydir.shape[1]} samples="
+        f"{t.numel()}: equal (occupied share "
+        f"{float(want.float().mean()):.4f}) {timed} bound={b_ms:.4f} ms "
+        f"({b_by}); host-paced (5 eager calls, CUDA events): "
+        f"kernel={host_ms:.4f} ms plain={host_plain_ms:.4f} ms")
+    route_ms, route_how = graph_time(
+        lambda: route_before(campos, raydir, t, grid, spec, SR))
+    log(f"K3 route before (mask mode + select_shading_t + ray_points of the "
+        f"picked depths), serving group SR={SR}: {route_ms:.4f} ms "
+        f"({route_how})")
+    return [("mask mode, serving group", dict(
+        err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)),
+        ("route before, serving group", dict(
+            err=0.0, ms=route_ms, plain_ms=None, bound_ms=None,
+            bound_by=None))]
+
+
+def check_occupancy(item, grid, spec, opt, rays: int):
+    """K3 on the rays x samples of the serving group that holds the image's
+    center: mask mode and the route before (`check_occupancy_mask`), then
+    select mode, `occupancy_select`, against its plain version bit for bit
+    on that group (broadcast depths) and on bench.py's 3,600-ray train
+    batch with jittered depths (draws from a seeded torch.Generator), with
+    the route before's time beside it. Returns the kernels line's K3 row
+    (select mode at the serving shape) with `rows`, one per mode and
+    shape."""
+    from pointnerf_tpu_torch.ops import query as tq
+    from pointnerf_tpu_torch.ops import raygen
+    from pointnerf_tpu_torch.models.renderer import TRAIN_JITTER
+    from pointnerf_tpu_torch.run.workload import make_train_batch
+    dev = torch.device("cuda")
+    campos, raydir, t = serving_group(item, opt, rays)
+    SR = opt.SR
+    rows = check_occupancy_mask(campos, raydir, t, grid, spec, SR)
+    route_ms = rows[1][1]["ms"]
+    batch = make_train_batch(opt, dev)
+    u = torch.rand((1, batch["raydir"].shape[1], opt.z_depth_dim),
+                   generator=torch.Generator(device=dev).manual_seed(7),
+                   device=dev)
+    _, _, _, t_train = raygen.near_far_linear_ray_generation(
+        batch["campos"], batch["raydir"], opt.z_depth_dim,
+        near=float(batch["near"]), far=float(batch["far"]),
+        jitter=TRAIN_JITTER, u=u)
+    shapes = (("serving group", campos, raydir, t),
+              ("train batch", batch["campos"], batch["raydir"], t_train))
+    for shape, cp, rd, tt in shapes:
+        fused = lambda: tq.occupancy_select(cp, rd, tt, grid, spec, SR)
+        ref = lambda: tq.occupancy_select_reference(cp, rd, tt, grid, spec,
+                                                    SR)
+        got = fused()
+        want = ref()
+        valid = tq.mask_raypos(tq.ray_points(cp, rd, tt), grid, spec)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("sample_loc_w", "sample_mask", "counts"),
+                              got, want):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"K3 select mode, {shape}: {name} "
+                                     f"differs from its plain version")
+        f_ms, f_plain_ms, timed = graph_pair(
+            fused, ref, "host_const stages the grid's constants through "
+            "pinned memory")
+        b_ms, b_by, tested = occupancy_bound(tt, valid, SR, cp, rd)
+        before = (f", route before {route_ms:.4f} ms "
+                  f"({route_ms / f_ms:.2f}x the kernel's time)"
+                  if shape == "serving group" else "")
+        kind = "broadcast" if tt.stride()[:2] == (0, 0) else "jittered"
+        log(f"K3 occupancy select mode, {shape}: rays={rd.shape[1]} "
+            f"samples={tt.numel()} ({kind} depths) SR={SR}: bit-equal; "
+            f"occupied share "
+            f"{float(valid.float().mean()):.4f}, rays at SR "
+            f"{float((got[2] == SR).float().mean()):.4f}, samples tested "
+            f"{tested}; {timed} bound={b_ms:.4f} ms ({b_by}; "
+            f"{100 * b_ms / f_ms:.0f}% of the kernel's time){before}")
+        rows.append((f"select mode, {shape}", dict(
+            err=0.0, ms=f_ms, plain_ms=f_plain_ms, bound_ms=b_ms,
+            bound_by=b_by)))
+        del got, want, valid
+    return dict(dict(rows)["select mode, serving group"], rows=rows)
+
+
+def sass_calls(kernel):
+    """{callee: count} of the CALL instructions in the SASS of `kernel`'s
+    library: the subroutines it reaches, such as the 64-bit integer
+    division (an unnamed callee prints as its address)."""
+    import re
+    calls = {}
+    for line in sass(kernel).splitlines():
+        m = re.search(r"\bCALL\.\S*\s+`?\(?([^)\s;`]+)", line)
+        if m:
+            callee = m.group(1).split("$")[-1]
+            calls[callee] = calls.get(callee, 0) + 1
+    return calls
 
 
 def serve_path(opt, state, spec, grid, agg, ts, item, label, kerns):
@@ -1243,6 +1373,12 @@ def main() -> int:
             log("  ptxas:", line.strip())
     log(f"tensor-core products (HMMA instructions in cuobjdump -sass): "
         f"{tensor_core_products()}")
+    calls = sass_calls(kernels.OCCUPANCY)
+    log(f"K3 subroutine calls (CALL instructions in cuobjdump -sass): "
+        f"{calls}")
+    if calls:
+        raise AssertionError("K3 calls a subroutine: its indices must stay "
+                             "32-bit (64-bit division is one)")
     # the plain versions stay full fp32: no TF32 in cuBLAS or cuDNN
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

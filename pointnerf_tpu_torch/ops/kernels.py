@@ -63,8 +63,8 @@ _SIGNATURES = {
     # pointers..., ints..., stream; the launches return a cudaError_t
     "trunk_fwd": [_P] * 17 + [_L] + [_I] * 13 + [_P],
     "trunk_bwd": [_P] * 21 + [_L, _P] + [_I] * 13 + [_P],
-    "occupancy": [_P] * 5 + [_L] * 3 + [_I] * 3
-    + [ctypes.c_float] * 6 + [_I] * 3 + [_P],
+    "occupancy_select": [_P] * 8 + [_I] * 7 + [ctypes.c_float] * 6
+    + [_I] * 3 + [_P],
     "shade_fwd": [_P] * 26 + [_L] + [_I] * 12 + [_P],
     "shade_bwd": [_P] * 32 + [_L, _P] + [_I] * 12 + [_P],
     "scatter_rows": [_P] * 3 + [_I] * 4 + [_P],

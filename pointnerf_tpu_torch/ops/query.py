@@ -7,11 +7,15 @@ port does the direct GPU thing with the same outputs: gathers, scatters and
 `searchsorted`. Integer outputs (masks, neighbor indices, counters) equal
 the JAX package's exactly.
 
-The occupancy test `mask_raypos_segmented` launches the CUDA kernel
-`csrc/occupancy.cu` on CUDA tensors; its plain version is the dense
-`mask_raypos`. `row_select`, the per-sample select of the segment-cached
-occupancy experiment (`pointnerf_tpu_torch/scripts/occ_micro3.py`; no
-production path runs it), launches `csrc/row_select.cu`.
+The occupancy test and the shading-point select, `occupancy_select`,
+launch the CUDA kernel `csrc/occupancy.cu` (K3) on CUDA tensors: one pass
+that tests every depth sample and writes the positions of each ray's first
+SR occupied ones. Its plain version is the dense `mask_raypos`, then
+`select_shading_t`, then the picked depths' positions. The occupancy test
+alone, `mask_raypos_segmented`, launches the same kernel in mask mode.
+`row_select`, the per-sample select of the segment-cached occupancy
+experiment (`pointnerf_tpu_torch/scripts/occ_micro3.py`; no production path
+runs it), launches `csrc/row_select.cu`.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from . import kernels
 from .grid import GridSpec, fma, grid_consts, linearize, voxel_coords
 
 BIG = 3.0e38
+INDEX_LIMIT = 2 ** 31   # K3 indexes with 32-bit integers
+FLOOR_LIMIT = 2 ** 22   # and floors coordinates below it on the float pipe
 
 
 def ray_points(campos: torch.Tensor, raydir: torch.Tensor,
@@ -56,10 +62,11 @@ def mask_raypos_segmented(campos: torch.Tensor, raydir: torch.Tensor,
 
     Counterpart of the JAX segment-cached test, which caches each ray's
     ≤U distinct occupancy rows for its TPU kernel and goes conservative
-    past U. The port looks every sample up directly (`csrc/occupancy.cu` on
-    CUDA tensors, dense `mask_raypos` on CPU tensors), so it is exact — equal
-    to the dense mask everywhere — and has no budget: the second return,
-    the number of rays past the row budget (`occ_overflow`), is always 0.
+    past U. The port looks every sample up directly (`csrc/occupancy.cu` in
+    mask mode on CUDA tensors, dense `mask_raypos` on CPU tensors), so it is
+    exact — equal to the dense mask everywhere — and has no budget: the
+    second return, the number of rays past the row budget (`occ_overflow`),
+    is always 0.
 
     Returns (valid [B,R,D] bool, n_overflow [] int32).
     """
@@ -70,12 +77,68 @@ def mask_raypos_segmented(campos: torch.Tensor, raydir: torch.Tensor,
     return _occupancy_launch(campos, raydir, tvals, grid, spec), n_over
 
 
-def _occupancy_launch(campos, raydir, tvals, grid, spec: GridSpec):
+def occupancy_select_reference(campos: torch.Tensor, raydir: torch.Tensor,
+                               tvals: torch.Tensor, grid, spec: GridSpec,
+                               SR: int):
+    """The plain version of `occupancy_select`: the dense mask, the first
+    ≤SR valid depths (`select_shading_t`), their positions."""
+    valid = mask_raypos(ray_points(campos, raydir, tvals), grid, spec)
+    t_sel, sample_mask, counts = select_shading_t(tvals, valid, SR)
+    sample_loc_w = torch.where(sample_mask[..., None],
+                               ray_points(campos, raydir, t_sel), 0.0)
+    return sample_loc_w, sample_mask, counts
+
+
+def occupancy_select(campos: torch.Tensor, raydir: torch.Tensor,
+                     tvals: torch.Tensor, grid, spec: GridSpec, SR: int):
+    """Occupancy of the samples campos + raydir·t (tvals [B,R,D], any
+    strides) and the positions of each ray's first ≤SR occupied ones.
+
+    On CUDA tensors one launch of `csrc/occupancy.cu` (K3) does both: a
+    warp per ray ranks its occupied samples with a ballot and writes only
+    the first SR; B·R·D, B·R·SR·3, the largest tvals offset and the grid
+    volume must stay under 2^31, each grid dimension at most 2^22
+    (ValueError). On CPU tensors it runs `occupancy_select_reference`.
+    Exact, with no row budget: occ_overflow is always 0.
+
+    Returns (sample_loc_w [B,R,SR,3] float32, sample_mask [B,R,SR] bool,
+    counts [B,R] int32 = min(occupied samples, SR), occ_overflow [] int32).
+    """
+    n_over = torch.zeros((), dtype=torch.int32, device=tvals.device)
+    if tvals.device.type == "cpu":
+        return (*occupancy_select_reference(campos, raydir, tvals, grid,
+                                            spec, SR), n_over)
+    return (*_occupancy_launch(campos, raydir, tvals, grid, spec, SR),
+            n_over)
+
+
+def check_index_range(shape, tvals_strides, SR, spec: GridSpec) -> None:
+    """Raise ValueError where K3's 32-bit indices would overflow, or a grid
+    dimension passes the range of its float-pipe floor."""
+    B, R, D = shape
+    sizes = {"B·R·D": B * R * D, "B·R·SR·3": B * R * max(SR, 0) * 3,
+             "the largest tvals offset": sum(max(n - 1, 0) * st for n, st
+                                             in zip(shape, tvals_strides)),
+             "the grid volume": spec.grid_size_vol}
+    for what, n in sizes.items():
+        if n >= INDEX_LIMIT:
+            raise ValueError(f"occupancy indexes with 32-bit integers: "
+                             f"{what} = {n} reaches 2^31")
+    if max(spec.vdim) > FLOOR_LIMIT:
+        raise ValueError(f"occupancy floors voxel coordinates below 2^22 "
+                         f"only; the grid is {spec.vdim}")
+
+
+def _occupancy_launch(campos, raydir, tvals, grid, spec: GridSpec,
+                      SR: int | None = None):
+    """K3 in select mode, returning (sample_loc_w, sample_mask, counts),
+    or, with SR None, in mask mode, returning valid [B,R,D]."""
     dev = tvals.device
     if dev.type != "cuda":
         raise ValueError(f"occupancy runs on cpu or cuda, not {dev}")
     B, R, D = tvals.shape
     rows = grid["coor_occ_rows"]
+    check_index_range((B, R, D), tvals.stride(), SR or 0, spec)
     kernels.require(campos, "campos", torch.float32, dev, (B, 3))
     kernels.require(raydir, "raydir", torch.float32, dev, (B, R, 3))
     kernels.require(rows, "coor_occ_rows", torch.int8, dev)
@@ -83,16 +146,22 @@ def _occupancy_launch(campos, raydir, tvals, grid, spec: GridSpec):
         raise ValueError("tvals must be float32 on the rays' device")
     if rows.numel() < spec.grid_size_vol:
         raise ValueError("coor_occ_rows is smaller than the grid volume")
-    out = torch.empty((B, R, D), dtype=torch.bool, device=dev)
+    if SR is None:
+        outs = (torch.empty((B, R, D), dtype=torch.bool, device=dev),)
+        ptrs = (None, None, None, outs[0].data_ptr())
+    else:
+        outs = (torch.empty((B, R, SR, 3), dtype=torch.float32, device=dev),
+                torch.empty((B, R, SR), dtype=torch.bool, device=dev),
+                torch.empty((B, R), dtype=torch.int32, device=dev))
+        ptrs = (*(o.data_ptr() for o in outs), None)
     mn, inv = (v.tolist() for v in grid_consts(spec, "cpu"))
-    sb, sr, sd = tvals.stride()
-    lib = kernels.library()
-    err = lib.occupancy(campos.data_ptr(), raydir.data_ptr(), tvals.data_ptr(),
-                        rows.data_ptr(), out.data_ptr(), sb, sr, sd, B, R, D,
-                        *mn, *inv, *spec.vdim, kernels.stream_handle(tvals))
+    err = kernels.library().occupancy_select(
+        campos.data_ptr(), raydir.data_ptr(), tvals.data_ptr(),
+        rows.data_ptr(), *ptrs, *tvals.stride(), B, R, D, SR or 0, *mn,
+        *inv, *spec.vdim, kernels.stream_handle(tvals))
     kernels.check(err, kernels.OCCUPANCY)
     kernels.OCCUPANCY.launches += 1
-    return out
+    return outs[0] if SR is None else outs
 
 
 def row_select_reference(rows_g: torch.Tensor, rank: torch.Tensor,
@@ -370,11 +439,12 @@ def query_grid_points(campos: torch.Tensor, raydir: torch.Tensor,
     """Full query pipeline (reference host orchestration cu:305-433).
 
     campos [B,3], raydir [B,R,3], tvals [B,R,D] ray-march depths. The
-    occupancy test is always `mask_raypos_segmented`: exact and without a
-    row budget, so the JAX package's `occ_segments` option has nothing to
-    choose here. Nc > 0: the KNN runs only on the first Ncb = ceil(Nc/B)
-    occupancy-valid shading rows of each batch row; rows past the budget
-    get no neighbors and count in q_overflow.
+    occupancy test and the shading-point select are one `occupancy_select`
+    (K3 on the card): exact and without a row budget, so the JAX package's
+    `occ_segments` option has nothing to choose here. Nc > 0: the KNN runs
+    only on the first Ncb = ceil(Nc/B) occupancy-valid shading rows of each
+    batch row; rows past the budget get no neighbors and count in
+    q_overflow.
 
     Returns (sample_pidx [B,R,SR,K] or None, sample_loc_w [B,R,SR,3],
     ray_mask [B,R] bool, q_overflow [] int32, comp, occ_overflow [] int32);
@@ -382,11 +452,8 @@ def query_grid_points(campos: torch.Tensor, raydir: torch.Tensor,
     [B,Ncb], comp_valid [B,Ncb], c_pidx [B,Ncb,K], row_valid [B,R,SR],
     counts [B,R]).
     """
-    rp_valid, occ_overflow = mask_raypos_segmented(campos, raydir, tvals,
-                                                   grid, spec)
-    t_sel, sample_mask, counts = select_shading_t(tvals, rp_valid, SR)
-    sample_loc_w = torch.where(sample_mask[..., None],
-                               ray_points(campos, raydir, t_sel), 0.0)
+    sample_loc_w, sample_mask, counts, occ_overflow = occupancy_select(
+        campos, raydir, tvals, grid, spec, SR)
     B, R = raydir.shape[0], raydir.shape[1]
     S = B * R * SR
     RS = R * SR

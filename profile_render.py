@@ -148,7 +148,7 @@ def main() -> int:
           f"counts {({k.name: k.launches for k in kernels.KERNELS})}")
     print(f"{'family':<14} {'ms':>9} {'share':>7} {'kernels':>8}")
     for fam, us in sorted(by_family.items(), key=lambda kv: -kv[1]):
-        print(f"{fam:<14} {us / 1e3:9.1f} {100 * us / 1e3 / total_ms:6.1f}% "
+        print(f"{fam:<14} {us / 1e3:9.3f} {100 * us / 1e3 / total_ms:6.1f}% "
               f"{launches[fam]:8d}")
     names = {}
     for e in dev_events:

@@ -23,6 +23,7 @@ within GRAD_REL in norm.
 """
 
 import copy
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -321,6 +322,172 @@ def test_occupancy_kernel_matches_plain(dev):
     want = tq.mask_raypos(tq.ray_points(campos, rd, t), grid, spec)
     assert int(over) == 0 and want.any()
     assert torch.equal(got, want)
+
+
+def _select_workload(dev, broadcast: bool, D=97, R=256):
+    """A box-shaped cloud and rays that miss, graze or cross its grid (0,
+    fewer than 80 and more than 80 occupied samples of D = 97), with
+    broadcast depths (strides 0, 0, 1) or depths jittered per ray."""
+    rng = np.random.RandomState(11)
+    xyz = (rng.uniform(-1, 1, (1200, 3)) * [0.4, 0.4, 0.55]
+           ).astype(np.float32)
+    opt = _opt(vsize=(0.04, 0.04, 0.04), vscale=(1, 1, 1),
+               kernel_size=(3, 3, 3), query_size=(3, 3, 3), max_o=4096, P=8,
+               ranges=(-0.6, -0.6, -0.6, 0.6, 0.6, 0.6))
+    spec = tgrid.make_grid_spec(opt, xyz.min(0), xyz.max(0), len(xyz))
+    grid = tgrid.build_grid(torch.as_tensor(xyz, device=dev),
+                            torch.ones(len(xyz), dtype=torch.bool,
+                                       device=dev), spec)
+    campos = torch.tensor([[0.02, -0.03, -1.2]], device=dev)
+    tgt = np.zeros((1, R, 3))
+    tgt[..., :2] = rng.uniform(-0.2, 0.2, (1, R, 2))
+    tgt[:, :R // 4, 0] += 3.0
+    tgt[:, R // 4:R // 2, 0] = rng.uniform(0.47, 0.5, (1, R // 4))
+    rd = torch.as_tensor(tgt, dtype=torch.float32, device=dev) - campos
+    rd = rd / rd.norm(dim=-1, keepdim=True)
+    u = None if broadcast else torch.rand(
+        (1, R, D), generator=torch.Generator(device=dev).manual_seed(2),
+        device=dev)
+    _, _, _, t = raygen.near_far_linear_ray_generation(
+        campos, rd, D, near=0.55, far=1.85, jitter=0.0 if broadcast else 0.3,
+        u=u)
+    assert (t.stride() == (0, 0, 1)) == broadcast
+    return campos, rd, t, grid, spec
+
+
+@pytest.mark.parametrize("broadcast", [True, False],
+                         ids=["broadcast", "jittered"])
+@pytest.mark.parametrize("SR", [1, 7, 80, 120])
+def test_occupancy_select_kernel_matches_plain(dev, SR, broadcast):
+    """K3's select mode equals its plain version exactly, over two
+    launches; SR = 120 > D leaves the slots past D empty."""
+    campos, rd, t, grid, spec = _select_workload(dev, broadcast)
+    before = kernels.OCCUPANCY.launches
+    got = tq.occupancy_select(campos, rd, t, grid, spec, SR)
+    again = tq.occupancy_select(campos, rd, t, grid, spec, SR)
+    want = tq.occupancy_select_reference(campos, rd, t, grid, spec, SR)
+    torch.cuda.synchronize()
+    assert kernels.OCCUPANCY.launches == before + 2
+    total = tq.mask_raypos(tq.ray_points(campos, rd, t), grid,
+                           spec).sum(-1)
+    assert (total == 0).any() and ((0 < total) & (total < 80)).any() \
+        and (total > 80).any()
+    for a, b, c in zip(got[:3], want, again[:3]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+        assert torch.equal(a, c)
+    assert int(got[3]) == 0
+    if SR > t.shape[-1]:
+        assert not got[1][..., t.shape[-1]:].any()
+        assert not got[0][..., t.shape[-1]:, :].any()
+
+
+def _edge_workload(dev, D=97):
+    """Samples whose voxel x coordinate lands on the edges of K3's floor
+    and bounds test: -0.0 and just below vdim (inside the grid, in occupied
+    voxels), in (-1, 0), exactly vdim, at 2^22, past ±2^22 and ±inf
+    (outside), then samples across the grid. The grid is
+    `_select_workload`'s with its x origin moved to 0, so a sample at x has
+    the coordinate x·(1/vsize); the first ray runs along +x from
+    (-0.0, y, z), so its sample x is t exactly. The second ray's direction
+    is NaN. Returns (campos, raydir, t, grid, spec, the plain mask the
+    edge samples must have)."""
+    *_, grid, spec = _select_workload(dev, True)
+    spec = dataclasses.replace(spec, ranges_min=(0.0, *spec.ranges_min[1:]))
+    vd, vs = spec.vdim, spec.scaled_vsize
+    occ = grid["coor_occ_rows"].reshape(-1)[:spec.grid_size_vol].reshape(
+        vd).cpu() > 0
+    j, k = (int(i) for i in torch.nonzero(occ[0] & occ[-1])[0])
+    inv = np.float32(1) / np.float32(vs[0])
+    at_vdim = np.float32(vd[0]) / inv
+    below = np.nextafter(at_vdim, np.float32(0))
+    assert at_vdim * inv == vd[0] and below * inv < vd[0]
+    edges = np.array([-0.0, below, -0.5 / inv, -1e-30, at_vdim,
+                      2.0 ** 22 / inv, 5e6 / inv, -5e6 / inv, 1e30, -1e30,
+                      3e38, -3e38], np.float32)
+    row = np.concatenate([edges, np.linspace(-0.1, at_vdim + 0.1,
+                                             D - len(edges),
+                                             dtype=np.float32)])
+    t = torch.as_tensor(np.tile(row, (1, 2, 1)), device=dev)
+    campos = torch.tensor([[-0.0,
+                            spec.ranges_min[1] + (j + 0.5) * vs[1],
+                            spec.ranges_min[2] + (k + 0.5) * vs[2]]],
+                          device=dev)
+    rd = torch.tensor([[[1.0, 0.0, 0.0], [float("nan")] * 3]], device=dev)
+    inside = torch.zeros(len(edges), dtype=torch.bool)
+    inside[:2] = True
+    return campos, rd, t, grid, spec, inside
+
+
+@pytest.mark.parametrize("SR", [None, 7, 80], ids=["mask", "SR7", "SR80"])
+def test_occupancy_kernel_edge_coordinates(dev, SR):
+    """K3 floors on the float pipe (a round-down add of 1.5·2^23, one
+    unsigned compare an axis); at the edges of that test it equals the
+    plain version's floor and compares, in mask mode and in select mode.
+    A NaN position lies outside the grid in the kernel; the plain
+    version's float-to-int conversion, as JAX's, takes it to voxel 0, so
+    that ray is held to the kernel's own contract (no path makes NaN
+    positions)."""
+    campos, rd, t, grid, spec, inside = _edge_workload(dev)
+    valid = tq.mask_raypos(tq.ray_points(campos, rd, t), grid, spec)
+    assert torch.equal(valid[0, 0, :len(inside)].cpu(), inside)
+    assert valid[0, 0, len(inside):].any()
+    if SR is None:
+        got, _ = tq.mask_raypos_segmented(campos, rd, t, grid, spec)
+        assert torch.equal(got[:, :1], valid[:, :1])
+        assert not got[:, 1].any()
+    else:
+        got = tq.occupancy_select(campos, rd, t, grid, spec, SR)
+        want = tq.occupancy_select_reference(campos, rd, t, grid, spec, SR)
+        for a, b in zip(got[:3], want):
+            assert torch.equal(a[:, :1], b[:, :1])
+        assert int(got[2][0, 1]) == 0 and not got[1][0, 1].any()
+        assert not got[0][0, 1].any()
+
+
+@pytest.mark.parametrize("case", ["volume", "samples"])
+def test_occupancy_refuses_32bit_overflow(dev, case):
+    """K3 indexes with 32-bit integers: a grid volume or a B·R·D of 2^31
+    raises ValueError before anything launches."""
+    campos, rd, t, grid, spec = _select_workload(dev, True)
+    if case == "volume":
+        spec = dataclasses.replace(spec, vdim=(2048, 1024, 1024))
+    else:
+        R, D = 2 ** 16, 2 ** 15
+        rd = torch.zeros((1, R, 3), device=dev)
+        t = torch.zeros(D, device=dev).expand(1, R, D)
+    before = kernels.OCCUPANCY.launches
+    with pytest.raises(ValueError, match="2\\^31"):
+        tq.occupancy_select(campos, rd, t, grid, spec, 7)
+    with pytest.raises(ValueError, match="2\\^31"):
+        tq.mask_raypos_segmented(campos, rd, t, grid, spec)
+    assert kernels.OCCUPANCY.launches == before
+
+
+@pytest.mark.parametrize("Nc", [0, 600])
+def test_query_on_card_selects_in_the_kernel(dev, monkeypatch, Nc):
+    """On CUDA tensors query_grid_points takes its shading points from one
+    K3 launch: the dense mask, select_shading_t and the float64 ray_points
+    never run; the outputs equal the CPU's."""
+    campos, rd, t, grid, spec = _select_workload(dev, True)
+    cpu = tq.query_grid_points(campos.cpu(), rd.cpu(), t.cpu(),
+                               {k: v.cpu() for k, v in grid.items()}, spec,
+                               SR=7, K=4, Nc=Nc)
+
+    def banned(*_a, **_k):
+        raise AssertionError("the plain select ran on the card")
+    for name in ("select_shading_t", "ray_points", "mask_raypos"):
+        monkeypatch.setattr(tq, name, banned)
+    before = kernels.OCCUPANCY.launches
+    got = tq.query_grid_points(campos, rd, t, grid, spec, SR=7, K=4, Nc=Nc)
+    torch.cuda.synchronize()
+    assert kernels.OCCUPANCY.launches == before + 1
+    for g, w in zip(got[:4] + got[5:], cpu[:4] + cpu[5:]):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert torch.equal(g.cpu(), w)
+    if Nc:
+        for g, w in zip(got[4], cpu[4]):
+            assert torch.equal(g.cpu(), w)
 
 
 @pytest.mark.parametrize("use_fused_trunk", [-1, 0])
