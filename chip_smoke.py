@@ -21,11 +21,17 @@ K5, K3, K6):
   compute_grads on the card against the CPU's plain versions; the
   fused_shade step-1 loss is held against the default one;
 
-and last the finetune driver, run/train_ft.main, at the lego preset's
+then the finetune driver, run/train_ft.main, at the lego preset's
 widths on a 400x400 plate scene it writes in the NeRF-Synthetic layout
 (FT_STEPS steps with a prune, probe-and-grows and a final checkpoint; the
 test PSNR must pass FT_PSNR and the PSNR before training), then main again,
-which must resume and stop at once.
+which must resume and stop at once; and last the MVS point init
+(load_points 0, the lego preset's default) on an 800x800 plate scene:
+gen_points_filter_embeddings over every view triplet of the 12 train views
+(MVSNet depth over 128 planes, fusion, embeddings, the visual hull, the
+voxel downsample), timed by phase, one triplet held against the CPU, and
+train_ft.main from the MVS cloud for MVS_STEPS steps, whose test PSNR must
+pass that of the initial cloud.
 
 Before the checks it counts the HMMA instructions in the SASS of each
 trunk kernel's library (K1, K2, K4, K5 run their products on the tensor
@@ -103,6 +109,25 @@ FT_PROB_THRESH = -0.7                 # probe opacity gate off, as the ficus
                                       # preset sets it: after 800 steps at
                                       # the preset's lr no sample reaches
                                       # lego's 0.7 (no candidates at all)
+MVS_WH = 800                          # MVS init views: lego's own size
+                                      # (MVSNet's U-Net needs multiples of
+                                      # 32; 400 is not one)
+MVS_NEAR_FAR = (2.5, 3.5)             # the plate scene's own depth range
+                                      # (camera radius 3): random weights
+                                      # regress depths near the middle of
+                                      # the range, and lego's [2, 6] puts
+                                      # them a unit behind the plate, where
+                                      # the visual hull removes them
+MVS_CONF_THRESH = 0.0                 # random weights never reach lego's 0.8
+MVS_STEPS = 300                       # finetune steps from the MVS cloud
+MVS_MIN_POINTS = 2000                 # the init must leave a few thousand
+MVS_TOL = dict(rtol=1e-4, atol=1e-4)  # one triplet, card vs CPU
+MVS_INDEX_TIE = 1e-4                  # conf jumps where the regressed depth
+                                      # index crosses an integer
+MVS_ONE_SIDE = 1e-3                   # share of rows kept on one device only
+MVS_VIS_TIES = 1e-2                   # share of rows whose visibility in a
+                                      # view differs (in-bounds and z-buffer
+                                      # cells at pixel edges, by rounding)
 PEAK_FP32 = 67e12                     # H100 SXM fp32 FLOP/s outside the
                                       # tensor cores, at 700 W (data sheet)
 PEAK_TF32 = 495e12                    # H100 SXM dense TF32 tensor-core
@@ -1349,6 +1374,174 @@ def finetune_path(root):
     return launches
 
 
+# ------------------------------------------------------- the MVS init phase
+def mvs_options(root):
+    """The lego preset with its own MVS init (load_points 0: depth_grid 128,
+    init_view_num 3, full_comb 1, depth_occ 1, vox_res 320) on the plate
+    scene at 800x800, with the premlp (shading_feature_mlp_layer0 1: the
+    preset has none, and its 56-wide raw features do not fit
+    point_features_dim 32), the cuts MVS_NEAR_FAR and MVS_CONF_THRESH, and
+    MVS_STEPS finetune steps with no prune and no probe."""
+    from pointnerf_tpu_torch.config import nerf_synth_preset
+    return nerf_synth_preset("lego").replace(
+        data_root=root, scan="plate", img_wh=(MVS_WH, MVS_WH), load_points=0,
+        shading_feature_mlp_layer0=1, depth_conf_thresh=MVS_CONF_THRESH,
+        near_plane=MVS_NEAR_FAR[0], far_plane=MVS_NEAR_FAR[1],
+        checkpoints_dir=os.path.join(root, "checkpoints"),
+        experiment="plate_mvs", maximum_step=MVS_STEPS, prune_iter=0,
+        prob_freq=0, print_freq=100, save_iter_freq=10 * MVS_STEPS,
+        save_point_freq=0, test_freq=0, test_num=4)
+
+
+def mvs_triplet_check(opt, mvs, sample):
+    """One triplet's gen_points on the card and on the CPU with the same
+    weights: depth and prob maps everywhere, conf away from the pixels
+    whose regressed index lies within MVS_INDEX_TIE of an integer (it jumps
+    there), at MVS_TOL; the keep masks (rows kept on one device only at
+    most MVS_ONE_SIDE of the rows); xyz, embedding, color, dir and conf at
+    MVS_TOL on the rows kept on both, less two named ties: rows from an
+    index-tie pixel, and rows whose visibility in a view differs (an
+    in-bounds test or a z-buffer ceil cell decided by rounding), at most
+    MVS_VIS_TIES of the rows."""
+    from pointnerf_tpu_torch.models.mvs import points_model as pm
+    maps_c, maps_h = {}, {}
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        card = pm.gen_points(mvs, opt, sample, maps=maps_c)
+    card_s = time.perf_counter() - t0
+    mvs_cpu = copy.deepcopy(mvs).cpu()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        host = pm.gen_points(mvs_cpu, opt, sample, maps=maps_h)
+    cpu_s = time.perf_counter() - t0
+    np_ = lambda t: t.detach().cpu().numpy()
+    for k in ("depth", "prob"):
+        np.testing.assert_allclose(np_(maps_c[k][0]), np_(maps_h[k][0]),
+                                   err_msg=k, **MVS_TOL)
+    idx_c, idx_h = np_(maps_c["index"][0]), np_(maps_h["index"][0])
+    tie_px = (np.abs(idx_c - np.round(idx_c)) < MVS_INDEX_TIE) | \
+        (np.abs(idx_h - np.round(idx_h)) < MVS_INDEX_TIE)
+    np.testing.assert_allclose(np_(maps_c["conf"][0])[~tie_px],
+                               np_(maps_h["conf"][0])[~tie_px],
+                               err_msg="conf", **MVS_TOL)
+    keep_c, keep_h = np_(card["keep"]), np_(host["keep"])
+    one_side = int((keep_c != keep_h).sum())
+    n = len(keep_c)
+    H, W = sample["mvs_images"].shape[-2:]
+    hw = np.arange(n) % (H * W)
+    row_tie = tie_px[(hw // W) // 4, (hw % W) // 4]
+    vis_tie = np.any(np_(maps_c["vis"][0]) != np_(maps_h["vis"][0]), axis=-1)
+    rows = keep_c & keep_h & ~row_tie & ~vis_tie
+    errs = {}
+    for k in ("xyz_w", "embedding", "color", "dir", "conf"):
+        a, b = np_(card[k])[rows], np_(host[k])[rows]
+        errs[k] = float(np.abs(a - b).max())
+        np.testing.assert_allclose(a, b, err_msg=k, **MVS_TOL)
+    log(f"mvs: one triplet {H}x{W}, D {opt.depth_grid}, card vs CPU: "
+        f"depth/prob within {MVS_TOL}; conf on {int((~tie_px).sum())} of "
+        f"{tie_px.size} low-res pixels ({int(tie_px.sum())} index ties); "
+        f"rows {n}, kept on one device only {one_side} "
+        f"({one_side / n:.2e}), compared {int(rows.sum())} (skipped: "
+        f"{int((keep_c & keep_h & row_tie).sum())} index-tie rows, "
+        f"{int((keep_c & keep_h & vis_tie & ~row_tie).sum())} visibility "
+        f"ties); max abs err {errs}; card {card_s:.2f} s, CPU {cpu_s:.1f} s")
+    if one_side > MVS_ONE_SIDE * n:
+        raise AssertionError(f"{one_side} of {n} rows kept on one device "
+                             f"only")
+    if vis_tie.sum() > MVS_VIS_TIES * n:
+        raise AssertionError(f"{int(vis_tie.sum())} of {n} rows see other "
+                             f"views on the card and the CPU")
+
+
+def mvs_path(root):
+    """The MVS init (load_points 0) on the card: the plate scene at
+    MVS_WH², one triplet held against the CPU, then
+    gen_points_filter_embeddings over every triplet of the 12 train views,
+    timed by phase; then
+    train_ft.main from the MVS cloud for MVS_STEPS steps (the counts reset
+    just before and read just after: K1, K2, K3 and K6 must launch), whose
+    test PSNR must pass that of a test render of the initial cloud and
+    whose start must hold as many points as the timed run made. Returns
+    the launch counts of main."""
+    from pointnerf_tpu_torch.data import create_dataset
+    from pointnerf_tpu_torch.models import neural_points as npc
+    from pointnerf_tpu_torch.models.mvs import points_model as pm
+    from pointnerf_tpu_torch.ops import kernels
+    from pointnerf_tpu_torch.run import common, train_ft
+    from pointnerf_tpu_torch.run.workload import make_plate_scene
+    from pointnerf_tpu_torch.train import trainer
+    from pointnerf_tpu_torch.utils.visualizer import Visualizer
+    make_plate_scene(root, wh=(MVS_WH, MVS_WH))
+    opt = mvs_options(root)
+    dev = torch.device("cuda")
+    train_ds = create_dataset(opt, "train")
+    mvs = pm.MvsPoints(opt, torch.Generator().manual_seed(opt.seed),
+                       device=dev)
+    # first: one triplet against the CPU (which also warms cuDNN up)
+    mvs_triplet_check(opt, mvs, train_ds.get_init_item(0))
+    stats = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        state = common.gen_points_filter_embeddings(opt, train_ds, mvs=mvs,
+                                                    device=dev, stats=stats)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    T = stats["triplets"]
+    per = {k: 1e3 * stats[k] / T for k in ("mvs_s", "fusion_s", "embed_s")}
+    log(f"mvs: plate scene {MVS_WH}x{MVS_WH}, 12 train views, {T} triplets "
+        f"(full_comb {opt.full_comb}), D {opt.depth_grid}, near/far "
+        f"{MVS_NEAR_FAR}, conf thresh {MVS_CONF_THRESH}: ms per triplet "
+        f"MVSNet {per['mvs_s']:.1f}, fusion {per['fusion_s']:.1f}, embedding"
+        f" {per['embed_s']:.1f}; hull {1e3 * stats['hull_s']:.1f} ms, voxel "
+        f"downsample {1e3 * stats['vox_s']:.1f} ms (host); wall {wall:.2f} s;"
+        f" points kept {stats['n_keep']}, after the hull {stats['n_hull']}, "
+        f"after the downsample (vox_res {opt.vox_res}) {stats['n_vox']}; "
+        f"peak {peak:.2f} GiB")
+    if stats["n_vox"] < MVS_MIN_POINTS:
+        raise AssertionError(f"the MVS init left {stats['n_vox']} points")
+    del mvs
+    torch.cuda.empty_cache()
+
+    state = {k: (None if v is None else v.clone()) for k, v in state.items()}
+    st = trainer.create_train_state(opt, state,
+                                    torch.Generator().manual_seed(opt.seed))
+    spec, grid = common.make_spec_and_grid(opt, state)
+    psnr0 = train_ft.test(st, grid, opt, spec, create_dataset(opt, "test"),
+                          Visualizer(opt), 0, write_images=False)
+    del st, state, grid, train_ds
+    torch.cuda.empty_cache()
+    for k in kernels.KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train_ft.main(opt)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    tm = res["timing"]
+    n_start = int(npc.num_active(trainer.point_state_of(res["state"])))
+    log(f"mvs finetune: {n_start} points from the MVS init, {tm['steps']} "
+        f"steps, {1e3 * tm['train_s'] / tm['steps']:.1f} ms/step, wall "
+        f"{wall:.1f} s (the init again, test renders {tm['test_s']:.1f} s, "
+        f"checkpoints {tm['save_s']:.1f} s); final test PSNR "
+        f"{res['final_psnr']:.3f} (initial MVS cloud {psnr0:.3f}); peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{launches}")
+    check_launches("mvs finetune", (kernels.TRUNK_FWD, kernels.TRUNK_BWD,
+                                    kernels.OCCUPANCY, kernels.SCATTER_ROWS))
+    if n_start != stats["n_vox"]:
+        raise AssertionError(f"main started from {n_start} points, the "
+                             f"timed init made {stats['n_vox']}")
+    if res["total_steps"] != MVS_STEPS or tm["prune"] or tm["grow"]:
+        raise AssertionError("the MVS finetune did not run its steps alone")
+    if not res["final_psnr"] > psnr0:
+        raise AssertionError(f"final test PSNR {res['final_psnr']:.3f} not "
+                             f"above the initial {psnr0:.3f}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -1471,12 +1664,16 @@ def main() -> int:
     del st, batch, state, grid, ts, agg
     torch.cuda.empty_cache()
 
-    # the finetune driver at lego widths: K1, K2, K3, K6
+    # the finetune driver at lego widths: K1, K2, K3, K6; then from the
+    # MVS init
     import tempfile
     with tempfile.TemporaryDirectory() as root:
         finetune = finetune_path(root)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        mvs = mvs_path(root)
 
-    runs = (serve, serve_s, train, train_s, finetune)
+    runs = (serve, serve_s, train, train_s, finetune, mvs)
     report = {"kernels": []}
     for k, rows in ((kernels.TRUNK_FWD, k1), (kernels.TRUNK_BWD, k2),
                     (kernels.OCCUPANCY, k3), (kernels.SHADE_FWD, k4),

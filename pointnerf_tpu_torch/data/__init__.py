@@ -3,7 +3,7 @@
 Reference: data/__init__.py:10-50. Items are numpy [1, ...] host arrays per
 camera; the port moves them to the device in the driver. Only the
 NeRF-Synthetic finetune dataset is ported: other names raise
-(ROADMAP §1 item 10).
+(ROADMAP §1 item 7).
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ def register_dataset(name: str):
 def find_dataset_class_by_name(name: str) -> type:
     if name not in PORTED:
         raise NotImplementedError(
-            f"dataset {name} is not ported (ROADMAP §1 item 10); the port "
+            f"dataset {name} is not ported (ROADMAP §1 item 7); the port "
             f"has {list(PORTED)}")
     from . import nerf_synth360_ft  # noqa: F401  (registers itself)
     return _REGISTRY[name]

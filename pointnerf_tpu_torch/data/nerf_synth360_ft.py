@@ -3,18 +3,23 @@
 
 Reference: data/nerf_synth360_ft_dataset.py — transforms_{split}.json
 cameras, the blender→opencv pose flip, alpha-composited GT over the
-configured bg color, COLMAP init point loading. Images are read with the
-port's own PNG codec (`utils/png.py`).
+configured bg color, COLMAP init point loading, the MVS init's view
+triplets and bundles. Images are read with the port's own PNG codec
+(`utils/png.py`).
 
-Not ported: the render split (spherical video path, `gen_vid`), the MVS
-init view triplets and bundles (`get_init_item`, MVS point init, ROADMAP
-§1 item 9), and resizing images whose size differs from img_wh.
+View triplets are the triangles of the camera positions' convex hull
+(scipy) where the reference runs open3d's ball pivoting (data_utils.py:
+83-120): on the NeRF-Synthetic camera sphere the hull is that surface.
+
+Not ported: the render split (spherical video path, `gen_vid`, ROADMAP §1
+item 3) and resizing images whose size differs from img_wh (item 7).
 """
 
 from __future__ import annotations
 
 import json
 import os
+from typing import Dict, List
 
 import numpy as np
 
@@ -25,6 +30,28 @@ from .ply import read_ply_points
 
 BLENDER2OPENCV = np.array([[1, 0, 0, 0], [0, -1, 0, 0],
                            [0, 0, -1, 0], [0, 0, 0, 1]], dtype=np.float64)
+
+
+def hull_view_triplets(cam_xyz: np.ndarray, full_comb: bool = False
+                       ) -> List[List[int]]:
+    """Init view triplets: the triangles of the camera positions' convex
+    hull; without full_comb, a triangle is dropped when an earlier one
+    holds the same three views."""
+    from scipy.spatial import ConvexHull
+    if len(cam_xyz) < 4:
+        return [list(range(len(cam_xyz)))]
+    hull = ConvexHull(np.asarray(cam_xyz, np.float64))
+    tris = [list(map(int, s)) for s in hull.simplices]
+    if full_comb:
+        return tris
+    seen, out = set(), []
+    for t in tris:
+        key = frozenset(t)
+        if any(len(key & s) >= 3 for s in seen):
+            continue
+        seen.add(key)
+        out.append(t)
+    return out
 
 
 @register_dataset("nerf_synth360_ft")
@@ -55,6 +82,9 @@ class NerfSynth360FtDataset(BaseDataset):
         self.focal = focal * w / 800.0
         self.near_far = np.array([opt.near_plane, opt.far_plane], np.float32)
         self.intrinsics, self.cam2worlds, self.world2cams = self._build_mats()
+        # reference: build_init_metas (:337-353)
+        self.view_id_list = [] if split != "train" else hull_view_triplets(
+            self.cam2worlds[:, :3, 3], full_comb=opt.full_comb > 0)
         self._read_images()
         self.total = len(self.id_list)
 
@@ -73,8 +103,10 @@ class NerfSynth360FtDataset(BaseDataset):
 
     def _read_images(self):
         """RGBA composited onto the background (reference read_meta
-        :414-447): render_gtimgs = rgb·a + (1 − a); alphas; depth masks."""
-        self.image_paths, self.render_gtimgs = [], []
+        :414-447): render_gtimgs = rgb·a + (1 − a); mvsimgs = rgb·a; alphas
+        (with bg_filtering, the pixels whose rgb·a is not black); depth
+        masks (alpha > 0.1)."""
+        self.image_paths, self.render_gtimgs, self.mvsimgs = [], [], []
         self.alphas, self.depths = [], []
         for vid in self.id_list:
             frame = self.meta["frames"][vid]
@@ -91,6 +123,7 @@ class NerfSynth360FtDataset(BaseDataset):
             if arr.shape[-1] == 3:
                 arr = np.concatenate([arr, np.ones_like(arr[..., :1])], -1)
             rgb, a = arr[..., :3], arr[..., 3:4]
+            self.mvsimgs.append(rgb * a)
             self.render_gtimgs.append(rgb * a + (1.0 - a))
             self.depths.append((a[..., 0] > 0.1).astype(np.float32))
             if self.opt.bg_filtering:
@@ -99,6 +132,46 @@ class NerfSynth360FtDataset(BaseDataset):
                         np.float32))
             else:
                 self.alphas.append(a[..., 0])
+
+    def get_init_item(self, idx: int) -> Dict:
+        """MVS init bundle of view triplet `idx` (reference: :479-553).
+
+        Un-batched arrays: images/mvs_images [V,3,H,W], proj_mats
+        [V,V,3,4] (proj_mats[i][j] maps ref view i onto view j at the H/4
+        feature scale; the identity where i == j), intrinsics [V,3,3],
+        w2cs/c2ws [V,4,4], near_fars [V,2], near_fars_depth [2],
+        depths_h/alphas [V,H,W], view_ids [V]."""
+        view_ids = self.view_id_list[idx][: self.opt.init_view_num]
+        K4 = self.intrinsics[0].copy()
+        K4[:2] /= 4.0  # features are at H/4 (reference: :398-400)
+        affine = []
+        for vid in view_ids:
+            a = np.eye(4, dtype=np.float64)
+            a[:3, :4] = K4 @ self.world2cams[vid][:3, :4]
+            affine.append(a)
+        V = len(view_ids)
+        proj_mats = np.stack([
+            np.stack([np.eye(4) if i == j else
+                      affine[j] @ np.linalg.inv(affine[i])
+                      for j in range(V)])[:, :3]
+            for i in range(V)])
+        pick = lambda arrs: np.stack([arrs[v] for v in view_ids]).astype(
+            np.float32)
+        chw = lambda arrs: np.stack([np.transpose(arrs[v], (2, 0, 1))
+                                     for v in view_ids]).astype(np.float32)
+        return {
+            "images": chw(self.render_gtimgs),
+            "mvs_images": chw(self.mvsimgs),
+            "depths_h": pick(self.depths),
+            "alphas": pick(self.alphas),
+            "w2cs": pick(self.world2cams),
+            "c2ws": pick(self.cam2worlds),
+            "near_fars_depth": np.asarray(self.near_far, np.float32),
+            "near_fars": np.stack([self.near_far] * V).astype(np.float32),
+            "proj_mats": proj_mats.astype(np.float32),
+            "intrinsics": pick(self.intrinsics),
+            "view_ids": np.asarray(view_ids),
+        }
 
     def load_init_points(self) -> np.ndarray:
         """COLMAP dense points (reference: :356-373)."""

@@ -100,6 +100,14 @@ def fma(a: torch.Tensor, b, c) -> torch.Tensor:
     return (a64 * b64 + c64).float()
 
 
+def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c as one rounded division on every device. On CUDA torch divides
+    by a Python number as a multiply by its reciprocal, at times an ulp
+    off; by a 0-dim tensor on x's device it divides, as the CPU and XLA
+    do."""
+    return x / x.new_full((), c)
+
+
 def host_const(values, dtype, device) -> torch.Tensor:
     """A small constant tensor on `device`. On a CUDA device it is copied
     from pinned memory without blocking: a plain copy from pageable memory

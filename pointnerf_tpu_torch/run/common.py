@@ -1,11 +1,11 @@
 """Shared driver machinery: CLI options, point-cloud init, full-image
 rendering (port of `pointnerf_tpu/run/common.py`).
 
-Reference anchors: run/train_ft.py:636-732 (BRANCH C point loading),
-:252-414 (chunked test render), models/mvs/mvs_utils.py:537-561 (voxel
-downsample). Not ported (raise): the pickled surface cloud (`cloud_path`),
-sensor-depth points (`load_points` 2 and 3), `comb_file`, and the MVS
-init (`load_points 0`, ROADMAP §1 item 9).
+Reference anchors: run/train_ft.py:51-167 (BRANCH B, the MVS point
+init), :636-732 (BRANCH C point loading), :252-414 (chunked test render),
+models/mvs/mvs_utils.py:537-561 (voxel downsample). Not ported (raise):
+the pickled surface cloud (`cloud_path`, ROADMAP §1 item 6), sensor-depth
+points (`load_points` 2 and 3) and `comb_file` (item 7).
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -147,10 +148,11 @@ def init_point_state_from_dataset(opt, dataset, device="cuda") -> Dict:
                                   "is not ported")
     if opt.load_points != 1:
         raise NotImplementedError(f"load_points {opt.load_points} is not "
-                                  f"ported (sensor-depth points; MVS init "
-                                  f"is ROADMAP §1 item 9)")
+                                  f"ported (sensor-depth points, ROADMAP "
+                                  f"§1 item 7)")
     if opt.comb_file:
-        raise NotImplementedError("comb_file is not ported")
+        raise NotImplementedError("comb_file is not ported (ROADMAP §1 "
+                                  "item 7)")
     xyz = np.asarray(dataset.load_init_points())
     rgb = None
     path = os.path.join(opt.data_root, opt.scan,
@@ -178,6 +180,89 @@ def init_point_state_from_dataset(opt, dataset, device="cuda") -> Dict:
         xyz = xyz[idx]
         rgb = rgb[idx] if rgb is not None else None
     return _finish_point_state(opt, dataset, xyz, rgb, device)
+
+
+def load_pretrained_mvsnet(path: str, device="cuda"):
+    """The official-MVSNet depth-estimator checkpoint the reference
+    finetune depends on (--pre_d_est MVSNet/model_000014.ckpt, reference
+    mvs_points_model.py:51-73), read from the local file `path` (tensors
+    only) into a new `MVSNet` on `device`."""
+    from ..models.mvs.nets import MVSNet, import_official_mvsnet
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    net = MVSNet(torch.Generator()).to(device).eval().requires_grad_(False)
+    return import_official_mvsnet(sd, net)
+
+
+@torch.no_grad()
+def gen_points_filter_embeddings(opt, dataset, mvs=None, device="cuda",
+                                 stats: Optional[Dict] = None) -> Dict:
+    """BRANCH B of the reference driver (run/train_ft.py:51-167): per view
+    triplet, MVS depth → fusion → per-point embeddings (the kept rows), then
+    a visual-hull alpha mask over the init views, a voxel downsample and
+    the starting confidence; returns the padded point state on `device`
+    (the card unless the caller names another).
+
+    mvs: the nets (`MvsPoints`); built when None from a generator seeded
+    with opt.seed, its MVSNet from opt.pre_d_est when that is set. The
+    depth jitter (manual_std_depth > 0) draws from a generator of its own
+    seeded with opt.seed. `stats`,
+    if given, receives host seconds by phase (gen_points' mvs_s, fusion_s,
+    embed_s over the triplets; hull_s, vox_s), the triplet count and the
+    point counts after the keep (n_keep), the hull (n_hull) and the
+    downsample (n_vox)."""
+    from ..models.mvs import points_model as pm
+    from ..models.mvs.fusion import alpha_masking
+
+    dev = torch.device(device)
+    if mvs is None:
+        mvs = pm.MvsPoints(opt, torch.Generator().manual_seed(opt.seed),
+                           device=dev)
+        if opt.pre_d_est:
+            mvs.mvsnet = load_pretrained_mvsnet(opt.pre_d_est, dev)
+    stats = {} if stats is None else stats
+    jitter = torch.Generator().manual_seed(opt.seed)
+    parts = {k: [] for k in ("xyz_w", "embedding", "color", "dir", "conf")}
+    alphas, intr, w2cs = [], [], []
+    n_trip = len(dataset.view_id_list)
+    for ti in range(n_trip):
+        sample = dataset.get_init_item(ti)
+        out = pm.gen_points(mvs, opt, sample, generator=jitter, stats=stats)
+        keep = out["keep"]
+        for k in parts:
+            parts[k].append(out[k][keep])
+        del out
+        alphas.append(sample["alphas"][0])
+        intr.append(sample["intrinsics"][0])
+        w2cs.append(sample["w2cs"][0])
+    merged = {k: torch.cat(v, dim=0) for k, v in parts.items()}
+    del parts
+    stats.update(triplets=n_trip, n_keep=int(merged["xyz_w"].shape[0]))
+
+    # visual hull over the init views (reference: train_ft.py:130-134)
+    t0 = time.perf_counter()
+    on = lambda a: torch.as_tensor(np.stack(a), device=dev)
+    hull = alpha_masking(
+        merged["xyz_w"], on(alphas), on(intr), on(w2cs),
+        ranges=np.asarray(opt.ranges) if opt.ranges[0] > -99.0 else None)
+    merged = {k: v[hull] for k, v in merged.items()}
+    pm.synchronize(dev)
+    t1 = time.perf_counter()
+    stats["hull_s"] = t1 - t0
+    stats["n_hull"] = int(merged["xyz_w"].shape[0])
+
+    host = {k: v.cpu().numpy() for k, v in merged.items()}
+    del merged
+    if opt.vox_res > 0:
+        _, idx = construct_vox_points_closest(host["xyz_w"], opt.vox_res)
+        host = {k: v[idx] for k, v in host.items()}
+    stats["vox_s"] = time.perf_counter() - t1
+    stats["n_vox"] = int(host["xyz_w"].shape[0])
+    if 0 < opt.default_conf <= 1.0:
+        # uniform starting confidence (reference: neural_points.py:281-283)
+        host["conf"] = np.full_like(host["conf"], opt.default_conf)
+    return npc.create_point_cloud(
+        host["xyz_w"], host["embedding"], host["color"],
+        host["dir"][:, :3], host["conf"], device=dev)
 
 
 def _finish_point_state(opt, dataset, xyz: np.ndarray,

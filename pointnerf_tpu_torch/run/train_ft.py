@@ -10,10 +10,15 @@ driver's (RandomState(seed) for frame choices, RandomState(seed + 9999) for
 batches); the weights and the depth jitter come from torch generators, so a
 run matches the JAX driver's by PSNR, not bit for bit.
 
-Not ported (raise NotImplementedError): n_devices > 1 (ROADMAP §1 item 11),
-load_points 0 (MVS init, item 9), plane backgrounds (bgmodel plane and
-planepoints), gen_vid, profile_dir (profile with profile_render.py), and
-steps_per_dispatch (ignored: one call per step).
+The point cloud comes from the dataset's points (load_points 1) or from
+the MVS init (load_points 0: MVSNet depth, fusion, per-point embeddings
+and the visual hull over the train views, `common.
+gen_points_filter_embeddings`).
+
+Not ported (raise NotImplementedError): n_devices > 1 (ROADMAP §1 item 10),
+the ProbNet init (manual_depth_view -1, item 8), plane backgrounds (bgmodel
+plane and planepoints, item 7), gen_vid (item 3), profile_dir (profile with
+profile_render.py), and steps_per_dispatch (ignored: one call per step).
 
 Usage: python -m pointnerf_tpu_torch.run.train_ft --preset nerf_synth:lego \
            --data_root <dir> [--device cpu] [--flag value ...]
@@ -38,8 +43,9 @@ from ..train import trainer
 from ..utils.checkpoint import latest_step, load_checkpoint, save_checkpoint
 from ..utils.metrics import psnr as psnr_fn, report_metrics
 from ..utils.visualizer import Visualizer
-from .common import (PROBE_KEYS, init_point_state_from_dataset,
-                     make_spec_and_grid, options_from_cli, render_image)
+from .common import (PROBE_KEYS, gen_points_filter_embeddings,
+                     init_point_state_from_dataset, make_spec_and_grid,
+                     options_from_cli, render_image)
 
 BATCH_KEYS = ("raydir", "campos", "camrotc2w", "bg_color", "gt_image")
 
@@ -207,23 +213,45 @@ def test(ts, grid, opt, spec, dataset, visualizer, total_steps: int,
 def _check_ported(opt) -> None:
     if opt.n_devices not in (0, 1):
         raise NotImplementedError("multi-GPU training is not ported "
-                                  "(ROADMAP §1 item 11)")
-    if opt.load_points < 1:
-        raise NotImplementedError("the MVS point init (load_points 0) is not "
-                                  "ported (ROADMAP §1 item 9)")
+                                  "(ROADMAP §1 item 10)")
+    if opt.load_points < 1 and opt.manual_depth_view == -1:
+        raise NotImplementedError("the ProbNet point init (manual_depth_view"
+                                  " -1) is not ported (ROADMAP §1 item 8)")
     if opt.bgmodel.endswith("plane") or opt.bgmodel.startswith("planepoints"):
-        raise NotImplementedError(f"bgmodel {opt.bgmodel} is not ported")
+        raise NotImplementedError(f"bgmodel {opt.bgmodel} is not ported "
+                                  f"(ROADMAP §1 item 7)")
     if opt.gen_vid:
-        raise NotImplementedError("gen_vid is not ported")
+        raise NotImplementedError("gen_vid is not ported (ROADMAP §1 item 3)")
     if opt.profile_dir:
         raise NotImplementedError("profile_dir is not ported; profile with "
                                   "profile_render.py")
 
 
+def initial_points(opt, train_ds, dev) -> Dict:
+    """The starting point state: the dataset's cloud (load_points 1) or the
+    MVS init (load_points 0, weights seeded with opt.seed). The MVS
+    embeddings must be point_features_dim wide: without the premlp they
+    are the raw FPN features, 8 + 16 + 32 = 56 channels a view, which the
+    aggregator cannot take (the JAX driver fails there in its first train
+    step)."""
+    if opt.load_points >= 1:
+        return init_point_state_from_dataset(opt, train_ds, device=dev)
+    state = gen_points_filter_embeddings(opt, train_ds, device=dev)
+    width = state["embedding"].shape[1]
+    if width != opt.point_features_dim:
+        raise ValueError(
+            f"the MVS init made {width}-wide point embeddings and "
+            f"point_features_dim is {opt.point_features_dim}: set "
+            f"shading_feature_mlp_layer0 >= 1, so that the premlp maps the "
+            f"63 init features to point_features_dim")
+    return state
+
+
 def main(opt, max_steps: Optional[int] = None, device="cuda") -> Dict:
     """Train one scene from opt (resuming from the newest checkpoint of
     checkpoints_dir/experiment if there is one), on `device` (the card
-    unless the caller names another). Returns the counters, the final and
+    unless the caller names another); with load_points 0 the cloud comes
+    from the MVS init (`initial_points`). Returns the counters, the final and
     best PSNR, the metric scores, the state, the grid and spec, and
     `timing`: host seconds in train steps (each ending in the fetch of its
     items), in prunes, probe-and-grows, test renders and checkpoint
@@ -259,7 +287,7 @@ def main(opt, max_steps: Optional[int] = None, device="cuda") -> Dict:
             plateau.load_state_dict(counters)
         visualizer.print_details(f"resumed at step {total_steps}")
     else:
-        point_state = init_point_state_from_dataset(opt, train_ds, device=dev)
+        point_state = initial_points(opt, train_ds, dev)
         ts = trainer.create_train_state(
             opt, point_state, torch.Generator().manual_seed(opt.seed))
 

@@ -3,7 +3,8 @@
 `from_jax_params` turns the JAX aggregator pytree (``{branch: [{"w": [in,
 out], "b": [out]}, ...]}``, as numpy) and point arrays into the port's
 `Aggregator` module and point-state tensors. `from_jax_train_state` carries
-a whole JAX `TrainState` across, Adam moments and step included.
+a whole JAX `TrainState` across, Adam moments and step included, and
+`from_jax_mvs_params` the MVS point init's nets (`MvsPoints`).
 `load_net_ray_marching_npz` reads the ``{step}_net_ray_marching.npz`` every
 JAX checkpoint writes (reference key names; torch Linear weights [out, in])
 with numpy alone.
@@ -39,6 +40,8 @@ import torch
 
 from ..models.aggregator import (Aggregator, aggregator_from_layers,
                                  init_aggregator_params)
+from ..models.mvs.nets import load_state
+from ..models.mvs.points_model import MvsPoints
 from ..models.neural_points import create_point_cloud
 from ..train import trainer
 
@@ -156,6 +159,55 @@ def from_jax_train_state(ts, opt, device="cuda") -> "trainer.TrainState":
                _point_moments(adam.mu, state.pt_train),
                _point_moments(adam.nu, state.pt_train))
     return state
+
+
+_BN_KEYS = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+            "var": "running_var"}
+_UP_BLOCK = re.compile(r"^(mvsnet\.cost_regularization\.conv(?:7|9|11))\."
+                       r"(conv|bn)\.")
+
+
+def _conv_keys(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
+    """A JAX conv-net tree (dicts and lists; convs {w, b}, BatchNorm
+    {scale, bias, mean, var}) → torch keys (OI[D]HW weights as they are)."""
+    if isinstance(tree, (list, tuple)):
+        for i, t in enumerate(tree):
+            _conv_keys(t, f"{prefix}{i}.", out)
+        return
+    for k, v in tree.items():
+        if k in ("w", "b"):
+            out[prefix + ("weight" if k == "w" else "bias")] = np.asarray(v)
+        elif k == "bn":
+            for kk, vv in v.items():
+                out[f"{prefix}bn.{_BN_KEYS[kk]}"] = np.asarray(vv)
+        else:
+            _conv_keys(v, f"{prefix}{k}.", out)
+
+
+def from_jax_mvs_params(params: Dict, opt, device="cuda") -> MvsPoints:
+    """The JAX MVS parameter tree (`init_mvs_points_params`, leaves as
+    numpy: mvsnet, featurenet, premlp) → the port's `MvsPoints`, on
+    `device` (the card unless the caller names another). The transposed
+    convs (CostRegNet's conv7/9/11) take the original `Sequential`'s keys
+    (0: ConvTranspose3d, 1: BatchNorm3d); premlp weights [in, out] become
+    Linear's [out, in]."""
+    mvs = MvsPoints(opt, torch.Generator(), device=device)
+    flat: Dict[str, np.ndarray] = {}
+    _conv_keys(params["mvsnet"], "mvsnet.", flat)
+    _conv_keys(params["featurenet"], "featurenet.", flat)
+    sd = {}
+    for k, v in flat.items():
+        m = _UP_BLOCK.match(k)
+        if m:
+            k = f"{m.group(1)}.{0 if m.group(2) == 'conv' else 1}." \
+                + k[m.end():]
+        sd[k] = torch.as_tensor(np.array(v, np.float32), device=device)
+    for i, layer in enumerate(params.get("premlp") or []):
+        sd[f"premlp.{2 * i}.weight"] = torch.as_tensor(
+            np.array(layer["w"], np.float32).T, device=device)
+        sd[f"premlp.{2 * i}.bias"] = torch.as_tensor(
+            np.array(layer["b"], np.float32), device=device)
+    return load_state(mvs, sd)
 
 
 def import_reference_dict(raw: Dict[str, np.ndarray], opt=None

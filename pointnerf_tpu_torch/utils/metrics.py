@@ -7,7 +7,7 @@ SSIM follows Wang et al. 2004 as skimage computes it: uniform 11×11
 window, K1 = 0.01, K2 = 0.03, per channel then averaged. LPIPS needs
 pretrained weights: without a local weights file it is skipped and
 recorded as skipped, as in the JAX package; with one it raises, since the
-LPIPS network is not ported (ROADMAP §1 item 10).
+LPIPS network is not ported (ROADMAP §1 item 3).
 """
 
 from __future__ import annotations
@@ -90,7 +90,7 @@ def report_metrics(gt_dir: str, img_dir: str, out_dir: str,
         path = lpips_weights.get(k)
         if k in ("lpips", "vgglpips") and path and os.path.exists(path):
             raise NotImplementedError(f"{k}: the LPIPS network is not ported "
-                                      f"(ROADMAP §1 item 10)")
+                                      f"(ROADMAP §1 item 3)")
 
     total: Dict[str, List[float]] = {}
     for i in id_list:

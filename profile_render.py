@@ -1,6 +1,6 @@
 """Where the time of one lego-preset render or train step goes, on one CUDA GPU.
 
-    python3 profile_render.py [--train] [--fused-shade]
+    python3 profile_render.py [--train | --mvs] [--fused-shade]
                               [--out build/traces/render_trace.json]
 
 Builds chip_smoke.py's main-path workload (the lego preset, bench.py's
@@ -9,7 +9,11 @@ with --fused-shade (the shade kernels K4 and K5 in place of K1 and K2).
 Without --train it renders one
 800x800 NeRF-Synthetic view once to warm up, then profiles a second
 render_image call; with --train it takes one warm-up train_step on
-chip_smoke's 3,600-ray train batch, then profiles a second. The profile is
+chip_smoke's 3,600-ray train batch, then profiles a second; with --mvs it
+writes chip_smoke's 800x800 plate scene and runs one view triplet of the
+MVS point init (gen_points at chip_smoke's MVS options: MVSNet over 128
+depth planes, fusion, embeddings) once, then profiles a second. The
+profile is
 torch.profiler's (CPU and CUDA activities). Prints the wall time, the
 device busy share (the union of the kernel and copy intervals over the wall
 time) and the device time per kernel family, then writes the Chrome trace
@@ -40,6 +44,9 @@ FAMILIES = (("K1 trunk_fwd", ("trunk_fwd",)),
             ("K6 scatter_rows", ("scatter_rows",)),
             ("K7 row_select", ("row_select",)),
             ("Adam", ("adam", "multi_tensor")),
+            ("cuDNN convs", ("fprop", "dgrad", "convolve", "conv_")),
+            ("batch norm", ("bn_fw",)),
+            ("grid_sample", ("grid_sampler",)),
             ("scatters", ("scatter", "index_put", "indexing_backward")),
             ("gathers", ("gather", "index")),
             ("sorts", ("sort",)),
@@ -74,6 +81,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--train", action="store_true",
                     help="profile a train step instead of a render")
+    ap.add_argument("--mvs", action="store_true",
+                    help="profile one triplet of the MVS point init")
     ap.add_argument("--fused-shade", action="store_true",
                     help="profile the fused_shade configuration")
     ap.add_argument("--out", default=None,
@@ -97,24 +106,42 @@ def main() -> int:
                          text=True, check=True, timeout=60).stdout.strip())
     kernels.library()
     dev = torch.device("cuda")
-    opt, state, spec, grid, _, ts, item, _ = build_workload(dev)
-    if args.fused_shade:
-        opt = opt.replace(fused_shade=1)
-    if args.train:
-        st = trainer.create_train_state(opt, state,
-                                        torch.Generator().manual_seed(0))
-        batch = make_train_batch(opt, dev)
-        run = lambda: trainer.train_step(st, grid, batch, opt, spec)
-        what = f"train step of {batch['raydir'].shape[1]} rays"
-        if args.fused_shade:
-            what += " (fused_shade)"
+    if args.mvs:
+        import tempfile
+        from chip_smoke import MVS_WH, mvs_options
+        from pointnerf_tpu_torch.data import create_dataset
+        from pointnerf_tpu_torch.models.mvs import points_model as pm
+        from pointnerf_tpu_torch.run.workload import make_plate_scene
+        # full fp32 convolutions, as chip_smoke runs the init
+        torch.backends.cudnn.allow_tf32 = False
+        with tempfile.TemporaryDirectory() as root:
+            make_plate_scene(root, wh=(MVS_WH, MVS_WH))
+            opt = mvs_options(root)
+            sample = create_dataset(opt, "train").get_init_item(0)
+        mvs = pm.MvsPoints(opt, torch.Generator().manual_seed(opt.seed),
+                           device=dev)
+        run = lambda: pm.gen_points(mvs, opt, sample)
+        what = (f"MVS init, one triplet at {MVS_WH}x{MVS_WH}, D "
+                f"{opt.depth_grid}")
     else:
-        run = lambda: common.render_image(ts, grid, opt, spec, item,
-                                          group=GROUP)
-        what = "render 800x800" + (" (fused_shade)" if args.fused_shade
-                                   else "")
+        opt, state, spec, grid, _, ts, item, _ = build_workload(dev)
+        if args.fused_shade:
+            opt = opt.replace(fused_shade=1)
+        if args.train:
+            st = trainer.create_train_state(opt, state,
+                                            torch.Generator().manual_seed(0))
+            batch = make_train_batch(opt, dev)
+            run = lambda: trainer.train_step(st, grid, batch, opt, spec)
+            what = f"train step of {batch['raydir'].shape[1]} rays"
+            if args.fused_shade:
+                what += " (fused_shade)"
+        else:
+            run = lambda: common.render_image(ts, grid, opt, spec, item,
+                                              group=GROUP)
+            what = "render 800x800" + (" (fused_shade)" if args.fused_shade
+                                       else "")
     out = args.out or "build/traces/{}{}_trace.json".format(
-        "train" if args.train else "render",
+        "mvs" if args.mvs else "train" if args.train else "render",
         "_shade" if args.fused_shade else "")
     run()
     for k in kernels.KERNELS:

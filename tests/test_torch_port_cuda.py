@@ -807,3 +807,41 @@ def test_driver_steps_prune_grow_and_checkpoint_on_card(dev, tmp_path):
         torch.testing.assert_close(a["exp_avg"], b["exp_avg"], rtol=0, atol=0)
     again = train_ft.main(opt)
     assert again["total_steps"] == 6 and again["timing"]["steps"] == 0
+
+
+def test_mvs_gen_points_on_card_matches_cpu(dev, tmp_path):
+    """One triplet of the MVS init (lego preset, 64×64 plate scene, MVSNet
+    over 32 depth planes) on the card against the CPU with the same
+    weights, cuDNN's TF32 off: depth, prob and the rows' outputs within
+    TOL, conf away from regressed-index ties, keep masks equal, rows
+    compared away from those ties and where both devices saw the same
+    views."""
+    from pointnerf_tpu_torch.data import create_dataset
+    from pointnerf_tpu_torch.models.mvs import points_model as pm
+    opt = _plate_driver_opt(str(tmp_path)).replace(
+        load_points=0, shading_feature_mlp_layer0=1, depth_grid=32,
+        depth_conf_thresh=0.0, near_plane=2.5, far_plane=3.5)
+    sample = create_dataset(opt, "train").get_init_item(0)
+    mvs = pm.MvsPoints(opt, torch.Generator().manual_seed(0), device="cpu")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        maps_c, maps_h = {}, {}
+        card = pm.gen_points(copy.deepcopy(mvs).to(dev), opt, sample,
+                             maps=maps_c)
+        host = pm.gen_points(mvs, opt, sample, maps=maps_h)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for k in ("depth", "prob"):
+        torch.testing.assert_close(maps_c[k][0].cpu(), maps_h[k][0], **TOL)
+    idx = maps_h["index"][0]
+    away = (idx - idx.round()).abs() > 1e-4
+    torch.testing.assert_close(maps_c["conf"][0].cpu()[away],
+                               maps_h["conf"][0][away], **TOL)
+    assert torch.equal(card["keep"].cpu(), host["keep"])
+    hw = torch.arange(len(host["keep"])) % (64 * 64)
+    rows = host["keep"] & away[hw // 64 // 4, hw % 64 // 4] & torch.all(
+        maps_c["vis"][0].cpu() == maps_h["vis"][0], dim=-1)
+    assert rows.float().mean() > 0.9
+    for k in ("xyz_w", "embedding", "color", "dir", "conf"):
+        torch.testing.assert_close(card[k].cpu()[rows], host[k][rows], **TOL)
