@@ -31,7 +31,15 @@ gen_points_filter_embeddings over every view triplet of the 12 train views
 (MVSNet depth over 128 planes, fusion, embeddings, the visual hull, the
 voxel downsample), timed by phase, one triplet held against the CPU, and
 train_ft.main from the MVS cloud for MVS_STEPS steps, whose test PSNR must
-pass that of the initial cloud.
+pass that of the initial cloud; then the feed-forward path on a 640x512
+plate scene in the DTU layout (run/workload.make_dtu_scene): dtu_inf
+inference through run/train.inference (MVSNet, the FPN points, the
+32.8 M-voxel frustum grid once, the full image; K1 in order 1), timed by
+phase, two chunks re-rendered on the CPU from the same points; and dtu_gen
+training through run/train.gen_train_step (GEN_STEPS timed steps on one
+item, the loss must fall; K1, K2, K3, K6), one step's gradients of the
+aggregator, the FPN and the premlp against the CPU, a {steps}_gen.npz
+written, read back and loaded by run/train.inference.
 
 Before the checks it counts the HMMA instructions in the SASS of each
 trunk kernel's library (K1, K2, K4, K5 run their products on the tensor
@@ -128,6 +136,34 @@ MVS_ONE_SIDE = 1e-3                   # share of rows kept on one device only
 MVS_VIS_TIES = 1e-2                   # share of rows whose visibility in a
                                       # view differs (in-bounds and z-buffer
                                       # cells at pixel edges, by rounding)
+DTU_WH = (640, 512)                   # the dtu presets' img_wh (MVSNet's
+                                      # Rectified DTU images)
+DTU_VIEWS = 6                         # plate views of the DTU scene (each
+                                      # with the 5 others as sources)
+DTU_CONF_THRESH = 0.0                 # random weights never reach the
+                                      # presets' 0.8 (the MVS phase's cut)
+DTU_GEO_CNSST = 0                     # dtu_gen's fusion: random MVSNet
+                                      # depths of views 0, 1, 2 never agree
+                                      # in 2 views (the preset's 2 kept 33
+                                      # of 12,288 rows in a 64x64 rehearsal)
+DTU_RANGES = (-0.6, -0.6, -0.25, 0.6, 0.6, 0.25)  # dtu_gen's world grid
+                                      # over the plate's bounds, as
+                                      # tests/test_generalizable.py sets
+                                      # them: the preset's ±100 gives a
+                                      # 50,005³-voxel grid
+GEN_STEPS = 10                        # timed dtu_gen steps after a warm-up
+GEN_CPU_RAYS = 784                    # rays of the card-vs-CPU gradient
+                                      # check of a dtu_gen step (28²)
+ALPHA_SHIFT = 5.0                     # alpha-head bias added for that
+                                      # check: the random head's sigma
+                                      # (softplus(raw - 1) ≈ 0.3) leaves the
+                                      # plate's samples tiny opacities x,
+                                      # where fp32's 1 - exp(-x) keeps
+                                      # about eps/x of its value on either
+                                      # device (without the shift the
+                                      # color-branch gradients failed the
+                                      # GRAD_REL bar with the query and the
+                                      # outputs equal)
 PEAK_FP32 = 67e12                     # H100 SXM fp32 FLOP/s outside the
                                       # tensor cores, at 700 W (data sheet)
 PEAK_TF32 = 495e12                    # H100 SXM dense TF32 tensor-core
@@ -1542,6 +1578,337 @@ def mvs_path(root):
     return launches
 
 
+# ---------------------------------------------- the feed-forward DTU phases
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def reset_peak(dev):
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def peak_gib(dev) -> float:
+    return torch.cuda.max_memory_allocated(dev) / 2**30 \
+        if dev.type == "cuda" else float("nan")
+
+
+def dtu_inf_options(root):
+    """The dtu_inf preset at its widths (640x512, 3 views, D 128,
+    z_depth_dim 400, vscale (2, 2, 1): a 32.8 M-voxel frustum grid; SR 40,
+    K 8, P 20, order 1, SR_budget -1) on the plate scene in the DTU
+    layout, with the cut DTU_CONF_THRESH."""
+    from pointnerf_tpu_torch.config import dtu_inf_preset
+    return dtu_inf_preset("scan1").replace(
+        data_root=root, img_wh=DTU_WH, depth_conf_thresh=DTU_CONF_THRESH,
+        checkpoints_dir=os.path.join(root, "checkpoints"),
+        experiment="dtu_inf_smoke")
+
+
+def dtu_gen_options(root):
+    """The dtu_gen preset at its widths (640x512, depth_vid 012: 983,040
+    point slots a step, 56² rays, kernel 5³, K 8, SR 40, P 16) on the plate
+    scene in the DTU layout, with the cuts DTU_CONF_THRESH, DTU_GEO_CNSST
+    and DTU_RANGES."""
+    from pointnerf_tpu_torch.config import dtu_gen_preset
+    return dtu_gen_preset().replace(
+        data_root=root, img_wh=DTU_WH, depth_conf_thresh=DTU_CONF_THRESH,
+        geo_cnsst_num=DTU_GEO_CNSST, ranges=DTU_RANGES, checkpoints_dir=os.path.join(root, "checkpoints"),
+        experiment="dtu_gen_smoke", print_freq=1000)
+
+
+def dtu_inf_path(root, dev=torch.device("cuda")):
+    """Feed-forward inference (dtu_inf) on the card: run/train.inference
+    over one test item (points from its three views, the frustum grid once,
+    the full 640x512 image; the counts reset just before and read just
+    after: K1 must launch, in order 1, and K2, K4, K5 not), after one
+    warm-up item; then the item again with its time by phase; then two of
+    its chunks rendered again on the CPU with the plain versions from the
+    same points. Returns the launch counts."""
+    from pointnerf_tpu_torch.data import create_dataset
+    from pointnerf_tpu_torch.ops import kernels
+    from pointnerf_tpu_torch.run import common
+    from pointnerf_tpu_torch.run import train as gen
+    from pointnerf_tpu_torch.train.trainer import ServeState
+    opt = dtu_inf_options(root)
+    ds = create_dataset(opt, "test")
+    spec = gen.make_render_spec(opt, ds, gen.point_slots(opt))
+    state = gen.create_gen_state(opt, device=dev)
+    item = ds.get_item(0, full_img=True)
+    gen.infer_item(state, opt, spec, item)
+    for k in kernels.KERNELS:
+        k.launches = 0
+    sync(dev)
+    reset_peak(dev)
+    t0 = time.perf_counter()
+    res = gen.inference(opt, state=state, max_images=1, device=dev)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    peak = peak_gib(dev)
+    check_launches("dtu_inf", (kernels.TRUNK_FWD,))
+    stats = {}
+    img = gen.infer_item(state, opt, spec, item, stats=stats)
+    W, H = opt.img_wh
+    ms = lambda k: 1e3 * stats[k]
+    log(f"dtu_inf: {W}x{H}, frustum grid {spec.vdim} "
+        f"({spec.grid_size_vol} voxels), SR {opt.SR}, K {opt.K}, P {opt.P}, "
+        f"order {opt.agg_intrp_order}: inference() {1e3 * wall:.1f} ms for "
+        f"one item, PSNR {res['psnr']:.3f}, peak {peak:.2f} GiB, launches "
+        f"{launches}")
+    log(f"dtu_inf: ms by phase (second run): MVSNet {ms('mvs_s'):.1f}, "
+        f"fusion {ms('fusion_s'):.1f}, embedding {ms('embed_s'):.1f} "
+        f"(points {ms('points_s'):.1f}), frustum grid {ms('grid_s'):.1f}, "
+        f"render {ms('render_s') - ms('grid_s'):.1f}; points kept "
+        f"{stats['n_points']} of {gen.point_slots(opt)}, occupied voxels "
+        f"{stats['num_occ']}, sr_overflow (q_overflow + wide tier) "
+        f"{stats['sr_overflow']}, groups {stats['groups']}")
+    if img.shape != (H, W, 3) or not np.isfinite(img).all():
+        raise AssertionError("the dtu_inf image is not a finite map")
+    if img.min() < 0.0 or img.max() > 1.0:
+        raise AssertionError(f"dtu_inf colors out of [0, 1]: "
+                             f"[{img.min()}, {img.max()}]")
+    if stats["n_points"] == 0 or not (img > 0).any():
+        raise AssertionError("the dtu_inf image rendered no point")
+
+    # two chunks, the card and the CPU rendering them from the same points
+    chunk = opt.random_sample_size ** 2
+    per_chunk = img.reshape(-1, 3).sum(-1)[: (H * W // chunk) * chunk]
+    pick = np.sort(np.argsort(-per_chunk.reshape(-1, chunk).sum(1),
+                              kind="stable")[:2])
+    sel = np.concatenate([np.arange(c * chunk, (c + 1) * chunk) for c in pick])
+    sub = dict(item, raydir=item["raydir"][:, sel],
+               pixel_idx=item["pixel_idx"][:, sel])
+    with torch.inference_mode():
+        ps = gen.feedforward_point_state(state.mvs, opt, item["mvs_sample"])
+        card = common.render_image(ServeState(state.aggregator, ps), None,
+                                   opt, spec, sub)["coarse_raycolor"]
+        cpu_ts = ServeState(copy.deepcopy(state.aggregator).cpu(),
+                            {k: v.cpu() for k, v in ps.items()})
+        t0 = time.perf_counter()
+        cpu = common.render_image(cpu_ts, None, opt.replace(use_fused_trunk=1),
+                                  spec, sub)["coarse_raycolor"]
+    px, py = sub["pixel_idx"][0, :, 0].astype(int), \
+        sub["pixel_idx"][0, :, 1].astype(int)
+    np.testing.assert_allclose(cpu[py, px], card[py, px], **CPU_TOL)
+    log(f"dtu_inf: CPU re-render of chunks {pick.tolist()} ({len(sel)} rays) "
+        f"from the card's points: max_abs_err "
+        f"{float(np.abs(cpu[py, px] - card[py, px]).max()):.3e} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+class FPNProbe:
+    """Inside the block, the FPN `net` records the cotangents reaching its
+    outputs (`cot`), and with `feats` returns those values with its own
+    backward (each output o becomes o + (f − o).detach()). The CPU's FPN
+    takes the card's features: on the plate scene's uniform background the
+    batch statistics divide near-constant channels by a tiny deviation, so
+    two fp32 runs (cuDNN's convolutions and the CPU's) part there; with
+    equal features the check holds the path after the FPN, the kernels',
+    to the card."""
+
+    def __init__(self, net, feats=None):
+        self.net, self.feats, self.cot = net, feats, None
+
+    def __enter__(self):
+        net, feats, plain, probe = self.net, self.feats, \
+            type(self.net).forward, self
+
+        def forward(imgs, batch_stats=False):
+            outs = plain(net, imgs, batch_stats)
+            # new nodes, so a hook sees only the cotangent of the returned
+            # map, not that of the layers the FPN runs on after it
+            outs = [o.clone() if feats is None else
+                    o + (f.to(o.device) - o).detach()
+                    for o, f in zip(outs, feats or outs)]
+            probe.cot = [None] * len(outs)
+            for i, o in enumerate(outs[1:], 1):
+                if o.requires_grad:
+                    o.register_hook(
+                        lambda g, i=i: probe.cot.__setitem__(i, g.detach()))
+            return outs
+        net.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        del self.net.forward
+
+
+def fpn_grad_errors(net, imgs, cot, grads):
+    """||g − g64|| / ||g64|| of each FPN weight gradient g (`grads`, by
+    MvsPoints name), g64 the float64 FPN's (on the CPU) for the same output
+    cotangents `cot`."""
+    f64 = copy.deepcopy(net).cpu().double()
+    outs = f64(imgs.cpu().double(), batch_stats=True)
+    loss = sum((o * c.cpu().double()).sum()
+               for o, c in zip(outs[1:], cot[1:]) if c is not None)
+    names, params = zip(*f64.named_parameters())
+    g64 = torch.autograd.grad(loss, params)
+    return {f"featurenet.{n}": float(
+        (grads[f"featurenet.{n}"].cpu().double() - g).norm() / g.norm())
+        for n, g in zip(names, g64)}
+
+
+def check_gen_cpu(st, sample, batch, opt, spec):
+    """One gen_compute_grads on the card against the CPU's plain versions
+    (use_fused_trunk=1) from a freshly created state, its alpha head's bias
+    raised by ALPHA_SHIFT, on the first GEN_CPU_RAYS rays of the batch,
+    with the same draws, the same frozen half (the card's MVSNet depths,
+    fusion and keep mask) and the card's FPN feature values on the CPU
+    (FPNProbe; each device's own FPN backward). Loss items within
+    LOSS_RTOL; each gradient of the aggregator and the premlp within
+    GRAD_REL in norm, rows within KINK of a LeakyReLU kink weighted 0 on
+    both (KinkMask). The FPN's weight gradients: off the float64 FPN's
+    gradient (for each device's own output cotangents) by at most twice the
+    CPU's distance, or GRAD_REL."""
+    from pointnerf_tpu_torch.models.mvs import points_model as pm
+    from pointnerf_tpu_torch.run import train as gen
+    batch = {k: (v[:, :GEN_CPU_RAYS] if k in ("raydir", "gt_image") else v)
+             for k, v in batch.items()}
+    with torch.no_grad():
+        [m for m in st.aggregator.alpha_branch
+         if isinstance(m, torch.nn.Linear)][-1].bias += ALPHA_SHIFT
+    u = gen.render_draws(st, batch, opt)
+    depths = pm.mvs_depths(st.mvs, opt, sample)
+    cpu_st = gen.make_gen_state(copy.deepcopy(st.aggregator).cpu(),
+                                copy.deepcopy(st.mvs).cpu(), opt,
+                                torch.Generator(), st.step)
+    on_cpu = lambda d: {k: (v.cpu() if torch.is_tensor(v) else v)
+                        for k, v in d.items()}
+    imgs = torch.as_tensor(sample["mvs_images"])
+    with torch.no_grad():
+        feats = [f.cpu() for f in st.mvs.featurenet(
+            imgs.to(batch["raydir"].device), batch_stats=True)]
+        own = cpu_st.mvs.featurenet(imgs, batch_stats=True)
+    fpn_apart = max(float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(own[1:], feats[1:]))
+    t0 = time.perf_counter()
+    with KinkMask() as kinks:
+        with FPNProbe(cpu_st.mvs.featurenet, feats) as cpu_fpn:
+            cpu = gen.gen_compute_grads(cpu_st, sample, on_cpu(batch),
+                                        opt.replace(use_fused_trunk=1), spec,
+                                        u.cpu(), depths=on_cpu(depths))
+        cpu_s = time.perf_counter() - t0
+        kinks.replay = True
+        with FPNProbe(st.mvs.featurenet) as card_fpn:
+            card = gen.gen_compute_grads(st, sample, batch, opt, spec, u,
+                                         depths=depths)
+    for k, v in cpu[0].items():
+        np.testing.assert_allclose(float(card[0][k]), float(v),
+                                   rtol=LOSS_RTOL, err_msg=k)
+    fpn_cpu = fpn_grad_errors(cpu_st.mvs.featurenet, imgs, cpu_fpn.cot,
+                              cpu[2])
+    fpn_card = fpn_grad_errors(st.mvs.featurenet, imgs, card_fpn.cot,
+                               card[2])
+    worst, bad = {}, []
+    for part, what in ((1, "aggregator"), (2, "mvs")):
+        for k, g in cpu[part].items():
+            d = card[part][k].cpu() - g
+            rel = float(d.norm() / g.norm()) if g.norm() > 0 \
+                else float(d.norm())
+            group = what if what == "aggregator" else k.split(".")[0]
+            if k in fpn_card:
+                bar = max(2 * fpn_cpu[k], GRAD_REL)
+                if not fpn_card[k] <= bar:
+                    bad.append(f"{k} {fpn_card[k]:.3e} off float64 (CPU "
+                               f"{fpn_cpu[k]:.3e})")
+            elif not rel <= GRAD_REL:
+                bad.append(f"{k} {rel:.3e}")
+            worst[group] = max(worst.get(group, 0.0), rel)
+    log(f"dtu_gen: card vs CPU gen_compute_grads on {GEN_CPU_RAYS} rays "
+        f"(alpha bias + {ALPHA_SHIFT}): loss_total "
+        f"{float(card[0]['loss_total']):.7f} vs "
+        f"{float(cpu[0]['loss_total']):.7f}; worst ||card - cpu||/||cpu|| "
+        f"by group { {k: f'{v:.3e}' for k, v in worst.items()} }; FPN "
+        f"weight gradients off the float64 FPN's, worst: card "
+        f"{max(fpn_card.values()):.3e}, CPU {max(fpn_cpu.values()):.3e}; "
+        f"{kinks.masked()} rows within {KINK:g} of a LeakyReLU kink weighted"
+        f" 0 on both; FPN features of the two devices apart by "
+        f"{fpn_apart:.3e} of the largest (the CPU ran the card's); CPU "
+        f"{cpu_s:.1f} s")
+    if bad:
+        raise AssertionError(f"dtu_gen gradients off: {bad}")
+
+
+def dtu_gen_path(root, dev=torch.device("cuda")):
+    """Generalizable training (dtu_gen) on the card: gen_train_step on one
+    item of the train split, a warm-up step and GEN_STEPS timed ones (the
+    counts reset just before and read just after: K1, K2, K3 and K6 must
+    launch); the loss must fall. Then one step's gradients against the
+    CPU's from a fresh state (check_gen_cpu); then a {steps}_gen.npz of the
+    trained state, which run/train.inference must load. Returns the launch
+    counts."""
+    from pointnerf_tpu_torch.data import create_dataset
+    from pointnerf_tpu_torch.ops import kernels
+    from pointnerf_tpu_torch.run import train as gen
+    from pointnerf_tpu_torch.utils.checkpoint import load_gen_npz, \
+        save_gen_npz
+    opt = dtu_gen_options(root)
+    ds = create_dataset(opt, "train")
+    spec = gen.make_render_spec(opt, ds, gen.point_slots(opt))
+    item = ds.get_item(0, rng=np.random.RandomState(0))
+    sample = item.pop("mvs_sample")
+    batch = gen.batch_of(item, dev)
+    st = gen.create_gen_state(opt, device=dev)
+    _, items = gen.gen_train_step(st, sample, batch, opt, spec)
+    steps = [items]
+    for k in kernels.KERNELS:
+        k.launches = 0
+    sync(dev)
+    reset_peak(dev)
+    t0 = time.perf_counter()
+    for _ in range(GEN_STEPS):
+        _, items = gen.gen_train_step(st, sample, batch, opt, spec)
+        steps.append(items)
+    sync(dev)
+    dt = (time.perf_counter() - t0) / GEN_STEPS
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    peak = peak_gib(dev)
+    losses = [float(i["loss_total"]) for i in steps]
+    R = batch["raydir"].shape[1]
+    with torch.inference_mode():
+        n_kept = int(gen.feedforward_point_state(st.mvs, opt, sample)
+                     ["mask"].sum())
+    log(f"dtu_gen: {R} rays/step, world grid {spec.vdim} "
+        f"({spec.grid_size_vol} voxels), {n_kept} of {gen.point_slots(opt)} "
+        f"point slots kept: {1e3 * dt:.1f} ms/step over {GEN_STEPS} steps, "
+        f"{R / dt:.0f} train rays/s, peak {peak:.2f} GiB, launches "
+        f"{launches}; loss_total step 1 {losses[0]:.6f} -> step "
+        f"{len(losses)} {losses[-1]:.6f}; items of the last step "
+        f"{ {k: round(float(v), 6) for k, v in steps[-1].items()} }")
+    check_launches("dtu_gen", (kernels.TRUNK_FWD, kernels.TRUNK_BWD,
+                               kernels.OCCUPANCY, kernels.SCATTER_ROWS))
+    if not all(np.isfinite(float(v)) for i in steps for v in i.values()):
+        raise AssertionError("a dtu_gen step gave a non-finite loss item")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the dtu_gen loss did not fall: {losses}")
+    check_gen_cpu(gen.create_gen_state(opt, device=dev), sample, batch, opt,
+                  spec)
+
+    ckpt = os.path.join(opt.checkpoints_dir, opt.experiment)
+    os.makedirs(ckpt, exist_ok=True)
+    path = os.path.join(ckpt, f"{st.step}_gen.npz")
+    save_gen_npz(path, st)
+    back = load_gen_npz(path, opt, device=dev)
+    for a, b in ((st.aggregator, back.aggregator), (st.mvs, back.mvs)):
+        for (k, v), w in zip(a.state_dict().items(),
+                             b.state_dict().values()):
+            if not torch.equal(v, w):
+                raise AssertionError(f"{k} differs after the _gen.npz")
+    t0 = time.perf_counter()
+    res = gen.inference(opt.replace(maximum_step=0), max_images=1,
+                        device=dev)
+    with open(os.path.join(ckpt, "log.txt")) as f:
+        if f"loaded {path}" not in f.read():
+            raise AssertionError("inference did not load the _gen.npz")
+    log(f"dtu_gen: {os.path.basename(path)} written and read back; "
+        f"inference() from it: PSNR {res['psnr']:.3f} over {res['n']} "
+        f"image in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -1672,8 +2039,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         mvs = mvs_path(root)
+    torch.cuda.empty_cache()
 
-    runs = (serve, serve_s, train, train_s, finetune, mvs)
+    # the feed-forward DTU paths: inference (frustum querier, K1 in order
+    # 1), then generalizable training (K1, K2, K3, K6)
+    from pointnerf_tpu_torch.run.workload import make_dtu_scene
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        make_dtu_scene(root, n_views=DTU_VIEWS, wh=DTU_WH)
+        log(f"DTU plate scene {DTU_WH[0]}x{DTU_WH[1]}, {DTU_VIEWS} views: "
+            f"written in {time.perf_counter() - t0:.1f} s")
+        dtu_inf = dtu_inf_path(root)
+        torch.cuda.empty_cache()
+        dtu_gen = dtu_gen_path(root)
+
+    runs = (serve, serve_s, train, train_s, finetune, mvs, dtu_inf, dtu_gen)
     report = {"kernels": []}
     for k, rows in ((kernels.TRUNK_FWD, k1), (kernels.TRUNK_BWD, k2),
                     (kernels.OCCUPANCY, k3), (kernels.SHADE_FWD, k4),

@@ -1,9 +1,9 @@
 """Dataset registry (copy of `pointnerf_tpu/data/__init__.py`, numpy only).
 
 Reference: data/__init__.py:10-50. Items are numpy [1, ...] host arrays per
-camera; the port moves them to the device in the driver. Only the
-NeRF-Synthetic finetune dataset is ported: other names raise
-(ROADMAP §1 item 7).
+camera; the port moves them to the device in the driver. Ported: the
+NeRF-Synthetic finetune dataset and the DTU multi-view dataset of
+generalizable training; other names raise (ROADMAP §1 item 7).
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ from __future__ import annotations
 from typing import Dict
 
 _REGISTRY: Dict[str, type] = {}
-PORTED = ("nerf_synth360_ft",)
+PORTED = ("nerf_synth360_ft", "dtu")
 
 
 def register_dataset(name: str):
@@ -26,7 +26,8 @@ def find_dataset_class_by_name(name: str) -> type:
         raise NotImplementedError(
             f"dataset {name} is not ported (ROADMAP §1 item 7); the port "
             f"has {list(PORTED)}")
-    from . import nerf_synth360_ft  # noqa: F401  (registers itself)
+    import importlib
+    importlib.import_module(f".{name}", __package__)  # registers itself
     return _REGISTRY[name]
 
 

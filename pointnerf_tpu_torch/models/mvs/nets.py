@@ -11,8 +11,11 @@ Architectures (reference):
 Module and parameter names are the original checkpoints' keys, so an
 official state dict loads with `load_state_dict` once its DataParallel
 `module.` prefix is gone. BatchNorm runs in eval mode from its running
-statistics: the finetune runs these nets for inference only (the JAX
-package's train-mode batch statistics serve no driver).
+statistics, as the finetune's point init runs these nets. The FPN's
+forward also takes `batch_stats`: BatchNorm then normalises with the
+batch's mean and population variance and updates no running statistic, as
+the JAX package's `batch_norm(training=True)` does; the feed-forward path
+runs it so at train and at inference (`pointnerf_tpu/run/train.py:88-105`).
 """
 
 from __future__ import annotations
@@ -55,6 +58,20 @@ def _init_conv(conv: nn.Module, fan_in: int, generator) -> None:
             conv.bias.uniform_(-b, b, generator=generator)
 
 
+def batch_norm_stats(x: torch.Tensor, bn: nn.Module) -> torch.Tensor:
+    """BatchNorm on the batch's statistics, in JAX's form: mean and
+    population variance over every axis but the channels, (x − mean) /
+    sqrt(var + eps) · scale + bias. On flat channels (an image's uniform
+    background) its autograd keeps the float32 gradient as near the
+    float64 one as JAX's; `F.batch_norm`'s fused backward did not."""
+    dims = (0,) + tuple(range(2, x.dim()))
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    mean = x.mean(dims, keepdim=True)
+    var = torch.square(x - mean).mean(dims, keepdim=True)
+    xn = (x - mean) / torch.sqrt(var + bn.eps)
+    return xn * bn.weight.reshape(shape) + bn.bias.reshape(shape)
+
+
 class ConvBnAct(nn.Module):
     """Conv (no bias) → BatchNorm → ReLU or LeakyReLU(0.01): the original
     ConvBnReLU / ConvBnReLU3D / InPlaceABN blocks (keys `conv`, `bn`)."""
@@ -69,8 +86,11 @@ class ConvBnAct(nn.Module):
         self.act = nn.ReLU() if act == "relu" else nn.LeakyReLU(0.01)
         _init_conv(self.conv, cin * k ** dims, generator)
 
-    def forward(self, x):
-        return self.act(self.bn(self.conv(x)))
+    def forward(self, x, batch_stats: bool = False):
+        y = self.conv(x)
+        if batch_stats:
+            return self.act(batch_norm_stats(y, self.bn))
+        return self.act(self.bn(y))
 
 
 class OfclFeatureNet(nn.Module):
@@ -148,11 +168,12 @@ class FPNFeatureNet(nn.Module):
         self.toplayer = nn.Conv2d(32, 32, 1, 1, 0)
         _init_conv(self.toplayer, 32, generator)
 
-    def forward(self, imgs) -> List[torch.Tensor]:
+    def forward(self, imgs, batch_stats: bool = False) -> List[torch.Tensor]:
         outs = [imgs]
         x = imgs
         for bname in FPN_SPEC:
-            x = getattr(self, bname)(x)
+            for layer in getattr(self, bname):
+                x = layer(x, batch_stats)
             outs.append(x)
         outs[-1] = self.toplayer(outs[-1])
         return outs

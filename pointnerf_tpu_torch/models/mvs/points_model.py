@@ -14,6 +14,12 @@ is not ported (ROADMAP §1 item 8, with generalizable training).
 
 The Gaussian depth jitter is drawn from a torch generator, or injected
 (`noise`, standard normal draws), so that a test can feed JAX's draws.
+
+`gen_points(training=True)` is the feed-forward path's (JAX's
+`gen_points(..., training=True)`): MVSNet and the fusion stay frozen under
+no_grad (`run/train.py:52-57` of the JAX package splits them off), while
+the FPN, with BatchNorm on batch statistics, and the premlp record
+gradients into the embeddings wherever the caller enables them.
 """
 
 from __future__ import annotations
@@ -239,14 +245,20 @@ def _depth_values(sample: Dict, D: int, dev) -> torch.Tensor:
         * float(step) + float(nfd[0])
 
 
-@torch.no_grad()
 def gen_points(mvs: MvsPoints, opt, sample: Dict,
                noise: Optional[Sequence[torch.Tensor]] = None,
                generator: Optional[torch.Generator] = None,
                stats: Optional[Dict] = None,
-               maps: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+               maps: Optional[Dict] = None, training: bool = False,
+               depths: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
     """Depth estimation, fusion and embedding for one init view bundle
     (reference: gen_points :262-341 + forward :345-383), on mvs's device.
+
+    training: the FPN normalises with batch statistics, and the embedding
+    half (FPN, point samples, premlp) runs with autograd as the caller sets
+    it; otherwise all of it runs under no_grad. depths: `mvs_depths`'s
+    output for this sample, computed before (the frozen half is then
+    skipped).
 
     sample: `get_init_item`'s un-batched arrays (mvs_images [V,3,H,W],
     proj_mats [V,V,3,4], intrinsics [V,3,3], w2cs/c2ws [V,4,4], near_fars
@@ -265,22 +277,36 @@ def gen_points(mvs: MvsPoints, opt, sample: Dict,
     truncation) and the rows' visibility in each sampled view (`vis`,
     [N, views] per depth view).
     """
+    if depths is None:
+        depths = mvs_depths(mvs, opt, sample, stats, maps)
+    with torch.set_grad_enabled(training and torch.is_grad_enabled()):
+        return _embed_points(mvs, opt, sample, depths, noise, generator,
+                             stats, maps, training)
+
+
+def _on(sample: Dict, dev):
+    return lambda k: torch.as_tensor(np.asarray(sample[k], np.float32),
+                                     device=dev)
+
+
+@torch.no_grad()
+def mvs_depths(mvs: MvsPoints, opt, sample: Dict,
+               stats: Optional[Dict] = None,
+               maps: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+    """The frozen half of `gen_points`: per depth view the MVSNet depth (or
+    the given depths, mode 0) and the fusion's keep mask and confidence.
+    Returns {"depth", "keep", "conf"}, each [Vd, (dnum,) H, W]."""
     if opt.manual_depth_view == -1:
         raise NotImplementedError(
             "the ProbNet point init (manual_depth_view -1) is not ported "
             "(ROADMAP §1 item 8)")
     dev = next(mvs.parameters()).device
-    on = lambda k: torch.as_tensor(np.asarray(sample[k], np.float32),
-                                   device=dev)
+    on = _on(sample, dev)
     imgs = on("mvs_images")
     _, _, H, W = imgs.shape
     depth_vids = [int(v) for v in str(opt.depth_vid)]
     near_far = on("near_fars")[0]
-    intrinsics, w2cs, c2ws = on("intrinsics"), on("w2cs"), on("c2ws")
-    Kinv = torch.linalg.inv(torch.as_tensor(
-        np.asarray(sample["intrinsics"], np.float32))).to(dev)
-    W2Cinv = torch.linalg.inv(torch.as_tensor(
-        np.asarray(sample["w2cs"], np.float32))).to(dev)
+    intrinsics, w2cs = on("intrinsics"), on("w2cs")
     stats = {} if stats is None else stats
     for k in ("mvs_s", "fusion_s", "embed_s"):
         stats.setdefault(k, 0.0)
@@ -337,10 +363,31 @@ def gen_points(mvs: MvsPoints, opt, sample: Dict,
         depth_avg = depths
         keep = nf_masks
     synchronize(dev)
-    t2 = time.perf_counter()
-    stats["fusion_s"] += t2 - t1
+    stats["fusion_s"] += time.perf_counter() - t1
+    return {"depth": depth_avg, "keep": keep, "conf": confs}
 
-    img_feats = mvs.featurenet(imgs)
+
+def _embed_points(mvs, opt, sample, depths, noise, generator, stats, maps,
+                  training):
+    """The embedding half of `gen_points`: jitter, unprojection, FPN
+    features, point samples and the premlp, depth view by depth view."""
+    dev = next(mvs.parameters()).device
+    on = _on(sample, dev)
+    imgs = on("mvs_images")
+    _, _, H, W = imgs.shape
+    depth_vids = [int(v) for v in str(opt.depth_vid)]
+    near_far = on("near_fars")[0]
+    intrinsics, w2cs, c2ws = on("intrinsics"), on("w2cs"), on("c2ws")
+    Kinv = torch.linalg.inv(torch.as_tensor(
+        np.asarray(sample["intrinsics"], np.float32))).to(dev)
+    W2Cinv = torch.linalg.inv(torch.as_tensor(
+        np.asarray(sample["w2cs"], np.float32))).to(dev)
+    depth_avg, keep, confs = depths["depth"], depths["keep"], depths["conf"]
+    stats = {} if stats is None else stats
+    stats.setdefault("embed_s", 0.0)
+    t2 = time.perf_counter()
+
+    img_feats = mvs.featurenet(imgs, batch_stats=training)
     num = opt.num_each_depth
     out = {k: [] for k in ROW_KEYS}
     for i, vid in enumerate(depth_vids):

@@ -1,5 +1,6 @@
 """Neural-point ray-marching renderer (port of
-`pointnerf_tpu/models/renderer.py`, world-coordinate query).
+`pointnerf_tpu/models/renderer.py`: the world-coordinate query and the
+perspective-frustum one, `wcoord_query 0`).
 
 Shapes stay static as in the JAX package: shading rows are compacted into a
 fixed budget, the compacted rows split into a narrow (K=k_tier) and a wide
@@ -19,6 +20,7 @@ import torch
 from ..ops import ray_march as rm
 from ..ops import raygen
 from ..ops.camera import w2pers
+from ..ops.frustum import build_frustum_grid, query_frustum_points
 from ..ops.grid import GridSpec
 from ..ops.query import expand_compacted, query_grid_points
 from . import neural_points as npc
@@ -177,7 +179,7 @@ class QueryOut(NamedTuple):
     sample_pidx: Optional[torch.Tensor]     # [B,R,SR,K] int32 (None if comp)
     sample_loc_w: torch.Tensor              # [B,R,SR,3]
     ray_mask: torch.Tensor                  # [B,R] bool
-    sample_ray_dirs: Optional[torch.Tensor]  # frustum path only (None here)
+    sample_ray_dirs: Optional[torch.Tensor]  # [B,R,SR,3], frustum path only
     q_overflow: torch.Tensor                # [] int32 rows past the budget
     comp: Optional[tuple]                   # compacted query (see
                                             # ops.query.query_grid_points)
@@ -187,16 +189,29 @@ class QueryOut(NamedTuple):
 TRAIN_JITTER = 0.3     # depth-sample jitter at train (point_query.py:78-81)
 
 
-def render_query(point_state: Dict, grid: Dict, spec: GridSpec, opt,
-                 batch: Dict, is_train: bool = False,
+def render_query(point_state: Dict, grid: Optional[Dict], spec: GridSpec,
+                 opt, batch: Dict, is_train: bool = False,
                  u: Optional[torch.Tensor] = None,
-                 prob: bool = False) -> QueryOut:
-    """Query phase: ray samples → voxel walk → KNN indices (world coords).
-    No gradient flows through it. At train the depth samples are jittered
-    by the uniform draws u [B,R,z_depth_dim] (on the rays' device). Probe
-    mode needs every row's statistics, so it runs uncompacted."""
+                 prob: bool = False,
+                 generator: Optional[torch.Generator] = None) -> QueryOut:
+    """Query phase: ray samples → voxel walk → KNN indices. No gradient
+    flows through it. Probe mode needs every row's statistics, so it runs
+    uncompacted.
+
+    World coordinates: at train the depth samples are jittered by the
+    uniform draws u [B,R,z_depth_dim] (on the rays' device).
+
+    wcoord_query 0, the perspective frustum (`ops.frustum`): `spec` is a
+    frustum spec, and the camera's grid is built here from the points
+    unless `grid` is one already built (a dict holding "xyz_pers", as
+    render_image passes once per image). At train u holds the shpnt_jitter
+    draws [B,R,SR] (`ops.frustum.draw_jitter`). NN ≤ 0 ranks neighbors by
+    priorities drawn from `generator` (a fixed seed without one, as the
+    JAX package's fixed key at eval). The samples carry their own ray
+    directions."""
     if opt.wcoord_query == 0:
-        raise NotImplementedError("the frustum querier is not ported")
+        return _frustum_query(point_state, grid, spec, opt, batch, is_train,
+                              u, prob, generator)
     if opt.NN < 0:
         raise NotImplementedError("the NN<0 vox-grid querier is not ported")
     raydir, campos = batch["raydir"], batch["campos"]
@@ -218,6 +233,28 @@ def render_query(point_state: Dict, grid: Dict, spec: GridSpec, opt,
                     comp, occ_over)
 
 
+def _frustum_query(point_state, grid, spec, opt, batch, is_train, u, prob,
+                   generator) -> QueryOut:
+    raydir, campos = batch["raydir"], batch["campos"]
+    if grid is not None and "xyz_pers" in grid:
+        fgrid, xyz_pers = grid, grid["xyz_pers"]
+    else:
+        fgrid, xyz_pers = build_frustum_grid(
+            point_state["xyz"].detach(), point_state["mask"],
+            batch["camrotc2w"], campos, spec)
+    if is_train and u is None and opt.shpnt_jitter != "passfunc":
+        raise ValueError("a train query needs the shpnt_jitter draws u")
+    B, R = raydir.shape[0], raydir.shape[1]
+    Nc = effective_sr_budget(opt, B * R * opt.SR) if not prob else 0
+    (sample_pidx, sample_loc_w, sample_ray_dirs, ray_mask, q_overflow,
+     comp) = query_frustum_points(
+        raydir, batch["camrotc2w"], campos, xyz_pers, fgrid, spec, SR=opt.SR,
+        K=opt.K, jitter=opt.shpnt_jitter, u=u, is_train=is_train, Nc=Nc,
+        rand_mode=opt.NN <= 0, generator=generator)
+    return QueryOut(sample_pidx, sample_loc_w, ray_mask, sample_ray_dirs,
+                    q_overflow, comp)
+
+
 def render_shade(agg, point_state: Dict, spec: GridSpec, opt, batch: Dict,
                  query_out: QueryOut, prob: bool = False) -> Dict:
     """Shade phase: gather attributes → aggregate → ray march.
@@ -233,19 +270,22 @@ def render_shade(agg, point_state: Dict, spec: GridSpec, opt, batch: Dict,
     raydir, campos = batch["raydir"], batch["campos"]
     camrotc2w = batch["camrotc2w"]
     B, R, _ = raydir.shape
-    (sample_pidx, sample_loc_w, ray_mask, _, q_overflow, q_comp,
-     occ_overflow) = query_out
+    (sample_pidx, sample_loc_w, ray_mask, sample_ray_dirs, q_overflow,
+     q_comp, occ_overflow) = query_out
 
     sample_loc = w2pers(sample_loc_w, camrotc2w, campos)
-    sample_ray_dirs = raydir[:, :, None, :].expand(sample_loc.shape)
+    if sample_ray_dirs is None:
+        sample_ray_dirs = raydir[:, :, None, :].expand(sample_loc.shape)
     SR = sample_loc.shape[2]
     S = B * R * SR
     if prob and q_comp is not None:
         raise ValueError("probe mode needs an uncompacted query "
                          "(render_query(prob=True))")
     if q_comp is None and 0 < effective_sr_budget(opt, S) < S and not prob:
-        raise NotImplementedError("shade-side compaction (frustum path) is "
-                                  "not ported")
+        # both queries compact whenever the budget is active; in the JAX
+        # package only the NN<0 vox-grid query leaves it to the shade phase
+        raise NotImplementedError("shade-side compaction (the NN<0 vox-grid "
+                                  "path) is not ported")
     if q_comp is not None:
         # rows with >= 1 candidate were compacted by the query into a
         # per-batch-row budget; the shade phase runs on those rows only
@@ -392,14 +432,17 @@ def _probe_stats(opacity, sample_loc_w, weight, conf_coefficient,
     return out
 
 
-def render_forward(agg, point_state: Dict, grid: Dict, spec: GridSpec, opt,
-                   batch: Dict, prob: bool = False) -> Dict:
-    """Render a batch of rays (query + shade).
+def render_forward(agg, point_state: Dict, grid: Optional[Dict],
+                   spec: GridSpec, opt, batch: Dict, prob: bool = False
+                   ) -> Dict:
+    """Render a batch of rays (query + shade), at eval.
 
     batch: raydir [B,R,3], campos [B,3], camrotc2w [B,3,3], near/far
-    scalars, bg_color [B,3]. Returns the reference output dict
-    (coarse_raycolor, ray_mask, coarse_point_opacity, ...), with the probe
-    statistics when `prob` is set (see render_shade).
+    scalars, bg_color [B,3]. `grid`: the world grid, or on the frustum path
+    None (built here) or a prebuilt camera grid (see render_query). Returns
+    the reference output dict (coarse_raycolor, ray_mask,
+    coarse_point_opacity, ...), with the probe statistics when `prob` is
+    set (see render_shade).
     """
     q = render_query(point_state, grid, spec, opt, batch, prob=prob)
     return render_shade(agg, point_state, spec, opt, batch, q, prob=prob)

@@ -1,6 +1,6 @@
 """Camera / ray utilities (port of `pointnerf_tpu/ops/camera.py`).
 
-`w2pers` works on tensors; `get_blender_raydir` and `get_dtu_raydir` are
+`w2pers` and `pers2w` work on tensors; `get_blender_raydir` and `get_dtu_raydir` are
 the numpy host-side ray generators of the data pipeline.
 """
 
@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .grid import fma
 
 
 def w2pers(point_xyz_w: torch.Tensor, camrotc2w: torch.Tensor,
@@ -25,6 +27,33 @@ def w2pers(point_xyz_w: torch.Tensor, camrotc2w: torch.Tensor,
     x = xyz_c[..., 0] / xyz_c[..., 2]
     y = xyz_c[..., 1] / xyz_c[..., 2]
     return torch.stack([x, y, xyz_c[..., 2]], dim=-1)
+
+
+def dot3(a: torch.Tensor, m: torch.Tensor, i: int, transpose: bool):
+    """Σ_j a[..., j] · M[j, i] (transpose) or M[i, j], summed as XLA:CPU
+    sums a 3-term product: fma(a2, m2, fma(a1, m1, a0·m0)) (`torch.sum` of
+    the products rounds otherwise, and moves the frustum grid's voxel
+    coordinates off JAX's). a [..., 3]; m [3, 3], or [B, 3, 3] broadcast
+    against a's leading axis."""
+    lead = a.dim() - 2 if m.dim() == 3 else 0
+    col = (lambda j: m[..., j, i]) if transpose else (lambda j: m[..., i, j])
+    mj = [col(j).reshape(col(j).shape + (1,) * lead) for j in range(3)]
+    return fma(a[..., 2], mj[2], fma(a[..., 1], mj[1], a[..., 0] * mj[0]))
+
+
+def pers2w(point_xyz_pers: torch.Tensor, camrotc2w: torch.Tensor,
+           campos: torch.Tensor) -> torch.Tensor:
+    """Perspective camera coords (x/z, y/z, z) → world (inverse of w2pers):
+    xyz_w = R (x·z, y·z, z) + c, rounded as JAX's. point_xyz_pers
+    [B, ..., 3]; camrotc2w [B,3,3]; campos [B,3]."""
+    lead = point_xyz_pers.dim() - 2
+    B = campos.shape[0]
+    z = point_xyz_pers[..., 2]
+    xyz_c = torch.stack([point_xyz_pers[..., 0] * z,
+                         point_xyz_pers[..., 1] * z, z], dim=-1)
+    xyz_w = torch.stack([dot3(xyz_c, camrotc2w, i, transpose=False)
+                         for i in range(3)], dim=-1)
+    return xyz_w + campos.reshape((B,) + (1,) * lead + (3,))
 
 
 def get_blender_raydir(pixelcoords, height, width, focal, rot_c2w,

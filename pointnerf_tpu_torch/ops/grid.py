@@ -127,10 +127,13 @@ def grid_consts(spec: GridSpec, device) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def voxel_coords(xyz: torch.Tensor, spec: GridSpec
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """World position → int32 scaled-voxel coords + in-bounds mask."""
+    """World position → int32 scaled-voxel coords + in-bounds mask.
+
+    spec.inv_z (the frustum's inverse 1): the z axis buckets by disparity
+    1/max(z, 1e-9); positions keep true z everywhere else."""
     if spec.inv_z:
-        raise NotImplementedError("inv_z (frustum disparity bucketing) is "
-                                  "not ported")
+        zt = 1.0 / torch.clamp(xyz[..., 2:3], min=1e-9)
+        xyz = torch.cat([xyz[..., :2], zt], dim=-1)
     mn, inv = grid_consts(spec, xyz.device)
     coords = torch.floor((xyz - mn) * inv).to(torch.int32)
     vdim = host_const(spec.vdim, torch.int32, xyz.device)
@@ -142,6 +145,17 @@ def linearize(coords: torch.Tensor, spec: GridSpec) -> torch.Tensor:
     """[..., 3] int voxel coords → linear index (row-major)."""
     _, vy, vz = spec.vdim
     return coords[..., 0] * (vy * vz) + coords[..., 1] * vz + coords[..., 2]
+
+
+def check_grid_volume(spec: GridSpec) -> None:
+    """Raise ValueError where the grid's linear voxel index would pass 32
+    bits: with opt.ranges left at ±100 a world grid has (200/scaled
+    vsize)³ voxels, and its dense tables cannot be built (the JAX package
+    computes the same spec and cannot build them either)."""
+    if spec.grid_size_vol >= 2 ** 31:
+        raise ValueError(
+            f"the voxel grid {spec.vdim} has {spec.grid_size_vol} voxels, "
+            f"past a 32-bit index: set opt.ranges to the scene's bounds")
 
 
 def _shift3(a: torch.Tensor, off) -> torch.Tensor:
@@ -172,6 +186,7 @@ def build_grid(xyz: torch.Tensor, point_mask: torch.Tensor, spec: GridSpec
     """
     if spec.vox_dim[0] > 0:
         raise NotImplementedError("the NN<0 corner table is not ported")
+    check_grid_volume(spec)
     dev = xyz.device
     N = xyz.shape[0]
     vol = spec.grid_size_vol

@@ -1,7 +1,10 @@
 """Ray → shading point → neighbor query over the voxel grid.
 
-PyTorch port of `pointnerf_tpu/ops/query.py` (world-coordinate path, one
-compaction group). Where the JAX version shaped work around the TPU — one-hot
+PyTorch port of `pointnerf_tpu/ops/query.py` (one compaction group). The
+KNN takes the world-coordinate metric (a spherical radius cap) or the
+perspective-frustum one (`spec.pers_metric`: a radius cap on x/z, y/z and
+a depth cap on z), and in the frustum's NN ≤ 0 mode K random candidates in
+place of the K nearest. Where the JAX version shaped work around the TPU — one-hot
 lane selects, [B,R,D,SR] indicator contractions, count-compare maps — the
 port does the direct GPU thing with the same outputs: gathers, scatters and
 `searchsorted`. Integer outputs (masks, neighbor indices, counters) equal
@@ -20,7 +23,7 @@ runs it), launches `csrc/row_select.cu`.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,10 +43,24 @@ def ray_points(campos: torch.Tensor, raydir: torch.Tensor,
     return fma(raydir[:, :, None, :], tvals[..., None], campos[:, None, None, :])
 
 
+def _sq32(limit: float) -> float:
+    """A squared limit, rounded to float32 as the comparison against float32
+    distances rounds it."""
+    return float(np.float32(limit * limit))
+
+
 def _r2(spec: GridSpec) -> float:
-    """The squared radius limit, rounded to float32 as the comparison
-    against float32 distances rounds it."""
-    return float(np.float32(spec.radius_limit * spec.radius_limit))
+    return _sq32(spec.radius_limit)
+
+
+def _pers_caps(valid: torch.Tensor, dxy2, dz2, spec: GridSpec) -> torch.Tensor:
+    """The frustum metric's caps (reference query_point_indices.py:476):
+    radius_limit on the perspective xy distance, depth_limit on z."""
+    if spec.radius_limit > 0:
+        valid = valid & (dxy2 <= _r2(spec))
+    if spec.depth_limit > 0:
+        valid = valid & (dz2 <= _sq32(spec.depth_limit))
+    return valid
 
 
 def mask_raypos(raypos: torch.Tensor, grid, spec: GridSpec) -> torch.Tensor:
@@ -361,8 +378,6 @@ def knn_neighbors_superset(sample_loc: torch.Tensor, sample_mask: torch.Tensor,
 
     sample_loc [B,R,SR,3], sample_mask [B,R,SR]. Returns sample_pidx
     [B,R,SR,K] int32 (-1 = none)."""
-    if spec.pers_metric:
-        raise NotImplementedError("the frustum metric is not ported")
     B, R, SR, _ = sample_loc.shape
     P2 = spec.superset_P
     S = B * R * SR
@@ -373,9 +388,12 @@ def knn_neighbors_superset(sample_loc: torch.Tensor, sample_mask: torch.Tensor,
     loc = sample_loc.reshape(S, 3)
     sq = [torch.square(rows[:, a * P2:(a + 1) * P2] - loc[:, a:a + 1])
           for a in range(3)]
-    d2 = (sq[0] + sq[1]) + sq[2]                       # [S, P2]
+    dxy2 = sq[0] + sq[1]
+    d2 = dxy2 + sq[2]                                  # [S, P2]
     valid = (slot.reshape(S, 1) >= 0) & (d2 < 1.0e15)
-    if spec.radius_limit > 0:
+    if spec.pers_metric:
+        valid = _pers_caps(valid, dxy2, sq[2], spec)
+    elif spec.radius_limit > 0:
         valid = valid & (d2 <= _r2(spec))
     d2 = torch.where(valid, d2, BIG)
     best_d, arg = _topk_smallest(d2, K)
@@ -384,13 +402,19 @@ def knn_neighbors_superset(sample_loc: torch.Tensor, sample_mask: torch.Tensor,
 
 
 def knn_neighbors(sample_loc: torch.Tensor, sample_mask: torch.Tensor,
-                  grid, spec: GridSpec, K: int) -> torch.Tensor:
+                  grid, spec: GridSpec, K: int,
+                  priorities: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Exact K nearest points over the kernel_size³ voxel neighborhood
     (optionally culled to the query_max_voxels nearest voxel centers).
 
-    sample_loc [B,R,SR,3], sample_mask [B,R,SR] → [B,R,SR,K] int32."""
-    if spec.pers_metric:
-        raise NotImplementedError("the frustum metric is not ported")
+    sample_loc [B,R,SR,3], sample_mask [B,R,SR] → [B,R,SR,K] int32.
+
+    priorities [B,R,SR,kernel³·P] (the frustum's NN ≤ 0 mode, reference
+    query_rand_along_ray, query_point_indices.py:414-491): instead of the K
+    nearest, the K cap-valid candidates of highest priority over the whole
+    kernel window (no voxel cull) — with uniform draws, K picked uniformly
+    without replacement. The JAX package draws them from its key; the
+    caller passes them."""
     B, R, SR, _ = sample_loc.shape
     P = spec.P
     dev = sample_loc.device
@@ -407,7 +431,7 @@ def knn_neighbors(sample_loc: torch.Tensor, sample_mask: torch.Tensor,
     lin = torch.where(inb, linearize(c, spec), 0)
     slot = torch.where(inb & sample_mask[..., None],
                        grid["coor_2_occ"][lin.long()], -1)   # [B,R,SR,O]
-    T = spec.query_max_voxels
+    T = spec.query_max_voxels if priorities is None else 0
     if 0 < T < O:
         mn = torch.tensor(spec.ranges_min, dtype=torch.float32, device=dev)
         vs = torch.tensor(spec.scaled_vsize, dtype=torch.float32, device=dev)
@@ -425,9 +449,19 @@ def knn_neighbors(sample_loc: torch.Tensor, sample_mask: torch.Tensor,
     d2 = fma(diff[..., 2], diff[..., 2],
              fma(diff[..., 1], diff[..., 1], diff[..., 0] * diff[..., 0]))
     valid = (slot[..., None] >= 0) & (d2 < 1.0e15)
-    if spec.radius_limit > 0:
+    if spec.pers_metric:
+        dz2 = diff[..., 2] * diff[..., 2]
+        valid = _pers_caps(valid, fma(diff[..., 1], diff[..., 1], diff[..., 0]
+                                      * diff[..., 0]), dz2, spec)
+    elif spec.radius_limit > 0:
         valid = valid & (d2 <= _r2(spec))
     d2 = torch.where(valid, d2, BIG).reshape(B, R, SR, O * P)
+    if priorities is not None:
+        score = torch.where(d2 < BIG, priorities, -1.0)
+        top, arg = torch.sort(score, dim=-1, descending=True, stable=True)
+        top, arg = top[..., :K], arg[..., :K]
+        best_i = torch.gather(cand_idx, -1, arg)
+        return torch.where(top >= 0.0, best_i, -1)
     best_d, arg = _topk_smallest(d2, K)
     best_i = torch.gather(cand_idx, -1, arg)
     return torch.where(best_d < BIG, best_i, -1)

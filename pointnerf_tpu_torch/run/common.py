@@ -23,6 +23,7 @@ from ..config import PRESETS, Options, validate_options
 from ..data.ply import read_ply_points
 from ..models import neural_points as npc
 from ..models.renderer import effective_sr_budget
+from ..ops.frustum import build_frustum_grid
 from ..ops.grid import build_grid, make_grid_spec
 from ..train import trainer
 
@@ -347,11 +348,29 @@ def render_image(ts: trainer.ServeState, grid, opt, spec, item: Dict,
     valid shading row: a group whose compaction budget overflows is
     re-rendered up a static budget ladder (2x the budget, then compaction
     off), and the raised rung persists for the rest of the image.
-    Rendering happens on the device that holds `grid`. A `stats` dict, if
-    given, receives the image's counters: sr_overflow (valid rows the first
-    rung dropped, all re-rendered), occ_overflow and the group count.
+    Rendering happens on the device that holds the points. On the frustum
+    path (wcoord_query 0) `grid` may be None: the camera's perspective grid
+    is then built once here and serves every group of the image (the
+    reference rebuilds it per query_points call, query_point_indices.py:
+    92-94). A `stats` dict, if given, receives the image's counters:
+    sr_overflow (valid rows the first rung dropped, all re-rendered),
+    occ_overflow and the group count; and where it builds the frustum
+    grid, its host seconds (grid_s, the device synchronized) and occupied
+    voxels (num_occ).
     """
-    dev = grid["coor_occ_rows"].device
+    dev = ts.points["xyz"].device
+    if opt.wcoord_query == 0 and (grid is None or "xyz_pers" not in grid):
+        t0 = time.perf_counter()
+        fgrid, xyz_pers = build_frustum_grid(
+            ts.points["xyz"], ts.points["mask"],
+            torch.as_tensor(np.asarray(item["camrotc2w"]), device=dev),
+            torch.as_tensor(np.asarray(item["campos"]), device=dev), spec)
+        grid = dict(fgrid, xyz_pers=xyz_pers)
+        if stats is not None:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            stats.update(grid_s=time.perf_counter() - t0,
+                         num_occ=int(fgrid["num_occ"]))
     H, W = int(item["h"]), int(item["w"])
     chunk = opt.random_sample_size ** 2
     maps: Dict[str, np.ndarray] = {}

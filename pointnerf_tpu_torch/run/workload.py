@@ -11,6 +11,9 @@ micro-benchmarks in `pointnerf_tpu_torch/scripts/` share them.
 NeRF-Synthetic layout (the geometry of the JAX package's test fixture
 `tests/fixtures.py::make_nerf_synth_scene`), with the port's own PNG and PLY
 writers, for `chip_smoke.py`'s finetune phase and the `cuda` driver tests.
+`make_dtu_scene` writes the same plate in the DTU/MVSNet layout (the
+geometry of `tests/fixtures.py::make_dtu_scene`) for the generalizable
+driver's phases.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from ..config import nerf_synth_preset
+from ..data.pfm import write_pfm
 from ..data.ply import write_ply_points
 from ..utils.png import write_png
 
@@ -147,3 +151,82 @@ def make_plate_scene(root, wh=(400, 400), n_train=12, n_test=4,
     write_ply_points(os.path.join(scene, "colmap_results/dense/fused.ply"),
                      xyz.astype(np.float32), plate_color(xyz[:, 0], xyz[:, 1]))
     return len(xyz)
+
+
+def make_dtu_scene(root, scan="scan1", n_views=6, wh=(64, 64), radius=3.0,
+                   focal=None):
+    """The plate in the DTU/MVSNet layout, written with the port's PNG and
+    PFM writers (tests/fixtures.py::make_dtu_scene's geometry at any `wh`):
+    Cameras/train/*_cam.txt (intrinsics at 1/4 scale, translations and
+    depths in 200× world units), Rectified PNGs for the 7 lights, raw
+    1600×1200 Depths_raw PFMs that the loader's halving, crop and resize
+    bring back to the analytic plate depth, and dtu_configs (one scan in
+    every list, each view's 5 nearest others as its sources). `focal`
+    defaults to the fixture's 60 px at 64 px, scaled with the width."""
+    W, H = wh
+    focal = 60.0 * W / 64.0 if focal is None else float(focal)
+    scale = 200.0
+    for d in ("Cameras/train", f"Rectified/{scan}_train",
+              f"Depths_raw/{scan}", "dtu_configs/lists"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    K = np.array([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1.0]])
+    flip = np.diag([1.0, -1.0, -1.0, 1.0])
+    for vid in range(n_views):
+        theta = 2 * np.pi * vid / n_views
+        phi = np.deg2rad(40)
+        campos = radius * np.array([np.cos(theta) * np.cos(phi),
+                                    np.sin(theta) * np.cos(phi), np.sin(phi)])
+        pose_gl = look_at_pose(campos)
+        c2w_cv = pose_gl @ flip
+        w2c_dtu = np.linalg.inv(c2w_cv)
+        w2c_dtu[:3, 3] *= scale
+        dmin_dtu = 2.0 * scale
+        dint = (4.5 - 2.0) * scale / (192 * 1.06)
+        K4 = K.copy()
+        K4[:2] /= 4.0
+        with open(os.path.join(root, f"Cameras/train/{vid:08d}_cam.txt"),
+                  "w") as f:
+            f.write("extrinsic\n")
+            for r in w2c_dtu:
+                f.write(" ".join(f"{x:.9f}" for x in r) + "\n")
+            f.write("\nintrinsic\n")
+            for r in K4:
+                f.write(" ".join(f"{x:.9f}" for x in r) + "\n")
+            f.write(f"\n{dmin_dtu:.6f} {dint:.6f}\n")
+
+        rgba = render_plate_rgba(pose_gl, focal, W, H)
+        rgb = rgba[..., :3] * rgba[..., 3:] + 1.0 * (1 - rgba[..., 3:])
+        img8 = (np.clip(rgb, 0, 1) * 255).astype(np.uint8)
+        for light in range(7):
+            write_png(os.path.join(root, f"Rectified/{scan}_train/"
+                                   f"rect_{vid + 1:03d}_{light}_r5000.png"),
+                      img8)
+
+        # raw pixel → cropped pixel → this K: the plate depth in DTU units
+        px, py = np.meshgrid(np.arange(1600, dtype=np.float64),
+                             np.arange(1200, dtype=np.float64))
+        fx = (px / 2 - 80) / 640 * W
+        fy = (py / 2 - 44) / 512 * H
+        d_cam = np.stack([(fx - W / 2) / focal, (fy - H / 2) / focal,
+                          np.ones_like(fx)], -1)
+        d_w = d_cam @ c2w_cv[:3, :3].T
+        t = (0.0 - campos[2]) / d_w[..., 2]
+        hit = campos + t[..., None] * d_w
+        inside = (t > 0) & (np.abs(hit[..., 0]) <= 0.4) \
+            & (np.abs(hit[..., 1]) <= 0.4)
+        write_pfm(os.path.join(root, f"Depths_raw/{scan}/"
+                               f"depth_map_{vid:04d}.pfm"),
+                  np.where(inside, t * scale, 0.0).astype(np.float32))
+
+    for split in ("train", "test", "val"):
+        with open(os.path.join(root, "dtu_configs/lists",
+                               f"dtu_{split}_all.txt"), "w") as f:
+            f.write(scan + "\n")
+    with open(os.path.join(root, "dtu_configs/dtu_pairs.txt"), "w") as f:
+        f.write(f"{n_views}\n")
+        for ref in range(n_views):
+            srcs = [v for v in range(n_views) if v != ref][:5]
+            f.write(f"{ref}\n")
+            f.write(f"{len(srcs)} " + " ".join(f"{v} 1.0" for v in srcs)
+                    + "\n")
+    return root

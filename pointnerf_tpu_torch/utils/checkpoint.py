@@ -3,8 +3,9 @@
 `from_jax_params` turns the JAX aggregator pytree (``{branch: [{"w": [in,
 out], "b": [out]}, ...]}``, as numpy) and point arrays into the port's
 `Aggregator` module and point-state tensors. `from_jax_train_state` carries
-a whole JAX `TrainState` across, Adam moments and step included, and
-`from_jax_mvs_params` the MVS point init's nets (`MvsPoints`).
+a whole JAX `TrainState` across, Adam moments and step included,
+`from_jax_mvs_params` the MVS point init's nets (`MvsPoints`), and
+`from_jax_gen_state` the generalizable driver's `GenTrainState`.
 `load_net_ray_marching_npz` reads the ``{step}_net_ray_marching.npz`` every
 JAX checkpoint writes (reference key names; torch Linear weights [out, in])
 with numpy alone.
@@ -17,6 +18,10 @@ The driver's checkpoints (port of `pointnerf_tpu/utils/checkpoint.py:106-
   {step}_full.npz              the whole train state under the JAX
                                `TrainState`'s key paths (`save_pytree_npz`),
                                both Adam states included
+  {steps}_gen.npz              the generalizable driver's state under the
+                               JAX `GenTrainState`'s key paths (the
+                               aggregator, the FPN and premlp, MVSNet, both
+                               Adam states, the step)
 
 The port writes the point-Adam moments per buffer
 (``.opt_state_pts/0/.mu/{buffer}``) and reads that layout or the packed
@@ -423,3 +428,135 @@ def load_checkpoint(ckpt_dir: str, opt, device="cuda",
     counters = {k: (int(v) if k in _INT_COUNTERS else float(v))
                 for k, v in counters.items()}
     return state, counters
+
+
+# ------------------------------------------------ the generalizable state
+_BN_JAX = {v: k for k, v in _BN_KEYS.items()}
+_UP_TORCH = re.compile(r"^(mvsnet\.cost_regularization\.conv(?:7|9|11))\."
+                       r"([01])\.")
+
+
+def _mvs_jax_path(key: str) -> Tuple[Optional[str], bool]:
+    """An `MvsPoints` state-dict key → (its path in the JAX MVS tree,
+    whether the value is transposed there); (None, False) for BatchNorm's
+    step counter, which the JAX tree lacks. The inverse of
+    `from_jax_mvs_params`' mapping."""
+    if key.endswith("num_batches_tracked"):
+        return None, False
+    m = _UP_TORCH.match(key)
+    if m:
+        key = f"{m.group(1)}.{'conv' if m.group(2) == '0' else 'bn'}." \
+            + key[m.end():]
+    parts = key.split(".")
+    if parts[0] == "premlp":
+        weight = parts[2] == "weight"
+        return f"premlp/{int(parts[1]) // 2}/{'w' if weight else 'b'}", weight
+    leaf = _BN_JAX[parts[-1]] if parts[-2] == "bn" else \
+        ("w" if parts[-1] == "weight" else "b")
+    return "/".join(parts[:-1] + [leaf]), False
+
+
+def gen_state_arrays(state) -> Dict[str, np.ndarray]:
+    """A `run/train.GenTrainState` flattened under the JAX
+    `GenTrainState`'s key paths (`save_pytree_npz`): agg_params,
+    mvs_train (featurenet with its BatchNorm statistics, premlp),
+    mvs_frozen (mvsnet), both optax chains (the MVS moments of the
+    statistics, which take no gradient, are zeros) and the step."""
+    agg = state.aggregator
+    out = {f".agg_params/{k}": v
+           for k, v in _jax_tree(agg, lambda p: p).items()}
+    net = dict(agg.named_parameters())
+    net_count = _adam_leaves(state.opt_net, next(iter(net.values())))[0]
+    for slot, i in ((".mu", 1), (".nu", 2)):
+        tree = _jax_tree(agg, lambda p, i=i: _adam_leaves(state.opt_net,
+                                                          p)[i])
+        out.update({f".opt_state_net/0/{slot}/{k}": v
+                    for k, v in tree.items()})
+    params = state.mvs_params()
+    mvs_count = 0
+    for k, v in state.mvs.state_dict().items():
+        path, transpose = _mvs_jax_path(k)
+        if path is None:
+            continue
+        tr = (lambda a: a.T) if transpose else (lambda a: a)
+        frozen = k.startswith("mvsnet.")
+        out[f"{'.mvs_frozen' if frozen else '.mvs_train'}/{path}"] = tr(_np(v))
+        if frozen:
+            continue
+        c, mu, nu = _adam_leaves(state.opt_mvs, params[k]) if k in params \
+            else (0, torch.zeros_like(v), torch.zeros_like(v))
+        mvs_count = max(mvs_count, c)
+        out[f".opt_state_mvs/0/.mu/{path}"] = tr(_np(mu))
+        out[f".opt_state_mvs/0/.nu/{path}"] = tr(_np(nu))
+    for chain, c in ((".opt_state_net", net_count),
+                     (".opt_state_mvs", mvs_count)):
+        out[f"{chain}/0/.count"] = np.int32(c)
+        out[f"{chain}/1/.count"] = np.int32(c)
+    out[".step"] = np.int32(state.step)
+    return out
+
+
+def _mvs_torch_tensors(tree: Dict) -> Dict[str, np.ndarray]:
+    """A JAX mvs_train-shaped tree (featurenet, premlp; as numpy) by the
+    port's `MvsPoints` names, premlp weights transposed to [out, in]."""
+    flat: Dict[str, np.ndarray] = {}
+    _conv_keys(tree.get("featurenet", {}), "featurenet.", flat)
+    for i, layer in enumerate(tree.get("premlp") or []):
+        flat[f"premlp.{2 * i}.weight"] = np.asarray(layer["w"]).T
+        flat[f"premlp.{2 * i}.bias"] = np.asarray(layer["b"])
+    return flat
+
+
+def from_jax_gen_state(ts, opt, device="cuda"):
+    """A JAX `GenTrainState` (leaves as numpy) → the port's GenTrainState:
+    the aggregator, the MVS nets (from_jax_mvs_params), both Adam chains'
+    moments and counts, and the step, on `device` (the card unless the
+    caller names another). The render's draw generator is seeded 0."""
+    from ..run.train import make_gen_state
+    layers = {name: [(np.asarray(l["w"], np.float32).T, l["b"]) for l in ls]
+              for name, ls in ts.agg_params.items()}
+    agg = aggregator_from_layers(layers, opt.act_type).to(device)
+    mvs = from_jax_mvs_params(dict(ts.mvs_train, **ts.mvs_frozen), opt,
+                              device)
+    state = make_gen_state(agg, mvs, opt,
+                           torch.Generator(device=device).manual_seed(0),
+                           int(np.asarray(ts.step)))
+    adam = _adam_of(ts.opt_state_net)
+    _load_adam(state.opt_net, dict(agg.named_parameters()), adam,
+               _net_tensors(adam.mu), _net_tensors(adam.nu))
+    adam = _adam_of(ts.opt_state_mvs)
+    _load_adam(state.opt_mvs, state.mvs_params(), adam,
+               _mvs_torch_tensors(adam.mu), _mvs_torch_tensors(adam.nu))
+    return state
+
+
+def save_gen_npz(path: str, state) -> None:
+    """Write a {steps}_gen.npz that the JAX package's `load_pytree_npz`
+    reads into its GenTrainState."""
+    np.savez_compressed(path, **gen_state_arrays(state))
+
+
+def load_gen_npz(path: str, opt, device="cuda"):
+    """Read a {steps}_gen.npz (the JAX package's `save_pytree_npz` of its
+    GenTrainState, or `save_gen_npz`'s) into a GenTrainState on `device`.
+    The aggregator's widths are checked against `opt`."""
+    flat = dict(np.load(path))
+    want = {k: tuple(v.shape) for k, v in
+            init_aggregator_params(opt, device="cpu").state_dict().items()}
+    agg = _nest(flat, ".agg_params")
+    got = {k: tuple(v.shape) for k, v in _net_tensors(agg).items()}
+    if got != want:
+        raise ValueError(f"checkpoint aggregator {got} does not match the "
+                         f"options' {want}")
+
+    def chain(name):
+        pre = f".opt_state_{name}/0"
+        return [SimpleNamespace(count=flat[f"{pre}/.count"],
+                                mu=_nest(flat, f"{pre}/.mu"),
+                                nu=_nest(flat, f"{pre}/.nu"))]
+
+    ts = SimpleNamespace(agg_params=agg, mvs_train=_nest(flat, ".mvs_train"),
+                         mvs_frozen=_nest(flat, ".mvs_frozen"),
+                         opt_state_net=chain("net"),
+                         opt_state_mvs=chain("mvs"), step=flat[".step"])
+    return from_jax_gen_state(ts, opt, device)

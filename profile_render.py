@@ -1,6 +1,6 @@
 """Where the time of one lego-preset render or train step goes, on one CUDA GPU.
 
-    python3 profile_render.py [--train | --mvs] [--fused-shade]
+    python3 profile_render.py [--train | --mvs | --dtu] [--fused-shade]
                               [--out build/traces/render_trace.json]
 
 Builds chip_smoke.py's main-path workload (the lego preset, bench.py's
@@ -12,8 +12,11 @@ render_image call; with --train it takes one warm-up train_step on
 chip_smoke's 3,600-ray train batch, then profiles a second; with --mvs it
 writes chip_smoke's 800x800 plate scene and runs one view triplet of the
 MVS point init (gen_points at chip_smoke's MVS options: MVSNet over 128
-depth planes, fusion, embeddings) once, then profiles a second. The
-profile is
+depth planes, fusion, embeddings) once, then profiles a second; with --dtu
+it writes chip_smoke's 640x512 DTU-layout plate scene and runs the
+feed-forward inference of one test item (run/train.infer_item at
+chip_smoke's dtu_inf options: MVSNet, the FPN points, the frustum grid,
+the full image) once, then profiles a second. The profile is
 torch.profiler's (CPU and CUDA activities). Prints the wall time, the
 device busy share (the union of the kernel and copy intervals over the wall
 time) and the device time per kernel family, then writes the Chrome trace
@@ -43,6 +46,7 @@ FAMILIES = (("K1 trunk_fwd", ("trunk_fwd",)),
             ("K5 shade_bwd", ("shade_bwd",)),
             ("K6 scatter_rows", ("scatter_rows",)),
             ("K7 row_select", ("row_select",)),
+            ("max_pool3d (grid dilation)", ("max_pool", "pool3d")),
             ("Adam", ("adam", "multi_tensor")),
             ("cuDNN convs", ("fprop", "dgrad", "convolve", "conv_")),
             ("batch norm", ("bn_fw",)),
@@ -83,6 +87,8 @@ def main() -> int:
                     help="profile a train step instead of a render")
     ap.add_argument("--mvs", action="store_true",
                     help="profile one triplet of the MVS point init")
+    ap.add_argument("--dtu", action="store_true",
+                    help="profile one feed-forward DTU image (dtu_inf)")
     ap.add_argument("--fused-shade", action="store_true",
                     help="profile the fused_shade configuration")
     ap.add_argument("--out", default=None,
@@ -123,6 +129,24 @@ def main() -> int:
         run = lambda: pm.gen_points(mvs, opt, sample)
         what = (f"MVS init, one triplet at {MVS_WH}x{MVS_WH}, D "
                 f"{opt.depth_grid}")
+    elif args.dtu:
+        import tempfile
+        from chip_smoke import DTU_VIEWS, DTU_WH, dtu_inf_options
+        from pointnerf_tpu_torch.data import create_dataset
+        from pointnerf_tpu_torch.run import train as gen
+        from pointnerf_tpu_torch.run.workload import make_dtu_scene
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        tmp = tempfile.TemporaryDirectory()
+        make_dtu_scene(tmp.name, n_views=DTU_VIEWS, wh=DTU_WH)
+        opt = dtu_inf_options(tmp.name)
+        ds = create_dataset(opt, "test")
+        spec = gen.make_render_spec(opt, ds, gen.point_slots(opt))
+        state = gen.create_gen_state(opt, device=dev)
+        item = ds.get_item(0, full_img=True)
+        run = lambda: gen.infer_item(state, opt, spec, item)
+        what = (f"feed-forward DTU image {DTU_WH[0]}x{DTU_WH[1]} (points, "
+                f"frustum grid, render)")
     else:
         opt, state, spec, grid, _, ts, item, _ = build_workload(dev)
         if args.fused_shade:
@@ -141,7 +165,8 @@ def main() -> int:
             what = "render 800x800" + (" (fused_shade)" if args.fused_shade
                                        else "")
     out = args.out or "build/traces/{}{}_trace.json".format(
-        "mvs" if args.mvs else "train" if args.train else "render",
+        "mvs" if args.mvs else "dtu" if args.dtu else "train" if args.train
+        else "render",
         "_shade" if args.fused_shade else "")
     run()
     for k in kernels.KERNELS:

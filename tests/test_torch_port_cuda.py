@@ -845,3 +845,102 @@ def test_mvs_gen_points_on_card_matches_cpu(dev, tmp_path):
     assert rows.float().mean() > 0.9
     for k in ("xyz_w", "embedding", "color", "dir", "conf"):
         torch.testing.assert_close(card[k].cpu()[rows], host[k][rows], **TOL)
+
+
+def _dtu_opts(root, preset, **kw):
+    """A dtu preset at 64x64 on the DTU-layout plate scene
+    (run/workload.make_dtu_scene), MVSNet over 32 planes, random weights:
+    conf threshold 0 and no geometric consistency."""
+    from pointnerf_tpu_torch import config
+    from pointnerf_tpu_torch.run.workload import make_dtu_scene
+    make_dtu_scene(root, n_views=6, wh=(64, 64))
+    return getattr(config, preset)().replace(
+        data_root=root, img_wh=(64, 64), depth_grid=32,
+        depth_conf_thresh=0.0, geo_cnsst_num=0,
+        checkpoints_dir=str(root) + "/ckpt", **kw)
+
+
+def test_frustum_render_on_card_matches_cpu(dev, tmp_path):
+    """The dtu_inf preset's frustum render (order 1) of a 64x64 item from
+    the same feed-forward points on the card (K1, and no other kernel: the
+    frustum occupancy is plain PyTorch) and on the CPU (K1's plain
+    version): ray masks equal, colors within TOL, counters equal."""
+    from pointnerf_tpu_torch.data import create_dataset
+    from pointnerf_tpu_torch.run import common
+    from pointnerf_tpu_torch.run import train as gen
+    opt = _dtu_opts(str(tmp_path), "dtu_inf_preset", random_sample_size=16,
+                    SR_budget=-1)
+    ds = create_dataset(opt, "test")
+    spec = gen.make_render_spec(opt, ds, gen.point_slots(opt))
+    item = ds.get_item(0, full_img=True)
+    st = gen.create_gen_state(opt, device="cpu")
+    with torch.inference_mode():
+        ps = gen.feedforward_point_state(st.mvs, opt, item["mvs_sample"])
+    outs = {}
+    for device in ("cpu", dev):
+        ts = trainer.ServeState(copy.deepcopy(st.aggregator).to(device),
+                                {k: v.to(device) for k, v in ps.items()})
+        for k in kernels.KERNELS:
+            k.launches = 0
+        stats = {}
+        outs[str(device)] = (common.render_image(
+            ts, None, opt, spec, item, stats=stats), stats)
+        on = {kernels.TRUNK_FWD.name} if device == dev else set()
+        assert {k.name for k in kernels.KERNELS if k.launches} == on
+    (cpu, s_cpu), (gpu, s_gpu) = outs["cpu"], outs[str(dev)]
+    assert s_cpu["num_occ"] == s_gpu["num_occ"] > 0
+    assert s_cpu["sr_overflow"] == s_gpu["sr_overflow"]
+    np.testing.assert_array_equal(gpu["ray_mask"], cpu["ray_mask"])
+    assert cpu["ray_mask"].any()
+    np.testing.assert_allclose(gpu["coarse_raycolor"], cpu["coarse_raycolor"],
+                               **TOL)
+
+
+def test_gen_step_on_card_matches_cpu(dev, tmp_path):
+    """One dtu_gen gen_compute_grads (64x64, 16² rays, scene-bound ranges)
+    from the same state, draws and frozen MVS half on the card (K1, K2, K3,
+    K6) and on the CPU (plain versions): loss items within 1e-4, each
+    gradient of the aggregator, the FPN and the premlp within GRAD_REL in
+    norm."""
+    from pointnerf_tpu_torch.data import create_dataset
+    from pointnerf_tpu_torch.models.mvs import points_model as pm
+    from pointnerf_tpu_torch.run import train as gen
+    opt = _dtu_opts(str(tmp_path), "dtu_gen_preset", random_sample_size=16,
+                    ranges=(-0.6, -0.6, -0.25, 0.6, 0.6, 0.25),
+                    use_fused_trunk=1)
+    ds = create_dataset(opt, "train")
+    spec = gen.make_render_spec(opt, ds, gen.point_slots(opt))
+    item = ds.get_item(0, rng=np.random.RandomState(0))
+    sample = item.pop("mvs_sample")
+    st = gen.create_gen_state(opt, device="cpu")
+    depths = pm.mvs_depths(st.mvs, opt, sample)
+    u = torch.rand((1, 256, opt.z_depth_dim), generator=torch.Generator())
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    runs = {}
+    try:
+        for device in ("cpu", dev):
+            s = gen.make_gen_state(copy.deepcopy(st.aggregator).to(device),
+                                   copy.deepcopy(st.mvs).to(device), opt,
+                                   torch.Generator(device=device))
+            for k in kernels.KERNELS:
+                k.launches = 0
+            runs[str(device)] = gen.gen_compute_grads(
+                s, sample, gen.batch_of(item, device), opt, spec,
+                u.to(device), depths={k: v.to(device)
+                                      for k, v in depths.items()})
+            on = ({kernels.TRUNK_FWD.name, kernels.TRUNK_BWD.name,
+                   kernels.OCCUPANCY.name, kernels.SCATTER_ROWS.name}
+                  if device == dev else set())
+            assert {k.name for k in kernels.KERNELS if k.launches} == on
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    cpu, gpu = runs["cpu"], runs[str(dev)]
+    for k, v in cpu[0].items():
+        np.testing.assert_allclose(float(gpu[0][k]), float(v), rtol=1e-4,
+                                   err_msg=k)
+    assert float(cpu[0]["loss_ray_masked_coarse_raycolor"]) > 0
+    for part in (1, 2):
+        for k, g in cpu[part].items():
+            d = gpu[part][k].cpu() - g
+            assert float(d.norm()) <= GRAD_REL * float(g.norm()), k
