@@ -25,7 +25,10 @@ then the finetune driver, run/train_ft.main, at the lego preset's
 widths on a 400x400 plate scene it writes in the NeRF-Synthetic layout
 (FT_STEPS steps with a prune, probe-and-grows and a final checkpoint; the
 test PSNR must pass FT_PSNR and the PSNR before training), then main again,
-which must resume and stop at once; and last the MVS point init
+which must resume and stop at once, then run/render_vid.main on its
+checkpoint (the NeRF-Synthetic render path's 20 frames and their GIF,
+decoded back, each frame within the palette bound of its PNG); then the
+MVS point init
 (load_points 0, the lego preset's default) on an 800x800 plate scene:
 gen_points_filter_embeddings over every view triplet of the 12 train views
 (MVSNet depth over 128 planes, fusion, embeddings, the visual hull, the
@@ -39,7 +42,15 @@ phase, two chunks re-rendered on the CPU from the same points; and dtu_gen
 training through run/train.gen_train_step (GEN_STEPS timed steps on one
 item, the loss must fall; K1, K2, K3, K6), one step's gradients of the
 aggregator, the FPN and the premlp against the CPU, a {steps}_gen.npz
-written, read back and loaded by run/train.inference.
+written, read back and loaded by run/train.inference; and last the
+evaluation phase at 1920x1080: a plate scene in the Tanks&Temples layout
+(run/workload.make_tt_scene, 501,264 fused.ply points), train_ft.main with
+tt_preset("Truck") for TT_STEPS steps and load_points 1 (K1, K2, K3, K6),
+run/test_ft.main on its checkpoint with LPIPS alex and vgg from random
+weights written for the run (K1, K3), a timed render of one test view,
+two of its chunks rendered again on the CPU from the same checkpoint
+(within 1e-5), and one 1920x1080 LPIPS distance on the card against the
+CPU.
 
 Before the checks it counts the HMMA instructions in the SASS of each
 trunk kernel's library (K1, K2, K4, K5 run their products on the tensor
@@ -164,6 +175,20 @@ ALPHA_SHIFT = 5.0                     # alpha-head bias added for that
                                       # color-branch gradients failed the
                                       # GRAD_REL bar with the query and the
                                       # outputs equal)
+VIDEO_FRAMES = 20                     # the NeRF-Synthetic render path
+TT_WH = (1920, 1080)                  # tt_preset's img_wh (the T&T PNGs)
+TT_VIEWS = (6, 2)                     # train / test views of the T&T scene
+TT_SIDE = 708                         # fused.ply: a 708² grid, 501,264
+                                      # points (T&T clouds hold 0.5-1.6 M;
+                                      # Truck's max_o is 1.6 M)
+TT_HALF = 0.19                        # plate half-width: inside Truck's
+                                      # ranges (y from -0.598 to 0.203)
+TT_RADIUS = 0.6                       # camera distance: the plate spans
+                                      # about 1,200 of 1,920 columns
+TT_STEPS = 100                        # finetune steps: one checkpoint
+TT_CPU_TOL = dict(rtol=1e-5, atol=1e-5)  # test_ft chunks, card vs CPU
+LPIPS_RTOL = 1e-4                     # one LPIPS distance, card vs CPU
+LPIPS_REPS = 5                        # timed LPIPS calls a net
 PEAK_FP32 = 67e12                     # H100 SXM fp32 FLOP/s outside the
                                       # tensor cores, at 700 W (data sheet)
 PEAK_TF32 = 495e12                    # H100 SXM dense TF32 tensor-core
@@ -1909,6 +1934,235 @@ def dtu_gen_path(root, dev=torch.device("cuda")):
     return launches
 
 
+# ------------------------------------------------- the evaluation phase
+def video_path(root):
+    """render_vid on the finetune phase's checkpoint (the plate scene at
+    FT_WH, lego widths): the NeRF-Synthetic render split's VIDEO_FRAMES
+    poses through render_image, the frames as PNGs and an animated GIF
+    (counts reset just before, read just after: K1 and K3 must launch).
+    The GIF must decode to every frame, each within the palette bound of
+    its PNG. Returns the launch counts."""
+    from pointnerf_tpu_torch.ops import kernels
+    from pointnerf_tpu_torch.run import render_vid
+    from pointnerf_tpu_torch.utils.gif import QUANT_BOUND, read_gif
+    from pointnerf_tpu_torch.utils.png import read_png
+    opt = finetune_options(root)
+    for k in kernels.KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = render_vid.main(opt)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    check_launches("render_vid", (kernels.TRUNK_FWD, kernels.OCCUPANCY))
+    t0 = time.perf_counter()
+    frames = read_gif(res["video"])
+    read_s = time.perf_counter() - t0
+    size = os.path.getsize(res["video"])
+    frame_dir = os.path.join(opt.checkpoints_dir, opt.experiment, "images",
+                             f"vid_{FT_STEPS}")
+    err = max(int(np.abs(f.astype(int) - read_png(os.path.join(
+        frame_dir, f"step-{i:04d}-coarse_raycolor.png")).astype(int)).max())
+        for i, f in enumerate(frames))
+    log(f"render_vid: {res['n_frames']} frames {FT_WH}x{FT_WH} in "
+        f"{wall:.1f} s ({1e3 * wall / res['n_frames']:.1f} ms a frame with "
+        f"its PNG and the GIF's share), GIF {size} bytes, decoded "
+        f"{len(frames)} frames in {read_s:.2f} s, max palette error {err} "
+        f"levels (bound {QUANT_BOUND}); peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{launches}")
+    if res["n_frames"] != VIDEO_FRAMES or len(frames) != VIDEO_FRAMES:
+        raise AssertionError(f"the video holds {len(frames)} frames, not "
+                             f"{VIDEO_FRAMES}")
+    if size <= 1000 or err > QUANT_BOUND:
+        raise AssertionError(f"the GIF ({size} bytes) is too small or off "
+                             f"its frames by {err} levels")
+    return launches
+
+
+def tt_options(root):
+    """tt_preset("Truck") at its widths (1920x1080, ranges, vsize 0.002,
+    vscale 3, SR 40, K 8, P 10, max_o 1.6 M, the 256-wide MLP, auto
+    SR_budget) with load_points 1 (the scene's fused.ply; its own
+    load_points 0 has no view triplets on tt_ft and fails in both
+    packages), TT_STEPS steps and a final checkpoint, 2 test views."""
+    from pointnerf_tpu_torch.config import tt_preset
+    return tt_preset("Truck").replace(
+        data_root=root, img_wh=TT_WH, load_points=1,
+        checkpoints_dir=os.path.join(root, "checkpoints"),
+        experiment="truck_ft", maximum_step=TT_STEPS, print_freq=50,
+        save_iter_freq=10 * TT_STEPS, save_point_freq=0, test_freq=0,
+        test_num=TT_VIEWS[1])
+
+
+def tt_eval_path(root, smi: str):
+    """The evaluation phase at 1920x1080 on a T&T-layout plate scene
+    (run/workload.make_tt_scene, TT_SIDE² points): train_ft.main with
+    tt_preset("Truck") for TT_STEPS steps (K1, K2, K3, K6), then
+    test_ft.main on its checkpoint with LPIPS alex and vgg from random
+    weights written here (K1, K3; each run with the counts reset just
+    before and read just after); a timed render of one test view; two of
+    its chunks rendered again on the CPU from the same checkpoint; one
+    1920x1080 LPIPS distance on the card against the CPU, and LPIPS timed
+    on the card. Returns the two runs' launch counts."""
+    from pointnerf_tpu_torch.data import create_dataset
+    from pointnerf_tpu_torch.ops import kernels
+    from pointnerf_tpu_torch.run import common, test_ft, train_ft
+    from pointnerf_tpu_torch.run.workload import (lpips_state_dict,
+                                                  make_tt_scene)
+    from pointnerf_tpu_torch.utils.checkpoint import load_checkpoint
+    from pointnerf_tpu_torch.utils.lpips import load_lpips
+    from pointnerf_tpu_torch.utils.png import read_png
+    t0 = time.perf_counter()
+    n_written = make_tt_scene(root, wh=TT_WH, n_train=TT_VIEWS[0],
+                              n_test=TT_VIEWS[1], radius=TT_RADIUS,
+                              half=TT_HALF, side=TT_SIDE)
+    weights = {}
+    for net in ("alex", "vgg"):
+        weights[net] = os.path.join(root, f"lpips_{net}_full.pth")
+        torch.save(lpips_state_dict(net, seed=len(net)), weights[net])
+    log(f"T&T plate scene {TT_WH[0]}x{TT_WH[1]}, {TT_VIEWS[0]} train / "
+        f"{TT_VIEWS[1]} test views, {n_written} fused.ply points: written "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+    opt = tt_options(root)
+    for k in kernels.KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train_ft.main(opt)
+    wall = time.perf_counter() - t0
+    ft = {k.name: k.launches for k in kernels.KERNELS}
+    tm = res["timing"]
+    R = opt.random_sample_size ** 2
+    n_pts = int(res["state"].points["mask"].sum())
+    log(f"T&T finetune (tt_preset Truck, load_points 1): {n_pts} points, "
+        f"grid {res['spec'].vdim}; {tm['steps']} steps, "
+        f"{1e3 * tm['train_s'] / tm['steps']:.1f} ms/step ({R} rays a "
+        f"step), wall {wall:.1f} s (test renders {tm['test_s']:.1f} s, "
+        f"checkpoints {tm['save_s']:.1f} s); final test PSNR "
+        f"{res['final_psnr']:.3f}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {ft}")
+    check_launches("T&T finetune", (kernels.TRUNK_FWD, kernels.TRUNK_BWD,
+                                    kernels.OCCUPANCY, kernels.SCATTER_ROWS))
+    if res["total_steps"] != TT_STEPS or not np.isfinite(res["final_psnr"]):
+        raise AssertionError("the T&T finetune did not run its steps")
+    del res
+    torch.cuda.empty_cache()
+
+    ckpt = os.path.join(opt.checkpoints_dir, opt.experiment)
+    eval_opt = opt.replace(resume_dir=ckpt,
+                           checkpoints_dir=os.path.join(root, "eval"),
+                           lpips_alex_path=weights["alex"],
+                           lpips_vgg_path=weights["vgg"])
+    for k in kernels.KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = test_ft.main(eval_opt)
+    wall = time.perf_counter() - t0
+    test = {k.name: k.launches for k in kernels.KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_launches("test_ft", (kernels.TRUNK_FWD, kernels.OCCUPANCY))
+    scores = out["scores"]
+    log(f"test_ft {TT_WH[0]}x{TT_WH[1]}: {TT_VIEWS[1]} images in "
+        f"{wall:.1f} s ({1e3 * wall / TT_VIEWS[1]:.1f} ms an image with the "
+        f"checkpoint load, PNG writes and scoring), PSNR {out['psnr']:.3f}, "
+        f"scores { {k: round(v, 5) for k, v in scores.items()} }, peak "
+        f"{peak:.2f} GiB; launches {test}; {smi}")
+    if sorted(scores) != ["lpips", "psnr", "rmse", "ssim", "vgglpips"] or \
+            not all(np.isfinite(v) for v in scores.values()):
+        raise AssertionError(f"test_ft scored {scores}")
+
+    # one test view rendered again (warm: test_ft rendered it), timed; two
+    # of its chunks on the CPU
+    ts, _ = load_checkpoint(ckpt, opt, device="cuda")
+    spec, grid = common.make_spec_and_grid(opt, ts.points)
+    item = create_dataset(opt, "test").get_item(0, full_img=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts = [k.launches for k in kernels.KERNELS]
+    stats = {}
+    t0 = time.perf_counter()
+    maps = common.render_image(ts, grid, opt, spec, item, stats=stats)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for k, c in zip(kernels.KERNELS, counts):
+        k.launches = c
+    W, H = TT_WH
+    rgb, hit = maps["coarse_raycolor"], maps["ray_mask"][..., 0] > 0.5
+    log(f"test_ft render {W}x{H}: {1e3 * dt:.1f} ms/image, "
+        f"{W * H / dt:.0f} rays/s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, hit share "
+        f"{hit.mean():.4f}, groups {stats['groups']}, sr_overflow "
+        f"{stats['sr_overflow']}; {smi}")
+    if rgb.shape != (H, W, 3) or not np.isfinite(rgb).all() or \
+            not 0.0 < hit.mean() < 1.0:
+        raise AssertionError("the test_ft image is not a finite map with "
+                             "hits and misses")
+    chunk = opt.random_sample_size ** 2
+    per_chunk = hit.reshape(-1)[: (H * W // chunk) * chunk].reshape(-1, chunk)
+    pick = np.sort(np.argsort(-per_chunk.sum(1), kind="stable")[:2])
+    sel = np.concatenate([np.arange(c * chunk, (c + 1) * chunk) for c in pick])
+    sub = dict(item, raydir=item["raydir"][:, sel],
+               pixel_idx=item["pixel_idx"][:, sel])
+    sub.pop("gt_image", None)
+    cpu_ts, _ = load_checkpoint(ckpt, opt, device="cpu")
+    _, cpu_grid = common.make_spec_and_grid(opt, cpu_ts.points)
+    t0 = time.perf_counter()
+    cpu = common.render_image(cpu_ts, cpu_grid, opt.replace(use_fused_trunk=1),
+                              spec, sub)
+    px, py = sub["pixel_idx"][0, :, 0].astype(int), \
+        sub["pixel_idx"][0, :, 1].astype(int)
+    np.testing.assert_array_equal(cpu["ray_mask"][py, px],
+                                  maps["ray_mask"][py, px])
+    np.testing.assert_allclose(cpu["coarse_raycolor"][py, px], rgb[py, px],
+                               **TT_CPU_TOL)
+    log(f"test_ft: CPU re-render of chunks {pick.tolist()} ({len(sel)} rays,"
+        f" {int(hit.reshape(-1)[sel].sum())} hit) from the same checkpoint: "
+        f"max_abs_err "
+        f"{float(np.abs(cpu['coarse_raycolor'][py, px] - rgb[py, px]).max()):.3e}"
+        f" in {time.perf_counter() - t0:.1f} s")
+    del ts, grid, cpu_ts, cpu_grid, maps, cpu
+    torch.cuda.empty_cache()
+
+    # LPIPS on test_ft's first 1920x1080 pair: card vs CPU (alex at full
+    # size, vgg on a 256x256 crop at the center, on the plate), then timed
+    # on the card
+    img_dir = os.path.join(eval_opt.checkpoints_dir, opt.experiment,
+                           "images", f"test_{TT_STEPS}")
+    pair = [read_png(os.path.join(img_dir, f"step-0000-{n}.png"))
+            .astype(np.float32)[..., :3] / 255.0
+            for n in ("gt_image", "coarse_raycolor")]
+    center = (slice(H // 2 - 128, H // 2 + 128),
+              slice(W // 2 - 128, W // 2 + 128))
+    parts = []
+    for net, crop in (("alex", False), ("vgg", True)):
+        a, b = (p[center] for p in pair) if crop else pair
+        card_m = load_lpips(weights[net], "cuda")
+        card = float(card_m.distance(a, b))
+        cpu_d = float(load_lpips(weights[net], "cpu").distance(a, b))
+        if not cpu_d > 0:
+            raise AssertionError(f"LPIPS {net} of the pair is {cpu_d}: the "
+                                 f"check compares nothing")
+        np.testing.assert_allclose(card, cpu_d, rtol=LPIPS_RTOL)
+        card_m.distance(*pair)
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_time(lambda: card_m.distance(*pair), LPIPS_REPS)
+        parts.append(f"{net}: card {card:.7f} vs CPU {cpu_d:.7f} at "
+                     f"{a.shape[1]}x{a.shape[0]} (relative "
+                     f"{abs(card - cpu_d) / abs(cpu_d):.2e}), "
+                     f"{ms:.1f} ms a {W}x{H} distance on the card, peak "
+                     f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del card_m
+        torch.cuda.empty_cache()
+    log(f"LPIPS {'; '.join(parts)}; {smi}")
+    return ft, test
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -2036,6 +2290,8 @@ def main() -> int:
     import tempfile
     with tempfile.TemporaryDirectory() as root:
         finetune = finetune_path(root)
+        torch.cuda.empty_cache()
+        video = video_path(root)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         mvs = mvs_path(root)
@@ -2052,8 +2308,17 @@ def main() -> int:
         dtu_inf = dtu_inf_path(root)
         torch.cuda.empty_cache()
         dtu_gen = dtu_gen_path(root)
+    torch.cuda.empty_cache()
 
-    runs = (serve, serve_s, train, train_s, finetune, mvs, dtu_inf, dtu_gen)
+    # the evaluation phase: the T&T finetune, test_ft and LPIPS at
+    # 1920x1080 (K1, K2, K3, K6)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        tt_ft, tt_test = tt_eval_path(root, smi)
+    log(f"evaluation phase: {time.perf_counter() - t0:.1f} s")
+
+    runs = (serve, serve_s, train, train_s, finetune, video, mvs, dtu_inf,
+            dtu_gen, tt_ft, tt_test)
     report = {"kernels": []}
     for k, rows in ((kernels.TRUNK_FWD, k1), (kernels.TRUNK_BWD, k2),
                     (kernels.OCCUPANCY, k3), (kernels.SHADE_FWD, k4),

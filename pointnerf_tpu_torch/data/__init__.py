@@ -2,8 +2,8 @@
 
 Reference: data/__init__.py:10-50. Items are numpy [1, ...] host arrays per
 camera; the port moves them to the device in the driver. Ported: the
-NeRF-Synthetic finetune dataset and the DTU multi-view dataset of
-generalizable training; other names raise (ROADMAP §1 item 7).
+NeRF-Synthetic and Tanks&Temples finetune datasets and the DTU multi-view
+dataset of generalizable training; other names raise (ROADMAP §1 item 7).
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ from __future__ import annotations
 from typing import Dict
 
 _REGISTRY: Dict[str, type] = {}
-PORTED = ("nerf_synth360_ft", "dtu")
+PORTED = ("nerf_synth360_ft", "tt_ft", "dtu")
 
 
 def register_dataset(name: str):

@@ -3,23 +3,23 @@
 
 Reference: data/nerf_synth360_ft_dataset.py — transforms_{split}.json
 cameras, the blender→opencv pose flip, alpha-composited GT over the
-configured bg color, COLMAP init point loading, the MVS init's view
-triplets and bundles. Images are read with the port's own PNG codec
-(`utils/png.py`).
+configured bg color, the spherical render path, COLMAP init point
+loading, the MVS init's view triplets and bundles. Images are read with
+the port's own PNG codec (`utils/png.py`).
 
 View triplets are the triangles of the camera positions' convex hull
 (scipy) where the reference runs open3d's ball pivoting (data_utils.py:
 83-120): on the NeRF-Synthetic camera sphere the hull is that surface.
 
-Not ported: the render split (spherical video path, `gen_vid`, ROADMAP §1
-item 3) and resizing images whose size differs from img_wh (item 7).
+Not ported: resizing images whose size differs from img_wh (ROADMAP §1
+item 7).
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -30,6 +30,24 @@ from .ply import read_ply_points
 
 BLENDER2OPENCV = np.array([[1, 0, 0, 0], [0, -1, 0, 0],
                            [0, 0, -1, 0], [0, 0, 0, 1]], dtype=np.float64)
+
+
+def pose_spherical(theta_deg: float, phi_deg: float, radius: float
+                   ) -> np.ndarray:
+    """Blender-convention spherical camera pose
+    (reference: nerf_synth360_ft_dataset.py:42-69)."""
+    t, p = np.deg2rad(theta_deg), np.deg2rad(phi_deg)
+    trans = np.eye(4)
+    trans[2, 3] = radius
+    rphi = np.eye(4)
+    rphi[1, 1], rphi[1, 2] = np.cos(p), -np.sin(p)
+    rphi[2, 1], rphi[2, 2] = np.sin(p), np.cos(p)
+    rth = np.eye(4)
+    rth[0, 0], rth[0, 2] = np.cos(t), -np.sin(t)
+    rth[2, 0], rth[2, 2] = np.sin(t), np.cos(t)
+    flip = np.array([[-1, 0, 0, 0], [0, 0, 1, 0], [0, 1, 0, 0],
+                     [0, 0, 0, 1]], dtype=np.float64)
+    return flip @ rth @ rphi @ trans
 
 
 def hull_view_triplets(cam_xyz: np.ndarray, full_comb: bool = False
@@ -58,9 +76,10 @@ def hull_view_triplets(cam_xyz: np.ndarray, full_comb: bool = False
 class NerfSynth360FtDataset(BaseDataset):
 
     def initialize(self, opt, split: str = "train"):
-        if split not in ("train", "test", "val"):
-            raise NotImplementedError(f"split {split} is not ported (the "
-                                      f"render path waits for gen_vid)")
+        """split train, test, val, or render: the spherical path's 20 poses
+        with the train split's cameras and no images."""
+        if split not in ("train", "test", "val", "render"):
+            raise ValueError(f"split {split}: train, test, val or render")
         self.opt = opt
         self.data_dir = opt.data_root
         self.scan = opt.scan
@@ -70,10 +89,12 @@ class NerfSynth360FtDataset(BaseDataset):
         self.width, self.height = w, h
         self.bg_color = parse_bg_color(opt.bg_color)
 
+        meta_split = "train" if split == "render" else split
         with open(os.path.join(self.data_dir, self.scan,
-                               f"transforms_{split}.json")) as f:
+                               f"transforms_{meta_split}.json")) as f:
             self.meta = json.load(f)
-        skip = max(1, opt.trainskip if split == "train" else opt.testskip)
+        skip = max(1, opt.trainskip if meta_split == "train"
+                   else opt.testskip)
         self.id_list = list(range(len(self.meta["frames"])))[::skip]
 
         # focal from camera_angle_x at the native 800 px, scaled to img_wh
@@ -82,6 +103,10 @@ class NerfSynth360FtDataset(BaseDataset):
         self.focal = focal * w / 800.0
         self.near_far = np.array([opt.near_plane, opt.far_plane], np.float32)
         self.intrinsics, self.cam2worlds, self.world2cams = self._build_mats()
+        if split == "render":
+            self._build_render_poses()
+            self.total = len(self.render_poses)
+            return
         # reference: build_init_metas (:337-353)
         self.view_id_list = [] if split != "train" else hull_view_triplets(
             self.cam2worlds[:, :3, 3], full_comb=opt.full_comb > 0)
@@ -100,6 +125,13 @@ class NerfSynth360FtDataset(BaseDataset):
             w2cs.append(np.linalg.inv(c2w).astype(np.float32))
             intrinsics.append(K.copy())
         return np.stack(intrinsics), np.stack(c2ws), np.stack(w2cs)
+
+    def _build_render_poses(self, stride: int = 20, radius: float = 4.0):
+        """reference: get_render_poses (:169-174)."""
+        self.render_poses = np.stack(
+            [pose_spherical(a, -30.0, radius) @ BLENDER2OPENCV
+             for a in np.linspace(-180, 180, stride + 1)[:-1]], 0
+        ).astype(np.float32)
 
     def _read_images(self):
         """RGBA composited onto the background (reference read_meta
@@ -172,6 +204,15 @@ class NerfSynth360FtDataset(BaseDataset):
             "intrinsics": pick(self.intrinsics),
             "view_ids": np.asarray(view_ids),
         }
+
+    def get_dummyrot_item(self, idx: int,
+                          rng: Optional[np.random.RandomState] = None
+                          ) -> Dict:
+        """Render-path item without GT (reference: :662-743)."""
+        rng = rng or np.random.RandomState()
+        return self.make_item(None, self.intrinsics[0], self.render_poses[idx],
+                              self.opt.near_plane, self.opt.far_plane, rng,
+                              idx, full_img=True)
 
     def load_init_points(self) -> np.ndarray:
         """COLMAP dense points (reference: :356-373)."""

@@ -87,6 +87,15 @@ def options_from_cli(argv=None, base: Optional[Options] = None) -> Options:
     return validate_options(base.replace(**kw) if kw else base)
 
 
+def run_cli(main, argv=None):
+    """A driver's command line: --device (default cuda) and the Options
+    flags (`options_from_cli`), handed to main(opt, device=...)."""
+    ap = argparse.ArgumentParser(add_help=False)
+    ap.add_argument("--device", default="cuda")
+    known, rest = ap.parse_known_args(argv)
+    return main(options_from_cli(rest), device=known.device)
+
+
 # ------------------------------------------------------------- point-cloud init
 def construct_vox_points_closest(xyz: np.ndarray, vox_res: int,
                                  ranges: Optional[np.ndarray] = None
@@ -210,10 +219,15 @@ def gen_points_filter_embeddings(opt, dataset, mvs=None, device="cuda",
     if given, receives host seconds by phase (gen_points' mvs_s, fusion_s,
     embed_s over the triplets; hull_s, vox_s), the triplet count and the
     point counts after the keep (n_keep), the hull (n_hull) and the
-    downsample (n_vox)."""
+    downsample (n_vox). A dataset with no view triplet (tt_ft) raises
+    ValueError, as the JAX package's concatenation of no rows does."""
     from ..models.mvs import points_model as pm
     from ..models.mvs.fusion import alpha_masking
 
+    if not dataset.view_id_list:
+        raise ValueError(f"the MVS init (load_points 0) needs view triplets"
+                         f" and dataset {opt.dataset_name} has none: use "
+                         f"load_points 1")
     dev = torch.device(device)
     if mvs is None:
         mvs = pm.MvsPoints(opt, torch.Generator().manual_seed(opt.seed),

@@ -24,7 +24,6 @@ Usage: python -m pointnerf_tpu_torch.run.train --preset dtu_inf
 
 from __future__ import annotations
 
-import argparse
 import glob
 import os
 import time
@@ -47,7 +46,7 @@ from ..train.trainer import ADAM, ServeState, _adam_count
 from ..utils.checkpoint import load_gen_npz, save_gen_npz
 from ..utils.metrics import psnr as psnr_fn
 from ..utils.visualizer import Visualizer
-from .common import options_from_cli, render_image
+from .common import render_image, run_cli
 
 BATCH_KEYS = ("raydir", "campos", "camrotc2w", "bg_color", "gt_image")
 
@@ -342,10 +341,7 @@ def main(opt, max_steps: Optional[int] = None, device="cuda") -> Dict:
 
 def cli(argv=None) -> Dict:
     """The command line: --device (default cuda) and the Options flags."""
-    ap = argparse.ArgumentParser(add_help=False)
-    ap.add_argument("--device", default="cuda")
-    known, rest = ap.parse_known_args(argv)
-    return main(options_from_cli(rest), device=known.device)
+    return run_cli(main, argv)
 
 
 if __name__ == "__main__":

@@ -17,8 +17,12 @@ gen_points_filter_embeddings`).
 
 Not ported (raise NotImplementedError): n_devices > 1 (ROADMAP §1 item 10),
 the ProbNet init (manual_depth_view -1, item 8), plane backgrounds (bgmodel
-plane and planepoints, item 7), gen_vid (item 3), profile_dir (profile with
+plane and planepoints, item 7), profile_dir (profile with
 profile_render.py), and steps_per_dispatch (ignored: one call per step).
+With gen_vid the run ends with a video of the render path
+(`render_vid.render_vid`); a dataset with no render split skips it with a
+line in the log, and any other failure raises (the JAX driver logs every
+failure there and carries on).
 
 Usage: python -m pointnerf_tpu_torch.run.train_ft --preset nerf_synth:lego \
            --data_root <dir> [--device cpu] [--flag value ...]
@@ -26,7 +30,6 @@ Usage: python -m pointnerf_tpu_torch.run.train_ft --preset nerf_synth:lego \
 
 from __future__ import annotations
 
-import argparse
 import os
 import time
 from typing import Dict, Optional
@@ -34,7 +37,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..data import create_dataset
+from ..data import create_dataset, find_dataset_class_by_name
 from ..data.loader import Prefetcher
 from ..models import neural_points as npc
 from ..models.networks import PlateauTracker
@@ -45,7 +48,7 @@ from ..utils.metrics import psnr as psnr_fn, report_metrics
 from ..utils.visualizer import Visualizer
 from .common import (PROBE_KEYS, gen_points_filter_embeddings,
                      init_point_state_from_dataset, make_spec_and_grid,
-                     options_from_cli, render_image)
+                     render_image, run_cli)
 
 BATCH_KEYS = ("raydir", "campos", "camrotc2w", "bg_color", "gt_image")
 
@@ -210,6 +213,19 @@ def test(ts, grid, opt, spec, dataset, visualizer, total_steps: int,
     return mean_psnr
 
 
+def score_test_images(visualizer, total_steps: int, opt, device) -> Dict:
+    """PSNR, SSIM, RMSE and LPIPS (alex and vgg from opt.lpips_alex_path /
+    lpips_vgg_path, on `device`; SKIPPED without a file) of the test
+    renders in images/test_{total_steps}/, with scores.txt there
+    (reference: run/test_ft.py:331-345)."""
+    img_dir = os.path.join(visualizer.image_dir, f"test_{total_steps}")
+    return report_metrics(
+        img_dir, img_dir, img_dir, ("psnr", "ssim", "rmse", "lpips",
+                                    "vgglpips"),
+        lpips_weights={"lpips": opt.lpips_alex_path,
+                       "vgglpips": opt.lpips_vgg_path}, device=device)
+
+
 def _check_ported(opt) -> None:
     if opt.n_devices not in (0, 1):
         raise NotImplementedError("multi-GPU training is not ported "
@@ -220,8 +236,6 @@ def _check_ported(opt) -> None:
     if opt.bgmodel.endswith("plane") or opt.bgmodel.startswith("planepoints"):
         raise NotImplementedError(f"bgmodel {opt.bgmodel} is not ported "
                                   f"(ROADMAP §1 item 7)")
-    if opt.gen_vid:
-        raise NotImplementedError("gen_vid is not ported (ROADMAP §1 item 3)")
     if opt.profile_dir:
         raise NotImplementedError("profile_dir is not ported; profile with "
                                   "profile_render.py")
@@ -252,7 +266,8 @@ def main(opt, max_steps: Optional[int] = None, device="cuda") -> Dict:
     checkpoints_dir/experiment if there is one), on `device` (the card
     unless the caller names another); with load_points 0 the cloud comes
     from the MVS init (`initial_points`). Returns the counters, the final and
-    best PSNR, the metric scores, the state, the grid and spec, and
+    best PSNR, the metric scores, the video's path (gen_vid, else None),
+    the state, the grid and spec, and
     `timing`: host seconds in train steps (each ending in the fetch of its
     items), in prunes, probe-and-grows, test renders and checkpoint
     writes, the number of steps run, and the points before and after each
@@ -454,23 +469,30 @@ def main(opt, max_steps: Optional[int] = None, device="cuda") -> Dict:
     visualizer.print_details(
         f"done: {total_steps} steps in {time.time() - t_start:.1f}s, "
         f"final PSNR {final_psnr:.3f}, best {best_psnr:.3f}@{best_iter}")
-    img_dir = os.path.join(visualizer.image_dir, f"test_{total_steps}")
-    scores = report_metrics(
-        img_dir, img_dir, img_dir, ("psnr", "ssim", "rmse", "lpips",
-                                    "vgglpips"),
-        lpips_weights={"lpips": opt.lpips_alex_path,
-                       "vgglpips": opt.lpips_vgg_path})
+    scores = score_test_images(visualizer, total_steps, opt, dev)
+    video = None
+    if opt.gen_vid:
+        # the final video over the render path (reference: train_ft.py:
+        # 1014-1033)
+        if hasattr(find_dataset_class_by_name(opt.dataset_name),
+                   "get_dummyrot_item"):
+            from .render_vid import render_vid
+            video = render_vid(ts, grid, opt, spec,
+                               create_dataset(opt, split="render"),
+                               visualizer, total_steps)["video"]
+        else:
+            visualizer.print_details(f"gen_vid skipped: dataset "
+                                     f"{opt.dataset_name} has no render "
+                                     f"split")
     return {"total_steps": total_steps, "final_psnr": final_psnr,
             "best_psnr": best_psnr, "best_iter": best_iter, "scores": scores,
-            "state": ts, "grid": grid, "spec": spec, "timing": timing}
+            "video": video, "state": ts, "grid": grid, "spec": spec,
+            "timing": timing}
 
 
 def cli(argv=None) -> Dict:
     """The command line: --device (default cuda) and the Options flags."""
-    ap = argparse.ArgumentParser(add_help=False)
-    ap.add_argument("--device", default="cuda")
-    known, rest = ap.parse_known_args(argv)
-    return main(options_from_cli(rest), device=known.device)
+    return run_cli(main, argv)
 
 
 if __name__ == "__main__":

@@ -13,7 +13,10 @@ NeRF-Synthetic layout (the geometry of the JAX package's test fixture
 writers, for `chip_smoke.py`'s finetune phase and the `cuda` driver tests.
 `make_dtu_scene` writes the same plate in the DTU/MVSNet layout (the
 geometry of `tests/fixtures.py::make_dtu_scene`) for the generalizable
-driver's phases.
+driver's phases, and `make_tt_scene` in the Tanks&Temples (NSVF) layout
+(the geometry of `tests/fixtures.py::make_tt_scene`, with a fused.ply) for
+the evaluation phase, which scores with the random LPIPS weights of
+`lpips_state_dict`.
 """
 
 from __future__ import annotations
@@ -230,3 +233,71 @@ def make_dtu_scene(root, scan="scan1", n_views=6, wh=(64, 64), radius=3.0,
             f.write(f"{len(srcs)} " + " ".join(f"{v} 1.0" for v in srcs)
                     + "\n")
     return root
+
+
+def make_tt_scene(root, scan="Truck", n_train=6, n_test=2, wh=(40, 40),
+                  radius=3.0, half=0.4, focal=None, side=30):
+    """The plate in the Tanks&Temples (NSVF) layout, written with the port's
+    PNG and PLY writers (tests/fixtures.py::make_tt_scene's geometry at any
+    `wh`, plate half-width `half` and camera distance `radius`):
+    rgb/{0_,1_}NNNN.png RGBA views at 30° elevation, pose/*.txt OpenCV
+    c2w, intrinsics.txt (4×4; `focal` defaults to the fixture's 40 px at
+    40 px, scaled with the width), bbox.txt, and colmap_results/dense/
+    fused.ply with a side² grid of noisy plate points. Returns the number
+    of points written."""
+    W, H = wh
+    focal = 40.0 * W / 40.0 if focal is None else float(focal)
+    scene = os.path.join(root, scan)
+    for d in ("rgb", "pose", "colmap_results/dense"):
+        os.makedirs(os.path.join(scene, d), exist_ok=True)
+    K = np.diag([focal, focal, 1.0, 1.0])
+    K[0, 2], K[1, 2] = W / 2, H / 2
+    np.savetxt(os.path.join(scene, "intrinsics.txt"), K)
+    bbox = np.array([-0.5, -0.5, -0.2, 0.5, 0.5, 0.2, 0.01]) * (half / 0.4)
+    np.savetxt(os.path.join(scene, "bbox.txt"), bbox)
+    flip = np.diag([1.0, -1.0, -1.0, 1.0])
+    for prefix, n in (("0", n_train), ("1", n_test)):
+        for i in range(n):
+            theta = 2 * np.pi * (i + (0.3 if prefix == "1" else 0)) / n
+            phi = np.deg2rad(30)
+            campos = radius * np.array([np.cos(theta) * np.cos(phi),
+                                        np.sin(theta) * np.cos(phi),
+                                        np.sin(phi)])
+            pose_gl = look_at_pose(campos)
+            rgba = render_plate_rgba(pose_gl, focal, W, H, half=half)
+            name = f"{prefix}_{i:04d}"
+            write_png(os.path.join(scene, "rgb", name + ".png"),
+                      (np.clip(rgba, 0, 1) * 255).astype(np.uint8))
+            np.savetxt(os.path.join(scene, "pose", name + ".txt"),
+                       pose_gl @ flip)
+    rng = np.random.RandomState(0)
+    g = np.linspace(-half, half, side)
+    gx, gy = np.meshgrid(g, g, indexing="ij")
+    xyz = np.stack([gx, gy, np.zeros_like(gx)], -1).reshape(-1, 3)
+    xyz = xyz + rng.normal(0, 0.003 * half / 0.4, xyz.shape)
+    write_ply_points(os.path.join(scene, "colmap_results/dense/fused.ply"),
+                     xyz.astype(np.float32), plate_color(xyz[:, 0], xyz[:, 1]))
+    return len(xyz)
+
+
+def lpips_state_dict(net: str, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """Random LPIPS weights in the lpips package's state-dict layout (the
+    real files are drop-in replacements with the same keys): He-scaled
+    convs, small biases, positive heads, the package's scaling layer, from
+    a torch generator seeded with `seed`."""
+    from ..utils.lpips import LPIPS
+    gen = torch.Generator().manual_seed(seed)
+    sd = LPIPS(net).state_dict()
+    for k, v in sd.items():
+        if k.startswith("net.") and k.endswith(".weight"):
+            fan_in = v[0].numel()
+            sd[k] = torch.randn(v.shape, generator=gen) * (2.0 / fan_in) ** 0.5
+        elif k.startswith("net."):
+            sd[k] = torch.randn(v.shape, generator=gen) * 0.05
+        elif k.startswith("lin"):
+            sd[k] = torch.randn(v.shape, generator=gen).abs() * 0.1
+    sd["scaling_layer.shift"] = torch.tensor(
+        [-.030, -.088, -.188]).view(1, 3, 1, 1)
+    sd["scaling_layer.scale"] = torch.tensor([.458, .448, .450]).view(1, 3,
+                                                                      1, 1)
+    return sd

@@ -4,10 +4,11 @@
 Reference: run/evaluate.py:34-97 (skimage compare_psnr, compare_ssim with
 an 11-pixel window per channel, mean_squared_error; lpips alex + vgg).
 SSIM follows Wang et al. 2004 as skimage computes it: uniform 11×11
-window, K1 = 0.01, K2 = 0.03, per channel then averaged. LPIPS needs
-pretrained weights: without a local weights file it is skipped and
-recorded as skipped, as in the JAX package; with one it raises, since the
-LPIPS network is not ported (ROADMAP §1 item 3).
+window, K1 = 0.01, K2 = 0.03, per channel then averaged. LPIPS (alex as
+"lpips", vgg as "vgglpips") runs the port's network (`utils/lpips.py`) from
+a local weights file: without one it is skipped and recorded as skipped,
+as in the JAX package; a file given that is missing or does not load
+raises, where the JAX package skips (ROADMAP §3).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 from scipy.ndimage import uniform_filter
 
+from .lpips import load_lpips
 from .png import read_png
 
 
@@ -74,23 +76,33 @@ def ssim(gt: np.ndarray, img: np.ndarray, win_size: int = 11,
                           for c in range(gt.shape[-1])]))
 
 
+def lpips_fn(weights_path: Optional[str], device="cuda"):
+    """(gt, img [0, 1] HWC) -> LPIPS float, on `device` (the card unless the
+    caller names another), or None when no weights file is given
+    (reference: evaluate.py:42-46). The backbone is the file's (alex or
+    vgg, `lpips.net_of`)."""
+    if not weights_path:
+        return None
+    model = load_lpips(weights_path, device)
+    return lambda gt, img: float(model.distance(gt, img))
+
+
 def report_metrics(gt_dir: str, img_dir: str, out_dir: str,
                    metrics: Sequence[str] = ("psnr", "ssim", "rmse"),
                    img_str: str = "step-%04d-coarse_raycolor.png",
                    gt_str: str = "step-%04d-gt_image.png",
                    id_list: Optional[Sequence[int]] = None,
-                   lpips_weights: Optional[Dict[str, str]] = None
-                   ) -> Dict[str, float]:
+                   lpips_weights: Optional[Dict[str, str]] = None,
+                   device="cuda") -> Dict[str, float]:
     """Directory-level evaluation (reference: run/evaluate.py:34-97):
-    per-metric txt files and scores.txt in out_dir; returns the means."""
+    per-metric txt files and scores.txt in out_dir; returns the means.
+    lpips_weights maps "lpips" / "vgglpips" to a weights file; LPIPS runs
+    on `device` (the card unless the caller names another)."""
     if id_list is None:
         id_list = range(999)
     lpips_weights = lpips_weights or {}
-    for k in metrics:
-        path = lpips_weights.get(k)
-        if k in ("lpips", "vgglpips") and path and os.path.exists(path):
-            raise NotImplementedError(f"{k}: the LPIPS network is not ported "
-                                      f"(ROADMAP §1 item 3)")
+    lp = {k: lpips_fn(lpips_weights.get(k), device)
+          for k in metrics if k in ("lpips", "vgglpips")}
 
     total: Dict[str, List[float]] = {}
     for i in id_list:
@@ -109,7 +121,9 @@ def report_metrics(gt_dir: str, img_dir: str, out_dir: str,
             elif key == "rmse":
                 val = rmse(gt, img)
             elif key in ("lpips", "vgglpips"):
-                continue
+                if lp[key] is None:
+                    continue
+                val = lp[key](gt, img)
             else:
                 raise NotImplementedError(key)
             total.setdefault(key, []).append(val)

@@ -2,9 +2,10 @@
 (copy of `pointnerf_tpu/utils/visualizer.py` without tensorboard).
 
 Reference: utils/visualizer.py — log.txt appends (:158-174), image saving
-(:69-75), point-cloud txt dumps (:97-121), loss accumulation with a running
-PSNR (:142-156). Images are written with the port's PNG codec. Not ported:
-tensorboard scalars and `gen_video` (raises).
+(:69-75), point-cloud txt dumps (:97-121), video assembly (:77-95), loss
+accumulation with a running PSNR (:142-156). Images are written with the
+port's PNG codec, videos as animated GIFs with its GIF codec (the JAX
+package writes an mp4 through imageio). Not ported: tensorboard scalars.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from .png import write_png
+from .gif import write_gif
+from .png import read_png, write_png
 
 
 def to8b(x: np.ndarray) -> np.ndarray:
@@ -30,8 +32,9 @@ class Visualizer:
         root = os.path.join(opt.checkpoints_dir, opt.experiment)
         self.image_dir = os.path.join(root, "images")
         self.point_dir = os.path.join(root, "points")
+        self.vid_dir = os.path.join(root, "vids")
         self.log_path = os.path.join(root, "log.txt")
-        for d in (self.image_dir, self.point_dir):
+        for d in (self.image_dir, self.point_dir, self.vid_dir):
             os.makedirs(d, exist_ok=True)
         self._acc: Dict[str, list] = {}
         self._t_last = time.time()
@@ -52,8 +55,16 @@ class Visualizer:
             write_png(os.path.join(out, f"step-{step:04d}-{name}.png"),
                       to8b(img))
 
-    def gen_video(self, *args, **kwargs):
-        raise NotImplementedError("video assembly is not ported")
+    def gen_video(self, name: str, img_dir: str, pattern: str, steps,
+                  fps: int = 24) -> str:
+        """Assemble the saved frames img_dir/(pattern % step) into
+        vids/{name}.gif (reference: visualizer.py:85-95, an mp4 there);
+        the frames stay on disk. Palette bound: `utils.gif.QUANT_BOUND`
+        levels per channel. A missing frame raises. Returns the path."""
+        out = os.path.join(self.vid_dir, name + ".gif")
+        write_gif(out, [read_png(os.path.join(img_dir, pattern % s))
+                        for s in steps], fps=fps)
+        return out
 
     def save_neural_points(self, step, xyz: np.ndarray,
                            color: Optional[np.ndarray],

@@ -1,6 +1,7 @@
 """Where the time of one lego-preset render or train step goes, on one CUDA GPU.
 
-    python3 profile_render.py [--train | --mvs | --dtu] [--fused-shade]
+    python3 profile_render.py [--train | --mvs | --dtu | --tt]
+                              [--fused-shade]
                               [--out build/traces/render_trace.json]
 
 Builds chip_smoke.py's main-path workload (the lego preset, bench.py's
@@ -16,7 +17,11 @@ depth planes, fusion, embeddings) once, then profiles a second; with --dtu
 it writes chip_smoke's 640x512 DTU-layout plate scene and runs the
 feed-forward inference of one test item (run/train.infer_item at
 chip_smoke's dtu_inf options: MVSNet, the FPN points, the frustum grid,
-the full image) once, then profiles a second. The profile is
+the full image) once, then profiles a second; with --tt it writes
+chip_smoke's 1920x1080 Tanks&Temples-layout plate scene and renders one
+test view at tt_preset("Truck")'s widths (the scene's points, seeded
+random weights: what test_ft renders) once, then profiles a second. The
+profile is
 torch.profiler's (CPU and CUDA activities). Prints the wall time, the
 device busy share (the union of the kernel and copy intervals over the wall
 time) and the device time per kernel family, then writes the Chrome trace
@@ -89,6 +94,8 @@ def main() -> int:
                     help="profile one triplet of the MVS point init")
     ap.add_argument("--dtu", action="store_true",
                     help="profile one feed-forward DTU image (dtu_inf)")
+    ap.add_argument("--tt", action="store_true",
+                    help="profile one 1920x1080 T&T test view (test_ft)")
     ap.add_argument("--fused-shade", action="store_true",
                     help="profile the fused_shade configuration")
     ap.add_argument("--out", default=None,
@@ -147,6 +154,27 @@ def main() -> int:
         run = lambda: gen.infer_item(state, opt, spec, item)
         what = (f"feed-forward DTU image {DTU_WH[0]}x{DTU_WH[1]} (points, "
                 f"frustum grid, render)")
+    elif args.tt:
+        import tempfile
+        from chip_smoke import (TT_HALF, TT_RADIUS, TT_SIDE, TT_VIEWS, TT_WH,
+                                tt_options)
+        from pointnerf_tpu_torch.data import create_dataset
+        from pointnerf_tpu_torch.run.workload import make_tt_scene
+        torch.backends.cuda.matmul.allow_tf32 = False
+        tmp = tempfile.TemporaryDirectory()
+        make_tt_scene(tmp.name, wh=TT_WH, n_train=TT_VIEWS[0],
+                      n_test=TT_VIEWS[1], radius=TT_RADIUS, half=TT_HALF,
+                      side=TT_SIDE)
+        opt = tt_options(tmp.name)
+        state = common.init_point_state_from_dataset(
+            opt, create_dataset(opt, "train"), device=dev)
+        ts = trainer.create_train_state(opt, state,
+                                        torch.Generator().manual_seed(0))
+        spec, grid = common.make_spec_and_grid(opt, state)
+        item = create_dataset(opt, "test").get_item(0, full_img=True)
+        run = lambda: common.render_image(ts, grid, opt, spec, item)
+        what = (f"T&T test view {TT_WH[0]}x{TT_WH[1]} (tt_preset Truck, "
+                f"{int(state['mask'].sum())} points)")
     else:
         opt, state, spec, grid, _, ts, item, _ = build_workload(dev)
         if args.fused_shade:
@@ -165,8 +193,8 @@ def main() -> int:
             what = "render 800x800" + (" (fused_shade)" if args.fused_shade
                                        else "")
     out = args.out or "build/traces/{}{}_trace.json".format(
-        "mvs" if args.mvs else "dtu" if args.dtu else "train" if args.train
-        else "render",
+        "mvs" if args.mvs else "dtu" if args.dtu else "tt" if args.tt
+        else "train" if args.train else "render",
         "_shade" if args.fused_shade else "")
     run()
     for k in kernels.KERNELS:

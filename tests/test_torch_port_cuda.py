@@ -944,3 +944,49 @@ def test_gen_step_on_card_matches_cpu(dev, tmp_path):
         for k, g in cpu[part].items():
             d = gpu[part][k].cpu() - g
             assert float(d.norm()) <= GRAD_REL * float(g.norm()), k
+
+
+def test_tt_finetune_test_ft_and_lpips_on_card(dev, tmp_path):
+    """The evaluation path on the card: a few tt_preset("Truck") finetune
+    steps on a 64x48 T&T-layout plate (K1, K2, K3, K6) ending in the render
+    path's GIF, then test_ft with random LPIPS weights on the card and on
+    the CPU from the same checkpoint: the mean PSNR within 1e-3 dB, the
+    scores of the 8-bit PNGs (LPIPS too) within 1e-3 (a 1e-6 difference
+    can cross a rounding edge of the 8-bit write)."""
+    from pointnerf_tpu_torch.config import tt_preset
+    from pointnerf_tpu_torch.run import test_ft, train_ft
+    from pointnerf_tpu_torch.run.workload import (lpips_state_dict,
+                                                  make_tt_scene)
+    from pointnerf_tpu_torch.utils.gif import read_gif
+    root = str(tmp_path)
+    make_tt_scene(root, wh=(64, 48), radius=0.6, half=0.19, side=120)
+    paths = {}
+    for net in ("alex", "vgg"):
+        paths[net] = f"{root}/lpips_{net}.pth"
+        torch.save(lpips_state_dict(net, seed=len(net)), paths[net])
+    opt = tt_preset("Truck").replace(
+        data_root=root, img_wh=(64, 48), load_points=1,
+        checkpoints_dir=root + "/ckpt", experiment="tt", maximum_step=4,
+        random_sample_size=16, print_freq=2, save_iter_freq=100,
+        test_freq=0, test_num=2, gen_vid=1)
+    for k in kernels.KERNELS:
+        k.launches = 0
+    res = train_ft.main(opt)
+    for k in (kernels.TRUNK_FWD, kernels.TRUNK_BWD, kernels.OCCUPANCY,
+              kernels.SCATTER_ROWS):
+        assert k.launches > 0, k.name
+    assert len(read_gif(res["video"])) == 100
+    scores = {}
+    for device in ("cuda", "cpu"):
+        scores[device] = test_ft.main(opt.replace(
+            resume_dir=root + "/ckpt/tt", checkpoints_dir=root + "/" + device,
+            lpips_alex_path=paths["alex"], lpips_vgg_path=paths["vgg"]),
+            device=device)
+    card, cpu = scores["cuda"], scores["cpu"]
+    assert card["step"] == cpu["step"] == 4
+    assert abs(card["psnr"] - cpu["psnr"]) < 1e-3
+    assert sorted(card["scores"]) == ["lpips", "psnr", "rmse", "ssim",
+                                      "vgglpips"]
+    for k, v in cpu["scores"].items():
+        np.testing.assert_allclose(card["scores"][k], v, rtol=1e-3,
+                                   err_msg=k)
