@@ -42,8 +42,16 @@ phase, two chunks re-rendered on the CPU from the same points; and dtu_gen
 training through run/train.gen_train_step (GEN_STEPS timed steps on one
 item, the loss must fall; K1, K2, K3, K6), one step's gradients of the
 aggregator, the FPN and the premlp against the CPU, a {steps}_gen.npz
-written, read back and loaded by run/train.inference; and last the
-evaluation phase at 1920x1080: a plate scene in the Tanks&Temples layout
+written, read back and loaded by run/train.inference; then the DTU
+per-scene finetune (dtu_ft_preset at 640x512, bgmodel plane, the plate's
+white back plane patched into PLANE_PARAMS[0]): the MVS init and the
+plane background's precompute, each timed, train_ft.main for DTU_FT_STEPS
+steps (K1, K2, K3, K6) whose test PSNR must pass the initial cloud's, two
+chunks of a held-out view rendered again on the CPU with their bg_ray
+(within 1e-5), a planepoints run of DTU_FT_PP_STEPS steps that must add
+the 8000 plane points, and one Rectified image written at 800x640 read
+through the port's resampler, whose pixels must hash to Pillow's; and last
+the evaluation phase at 1920x1080: a plate scene in the Tanks&Temples layout
 (run/workload.make_tt_scene, 501,264 fused.ply points), train_ft.main with
 tt_preset("Truck") for TT_STEPS steps and load_points 1 (K1, K2, K3, K6),
 run/test_ft.main on its checkpoint with LPIPS alex and vgg from random
@@ -189,6 +197,26 @@ TT_STEPS = 100                        # finetune steps: one checkpoint
 TT_CPU_TOL = dict(rtol=1e-5, atol=1e-5)  # test_ft chunks, card vs CPU
 LPIPS_RTOL = 1e-4                     # one LPIPS distance, card vs CPU
 LPIPS_REPS = 5                        # timed LPIPS calls a net
+DTU_FT_STEPS = 200                    # dtu_ft finetune steps (plane bg)
+DTU_FT_TEST_STEP = 3                  # test_num_step: views 0 and 3 of the
+                                      # 6 held out (the preset's 10 holds
+                                      # out one of real DTU's 49)
+DTU_FT_PP_STEPS = 20                  # the planepoints run's steps
+DTU_FT_PLANE = ((0.0, 0.0, -0.2), (0.0, 0.0, -1.0), (1.0, 1.0, 1.0))
+                                      # the plate scene's white back plane
+                                      # under the plate, patched into
+                                      # PLANE_PARAMS[0] as
+                                      # tests/test_dtu_ft.py patches it
+RESIZE_WH = (800, 640)                # a Rectified image written at this
+                                      # size and read at DTU_WH
+RESIZE_IN_SHA = ("32215462a0a9e2381689d838516d9004"
+                 "ca5cf8709c168ea2fe7167ea071d4afc")
+RESIZE_OUT_SHA = ("d6205e32ba872d26ddac141b18b49a92"
+                  "ea4afbdee0db8cca29f05c485b4ed5ab")
+                                      # sha256 of view 0's 800x640 pixels
+                                      # and of Pillow 12.1.0's BILINEAR
+                                      # resize of them to 640x512, taken
+                                      # on a CPU machine with Pillow
 PEAK_FP32 = 67e12                     # H100 SXM fp32 FLOP/s outside the
                                       # tensor cores, at 700 W (data sheet)
 PEAK_TF32 = 495e12                    # H100 SXM dense TF32 tensor-core
@@ -1981,6 +2009,247 @@ def video_path(root):
     return launches
 
 
+def dtu_ft_options(root, **kw):
+    """dtu_ft_preset("scan1") at its widths (640x512, vox_res 320, SR 40,
+    K 8, P 16, point_features_dim 32, load_points 0 with its MVS init over
+    128 depth planes, bgmodel plane) on the DTU-layout plate scene, with
+    the cuts DTU_CONF_THRESH, DTU_GEO_CNSST, DTU_FT_TEST_STEP and
+    DTU_RANGES, and DTU_FT_STEPS steps (the preset's prune and probe come
+    at 10001). The ranges: random-weight depths spread over the views'
+    frusta, and at the preset's ±100 the cloud's grid held 973 x 898 x 532
+    voxels, the phase peaked at 14.7 GiB and took 82 s, most of it in the
+    CPU re-render's grid; the plane points' 10 x 10 span passes a 32-bit
+    grid index there (2503 x 2503 x 532 voxels)."""
+    from pointnerf_tpu_torch.config import dtu_ft_preset
+    return dtu_ft_preset("scan1").replace(
+        data_root=root, depth_conf_thresh=DTU_CONF_THRESH,
+        geo_cnsst_num=DTU_GEO_CNSST, test_num_step=DTU_FT_TEST_STEP,
+        ranges=DTU_RANGES,
+        checkpoints_dir=os.path.join(root, "checkpoints"),
+        experiment="dtu_ft_smoke", maximum_step=DTU_FT_STEPS,
+        print_freq=100, save_iter_freq=10 * DTU_FT_STEPS, save_point_freq=0,
+        test_freq=0).replace(**kw)
+
+
+def check_resize(root):
+    """View 0's Rectified image written at RESIZE_WH and read by dtu_ft at
+    DTU_WH, through the port's resampler (Pillow's BILINEAR; the GPU
+    machine has no Pillow): its pixels and the resized ones must hash to
+    RESIZE_IN_SHA and RESIZE_OUT_SHA."""
+    import hashlib
+    from pointnerf_tpu_torch.data import create_dataset
+    from pointnerf_tpu_torch.data.dtu import read_rgb
+    from pointnerf_tpu_torch.run.workload import make_dtu_scene
+    make_dtu_scene(root, n_views=1, wh=DTU_WH, image_wh=RESIZE_WH)
+    src = read_rgb(os.path.join(root, "Rectified/scan1_train/"
+                                "rect_001_3_r5000.png"))
+    t0 = time.perf_counter()
+    img = create_dataset(dtu_ft_options(root), "test").render_gtimgs[0]
+    dt = time.perf_counter() - t0
+    out = np.round(img * 255.0).astype(np.uint8)
+    got_in = hashlib.sha256(src.tobytes()).hexdigest()
+    got_out = hashlib.sha256(out.tobytes()).hexdigest()
+    log(f"resampler: {RESIZE_WH[0]}x{RESIZE_WH[1]} -> {DTU_WH[0]}x"
+        f"{DTU_WH[1]} BILINEAR: the test split read in {1e3 * dt:.1f} ms "
+        f"(host: cameras, PNG decode, resize); input sha256 {got_in[:16]}.. "
+        f"(want {RESIZE_IN_SHA[:16]}..), output {got_out[:16]}.. (want "
+        f"Pillow's {RESIZE_OUT_SHA[:16]}..)")
+    if got_in != RESIZE_IN_SHA:
+        raise AssertionError("the plate image written at 800x640 differs "
+                             "from the one Pillow's digest was taken on")
+    if out.shape != (DTU_WH[1], DTU_WH[0], 3) or got_out != RESIZE_OUT_SHA:
+        raise AssertionError("the resampler's 640x512 image differs from "
+                             "Pillow's")
+
+
+def dtu_ft_path(root, smi: str):
+    """The DTU per-scene finetune on the card (dtu_ft_preset, bgmodel
+    plane) on a 640x512 DTU-layout plate scene with DTU_FT_PLANE as its
+    back plane: the MVS init and the plane background's precompute, each
+    timed, the PSNR of a test render of the initial cloud with its maps,
+    then train_ft.main for DTU_FT_STEPS steps (the counts reset just before
+    and read just after: K1, K2, K3 and K6 must launch), whose test PSNR
+    must pass the initial one; two chunks of one held-out view rendered
+    again on the CPU from the checkpoint, bg_ray included (within
+    TT_CPU_TOL); a planepoints run of DTU_FT_PP_STEPS steps (the same
+    kernels); and the resampler's check. Returns the two runs' launch
+    counts."""
+    import pointnerf_tpu_torch.data.dtu_ft as dtu_ft
+    from pointnerf_tpu_torch.data import create_dataset
+    from pointnerf_tpu_torch.ops import kernels
+    from pointnerf_tpu_torch.run import common, train_ft
+    from pointnerf_tpu_torch.run.workload import make_dtu_scene
+    from pointnerf_tpu_torch.train import trainer
+    from pointnerf_tpu_torch.utils.checkpoint import load_checkpoint
+    from pointnerf_tpu_torch.utils.visualizer import Visualizer
+    phase0 = time.perf_counter()
+    t0 = time.perf_counter()
+    make_dtu_scene(root, n_views=DTU_VIEWS, wh=DTU_WH)
+    dtu_ft.PLANE_PARAMS[0] = DTU_FT_PLANE
+    opt = dtu_ft_options(root)
+    dev = torch.device("cuda")
+    train_ds = create_dataset(opt, "train")
+    test_ds = create_dataset(opt, "test")
+    log(f"dtu_ft: plate scene {DTU_WH[0]}x{DTU_WH[1]}, {len(train_ds)} "
+        f"train / {len(test_ds)} test views, init bundles "
+        f"{train_ds.view_id_list}, plane_ind {train_ds.plane_ind}: written "
+        f"and read in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train_ft.initial_points(opt, train_ds, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_init = int(state["mask"].sum())
+    vis = Visualizer(opt)
+    torch.cuda.synchronize()
+    bg_train, bg_test, bg_s = train_ft.plane_background(
+        opt, train_ds, test_ds, state, dev, vis)
+    set_share = [float((m.max(-1) > 0).mean()) for m in bg_test]
+    st = trainer.create_train_state(opt, state,
+                                    torch.Generator().manual_seed(opt.seed))
+    spec, grid = common.make_spec_and_grid(opt, state)
+    psnr0 = train_ft.test(st, grid, opt, spec, test_ds, vis, 0,
+                          write_images=False, bg_maps=bg_test)
+    log(f"dtu_ft: MVS init (D {opt.depth_grid}, {len(train_ds.view_id_list)}"
+        f" bundles) {init_s:.2f} s, {n_init} points; plane background "
+        f"precompute {bg_s:.2f} s for {len(bg_train)} train + "
+        f"{len(bg_test)} test frames of {DTU_WH[0]}x{DTU_WH[1]} x "
+        f"{len(train_ds.view_id_list)} views (host projections and masks, "
+        f"colours sampled on the card), map share set "
+        f"{[round(v, 4) for v in set_share]}; test PSNR before training "
+        f"{psnr0:.3f}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB; {smi}")
+    if not all(0.0 < v < 1.0 for v in set_share):
+        raise AssertionError(f"the test background maps are set on "
+                             f"{set_share} of their pixels")
+    del st, state, grid, bg_train
+    torch.cuda.empty_cache()
+
+    for k in kernels.KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train_ft.main(opt)
+    wall = time.perf_counter() - t0
+    ft = {k.name: k.launches for k in kernels.KERNELS}
+    tm = res["timing"]
+    R = opt.random_sample_size ** 2
+    n_pts = int(res["state"].points["mask"].sum())
+    log(f"dtu_ft finetune (bgmodel plane): {n_pts} points, grid "
+        f"{res['spec'].vdim}; {tm['steps']} steps, "
+        f"{1e3 * tm['train_s'] / tm['steps']:.1f} ms/step ({R} rays a step),"
+        f" wall {wall:.1f} s (plane background {tm['bg_s']:.1f} s, test "
+        f"renders {tm['test_s']:.1f} s, checkpoints {tm['save_s']:.1f} s, "
+        f"the MVS init and the rest "
+        f"{wall - sum(tm[k] for k in PHASES) - tm['bg_s']:.1f} s); final "
+        f"test PSNR {res['final_psnr']:.3f} (before training {psnr0:.3f}); "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches"
+        f" {ft}; {smi}")
+    check_launches("dtu_ft finetune", (kernels.TRUNK_FWD, kernels.TRUNK_BWD,
+                                       kernels.OCCUPANCY,
+                                       kernels.SCATTER_ROWS))
+    if res["total_steps"] != DTU_FT_STEPS or res["bg_test"] is None:
+        raise AssertionError("the dtu_ft finetune did not run its steps "
+                             "with a plane background")
+    if not res["final_psnr"] > psnr0:
+        raise AssertionError(f"final test PSNR {res['final_psnr']:.3f} not "
+                             f"above the initial {psnr0:.3f}")
+
+    # one held-out view rendered again with its bg_ray; two of its chunks
+    # on the CPU from the same checkpoint
+    bg_test = res["bg_test"]
+    del res
+    torch.cuda.empty_cache()
+    ckpt = os.path.join(opt.checkpoints_dir, opt.experiment)
+    ts, _ = load_checkpoint(ckpt, opt, device="cuda")
+    spec, grid = common.make_spec_and_grid(opt, ts.points)
+    item = train_ft.with_bg_ray(test_ds.get_item(0, full_img=True),
+                                bg_test[0])
+    counts = [k.launches for k in kernels.KERNELS]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    maps = common.render_image(ts, grid, opt, spec, item)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for k, c in zip(kernels.KERNELS, counts):
+        k.launches = c
+    W, H = DTU_WH
+    rgb, hit = maps["coarse_raycolor"], maps["ray_mask"][..., 0] > 0.5
+    chunk = opt.random_sample_size ** 2
+    per_chunk = hit.reshape(-1)[: (H * W // chunk) * chunk].reshape(-1, chunk)
+    # the two chunks with the most hits and the most background
+    bg_rays = (bg_test[0].max(-1) > 0).reshape(-1)[
+        : (H * W // chunk) * chunk].reshape(-1, chunk)
+    pick = sorted({int(np.argmax(per_chunk.sum(1))),
+                   int(np.argmax(bg_rays.sum(1) - per_chunk.sum(1)))})
+    sel = np.concatenate([np.arange(c * chunk, (c + 1) * chunk) for c in pick])
+    sub = dict(item, raydir=item["raydir"][:, sel],
+               pixel_idx=item["pixel_idx"][:, sel],
+               bg_ray=item["bg_ray"][:, sel])
+    sub.pop("gt_image", None)
+    t0 = time.perf_counter()
+    cpu_ts, _ = load_checkpoint(ckpt, opt, device="cpu")
+    _, cpu_grid = common.make_spec_and_grid(opt, cpu_ts.points)
+    cpu = common.render_image(cpu_ts, cpu_grid, opt.replace(use_fused_trunk=1),
+                              spec, sub)
+    px, py = sub["pixel_idx"][0, :, 0].astype(int), \
+        sub["pixel_idx"][0, :, 1].astype(int)
+    np.testing.assert_array_equal(cpu["ray_mask"][py, px],
+                                  maps["ray_mask"][py, px])
+    np.testing.assert_allclose(cpu["coarse_raycolor"][py, px], rgb[py, px],
+                               **TT_CPU_TOL)
+    n_bg = int((sub["bg_ray"][0].max(-1) > 0).sum())
+    err = float(np.abs(cpu["coarse_raycolor"][py, px] - rgb[py, px]).max())
+    log(f"dtu_ft render {W}x{H} with bg_ray: {1e3 * dt:.1f} ms/image, hit "
+        f"share {hit.mean():.4f}; CPU re-render of chunks {pick} ({len(sel)}"
+        f" rays, {int(hit.reshape(-1)[sel].sum())} hit, {n_bg} with a "
+        f"background colour) from the same checkpoint: max_abs_err "
+        f"{err:.3e}"
+        f" in {time.perf_counter() - t0:.1f} s (the checkpoint's load and the"
+        f" grid's build on the CPU included)")
+    if n_bg == 0 or not 0.0 < hit.mean() < 1.0:
+        raise AssertionError("the re-rendered chunks hold no background "
+                             "rays, or the view no hits and misses")
+    del ts, grid, cpu_ts, cpu_grid, maps, cpu
+    torch.cuda.empty_cache()
+
+    # planepoints: the plane's points join the MVS cloud
+    pp_opt = opt.replace(bgmodel="planepoints", maximum_step=DTU_FT_PP_STEPS,
+                         experiment="dtu_ft_planepoints")
+    for k in kernels.KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train_ft.main(pp_opt)
+    wall = time.perf_counter() - t0
+    pp = {k.name: k.launches for k in kernels.KERNELS}
+    tm = res["timing"]
+    n_pts = int(res["state"].points["mask"].sum())
+    log(f"dtu_ft planepoints: {tm['plane_points']} "
+        f"plane points added ({n_pts - tm['plane_points']} from the MVS "
+        f"init, {n_pts} in all), grid {res['spec'].vdim}, {tm['steps']} steps,"
+        f" {1e3 * tm['train_s'] / tm['steps']:.1f} ms/step, wall {wall:.1f}"
+        f" s, final test PSNR {res['final_psnr']:.3f}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {pp}")
+    check_launches("dtu_ft planepoints", (kernels.TRUNK_FWD,
+                                          kernels.TRUNK_BWD,
+                                          kernels.OCCUPANCY,
+                                          kernels.SCATTER_ROWS))
+    if tm["plane_points"] != 8000 or n_pts <= 8000 or \
+            res["total_steps"] != DTU_FT_PP_STEPS or \
+            not np.isfinite(res["final_psnr"]):
+        raise AssertionError("the planepoints run did not add the 8000 "
+                             "plane points and train")
+    del res
+    torch.cuda.empty_cache()
+    check_resize(os.path.join(root, "resize"))
+    log(f"dtu_ft phase: {time.perf_counter() - phase0:.1f} s")
+    return ft, pp
+
+
 def tt_options(root):
     """tt_preset("Truck") at its widths (1920x1080, ranges, vsize 0.002,
     vscale 3, SR 40, K 8, P 10, max_o 1.6 M, the 256-wide MLP, auto
@@ -2310,6 +2579,12 @@ def main() -> int:
         dtu_gen = dtu_gen_path(root)
     torch.cuda.empty_cache()
 
+    # the DTU per-scene finetune with the plane background (K1, K2, K3,
+    # K6), its planepoints run and the resampler
+    with tempfile.TemporaryDirectory() as root:
+        dtu_ft, dtu_pp = dtu_ft_path(root, smi)
+    torch.cuda.empty_cache()
+
     # the evaluation phase: the T&T finetune, test_ft and LPIPS at
     # 1920x1080 (K1, K2, K3, K6)
     t0 = time.perf_counter()
@@ -2318,7 +2593,7 @@ def main() -> int:
     log(f"evaluation phase: {time.perf_counter() - t0:.1f} s")
 
     runs = (serve, serve_s, train, train_s, finetune, video, mvs, dtu_inf,
-            dtu_gen, tt_ft, tt_test)
+            dtu_gen, dtu_ft, dtu_pp, tt_ft, tt_test)
     report = {"kernels": []}
     for k, rows in ((kernels.TRUNK_FWD, k1), (kernels.TRUNK_BWD, k2),
                     (kernels.OCCUPANCY, k3), (kernels.SHADE_FWD, k4),

@@ -10,9 +10,9 @@ PFM depths (:269-280), the per-item MVS bundle and target-view rays
 The GPU machine has neither cv2 nor Pillow. The depth chain's two
 `cv2.resize(INTER_NEAREST)` calls become numpy indexing with cv2's source
 index (`resize_nearest_cv2`), and the images are read with the port's PNG
-codec. An image whose size differs from img_wh raises ValueError: MVSNet's
-DTU `Rectified` images are 640×512 already, and image resizing is not
-ported.
+codec. An image whose size differs from img_wh is resized with Pillow's
+BILINEAR filter, as the JAX package resizes it (`utils/resize.py`, equal
+to Pillow uint8 for uint8).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from . import register_dataset
 from .base import BaseDataset, parse_bg_color
 from .pfm import read_pfm
 from ..utils.png import read_png
+from ..utils.resize import resize
 
 
 def resize_nearest_cv2(a: np.ndarray, dst_wh, inv_scale=None) -> np.ndarray:
@@ -152,12 +153,11 @@ class DtuDataset(BaseDataset):
         return depth * self.scale_factor
 
     def read_image(self, path: str) -> np.ndarray:
-        """[3, H, W] float32 in [0, 1]."""
+        """[3, H, W] float32 in [0, 1] at img_wh (Pillow's BILINEAR resize
+        of the RGB image where its size differs)."""
         img = read_rgb(path)
         if img.shape[1::-1] != self.img_wh:
-            raise ValueError(f"{path} is {img.shape[1]}x{img.shape[0]}, "
-                             f"img_wh is {self.img_wh[0]}x{self.img_wh[1]}: "
-                             f"image resizing is not ported")
+            img = resize(img, self.img_wh, "bilinear")
         return np.transpose(np.asarray(img, np.float32) / 255.0, (2, 0, 1))
 
     # ------------------------------------------------------------------ items

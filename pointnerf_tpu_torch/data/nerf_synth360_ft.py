@@ -11,8 +11,9 @@ View triplets are the triangles of the camera positions' convex hull
 (scipy) where the reference runs open3d's ball pivoting (data_utils.py:
 83-120): on the NeRF-Synthetic camera sphere the hull is that surface.
 
-Not ported: resizing images whose size differs from img_wh (ROADMAP §1
-item 7).
+An image whose size differs from img_wh is resized with Pillow's LANCZOS
+filter, as the JAX package resizes it (`utils/resize.py`; RGBA through
+premultiplied alpha, as `Image.resize` does).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..utils.png import read_png
+from ..utils.resize import resize
 from . import register_dataset
 from .base import BaseDataset, parse_bg_color
 from .ply import read_ply_points
@@ -145,11 +147,10 @@ class NerfSynth360FtDataset(BaseDataset):
             path = os.path.join(self.data_dir, self.scan,
                                 frame["file_path"] + ".png")
             self.image_paths.append(path)
-            arr = read_png(path).astype(np.float32) / 255.0
-            if arr.shape[:2] != (self.height, self.width):
-                raise NotImplementedError(
-                    f"{path} is {arr.shape[1]}x{arr.shape[0]}, img_wh is "
-                    f"{self.width}x{self.height}: resizing is not ported")
+            img = read_png(path)
+            if img.shape[:2] != (self.height, self.width):
+                img = resize(img, self.img_wh, "lanczos")
+            arr = img.astype(np.float32) / 255.0
             if arr.ndim == 2:
                 arr = np.repeat(arr[..., None], 4, axis=-1)
             if arr.shape[-1] == 3:

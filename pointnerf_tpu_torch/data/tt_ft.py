@@ -5,9 +5,8 @@ Reference: data/tt_ft_dataset.py — rgb/{0_,1_}*.png train/test split by
 filename prefix, pose/*.txt 4×4 c2w (OpenCV convention), intrinsics.txt,
 bbox.txt scene bounds (:342-367), the elliptical render path (:175-196).
 Images are read with the port's PNG codec (`utils/png.py`). An image whose
-size differs from img_wh raises ValueError: the JAX package resizes it with
-Pillow's LANCZOS, whose resampler the port does not have yet (ROADMAP §1
-item 7).
+size differs from img_wh is resized with Pillow's LANCZOS filter, as the
+JAX package resizes it (`utils/resize.py`).
 """
 
 from __future__ import annotations
@@ -18,6 +17,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from ..utils.png import read_png
+from ..utils.resize import resize
 from . import register_dataset
 from .base import BaseDataset, parse_bg_color
 from .nerf_synth360_ft import BLENDER2OPENCV, pose_spherical
@@ -118,12 +118,10 @@ class TtFtDataset(BaseDataset):
         self.render_gtimgs, self.mvsimgs, self.alphas, self.depths = \
             [], [], [], []
         for p in self.image_paths:
-            arr = read_png(p).astype(np.float32) / 255.0
-            if arr.shape[:2] != (self.height, self.width):
-                raise ValueError(
-                    f"{p} is {arr.shape[1]}x{arr.shape[0]} and img_wh is "
-                    f"{self.width}x{self.height}: set img_wh to the images' "
-                    f"size (resizing is not ported)")
+            img = read_png(p)
+            if img.shape[:2] != (self.height, self.width):
+                img = resize(img, self.img_wh, "lanczos")
+            arr = img.astype(np.float32) / 255.0
             if arr.ndim == 3 and arr.shape[-1] == 4:
                 rgb, a = arr[..., :3], arr[..., 3:4]
             else:

@@ -27,6 +27,7 @@ from ..ops.frustum import build_frustum_grid
 from ..ops.grid import build_grid, make_grid_spec
 from ..train import trainer
 
+RAY_CHUNK_KEYS = ("raydir", "gt_image", "bg_ray")
 CONST_BATCH_KEYS = ("campos", "camrotc2w", "bg_color")
 # the probe render's maps (reference probe_hole, train_ft.py:470-494)
 PROBE_KEYS = ("coarse_raycolor", "ray_mask", "ray_max_sample_loc_w",
@@ -408,8 +409,9 @@ def render_image(ts: trainer.ServeState, grid, opt, spec, item: Dict,
     n_groups = 0
 
     def run_group(pending, opt_used):
-        stacked = {"raydir": torch.as_tensor(
-            np.stack([p[0]["raydir"] for p in pending]), device=dev)}
+        stacked = {k: torch.as_tensor(np.stack([p[0][k] for p in pending]),
+                                      device=dev)
+                   for k in RAY_CHUNK_KEYS if k in pending[0][0]}
         if int(opt_used.SR_budget) != 0 and not prob:
             # explicit budgets are per-chunk numbers: scale by the group
             if int(opt_used.SR_budget) > 0:

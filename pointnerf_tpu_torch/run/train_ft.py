@@ -15,9 +15,16 @@ the MVS init (load_points 0: MVSNet depth, fusion, per-point embeddings
 and the visual hull over the train views, `common.
 gen_points_filter_embeddings`).
 
-Not ported (raise NotImplementedError): n_devices > 1 (ROADMAP §1 item 10),
-the ProbNet init (manual_depth_view -1, item 8), plane backgrounds (bgmodel
-plane and planepoints, item 7), profile_dir (profile with
+Plane backgrounds (datasets with the plane helpers, `dtu_ft`), as the JAX
+driver wires them: `bgmodel planepoints` adds the plane's points to the
+starting cloud, drawn from RandomState(seed) before any frame choice, and
+keeps grow candidates off the plane; a bgmodel ending in `plane`
+precomputes one background map per train and test frame from the init
+views and the starting cloud (`models/mvs/bg.create_all_bg`), and every
+train batch and test render carries its rays' `bg_ray`.
+
+Not ported (raise NotImplementedError): n_devices > 1 (ROADMAP §1 item 7),
+the ProbNet init (manual_depth_view -1, item 5), profile_dir (profile with
 profile_render.py), and steps_per_dispatch (ignored: one call per step).
 With gen_vid the run ends with a video of the render path
 (`render_vid.render_vid`); a dataset with no render split skips it with a
@@ -116,6 +123,14 @@ def probe_hole(ts, opt, dataset, frame_ids, visualizer,
                                  f"{[int(f) for f in frame_ids]}")
         return {}
     out = {k: np.concatenate(v, axis=0) for k, v in cand.items()}
+    # planepoints: never grow onto the background plane (reference:
+    # train_ft.py:524-527, filter_plane)
+    if opt.bgmodel.startswith("planepoints") and \
+            hasattr(dataset, "filter_plane"):
+        keep = ~np.asarray(dataset.filter_plane(out["xyz"]))
+        out = {k: v[keep] for k, v in out.items()}
+        if not len(out["xyz"]):
+            return {}
     visualizer.save_neural_points(f"prob{total_steps:04d}", out["xyz"], None)
     visualizer.print_details(
         f"probe_hole found {len(out['xyz'])} candidate points")
@@ -184,16 +199,26 @@ def _visual_maps(opt, maps, gt):
     return out
 
 
+def with_bg_ray(item: Dict, bg_map: Optional[np.ndarray]) -> Dict:
+    """The item with its rays' colours of a [H, W, 3] background map as
+    `bg_ray` [1, R, 3] (none without a map)."""
+    if bg_map is not None:
+        pix = item["pixel_idx"][0].astype(np.int64)
+        item["bg_ray"] = bg_map[pix[:, 1], pix[:, 0]][None]
+    return item
+
+
 def test(ts, grid, opt, spec, dataset, visualizer, total_steps: int,
-         max_images: Optional[int] = None, write_images: bool = True
-         ) -> float:
-    """Render the held-out split; mean PSNR over the images (reference:
-    train_ft.py:252-414)."""
+         max_images: Optional[int] = None, write_images: bool = True,
+         bg_maps=None) -> float:
+    """Render the held-out split, with the frames' background maps where
+    given; mean PSNR over the images (reference: train_ft.py:252-414)."""
     n = len(dataset) if max_images is None else min(max_images, len(dataset))
     psnrs = []
     agg_items: Dict[str, list] = {}
     for i in range(n):
-        item = dataset.get_item(i, full_img=True)
+        item = with_bg_ray(dataset.get_item(i, full_img=True),
+                           None if bg_maps is None else bg_maps[i])
         maps = render_image(ts, grid, opt.replace(random_sample="no_crop"),
                             spec, item, keys=("coarse_raycolor", "ray_mask"))
         H, W = int(item["h"]), int(item["w"])
@@ -229,13 +254,10 @@ def score_test_images(visualizer, total_steps: int, opt, device) -> Dict:
 def _check_ported(opt) -> None:
     if opt.n_devices not in (0, 1):
         raise NotImplementedError("multi-GPU training is not ported "
-                                  "(ROADMAP §1 item 10)")
+                                  "(ROADMAP §1 item 7)")
     if opt.load_points < 1 and opt.manual_depth_view == -1:
         raise NotImplementedError("the ProbNet point init (manual_depth_view"
-                                  " -1) is not ported (ROADMAP §1 item 8)")
-    if opt.bgmodel.endswith("plane") or opt.bgmodel.startswith("planepoints"):
-        raise NotImplementedError(f"bgmodel {opt.bgmodel} is not ported "
-                                  f"(ROADMAP §1 item 7)")
+                                  " -1) is not ported (ROADMAP §1 item 5)")
     if opt.profile_dir:
         raise NotImplementedError("profile_dir is not ported; profile with "
                                   "profile_render.py")
@@ -261,17 +283,68 @@ def initial_points(opt, train_ds, dev) -> Dict:
     return state
 
 
+def add_plane_points(state: Dict, plane, dev) -> Dict:
+    """The live points of `state` followed by the background plane's
+    points (`plane` = get_plane_param_points' xyz, embedding, dir, color,
+    conf), as a new cloud on `dev` (reference: the bgmodel planepoints
+    wiring; the embeddings cut to the cloud's width)."""
+    bx, bemb, bdir, bcol, bconf = plane
+    mask = state["mask"].cpu().numpy()
+
+    def cat(k, extra):
+        return np.concatenate([state[k].detach().cpu().numpy()[mask], extra],
+                              axis=0)
+    return npc.create_point_cloud(
+        cat("xyz", bx), cat("embedding",
+                            bemb[:, :state["embedding"].shape[1]]),
+        cat("color", bcol), cat("dir", bdir), cat("conf", bconf), device=dev)
+
+
+def has_plane_background(opt, dataset) -> bool:
+    """A bgmodel ending in `plane` on a dataset with init views and the
+    plane helpers (the JAX driver's test)."""
+    return bool(opt.bgmodel.endswith("plane")
+                and getattr(dataset, "view_id_list", None)
+                and hasattr(dataset, "get_plane_param"))
+
+
+def plane_background(opt, train_ds, test_ds, init_state: Dict, dev,
+                     visualizer):
+    """(train maps, test maps, seconds): one [H, W, 3] background map per
+    frame of each split, from the init views (images on `dev`) and the
+    starting cloud's live points, for a bgmodel ending in `plane` on a
+    dataset with the plane helpers; (None, None, 0.0) otherwise
+    (reference: train_ft.py:788-798, create_all_bg)."""
+    if not has_plane_background(opt, train_ds):
+        return None, None, 0.0
+    from ..models.mvs import bg as bgmod
+    t0 = time.perf_counter()
+    views = bgmod.collect_bg_views(train_ds, opt.init_view_num, device=dev)
+    fg_xyz = init_state["xyz"].detach().cpu().numpy()[
+        init_state["mask"].cpu().numpy()]
+    plane_params = train_ds.get_plane_param()
+    bg_train = bgmod.create_all_bg(train_ds, views, fg_xyz, plane_params)
+    bg_test = bgmod.create_all_bg(test_ds, views, fg_xyz, plane_params)
+    seconds = time.perf_counter() - t0
+    visualizer.print_details(
+        f"plane background precomputed for {len(bg_train)} train / "
+        f"{len(bg_test)} test frames in {seconds:.2f} s")
+    return bg_train, bg_test, seconds
+
+
 def main(opt, max_steps: Optional[int] = None, device="cuda") -> Dict:
     """Train one scene from opt (resuming from the newest checkpoint of
     checkpoints_dir/experiment if there is one), on `device` (the card
     unless the caller names another); with load_points 0 the cloud comes
     from the MVS init (`initial_points`). Returns the counters, the final and
     best PSNR, the metric scores, the video's path (gen_vid, else None),
-    the state, the grid and spec, and
+    the state, the grid and spec, the test split's background maps
+    (`bg_test`, None without a plane background), and
     `timing`: host seconds in train steps (each ending in the fetch of its
-    items), in prunes, probe-and-grows, test renders and checkpoint
-    writes, the number of steps run, and the points before and after each
-    prune and grow."""
+    items), in prunes, probe-and-grows, test renders, checkpoint writes
+    and the plane background's precompute (`bg_s`), the number of steps
+    run, the points before and after each prune and grow, and the plane
+    points added (`plane_points`)."""
     _check_ported(opt)
     if opt.timestamp:
         opt = opt.replace(timestamp=False, experiment=opt.experiment
@@ -291,7 +364,22 @@ def main(opt, max_steps: Optional[int] = None, device="cuda") -> Dict:
     total_steps, best_psnr, best_iter = 0, 0.0, 0
     plateau = PlateauTracker(mode="max") if opt.lr_policy == "plateau" \
         else None
-    if latest_step(ckpt_dir) is not None:
+    resume = latest_step(ckpt_dir) is not None
+    # the plane background reads the starting cloud, resumed or not, as the
+    # JAX driver does
+    init_state = initial_points(opt, train_ds, dev) \
+        if not resume or has_plane_background(opt, train_ds) else None
+    n_plane = 0
+    if opt.bgmodel.startswith("planepoints") and \
+            hasattr(train_ds, "get_plane_param_points"):
+        # drawn from rng before any frame choice, resumed or not
+        plane = train_ds.get_plane_param_points(rng)
+        if init_state is not None:
+            init_state = add_plane_points(init_state, plane, dev)
+            n_plane = len(plane[0])
+            visualizer.print_details(
+                f"added {n_plane} background plane points")
+    if resume:
         ts, counters = load_checkpoint(ckpt_dir, opt, device=dev)
         total_steps = counters["total_steps"]
         best_psnr = counters.get("best_PSNR", 0.0)
@@ -302,9 +390,10 @@ def main(opt, max_steps: Optional[int] = None, device="cuda") -> Dict:
             plateau.load_state_dict(counters)
         visualizer.print_details(f"resumed at step {total_steps}")
     else:
-        point_state = initial_points(opt, train_ds, dev)
         ts = trainer.create_train_state(
-            opt, point_state, torch.Generator().manual_seed(opt.seed))
+            opt, init_state, torch.Generator().manual_seed(opt.seed))
+    bg_train, bg_test, bg_s = plane_background(opt, train_ds, test_ds,
+                                               init_state, dev, visualizer)
 
     def extra_counters():
         out = {"lr": opt.lr, "plr": opt.plr}
@@ -318,7 +407,8 @@ def main(opt, max_steps: Optional[int] = None, device="cuda") -> Dict:
         f"start: {n_active} active points, grid {spec.vdim}, steps "
         f"{total_steps}")
     timing = {"train_s": 0.0, "prune_s": 0.0, "grow_s": 0.0, "test_s": 0.0,
-              "save_s": 0.0, "steps": 0, "prune": [], "grow": []}
+              "save_s": 0.0, "bg_s": bg_s, "steps": 0, "prune": [],
+              "grow": [], "plane_points": n_plane}
 
     # ray-miss frame ranking (reference: mvs_points_volumetric_model.py:
     # 134-166)
@@ -332,7 +422,9 @@ def main(opt, max_steps: Optional[int] = None, device="cuda") -> Dict:
 
     def produce():
         fid = int(data_rng.randint(len(train_ds)))
-        return fid, train_ds.get_item(fid, rng=data_rng)
+        return fid, with_bg_ray(train_ds.get_item(fid, rng=data_rng),
+                                None if bg_train is None else bg_train[fid])
+    batch_keys = BATCH_KEYS + (("bg_ray",) if bg_train is not None else ())
 
     prefetcher = Prefetcher(produce, depth=max(1, opt.prefetch_depth))
     miss_key = "loss_ray_miss_coarse_raycolor"
@@ -386,7 +478,7 @@ def main(opt, max_steps: Optional[int] = None, device="cuda") -> Dict:
 
             fid, host = prefetcher.get()
             batch = {k: torch.as_tensor(host[k], device=dev)
-                     for k in BATCH_KEYS}
+                     for k in batch_keys}
             batch["near"], batch["far"] = float(host["near"]), \
                 float(host["far"])
             t0 = time.perf_counter()
@@ -445,7 +537,8 @@ def main(opt, max_steps: Optional[int] = None, device="cuda") -> Dict:
             if opt.test_freq > 0 and total_steps % opt.test_freq == 0:
                 t0 = time.perf_counter()
                 cur = test(ts, grid, opt, spec, test_ds, visualizer,
-                           total_steps, max_images=opt.test_num)
+                           total_steps, max_images=opt.test_num,
+                           bg_maps=bg_test)
                 timing["test_s"] += time.perf_counter() - t0
                 if cur > best_psnr:
                     best_psnr, best_iter = cur, total_steps
@@ -462,7 +555,8 @@ def main(opt, max_steps: Optional[int] = None, device="cuda") -> Dict:
                     extra_counters=extra_counters())
     timing["save_s"] += time.perf_counter() - t0
     t0 = time.perf_counter()
-    final_psnr = test(ts, grid, opt, spec, test_ds, visualizer, total_steps)
+    final_psnr = test(ts, grid, opt, spec, test_ds, visualizer, total_steps,
+                      bg_maps=bg_test)
     timing["test_s"] += time.perf_counter() - t0
     if final_psnr > best_psnr:
         best_psnr, best_iter = final_psnr, total_steps
@@ -487,6 +581,7 @@ def main(opt, max_steps: Optional[int] = None, device="cuda") -> Dict:
     return {"total_steps": total_steps, "final_psnr": final_psnr,
             "best_psnr": best_psnr, "best_iter": best_iter, "scores": scores,
             "video": video, "state": ts, "grid": grid, "spec": spec,
+            "bg_test": bg_test,
             "timing": timing}
 
 

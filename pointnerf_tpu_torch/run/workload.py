@@ -157,17 +157,22 @@ def make_plate_scene(root, wh=(400, 400), n_train=12, n_test=4,
 
 
 def make_dtu_scene(root, scan="scan1", n_views=6, wh=(64, 64), radius=3.0,
-                   focal=None):
+                   focal=None, image_wh=None):
     """The plate in the DTU/MVSNet layout, written with the port's PNG and
     PFM writers (tests/fixtures.py::make_dtu_scene's geometry at any `wh`):
     Cameras/train/*_cam.txt (intrinsics at 1/4 scale, translations and
     depths in 200× world units), Rectified PNGs for the 7 lights, raw
     1600×1200 Depths_raw PFMs that the loader's halving, crop and resize
     bring back to the analytic plate depth, and dtu_configs (one scan in
-    every list, each view's 5 nearest others as its sources). `focal`
-    defaults to the fixture's 60 px at 64 px, scaled with the width."""
+    every list, each view's 5 nearest others as its sources; the finetune's
+    three init bundles and the scan's ground plane 0, as the fixture
+    writes them). `focal` defaults to the fixture's 60 px at 64 px, scaled
+    with the width. `image_wh` renders the PNGs at another size (the same
+    views, focal scaled with the width), which the loaders resize to
+    img_wh."""
     W, H = wh
     focal = 60.0 * W / 64.0 if focal is None else float(focal)
+    iW, iH = wh if image_wh is None else image_wh
     scale = 200.0
     for d in ("Cameras/train", f"Rectified/{scan}_train",
               f"Depths_raw/{scan}", "dtu_configs/lists"):
@@ -197,7 +202,7 @@ def make_dtu_scene(root, scan="scan1", n_views=6, wh=(64, 64), radius=3.0,
                 f.write(" ".join(f"{x:.9f}" for x in r) + "\n")
             f.write(f"\n{dmin_dtu:.6f} {dint:.6f}\n")
 
-        rgba = render_plate_rgba(pose_gl, focal, W, H)
+        rgba = render_plate_rgba(pose_gl, focal * iW / W, iW, iH)
         rgb = rgba[..., :3] * rgba[..., 3:] + 1.0 * (1 - rgba[..., 3:])
         img8 = (np.clip(rgb, 0, 1) * 255).astype(np.uint8)
         for light in range(7):
@@ -232,6 +237,17 @@ def make_dtu_scene(root, scan="scan1", n_views=6, wh=(64, 64), radius=3.0,
             f.write(f"{ref}\n")
             f.write(f"{len(srcs)} " + " ".join(f"{v} 1.0" for v in srcs)
                     + "\n")
+    # the finetune's MVS init bundles (reference dtu_finetune_init_pairs.txt)
+    # and the scan's ground plane index
+    with open(os.path.join(root, "dtu_configs/dtu_finetune_init_pairs.txt"),
+              "w") as f:
+        f.write("3\n")
+        for ref in (0, 2, 4):
+            srcs = [(ref + k) % n_views for k in (1, 2, 3)]
+            f.write(f"{ref}\n" + ",".join(str(v) for v in srcs) + "\n")
+    with open(os.path.join(root, "dtu_configs/lists/dtu_test_ground.txt"),
+              "w") as f:
+        f.write(f"{scan} 0\n")
     return root
 
 

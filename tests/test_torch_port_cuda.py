@@ -990,3 +990,79 @@ def test_tt_finetune_test_ft_and_lpips_on_card(dev, tmp_path):
     for k, v in cpu["scores"].items():
         np.testing.assert_allclose(card["scores"][k], v, rtol=1e-3,
                                    err_msg=k)
+
+
+def test_dtu_ft_plane_background_and_step_on_card_match_cpu(dev, tmp_path,
+                                                            monkeypatch):
+    """dtu_ft_preset on the 64x64 DTU-layout plate, its back plane the
+    fixture's white plane under the plate, the PFM points as the cloud: the
+    test split's create_all_bg maps with the views' images on the card and
+    on the CPU (masks equal, colours within 1e-5), then one train step's
+    compute_grads with bg_ray from the same state and draws on the card
+    (K1, K2, K3, K6) and on the CPU (plain versions): loss items within
+    1e-4, gradients within GRAD_REL in norm."""
+    import pointnerf_tpu_torch.data.dtu_ft as dtu_ft
+    from pointnerf_tpu_torch.config import dtu_ft_preset
+    from pointnerf_tpu_torch.data import create_dataset
+    from pointnerf_tpu_torch.models.mvs import bg
+    from pointnerf_tpu_torch.run import common, train_ft
+    from pointnerf_tpu_torch.run.workload import make_dtu_scene
+    root = str(tmp_path)
+    make_dtu_scene(root, n_views=6, wh=(64, 64))
+    monkeypatch.setattr(dtu_ft, "PLANE_PARAMS",
+                        [((0.0, 0.0, -0.2), (0.0, 0.0, -1.0),
+                          (1.0, 1.0, 1.0))] + dtu_ft.PLANE_PARAMS[1:])
+    opt = dtu_ft_preset("scan1").replace(
+        data_root=root, img_wh=(64, 64), test_num_step=3, load_points=1,
+        vox_res=64, random_sample_size=16, use_fused_trunk=1,
+        ranges=(-0.6, -0.6, -0.25, 0.6, 0.6, 0.25))
+    train_ds, test_ds = create_dataset(opt, "train"), \
+        create_dataset(opt, "test")
+    fg_xyz = train_ds.load_init_points()
+    params = train_ds.get_plane_param()
+    maps = {}
+    for device in ("cpu", dev):
+        views = bg.collect_bg_views(train_ds, opt.init_view_num,
+                                    device=device)
+        assert views[0]["img"].device.type == torch.device(device).type
+        maps[str(device)] = bg.create_all_bg(test_ds, views, fg_xyz, params)
+    for a, b in zip(maps[str(dev)], maps["cpu"]):
+        np.testing.assert_array_equal(a.max(-1) > 0, b.max(-1) > 0)
+        assert 0 < (b.max(-1) > 0).mean() < 1
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+
+    train_maps = bg.create_all_bg(
+        train_ds, bg.collect_bg_views(train_ds, 3, device="cpu"), fg_xyz,
+        params)
+    item = train_ft.with_bg_ray(
+        train_ds.get_item(1, rng=np.random.RandomState(1)), train_maps[1])
+    assert (item["bg_ray"] > 0).any()
+    agg = init_aggregator_params(opt, torch.Generator().manual_seed(0),
+                                 device="cpu")
+    u = torch.rand((1, 256, opt.z_depth_dim), generator=torch.Generator())
+    runs = {}
+    for device in ("cpu", dev):
+        state = common.init_point_state_from_dataset(opt, train_ds,
+                                                     device=device)
+        spec, grid = common.make_spec_and_grid(opt, state)
+        batch = {k: torch.as_tensor(item[k], device=device)
+                 for k in train_ft.BATCH_KEYS + ("bg_ray",)}
+        batch["near"], batch["far"] = float(item["near"]), float(item["far"])
+        st = trainer.make_train_state(copy.deepcopy(agg).to(device), state,
+                                      opt, torch.Generator(device=device))
+        for k in kernels.KERNELS:
+            k.launches = 0
+        runs[str(device)] = trainer.compute_grads(st, grid, batch, opt, spec,
+                                                  u.to(device))
+        on = ({kernels.TRUNK_FWD.name, kernels.TRUNK_BWD.name,
+               kernels.OCCUPANCY.name, kernels.SCATTER_ROWS.name}
+              if device == dev else set())
+        assert {k.name for k in kernels.KERNELS if k.launches} == on
+    cpu, gpu = runs["cpu"], runs[str(dev)]
+    for k, v in cpu[0].items():
+        np.testing.assert_allclose(float(gpu[0][k]), float(v), rtol=1e-4,
+                                   err_msg=k)
+    for part in (1, 2):
+        for k, g in cpu[part].items():
+            d = gpu[part][k].cpu() - g
+            assert float(d.norm()) <= GRAD_REL * float(g.norm()), k

@@ -35,6 +35,10 @@ def _same(a, b, path=""):
         assert set(a) == set(b), path
         for k in b:
             _same(a[k], b[k], f"{path}.{k}")
+    elif isinstance(b, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same(x, y, f"{path}[{i}]")
     elif isinstance(b, (str, int, float, np.floating, np.integer)):
         assert a == b, path
     else:
@@ -116,8 +120,6 @@ def test_port_dtu_scene_reads_alike(tmp_path, dtu_root):
     for dirpath, _, files in os.walk(dtu_root):
         rel = os.path.relpath(dirpath, dtu_root)
         for f in files:
-            if f in ("dtu_finetune_init_pairs.txt", "dtu_test_ground.txt"):
-                continue               # the finetune's files, not read here
             if f.endswith(".png"):
                 np.testing.assert_array_equal(
                     read_png(os.path.join(root, rel, f)),
@@ -137,9 +139,12 @@ def test_port_dtu_scene_reads_alike(tmp_path, dtu_root):
 
 
 def test_dtu_image_size_must_match(dtu_root):
-    """Images are not resized: a PNG of another size than img_wh raises."""
-    ds, _ = _both(dtu_root, "test", img_wh=(96, 64))
-    with pytest.raises(ValueError, match="not ported"):
-        ds.get_init_item(0)
+    """A PNG of another size than img_wh is resized with Pillow's BILINEAR
+    in both packages: the bundles are equal exactly. img_wh must still be
+    a multiple of 32 in both."""
+    ds, jds = _both(dtu_root, "test", img_wh=(96, 64))
+    got = ds.get_init_item(0)
+    assert got["images"].shape[-2:] == (64, 96)
+    _same(got, jds.get_init_item(0))
     with pytest.raises(ValueError, match="multiples of 32"):
         _both(dtu_root, "test", img_wh=(70, 64))

@@ -1,7 +1,7 @@
 """The Tanks&Temples dataset (`data/tt_ft.py`) against the JAX package's,
 on the fixture scene of `tests/fixtures.py::make_tt_scene` (40×40 RGBA
 views, NSVF layout): the train, test and render splits, the point init from
-the scene's fused.ply, a size that differs from img_wh, and the
+the scene's fused.ply, images resized to img_wh, and the
 `load_points 0` init of `tt_preset`, which has no view triplets and fails in
 both drivers with a ValueError.
 
@@ -126,9 +126,18 @@ def test_tt_point_init_matches_jax(tt_root):
 
 
 def test_tt_image_size_mismatch_raises(tt_root):
-    _, opt = _opts(tt_root, img_wh=(32, 24))
-    with pytest.raises(ValueError, match="img_wh"):
-        create_dataset(opt, "train")
+    """Images whose size differs from img_wh are resized with Pillow's
+    LANCZOS (RGBA through premultiplied alpha) in both packages: the
+    composited images, the MVS images and the alphas are equal exactly."""
+    jopt, opt = _opts(tt_root, img_wh=(32, 24))
+    for split in ("train", "test"):
+        jds, tds = jcreate(jopt, split=split), create_dataset(opt, split)
+        for name in ("render_gtimgs", "mvsimgs", "alphas"):
+            got, want = getattr(tds, name), getattr(jds, name)
+            assert len(got) == len(want), name
+            for a, b in zip(got, want):
+                assert a.shape[:2] == (24, 32), name
+                np.testing.assert_array_equal(a, b, err_msg=name)
 
 
 def test_tt_preset_mvs_init_fails_in_both(tt_root, tmp_path):
