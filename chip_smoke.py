@@ -50,7 +50,19 @@ steps (K1, K2, K3, K6) whose test PSNR must pass the initial cloud's, two
 chunks of a held-out view rendered again on the CPU with their bg_ray
 (within 1e-5), a planepoints run of DTU_FT_PP_STEPS steps that must add
 the 8000 plane points, and one Rectified image written at 800x640 read
-through the port's resampler, whose pixels must hash to Pillow's; and last
+through the port's resampler, whose pixels must hash to Pillow's; then the
+ScanNet per-scene finetune (scannet_preset at its widths, load_points 2):
+the port's image I/O on a fixed 1296x968 frame and a 640x480 16-bit depth
+map, whose JPEG bytes, decoded pixels, PNG round trip and nearest resizes
+must hash to digests frozen from Pillow and cv2, the decode timed; a plate
+scene in ScanNet's exported/ layout at the sensors' sizes
+(run/workload.make_scannet_scene, 20 frames), its datasets and the depth
+back-projection timed, train_ft.main for SCANNET_STEPS steps with a
+probe (K1, K2, K3, K6) whose test PSNR on two views must pass the initial
+cloud's, two chunks of a test view rendered again on the CPU (within
+1e-5), and load_points 3 for SCANNET_LP3_STEPS steps on a 5-frame scene,
+which must merge the mesh with the depth points in its empty voxels; and
+last
 the evaluation phase at 1920x1080: a plate scene in the Tanks&Temples layout
 (run/workload.make_tt_scene, 501,264 fused.ply points), train_ft.main with
 tt_preset("Truck") for TT_STEPS steps and load_points 1 (K1, K2, K3, K6),
@@ -217,6 +229,46 @@ RESIZE_OUT_SHA = ("d6205e32ba872d26ddac141b18b49a92"
                                       # and of Pillow 12.1.0's BILINEAR
                                       # resize of them to 640x512, taken
                                       # on a CPU machine with Pillow
+SCANNET_SCAN = "scene0241_01"         # scannet_preset's default scene
+SCANNET_COLOR_WH = (1296, 968)        # ScanNet's colour sensor
+SCANNET_DEPTH_WH = (640, 480)         # and its depth sensor
+SCANNET_FRAMES = 20                   # 4 train / 16 test (NSVF step-5 rule)
+SCANNET_HALF = 2.0                    # plate half-width: a 4 x 4 m floor
+SCANNET_RADIUS = 2.0                  # cameras 2.06 m from the origin, at
+                                      # 29 deg: plate depths 1-4 m
+SCANNET_SIDE = 200                    # pcd.ply: a 200² grid over the plate
+SCANNET_HOLE = (0.6, -0.4, 0.5)       # less a disk the sensor depth fills
+SCANNET_STEPS = 200                   # of the preset's 200,000
+SCANNET_PROBE = 150                   # prob_freq: one probe-and-grow
+SCANNET_TEST_VIEWS = 2                # test renders (test_num)
+SCANNET_LP3_STEPS = 20                # the load_points 3 run's steps, on
+SCANNET_LP3_FRAMES = 5                # a scene of its own: 1 train / 4
+                                      # test frames (the driver's final
+                                      # test renders every test frame)
+SCANNET_MIN_POINTS = 100_000          # the sensor-depth cloud's floor
+SCANNET_DECODES = 3                   # timed decodes of the codec frame
+SCANNET_FRAME_SHA = ("5bb5f61db36690475e803fc1e6f85d10"
+                     "1bb9c26b10bc12fbd605f1ca725da078")
+SCANNET_JPEG_SHA = ("daee2699d575c8b1b58725335a50af1d"
+                    "ef1a6e5fc61ad2cb336ef5256db47285")
+SCANNET_DECODE_SHA = ("2cce91ef4e8bb987dc1509bcb17e70b4"
+                      "0573a531d7d660f0a4f8746f3ef0fdb4")
+SCANNET_DEPTH_SHA = ("7ce68e5ed6d733177e547d6448c658d0"
+                     "79830f286ae14981005a7b893ba6080d")
+SCANNET_UP_SHA = ("2c5fa83167f6a5fe9b5512b69e057982"
+                  "1d37ef5a30fb79b4dbc86f1ff6426bbf")
+SCANNET_DOWN_SHA = ("f56e12a84dd7792206161c58e9b6ce14"
+                    "d59622731afe099b569ac6b9777abf5d")
+                                      # sha256 of codec_frame's pixels, of
+                                      # write_jpeg's bytes for it, of
+                                      # Pillow 12.1.0's decode of those
+                                      # bytes; of depth_frame read back by
+                                      # cv2.imread(-1) from write_png's
+                                      # file, and of cv2 5.0.0's
+                                      # INTER_NEAREST resize of it in
+                                      # metres to 1296x968 and 333x211;
+                                      # taken on a CPU machine with Pillow
+                                      # and cv2
 PEAK_FP32 = 67e12                     # H100 SXM fp32 FLOP/s outside the
                                       # tensor cores, at 700 W (data sheet)
 PEAK_TF32 = 495e12                    # H100 SXM dense TF32 tensor-core
@@ -2250,6 +2302,323 @@ def dtu_ft_path(root, smi: str):
     return ft, pp
 
 
+# ------------------------------------------------------- the ScanNet phase
+def codec_frame():
+    """A fixed 1296x968 colour frame from integers only (a ramp, a
+    checkerboard and RandomState noise), so its bytes are the same on every
+    machine."""
+    W, H = SCANNET_COLOR_WH
+    y, x = np.mgrid[0:H, 0:W]
+    noise = np.random.RandomState(12).randint(-24, 25, (H, W, 3))
+    base = np.stack([x * 255 // (W - 1), y * 255 // (H - 1),
+                     (x // 16 + y // 16) % 2 * 128 + 64], -1)
+    return np.clip(base + noise, 0, 255).astype(np.uint8)
+
+
+def depth_frame():
+    """A fixed 640x480 16-bit depth map in millimetres, from integers."""
+    W, H = SCANNET_DEPTH_WH
+    y, x = np.mgrid[0:H, 0:W]
+    return (300 + x * 11 + y * 7 + np.random.RandomState(13).randint(
+        0, 50, (H, W))).astype(np.uint16)
+
+
+def check_image_io(root):
+    """The port's image I/O on the host against digests frozen from Pillow
+    and cv2 (the GPU machine has neither): write_jpeg's bytes for
+    codec_frame and the decoder's pixels for them, timed; depth_frame's
+    16-bit PNG round trip and cv2's nearest resize of it in metres; and the
+    frame's blur score (BGR2GRAY, Laplacian variance). Returns the decode's
+    ms per frame."""
+    import hashlib
+    from pointnerf_tpu_torch.utils import cvimg, jpeg, png
+    sha = lambda b: hashlib.sha256(b).hexdigest()
+    frame = codec_frame()
+    t0 = time.perf_counter()
+    data = jpeg.encode_jpeg(frame, 75)
+    enc_ms = 1e3 * (time.perf_counter() - t0)
+    dec_ms = []
+    for _ in range(SCANNET_DECODES):
+        t0 = time.perf_counter()
+        rgb = jpeg.decode_jpeg(data)
+        dec_ms.append(1e3 * (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    blur = cvimg.laplacian_var(cvimg.bgr2gray(rgb[..., ::-1]))
+    blur_ms = 1e3 * (time.perf_counter() - t0)
+    got = {"frame": sha(frame.tobytes()), "jpeg": sha(data),
+           "decode": sha(rgb.tobytes())}
+    want = {"frame": SCANNET_FRAME_SHA, "jpeg": SCANNET_JPEG_SHA,
+            "decode": SCANNET_DECODE_SHA}
+    W, H = SCANNET_COLOR_WH
+    log(f"scannet JPEG: codec_frame {W}x{H} (4:2:0, q75, {len(data)} bytes)"
+        f" encoded in {enc_ms:.1f} ms, decoded in "
+        f"{[round(v, 1) for v in dec_ms]} ms (host, one thread); blur score"
+        f" {blur!r} in {blur_ms:.1f} ms; sha256 frame {got['frame'][:16]}.."
+        f", bytes {got['jpeg'][:16]}.., decode {got['decode'][:16]}.. (want"
+        f" {SCANNET_FRAME_SHA[:16]}.., {SCANNET_JPEG_SHA[:16]}.., Pillow's "
+        f"{SCANNET_DECODE_SHA[:16]}..)")
+    for k in got:
+        if got[k] != want[k]:
+            raise AssertionError(f"the JPEG check's {k} digest differs from "
+                                 f"the frozen one")
+    depth = depth_frame()
+    path = os.path.join(root, "depth.png")
+    t0 = time.perf_counter()
+    png.write_png(path, depth)
+    back = png.read_png(path)
+    png_ms = 1e3 * (time.perf_counter() - t0)
+    metres = back.astype(np.float32) / 1000.0
+    t0 = time.perf_counter()
+    up = cvimg.resize_nearest(metres, SCANNET_COLOR_WH)
+    down = cvimg.resize_nearest(metres, (333, 211))
+    near_ms = 1e3 * (time.perf_counter() - t0)
+    got = {"depth": sha(back.tobytes()), "up": sha(up.tobytes()),
+           "down": sha(down.tobytes())}
+    want = {"depth": SCANNET_DEPTH_SHA, "up": SCANNET_UP_SHA,
+            "down": SCANNET_DOWN_SHA}
+    log(f"scannet 16-bit PNG {depth.shape[1]}x{depth.shape[0]} written and "
+        f"read in {png_ms:.1f} ms ({back.dtype}); nearest resizes to "
+        f"{W}x{H} and 333x211 in {near_ms:.1f} ms; sha256 "
+        f"{ {k: v[:16] for k, v in got.items()} } (want cv2's "
+        f"{ {k: v[:16] for k, v in want.items()} })")
+    if back.dtype != np.uint16 or not np.array_equal(back, depth):
+        raise AssertionError("the 16-bit PNG does not read back")
+    for k in got:
+        if got[k] != want[k]:
+            raise AssertionError(f"the {k} digest differs from cv2's")
+    return min(dec_ms)
+
+
+def scannet_options(root, **kw):
+    """scannet_preset("scene0241_01") at its widths (640x480, vox_res 900,
+    vsize 0.008, vscale 2, kernel and query 3³, SR 24, K 8, P 26, max_o
+    610,000, 56² rays, 32-wide points with colour, direction and
+    confidence, load_points 2, bg white) with SCANNET_STEPS steps, a
+    probe-and-grow at SCANNET_PROBE (the preset's two tiers), and
+    SCANNET_TEST_VIEWS test renders."""
+    from pointnerf_tpu_torch.config import scannet_preset
+    return scannet_preset(SCANNET_SCAN).replace(
+        data_root=root, checkpoints_dir=os.path.join(root, "checkpoints"),
+        experiment="scannet_smoke", maximum_step=SCANNET_STEPS,
+        prob_freq=SCANNET_PROBE, test_num=SCANNET_TEST_VIEWS,
+        print_freq=100, save_iter_freq=10 * SCANNET_STEPS, save_point_freq=0,
+        test_freq=0).replace(**kw)
+
+
+def scannet_path(root, smi: str):
+    """The ScanNet finetune on the card (scannet_preset, load_points 2) on
+    a plate scene in ScanNet's exported/ layout at the sensors' sizes
+    (run/workload.make_scannet_scene: 1296x968 JPEG colour, 640x480 16-bit
+    depth): the image I/O's checks; the datasets' reads and the depth
+    back-projection, timed; the PSNR of the initial cloud's test renders;
+    train_ft.main for SCANNET_STEPS steps (the counts reset just before
+    and read just after: K1, K2, K3 and K6 must launch, a probe must run),
+    whose test PSNR must pass the initial one; two chunks of a test view
+    rendered again on the CPU from the checkpoint (within TT_CPU_TOL); then
+    load_points 3 for SCANNET_LP3_STEPS steps on a scene of
+    SCANNET_LP3_FRAMES frames. Returns the decode's ms per
+    frame and the two runs' launch counts."""
+    from pointnerf_tpu_torch.data import create_dataset
+    from pointnerf_tpu_torch.ops import kernels
+    from pointnerf_tpu_torch.run import common, train_ft
+    from pointnerf_tpu_torch.run.workload import make_scannet_scene
+    from pointnerf_tpu_torch.train import trainer
+    from pointnerf_tpu_torch.utils.checkpoint import load_checkpoint
+    from pointnerf_tpu_torch.utils.visualizer import Visualizer
+    phase0 = time.perf_counter()
+    dec_ms = check_image_io(root)
+    t0 = time.perf_counter()
+    make_scannet_scene(root, SCANNET_SCAN, n=SCANNET_FRAMES,
+                       wh=SCANNET_COLOR_WH, depth_wh=SCANNET_DEPTH_WH,
+                       half=SCANNET_HALF, radius=SCANNET_RADIUS,
+                       side=SCANNET_SIDE, hole=SCANNET_HOLE)
+    write_s = time.perf_counter() - t0
+    opt = scannet_options(root)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    train_ds = create_dataset(opt, "train")
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    test_ds = create_dataset(opt, "test")
+    test_s = time.perf_counter() - t0
+    stats = {}
+    t0 = time.perf_counter()
+    depth_pts = train_ds.load_init_depth_points(vox_res=100, stats=stats)
+    back_s = time.perf_counter() - t0
+    per = stats["n_frame"]
+    W, H = SCANNET_COLOR_WH
+    log(f"scannet: scene of {SCANNET_FRAMES} frames ({W}x{H} JPEG, "
+        f"{SCANNET_DEPTH_WH[0]}x{SCANNET_DEPTH_WH[1]} depth) written in "
+        f"{write_s:.1f} s; train split ({len(train_ds)} frames) read in "
+        f"{train_s:.2f} s, test split ({len(test_ds)}) in {test_s:.2f} s "
+        f"(host: decode, LANCZOS to {opt.img_wh[0]}x{opt.img_wh[1]}); depth "
+        f"back-projection of {stats['frames']} frames in {back_s:.2f} s: "
+        f"{min(per)}-{max(per)} points a frame after its vox_res-100 "
+        f"downsample, {stats['n_points']} in all, {len(depth_pts)} after "
+        f"the ranges crop")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train_ft.initial_points(opt, train_ds, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_init = int(state["mask"].sum())
+    t0 = time.perf_counter()
+    spec, grid = common.make_spec_and_grid(opt, state)
+    torch.cuda.synchronize()
+    grid_ms = 1e3 * (time.perf_counter() - t0)
+    st = trainer.create_train_state(opt, state,
+                                    torch.Generator().manual_seed(opt.seed))
+    vis = Visualizer(opt)
+    psnr0 = train_ft.test(st, grid, opt, spec, test_ds, vis, 0,
+                          write_images=False, max_images=SCANNET_TEST_VIEWS)
+    log(f"scannet: load_points 2 init {init_s:.2f} s, {n_init} points after"
+        f" vox_res {opt.vox_res}; grid {spec.vdim} built in {grid_ms:.1f} ms"
+        f", {int(grid['num_occ'])} occupied voxels; test PSNR before "
+        f"training {psnr0:.3f} ({SCANNET_TEST_VIEWS} views); peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+    if n_init < SCANNET_MIN_POINTS:
+        raise AssertionError(f"the sensor-depth cloud has {n_init} points")
+    del st, state, grid, train_ds
+    torch.cuda.empty_cache()
+
+    for k in kernels.KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train_ft.main(opt)
+    wall = time.perf_counter() - t0
+    ft = {k.name: k.launches for k in kernels.KERNELS}
+    tm = res["timing"]
+    R = opt.random_sample_size ** 2
+    n_pts = int(res["state"].points["mask"].sum())
+    log(f"scannet finetune (load_points 2): {n_pts} points, grid "
+        f"{res['spec'].vdim}; {tm['steps']} steps, "
+        f"{1e3 * tm['train_s'] / tm['steps']:.1f} ms/step ({R} rays a step),"
+        f" wall {wall:.1f} s (probe-and-grow {tm['grow_s']:.1f} s, grow "
+        f"{tm['grow']}, test renders {tm['test_s']:.1f} s, checkpoints "
+        f"{tm['save_s']:.1f} s, datasets, init and the rest "
+        f"{wall - sum(tm[k] for k in PHASES):.1f} s); final test PSNR "
+        f"{res['final_psnr']:.3f} over {len(test_ds)} views; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{ft}; {smi}")
+    check_launches("scannet finetune", (kernels.TRUNK_FWD, kernels.TRUNK_BWD,
+                                        kernels.OCCUPANCY,
+                                        kernels.SCATTER_ROWS))
+    if res["total_steps"] != SCANNET_STEPS or not tm["grow_s"] > 0 or \
+            not np.isfinite(res["final_psnr"]):
+        raise AssertionError("the scannet finetune did not run its steps "
+                             "and a probe")
+    final_all = res["final_psnr"]
+    del res
+    torch.cuda.empty_cache()
+
+    # the test PSNR of the same views after training, then two chunks of a
+    # test view on the CPU from the same checkpoint
+    ckpt = os.path.join(opt.checkpoints_dir, opt.experiment)
+    ts, _ = load_checkpoint(ckpt, opt, device="cuda")
+    spec, grid = common.make_spec_and_grid(opt, ts.points)
+    psnr1 = train_ft.test(ts, grid, opt, spec, test_ds, vis, SCANNET_STEPS,
+                          write_images=False, max_images=SCANNET_TEST_VIEWS)
+    log(f"scannet: test PSNR on the {SCANNET_TEST_VIEWS} views {psnr0:.3f} "
+        f"before and {psnr1:.3f} after {SCANNET_STEPS} steps (all "
+        f"{len(test_ds)} test views after: {final_all:.3f})")
+    if not psnr1 > psnr0:
+        raise AssertionError(f"test PSNR {psnr1:.3f} after training not "
+                             f"above the initial {psnr0:.3f}")
+    item = test_ds.get_item(0, full_img=True)
+    counts = [k.launches for k in kernels.KERNELS]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    maps = common.render_image(ts, grid, opt, spec, item)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for k, c in zip(kernels.KERNELS, counts):
+        k.launches = c
+    Wi, Hi = opt.img_wh
+    rgb, hit = maps["coarse_raycolor"], maps["ray_mask"][..., 0] > 0.5
+    chunk = opt.random_sample_size ** 2
+    per_chunk = hit.reshape(-1)[: (Hi * Wi // chunk) * chunk].reshape(
+        -1, chunk).sum(1)
+    # the chunk with the most hits and one with hits and misses
+    mixed = np.abs(per_chunk - chunk / 2)
+    pick = sorted({int(np.argmax(per_chunk)), int(np.argmin(mixed))})
+    sel = np.concatenate([np.arange(c * chunk, (c + 1) * chunk)
+                          for c in pick])
+    sub = dict(item, raydir=item["raydir"][:, sel],
+               pixel_idx=item["pixel_idx"][:, sel])
+    sub.pop("gt_image", None)
+    t0 = time.perf_counter()
+    cpu_ts, _ = load_checkpoint(ckpt, opt, device="cpu")
+    _, cpu_grid = common.make_spec_and_grid(opt, cpu_ts.points)
+    cpu = common.render_image(cpu_ts, cpu_grid, opt.replace(use_fused_trunk=1),
+                              spec, sub)
+    px, py = sub["pixel_idx"][0, :, 0].astype(int), \
+        sub["pixel_idx"][0, :, 1].astype(int)
+    np.testing.assert_array_equal(cpu["ray_mask"][py, px],
+                                  maps["ray_mask"][py, px])
+    np.testing.assert_allclose(cpu["coarse_raycolor"][py, px], rgb[py, px],
+                               **TT_CPU_TOL)
+    err = float(np.abs(cpu["coarse_raycolor"][py, px] - rgb[py, px]).max())
+    log(f"scannet render {Wi}x{Hi}: {1e3 * dt:.1f} ms/image, hit share "
+        f"{hit.mean():.4f}; CPU re-render of chunks {pick} ({len(sel)} rays,"
+        f" {int(hit.reshape(-1)[sel].sum())} hit) from the same checkpoint: "
+        f"max_abs_err {err:.3e} in {time.perf_counter() - t0:.1f} s")
+    if not 0.0 < hit.mean() < 1.0:
+        raise AssertionError("the test view has no hits and misses")
+    del ts, grid, cpu_ts, cpu_grid, maps, cpu
+    torch.cuda.empty_cache()
+
+    # load_points 3 on a scene of SCANNET_LP3_FRAMES frames: the mesh
+    # points and the depth points in its empty voxels
+    lp3_root = os.path.join(root, "lp3")
+    make_scannet_scene(lp3_root, SCANNET_SCAN, n=SCANNET_LP3_FRAMES,
+                       wh=SCANNET_COLOR_WH, depth_wh=SCANNET_DEPTH_WH,
+                       half=SCANNET_HALF, radius=SCANNET_RADIUS,
+                       side=SCANNET_SIDE, hole=SCANNET_HOLE)
+    lp3 = opt.replace(data_root=lp3_root, load_points=3,
+                      maximum_step=SCANNET_LP3_STEPS,
+                      experiment="scannet_lp3", prob_freq=0)
+    ds = create_dataset(lp3, "train")
+    mesh = ds.load_init_points()
+    t0 = time.perf_counter()
+    kept = common.filter_depth_by_pc_occupancy(
+        mesh, ds.load_init_depth_points(vox_res=80), filter_res=100)
+    filt_s = time.perf_counter() - t0
+    del ds
+    for k in kernels.KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train_ft.main(lp3)
+    wall = time.perf_counter() - t0
+    l3 = {k.name: k.launches for k in kernels.KERNELS}
+    n3 = int(res["state"].points["mask"].sum())
+    log(f"scannet load_points 3 ({SCANNET_LP3_FRAMES} frames): {len(mesh)} "
+        f"mesh points, {len(kept)} depth"
+        f" points in voxels the mesh leaves empty (back-projection and "
+        f"filter {filt_s:.2f} s), {n3} merged after the per-source "
+        f"downsample; {res['timing']['steps']} steps in {wall:.1f} s, final"
+        f" test PSNR {res['final_psnr']:.3f}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{l3}")
+    check_launches("scannet load_points 3", (kernels.TRUNK_FWD,
+                                             kernels.TRUNK_BWD,
+                                             kernels.OCCUPANCY,
+                                             kernels.SCATTER_ROWS))
+    if len(kept) == 0 or not len(mesh) < n3 <= len(mesh) + len(kept) or \
+            res["total_steps"] != SCANNET_LP3_STEPS or \
+            not np.isfinite(res["final_psnr"]):
+        raise AssertionError("the load_points 3 run did not merge the two "
+                             "clouds and train")
+    del res
+    torch.cuda.empty_cache()
+    log(f"scannet phase: {time.perf_counter() - phase0:.1f} s")
+    return dec_ms, ft, l3
+
+
 def tt_options(root):
     """tt_preset("Truck") at its widths (1920x1080, ranges, vsize 0.002,
     vscale 3, SR 40, K 8, P 10, max_o 1.6 M, the 256-wide MLP, auto
@@ -2585,6 +2954,12 @@ def main() -> int:
         dtu_ft, dtu_pp = dtu_ft_path(root, smi)
     torch.cuda.empty_cache()
 
+    # the ScanNet finetune from sensor depth (K1, K2, K3, K6) at the
+    # sensors' sizes, its image I/O and its load_points 3 run
+    with tempfile.TemporaryDirectory() as root:
+        _, scannet_ft, scannet_lp3 = scannet_path(root, smi)
+    torch.cuda.empty_cache()
+
     # the evaluation phase: the T&T finetune, test_ft and LPIPS at
     # 1920x1080 (K1, K2, K3, K6)
     t0 = time.perf_counter()
@@ -2593,7 +2968,7 @@ def main() -> int:
     log(f"evaluation phase: {time.perf_counter() - t0:.1f} s")
 
     runs = (serve, serve_s, train, train_s, finetune, video, mvs, dtu_inf,
-            dtu_gen, dtu_ft, dtu_pp, tt_ft, tt_test)
+            dtu_gen, dtu_ft, dtu_pp, scannet_ft, scannet_lp3, tt_ft, tt_test)
     report = {"kernels": []}
     for k, rows in ((kernels.TRUNK_FWD, k1), (kernels.TRUNK_BWD, k2),
                     (kernels.OCCUPANCY, k3), (kernels.SHADE_FWD, k4),

@@ -2,9 +2,9 @@
 
 Reference: data/__init__.py:10-50. Items are numpy [1, ...] host arrays per
 camera; the port moves them to the device in the driver. Ported: the
-NeRF-Synthetic, Tanks&Temples and DTU finetune datasets and the DTU
-multi-view dataset of generalizable training; other names raise (ROADMAP
-§1, items A2-A3).
+NeRF-Synthetic, Tanks&Temples, DTU and ScanNet finetune datasets and the
+DTU multi-view dataset of generalizable training; other names raise
+(ROADMAP §1, item A3).
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from __future__ import annotations
 from typing import Dict
 
 _REGISTRY: Dict[str, type] = {}
-PORTED = ("nerf_synth360_ft", "tt_ft", "dtu", "dtu_ft")
+PORTED = ("nerf_synth360_ft", "tt_ft", "dtu", "dtu_ft", "scannet_ft")
 
 
 def register_dataset(name: str):
@@ -25,7 +25,7 @@ def register_dataset(name: str):
 def find_dataset_class_by_name(name: str) -> type:
     if name not in PORTED:
         raise NotImplementedError(
-            f"dataset {name} is not ported (ROADMAP §1, items A2-A3); the "
+            f"dataset {name} is not ported (ROADMAP §1, item A3); the "
             f"port has {list(PORTED)}")
     import importlib
     importlib.import_module(f".{name}", __package__)  # registers itself

@@ -9,10 +9,10 @@ PFM depths (:269-280), the per-item MVS bundle and target-view rays
 
 The GPU machine has neither cv2 nor Pillow. The depth chain's two
 `cv2.resize(INTER_NEAREST)` calls become numpy indexing with cv2's source
-index (`resize_nearest_cv2`), and the images are read with the port's PNG
-codec. An image whose size differs from img_wh is resized with Pillow's
-BILINEAR filter, as the JAX package resizes it (`utils/resize.py`, equal
-to Pillow uint8 for uint8).
+index (`utils/cvimg.resize_nearest`), and the images are read with the
+port's PNG codec. An image whose size differs from img_wh is resized with
+Pillow's BILINEAR filter, as the JAX package resizes it
+(`utils/resize.py`, equal to Pillow uint8 for uint8).
 """
 
 from __future__ import annotations
@@ -25,21 +25,9 @@ import numpy as np
 from . import register_dataset
 from .base import BaseDataset, parse_bg_color
 from .pfm import read_pfm
+from ..utils.cvimg import resize_nearest as resize_nearest_cv2
 from ..utils.png import read_png
 from ..utils.resize import resize
-
-
-def resize_nearest_cv2(a: np.ndarray, dst_wh, inv_scale=None) -> np.ndarray:
-    """cv2.resize(a, ..., interpolation=INTER_NEAREST) on the first two
-    axes: destination pixel x reads source min(floor(x · ifx), W − 1), with
-    ifx = 1/fx when a scale factor was given (`inv_scale` = (ifx, ify)) and
-    W_src / W_dst otherwise (cv2's resizeNN)."""
-    H, W = a.shape[:2]
-    dw, dh = dst_wh
-    ifx, ify = inv_scale if inv_scale is not None else (W / dw, H / dh)
-    xs = np.minimum(np.floor(np.arange(dw) * ifx).astype(np.int64), W - 1)
-    ys = np.minimum(np.floor(np.arange(dh) * ify).astype(np.int64), H - 1)
-    return a[ys[:, None], xs[None, :]]
 
 
 def read_rgb(path: str) -> np.ndarray:

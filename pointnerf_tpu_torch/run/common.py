@@ -2,10 +2,10 @@
 rendering (port of `pointnerf_tpu/run/common.py`).
 
 Reference anchors: run/train_ft.py:51-167 (BRANCH B, the MVS point
-init), :636-732 (BRANCH C point loading), :252-414 (chunked test render),
-models/mvs/mvs_utils.py:537-561 (voxel downsample). Not ported (raise):
-the pickled surface cloud (`cloud_path`, ROADMAP §1 item 6), sensor-depth
-points (`load_points` 2 and 3) and `comb_file` (item 7).
+init), :636-732 (BRANCH C point loading: the provided cloud, sensor-depth
+points and their merge, `comb_file`), :252-414 (chunked test render),
+models/mvs/mvs_utils.py:484-561 (voxel partitions and downsamples). Not
+ported (raises): the pickled surface cloud (`cloud_path`, ROADMAP §1 A3).
 """
 
 from __future__ import annotations
@@ -149,37 +149,126 @@ def _vox_partition(xyz: np.ndarray, vox_res: int, space_min=None,
     return coords, space_min, space_max
 
 
+def _unique_rows(coords: np.ndarray):
+    """np.unique(coords, axis=0, return_inverse=True) of int voxel coords
+    [N, 3], through one int64 key a row: the key orders rows as the
+    row-wise sort does, so the unique rows and the inverse are the same."""
+    c = coords.astype(np.int64) - coords.min(0)
+    dims = c.max(0) + 1
+    key = (c[:, 0] * dims[1] + c[:, 1]) * dims[2] + c[:, 2]
+    _, first, inv = np.unique(key, return_index=True, return_inverse=True)
+    return coords[first], inv.reshape(-1).astype(np.int64)
+
+
+def construct_vox_points_xyz(xyz: np.ndarray, vox_res: int,
+                             space_min=None, space_max=None) -> np.ndarray:
+    """Voxel downsample to per-voxel centroids (reference
+    mvs_utils.construct_vox_points_xyz, mvs_utils.py:503-518; used by the
+    ScanNet per-frame depth back-projection, scannet_ft_dataset.py:444)."""
+    xyz = np.asarray(xyz, np.float64)
+    coords, _, _ = _vox_partition(xyz, vox_res, space_min, space_max)
+    _, inv = _unique_rows(coords)
+    order = np.argsort(inv, kind="stable")
+    inv_s = inv[order]
+    starts = np.flatnonzero(np.concatenate([[True], inv_s[1:] != inv_s[:-1]]))
+    counts = np.diff(np.concatenate([starts, [len(inv_s)]]))
+    sums = np.add.reduceat(xyz[order], starts, axis=0)
+    return (sums / counts[:, None]).astype(np.float32)
+
+
+def construct_vox_points_ind(xyz: np.ndarray, vox_res: int,
+                             space_min=None, space_max=None):
+    """Voxel ids for the cross-cloud occupancy filter (reference
+    mvs_utils.construct_vox_points_ind, mvs_utils.py:520-535): (unique
+    voxel coords [V, 3] int32, each point's index into them [N],
+    space_min, space_max)."""
+    coords, smin, smax = _vox_partition(xyz, vox_res, space_min, space_max)
+    uniq, inv = _unique_rows(coords)
+    return uniq, inv, smin, smax
+
+
+def filter_depth_by_pc_occupancy(pc_xyz: np.ndarray, depth_xyz: np.ndarray,
+                                 filter_res: int = 100) -> np.ndarray:
+    """The depth points whose voxel holds no point of the provided cloud,
+    in one partition of both (reference run/train_ft.py:656-672: the
+    load_points 3 merge, a dense 0/1 mask over the union of their voxel
+    boxes)."""
+    pc_gid, _, smin, smax = construct_vox_points_ind(pc_xyz, filter_res)
+    d_gid, d_inv, _, _ = construct_vox_points_ind(
+        depth_xyz, filter_res, space_min=smin, space_max=smax)
+    all_g = np.concatenate([pc_gid, d_gid], 0).astype(np.int64)
+    mn = all_g.min(0)
+    dims = all_g.max(0) - mn + 1
+
+    def lin(g):
+        g = g.astype(np.int64) - mn
+        return (g[:, 0] * dims[1] + g[:, 1]) * dims[2] + g[:, 2]
+
+    occupied = np.zeros(int(dims.prod()), bool)
+    occupied[lin(pc_gid)] = True
+    keep = ~occupied[lin(d_gid)[d_inv]]
+    return np.asarray(depth_xyz)[keep]
+
+
 def init_point_state_from_dataset(opt, dataset, device="cuda") -> Dict:
-    """BRANCH C of the reference driver (train_ft.py:636-732) with the
-    provided cloud (load_points 1): the dataset's points cropped to
-    opt.ranges, voxel-downsampled, optionally resampled, then the
-    per-point attributes (`_finish_point_state`), on `device`."""
+    """BRANCH C of the reference driver (train_ft.py:636-732): the starting
+    points by `load_points` (1: the dataset's cloud, with fused.ply colours
+    where they match; 2: sensor-depth points back-projected per frame at
+    vox_res 100; 3: the dataset's cloud plus the depth points, at per-frame
+    vox_res 80, that lie in voxels the cloud leaves empty at 100; a dataset
+    without depth points takes its cloud for 2 and 3), plus a `comb_file`
+    cloud (its colours dropped); cropped to opt.ranges (for 3, each source
+    alone, which drops the comb points, as the JAX package does),
+    voxel-downsampled (for 3, source i at vox_res / 1.5^i), optionally
+    resampled, then the per-point attributes (`_finish_point_state`), on
+    `device`."""
     if opt.cloud_path:
         raise NotImplementedError("the pickled surface cloud (cloud_path) "
-                                  "is not ported")
-    if opt.load_points != 1:
-        raise NotImplementedError(f"load_points {opt.load_points} is not "
-                                  f"ported (sensor-depth points, ROADMAP "
-                                  f"§1 item 7)")
-    if opt.comb_file:
-        raise NotImplementedError("comb_file is not ported (ROADMAP §1 "
-                                  "item 7)")
-    xyz = np.asarray(dataset.load_init_points())
+                                  "is not ported (ROADMAP §1 A3)")
     rgb = None
-    path = os.path.join(opt.data_root, opt.scan,
-                        "colmap_results/dense/fused.ply")
-    if os.path.exists(path):
-        _, rgb = read_ply_points(path)
-        if rgb is not None and len(rgb) != len(xyz):
-            rgb = None
+    sources = None
+    depth_points = getattr(dataset, "load_init_depth_points", None)
+    if opt.load_points == 2 and depth_points is not None:
+        xyz = np.asarray(depth_points(vox_res=100))
+    elif opt.load_points == 3 and depth_points is not None:
+        pts = np.asarray(dataset.load_init_points())
+        depth = np.asarray(depth_points(vox_res=80))
+        depth = filter_depth_by_pc_occupancy(pts, depth, filter_res=100)
+        sources = [pts.astype(np.float32), depth.astype(np.float32)]
+        xyz = np.concatenate(sources, 0)
+    else:
+        xyz = np.asarray(dataset.load_init_points())
+        path = os.path.join(opt.data_root, opt.scan,
+                            "colmap_results/dense/fused.ply")
+        if os.path.exists(path):
+            _, rgb = read_ply_points(path)
+            if rgb is not None and len(rgb) != len(xyz):
+                rgb = None
+    if opt.comb_file:
+        # reference nerf_synth360_ft_dataset load_init_points, :366-371
+        extra = np.loadtxt(opt.comb_file, delimiter=";")
+        xyz = np.concatenate([xyz, extra[:, :3].astype(np.float32)], axis=0)
+        rgb = None
     ranges = np.asarray(opt.ranges, np.float32)
     if ranges[0] > -99.0:
-        keep = np.all((xyz >= ranges[:3]) & (xyz <= ranges[3:]), axis=-1)
-        xyz = xyz[keep]
-        rgb = rgb[keep] if rgb is not None else None
+        def inside(p):
+            return np.all((p >= ranges[:3]) & (p <= ranges[3:]), axis=-1)
+        if sources is not None:
+            sources = [p[inside(p)] for p in sources]
+            xyz = np.concatenate(sources, 0)
+        else:
+            keep = inside(xyz)
+            xyz = xyz[keep]
+            rgb = rgb[keep] if rgb is not None else None
     if opt.vox_res > 0:
-        xyz, idx = construct_vox_points_closest(xyz, opt.vox_res)
-        rgb = rgb[idx] if rgb is not None else None
+        if sources is not None:
+            xyz = np.concatenate(
+                [construct_vox_points_closest(
+                    p, max(1, int(opt.vox_res / 1.5 ** i)))[0]
+                 for i, p in enumerate(sources) if len(p)], 0)
+        else:
+            xyz, idx = construct_vox_points_closest(xyz, opt.vox_res)
+            rgb = rgb[idx] if rgb is not None else None
     if opt.resample_pnts > 0:
         # reference train_ft.py:698-704: 1 keeps the point nearest the
         # origin, N a random subsample of N points

@@ -10,10 +10,14 @@ driver's (RandomState(seed) for frame choices, RandomState(seed + 9999) for
 batches); the weights and the depth jitter come from torch generators, so a
 run matches the JAX driver's by PSNR, not bit for bit.
 
-The point cloud comes from the dataset's points (load_points 1) or from
-the MVS init (load_points 0: MVSNet depth, fusion, per-point embeddings
-and the visual hull over the train views, `common.
-gen_points_filter_embeddings`).
+The point cloud comes from the dataset's points (load_points 1), from
+its sensor depths (load_points 2: every frame back-projected and
+downsampled, ScanNet's `load_init_depth_points`), from both (load_points
+3: the depth points that fall in voxels the dataset's points leave empty),
+each with an optional `comb_file` cloud (`common.
+init_point_state_from_dataset`), or from the MVS init (load_points 0:
+MVSNet depth, fusion, per-point embeddings and the visual hull over the
+train views, `common.gen_points_filter_embeddings`).
 
 Plane backgrounds (datasets with the plane helpers, `dtu_ft`), as the JAX
 driver wires them: `bgmodel planepoints` adds the plane's points to the
@@ -33,6 +37,8 @@ failure there and carries on).
 
 Usage: python -m pointnerf_tpu_torch.run.train_ft --preset nerf_synth:lego \
            --data_root <dir> [--device cpu] [--flag value ...]
+       python -m pointnerf_tpu_torch.run.train_ft \
+           --preset scannet:scene0241_01 --data_root <dir>  # load_points 2
 """
 
 from __future__ import annotations
@@ -264,8 +270,9 @@ def _check_ported(opt) -> None:
 
 
 def initial_points(opt, train_ds, dev) -> Dict:
-    """The starting point state: the dataset's cloud (load_points 1) or the
-    MVS init (load_points 0, weights seeded with opt.seed). The MVS
+    """The starting point state: the dataset's cloud, its sensor-depth
+    points or both (load_points 1, 2, 3) or the MVS init (load_points 0,
+    weights seeded with opt.seed). The MVS
     embeddings must be point_features_dim wide: without the premlp they
     are the raw FPN features, 8 + 16 + 32 = 56 channels a view, which the
     aggregator cannot take (the JAX driver fails there in its first train

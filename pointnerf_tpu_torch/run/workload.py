@@ -16,7 +16,9 @@ geometry of `tests/fixtures.py::make_dtu_scene`) for the generalizable
 driver's phases, and `make_tt_scene` in the Tanks&Temples (NSVF) layout
 (the geometry of `tests/fixtures.py::make_tt_scene`, with a fused.ply) for
 the evaluation phase, which scores with the random LPIPS weights of
-`lpips_state_dict`.
+`lpips_state_dict`. `make_scannet_scene` writes it in ScanNet's
+`exported/` layout (`tests/fixtures.py::make_scannet_scene`'s geometry)
+with the port's JPEG, 16-bit PNG and PLY writers, for the ScanNet phase.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 from ..config import nerf_synth_preset
 from ..data.pfm import write_pfm
 from ..data.ply import write_ply_points
+from ..utils.jpeg import write_jpeg
 from ..utils.png import write_png
 
 
@@ -294,6 +297,71 @@ def make_tt_scene(root, scan="Truck", n_train=6, n_test=2, wh=(40, 40),
     write_ply_points(os.path.join(scene, "colmap_results/dense/fused.ply"),
                      xyz.astype(np.float32), plate_color(xyz[:, 0], xyz[:, 1]))
     return len(xyz)
+
+
+def make_scannet_scene(root, scan="scene0101_04", n=10, wh=(40, 30),
+                       depth_wh=None, half=0.4, radius=2.5, focal=None,
+                       side=20, quality=75, hole=None):
+    """The plate in ScanNet's exported/ layout, written with the port's
+    writers (tests/fixtures.py::make_scannet_scene's geometry at any size,
+    plate half-width `half` and camera distance `radius`): n frames on a
+    ring at elevation atan(0.5 / 0.9) looking at the origin, with
+    color/{i}.jpg at `wh` (baseline 4:2:0 at `quality`, the plate over a
+    0.3 grey), depth/{i}.png at `depth_wh` (default `wh`; 16-bit
+    millimetres of the plate's camera z, 0 off the plate),
+    intrinsic/intrinsic_{color,depth}.txt (4x4; `focal` defaults to the
+    fixture's 35 px at 40 px wide, scaled with the width, and the depth
+    camera has the same field of view), pose/{i}.txt (OpenCV c2w) and
+    exported/pcd.ply with a side² grid over the plate, less a disk `hole`
+    = (x, y, r) if given (a mesh with a hole, which sensor depth fills).
+    At the fixture's arguments the poses, intrinsics, depth pixels and
+    points equal the fixture's. Returns the scene directory."""
+    W, H = wh
+    Wd, Hd = depth_wh if depth_wh is not None else wh
+    focal = 35.0 * W / 40.0 if focal is None else float(focal)
+    fd = focal * Wd / W
+    scene = os.path.join(root, scan)
+    exported = os.path.join(scene, "exported")
+    for sub in ("color", "pose", "intrinsic", "depth"):
+        os.makedirs(os.path.join(exported, sub), exist_ok=True)
+    for name, f, w, h in (("color", focal, W, H), ("depth", fd, Wd, Hd)):
+        K = np.eye(4)
+        K[0, 0] = K[1, 1] = f
+        K[0, 2], K[1, 2] = w / 2, h / 2
+        np.savetxt(os.path.join(exported, "intrinsic",
+                                f"intrinsic_{name}.txt"), K)
+    flip = np.diag([1.0, -1.0, -1.0, 1.0])
+    px, py = np.meshgrid(np.arange(Wd, dtype=np.float64),
+                         np.arange(Hd, dtype=np.float64))
+    d_cam = np.stack([(px - Wd / 2) / fd, (py - Hd / 2) / fd,
+                      np.ones_like(px)], -1)
+    for i in range(n):
+        theta = 2 * np.pi * i / n
+        campos = radius * np.array([np.cos(theta) * 0.9,
+                                    np.sin(theta) * 0.9, 0.5])
+        pose_gl = look_at_pose(campos)
+        c2w_cv = pose_gl @ flip
+        rgba = render_plate_rgba(pose_gl, focal, W, H, half=half)
+        rgb = rgba[..., :3] * rgba[..., 3:] + 0.3 * (1 - rgba[..., 3:])
+        write_jpeg(os.path.join(exported, "color", f"{i}.jpg"),
+                   (np.clip(rgb, 0, 1) * 255).astype(np.uint8), quality)
+        np.savetxt(os.path.join(exported, "pose", f"{i}.txt"), c2w_cv)
+        d_w = d_cam @ c2w_cv[:3, :3].T
+        t = (0.0 - campos[2]) / d_w[..., 2]
+        hit = campos + t[..., None] * d_w
+        inside = (t > 0.3) & (np.abs(hit[..., 0]) <= half) & \
+            (np.abs(hit[..., 1]) <= half)
+        depth_mm = np.where(inside, t * 1000.0, 0.0).astype(np.uint16)
+        write_png(os.path.join(exported, "depth", f"{i}.png"), depth_mm)
+    g = np.linspace(-half, half, side)
+    gx, gy = np.meshgrid(g, g, indexing="ij")
+    xyz = np.stack([gx, gy, np.zeros_like(gx)], -1).reshape(-1, 3)
+    if hole is not None:
+        hx, hy, hr = hole
+        xyz = xyz[(xyz[:, 0] - hx) ** 2 + (xyz[:, 1] - hy) ** 2 > hr ** 2]
+    write_ply_points(os.path.join(exported, "pcd.ply"),
+                     xyz.astype(np.float32))
+    return scene
 
 
 def lpips_state_dict(net: str, seed: int = 0) -> Dict[str, torch.Tensor]:

@@ -89,11 +89,14 @@ def _clip8(ss: np.ndarray) -> np.ndarray:
 
 def _pass(img: np.ndarray, axis: int, bounds: np.ndarray,
           kk: np.ndarray) -> np.ndarray:
-    """One resampling pass of a uint8 [H, W, C] image along `axis`."""
+    """One resampling pass of a uint8 [H, W, C] image along `axis`, in
+    int32 as Pillow sums (INT32 ss and k: 255 times the weights' absolute
+    sum stays below 2^31 at PRECISION_BITS)."""
     n_in = img.shape[axis]
-    src = np.moveaxis(img, axis, 0).astype(np.int64)       # [n_in, ..., C]
+    src = np.ascontiguousarray(np.moveaxis(img, axis, 0)).astype(np.int32)
     ss = np.full((len(bounds),) + src.shape[1:], 1 << (PRECISION_BITS - 1),
-                 np.int64)
+                 np.int32)
+    kk = kk.astype(np.int32)
     for t in range(kk.shape[1]):
         idx = np.minimum(bounds[:, 0] + t, n_in - 1)
         k = kk[:, t].reshape((-1,) + (1,) * (src.ndim - 1))

@@ -1066,3 +1066,64 @@ def test_dtu_ft_plane_background_and_step_on_card_match_cpu(dev, tmp_path,
         for k, g in cpu[part].items():
             d = gpu[part][k].cpu() - g
             assert float(d.norm()) <= GRAD_REL * float(g.norm()), k
+
+
+def test_scannet_sensor_depth_step_and_render_on_card_match_cpu(dev,
+                                                                tmp_path):
+    """scannet_preset on a small ScanNet-layout plate (64x48 JPEG frames,
+    32x24 16-bit depths) with its load_points 2 cloud: one train step's
+    compute_grads from the same state and draws on the card (K1, K2, K3,
+    K6) and on the CPU (plain versions), loss items within 1e-4 and
+    gradients within GRAD_REL in norm; then a test view of 12 chunks
+    rendered by render_image on both, masks equal and colours within
+    1e-4."""
+    from pointnerf_tpu_torch.config import scannet_preset
+    from pointnerf_tpu_torch.data import create_dataset
+    from pointnerf_tpu_torch.run import common, train_ft
+    from pointnerf_tpu_torch.run.workload import make_scannet_scene
+    root = str(tmp_path)
+    make_scannet_scene(root, "scene0241_01", n=10, wh=(64, 48),
+                       depth_wh=(32, 24))
+    opt = scannet_preset("scene0241_01").replace(
+        data_root=root, img_wh=(64, 48), random_sample_size=16,
+        use_fused_trunk=1)
+    train_ds, test_ds = create_dataset(opt, "train"), \
+        create_dataset(opt, "test")
+    item = train_ds.get_item(1, rng=np.random.RandomState(1))
+    agg = init_aggregator_params(opt, torch.Generator().manual_seed(0),
+                                 device="cpu")
+    u = torch.rand((1, 256, opt.z_depth_dim), generator=torch.Generator())
+    view = test_ds.get_item(0, full_img=True)
+    runs, images = {}, {}
+    for device in ("cpu", dev):
+        state = common.init_point_state_from_dataset(opt, train_ds,
+                                                     device=device)
+        assert int(state["mask"].sum()) > 200
+        spec, grid = common.make_spec_and_grid(opt, state)
+        batch = {k: torch.as_tensor(item[k], device=device)
+                 for k in train_ft.BATCH_KEYS}
+        batch["near"], batch["far"] = float(item["near"]), float(item["far"])
+        st = trainer.make_train_state(copy.deepcopy(agg).to(device), state,
+                                      opt, torch.Generator(device=device))
+        for k in kernels.KERNELS:
+            k.launches = 0
+        runs[str(device)] = trainer.compute_grads(st, grid, batch, opt, spec,
+                                                  u.to(device))
+        images[str(device)] = common.render_image(st, grid, opt, spec, view)
+        on = ({kernels.TRUNK_FWD.name, kernels.TRUNK_BWD.name,
+               kernels.OCCUPANCY.name, kernels.SCATTER_ROWS.name}
+              if device == dev else set())
+        assert {k.name for k in kernels.KERNELS if k.launches} == on
+    cpu, gpu = runs["cpu"], runs[str(dev)]
+    for k, v in cpu[0].items():
+        np.testing.assert_allclose(float(gpu[0][k]), float(v), rtol=1e-4,
+                                   err_msg=k)
+    for part in (1, 2):
+        for k, g in cpu[part].items():
+            d = gpu[part][k].cpu() - g
+            assert float(d.norm()) <= GRAD_REL * float(g.norm()), k
+    a, b = images[str(dev)], images["cpu"]
+    np.testing.assert_array_equal(a["ray_mask"], b["ray_mask"])
+    assert 0 < (b["ray_mask"] > 0.5).mean() < 1
+    np.testing.assert_allclose(a["coarse_raycolor"], b["coarse_raycolor"],
+                               **TOL)

@@ -292,9 +292,9 @@ def test_point_init_matches_jax(scene_root, tmp_path):
     got = tcommon.init_point_state_from_dataset(
         opt, create_dataset(opt, "train"), device="cpu")
     _assert_state_equal(got, want)
-    with pytest.raises(NotImplementedError):
-        tcommon.init_point_state_from_dataset(opt.replace(load_points=2),
-                                              None, device="cpu")
+    with pytest.raises(NotImplementedError, match="cloud_path"):
+        tcommon.init_point_state_from_dataset(
+            opt.replace(cloud_path="cloud.pkl"), None, device="cpu")
 
 
 def test_dataset_items_match_jax(scene_root, tmp_path):

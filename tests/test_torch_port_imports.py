@@ -97,3 +97,47 @@ def test_cpu_paths_launch_no_kernel_and_other_devices_are_refused():
                                  torch.zeros(1, 4, 3, device="meta"),
                                  torch.zeros(1, 4, 16, device="meta"),
                                  grid_t, spec_t)
+
+
+_IMAGE_LIBS = ("PIL", "cv2", "imageio")
+
+
+def _imported_modules(path):
+    """Top-level names of every module a file imports, at any depth of its
+    code (inside functions and try blocks too)."""
+    import ast
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                    "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            names.add(str(node.args[0].value).split(".")[0])
+    return names
+
+
+def test_port_imports_no_image_library():
+    """Neither a module of the port nor chip_smoke.py imports Pillow, cv2
+    or imageio, anywhere in its code: the GPU machine has none of them, so
+    the port decodes and resizes images itself (utils/jpeg, png, resize,
+    cvimg). Importing every module leaves none of them loaded."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for d, _, fs in os.walk(os.path.join(REPO, "pointnerf_tpu_torch")):
+        files += [os.path.join(d, f) for f in fs if f.endswith(".py")]
+    bad = {os.path.relpath(f, REPO): sorted(_imported_modules(f).intersection(
+        _IMAGE_LIBS)) for f in files}
+    assert len(files) > 40
+    assert not {k: v for k, v in bad.items() if v}
+    probe = _PROBE.replace('("jax", "jaxlib", "optax", "pointnerf_tpu")',
+                           repr(_IMAGE_LIBS))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX_", "XLA_"))}
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
