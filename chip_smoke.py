@@ -61,8 +61,19 @@ back-projection timed, train_ft.main for SCANNET_STEPS steps with a
 probe (K1, K2, K3, K6) whose test PSNR on two views must pass the initial
 cloud's, two chunks of a test view rendered again on the CPU (within
 1e-5), and load_points 3 for SCANNET_LP3_STEPS steps on a 5-frame scene,
-which must merge the mesh with the depth points in its empty voxels; and
-last
+which must merge the mesh with the depth points in its empty voxels; then
+the vox-grid querier (NN -1, trilinear) at lego widths on an 800x800
+plate from a pickle of VOX_CLOUD_SIDE² surface samples (num_point,
+point_noise, the lattice of construct_res and grid_res): the lattice,
+its corner table and the share of shading samples with a full cell,
+train_ft.main for VOX_STEPS steps with a prune (K1, K2, K3, K6), test_ft
+on its checkpoint (K1, K3), two chunks against the CPU (within 1e-5);
+the LLFF finetune (llff_ft, 1008x756, 20 views, a 100,489-point
+fused.ply; LLFF_STEPS steps, two chunks against the CPU, render_vid over
+LLFF_VID_FRAMES render poses); the legacy NeRF-Synthetic finetune
+(nerf_synth_ft at 800x800, the MVS init over a pairs file's view groups,
+pairs.th's test frames; NSFT_STEPS steps, two chunks against the CPU),
+each phase's test PSNR before and after; and last
 the evaluation phase at 1920x1080: a plate scene in the Tanks&Temples layout
 (run/workload.make_tt_scene, 501,264 fused.ply points), train_ft.main with
 tt_preset("Truck") for TT_STEPS steps and load_points 1 (K1, K2, K3, K6),
@@ -269,6 +280,31 @@ SCANNET_DOWN_SHA = ("f56e12a84dd7792206161c58e9b6ce14"
                                       # metres to 1296x968 and 333x211;
                                       # taken on a CPU machine with Pillow
                                       # and cv2
+VOX_WH = 800                          # the vox-grid phase's plate views
+VOX_CLOUD_SIDE = 633                  # the pickled surface cloud: a 633²
+                                      # grid over the plate, 400,689 samples
+VOX_NUM_POINT = 100_000               # num_point: drawn from the pickle
+VOX_NOISE = "pointuniform_0.002"      # point_noise
+VOX_RES = (64, 256)                   # construct_res, grid_res: a lattice
+                                      # of 299,441 points at pitch 3.6 mm
+VOX_STEPS = 200                       # finetune steps
+VOX_PRUNE = 100                       # the one prune
+VOX_TEST_VIEWS = 2                    # test renders (test_num)
+LLFF_WH = (1008, 756)                 # fern's images_4 size
+LLFF_VIEWS = 20                       # forward-facing views
+LLFF_TESTSKIP = 8                     # LLFF's hold-out of every 8th view:
+                                      # 3 test, 17 train
+LLFF_SIDE = 317                       # fused.ply: a 317² grid, 100,489
+                                      # points
+LLFF_STEPS = 200                      # finetune steps
+LLFF_TEST_VIEWS = 2                   # test renders (test_num)
+LLFF_VID_FRAMES = 3                   # poses of the render split rendered
+NSFT_WH = 800                         # the legacy NeRF-Synthetic views
+NSFT_PAIRS = dict(n_ref=3, n_extra=2, n_test=2)
+                                      # pairs txt: 3 ref views, 2 more view
+                                      # groups; pairs.th: 2 test frames
+NSFT_STEPS = 50                       # finetune steps from the MVS cloud
+NSFT_MIN_POINTS = 2000                # the init must leave a few thousand
 PEAK_FP32 = 67e12                     # H100 SXM fp32 FLOP/s outside the
                                       # tensor cores, at 700 W (data sheet)
 PEAK_TF32 = 495e12                    # H100 SXM dense TF32 tensor-core
@@ -2389,6 +2425,138 @@ def check_image_io(root):
     return min(dec_ms)
 
 
+# ---------------------------------- shared by the scene finetune phases
+class StepItems:
+    """Within the block, the sum of every train_step's sr_overflow (the
+    query's and the shade-side compaction's dropped rows) and the step
+    count, from the items the driver fetches anyway."""
+
+    def __enter__(self):
+        from pointnerf_tpu_torch.train import trainer
+        self.trainer, self.step = trainer, trainer.train_step
+        self.sr_overflow, self.steps = 0, 0
+
+        def spy(*a, **kw):
+            ts, items = self.step(*a, **kw)
+            self.sr_overflow += int(float(items["sr_overflow"]))
+            self.steps += 1
+            return ts, items
+        trainer.train_step = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.trainer.train_step = self.step
+
+
+def chunks_vs_cpu(label, ckpt, opt, item):
+    """The checkpoint on the card: a timed render of the full view, then
+    two of its chunks (the one with the most hits and one with hits and
+    misses) rendered again on the CPU from the same checkpoint with the
+    kernels' plain versions; ray_mask equal, colours within TT_CPU_TOL.
+    Launches made here are put back. Returns (ms per image, max_abs_err,
+    hit share, the render's counters)."""
+    from pointnerf_tpu_torch.ops import kernels
+    from pointnerf_tpu_torch.run import common
+    from pointnerf_tpu_torch.utils.checkpoint import load_checkpoint
+    counts = [k.launches for k in kernels.KERNELS]
+    ts, _ = load_checkpoint(ckpt, opt, device="cuda")
+    spec, grid = common.make_spec_and_grid(opt, ts.points)
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    maps = common.render_image(ts, grid, opt, spec, item, stats=stats)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for k, c in zip(kernels.KERNELS, counts):
+        k.launches = c
+    Hi, Wi = int(item["h"]), int(item["w"])
+    rgb, hit = maps["coarse_raycolor"], maps["ray_mask"][..., 0] > 0.5
+    chunk = opt.random_sample_size ** 2
+    per_chunk = hit.reshape(-1)[: (Hi * Wi // chunk) * chunk].reshape(
+        -1, chunk).sum(1)
+    pick = sorted({int(np.argmax(per_chunk)),
+                   int(np.argmin(np.abs(per_chunk - chunk / 2)))})
+    sel = np.concatenate([np.arange(c * chunk, (c + 1) * chunk)
+                          for c in pick])
+    sub = dict(item, raydir=item["raydir"][:, sel],
+               pixel_idx=item["pixel_idx"][:, sel])
+    sub.pop("gt_image", None)
+    t0 = time.perf_counter()
+    cpu_ts, _ = load_checkpoint(ckpt, opt, device="cpu")
+    _, cpu_grid = common.make_spec_and_grid(opt, cpu_ts.points)
+    cpu = common.render_image(cpu_ts, cpu_grid, opt.replace(use_fused_trunk=1),
+                              spec, sub)
+    px, py = sub["pixel_idx"][0, :, 0].astype(int), \
+        sub["pixel_idx"][0, :, 1].astype(int)
+    np.testing.assert_array_equal(cpu["ray_mask"][py, px],
+                                  maps["ray_mask"][py, px])
+    np.testing.assert_allclose(cpu["coarse_raycolor"][py, px], rgb[py, px],
+                               **TT_CPU_TOL)
+    err = float(np.abs(cpu["coarse_raycolor"][py, px] - rgb[py, px]).max())
+    log(f"{label} render {Wi}x{Hi}: {1e3 * dt:.1f} ms/image, hit share "
+        f"{hit.mean():.4f}, sr_overflow {stats.get('sr_overflow')}, "
+        f"occ_overflow {stats.get('occ_overflow')}; CPU re-render of chunks "
+        f"{pick} ({len(sel)} rays, {int(hit.reshape(-1)[sel].sum())} hit) "
+        f"from the same checkpoint: max_abs_err {err:.3e} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not 0.0 < hit.mean() < 1.0:
+        raise AssertionError(f"{label}: the view has no hits and misses")
+    del ts, grid, cpu_ts, cpu_grid
+    torch.cuda.empty_cache()
+    return 1e3 * dt, err, float(hit.mean()), stats
+
+
+def finetune_run(label, opt, kerns):
+    """train_ft.main with the counts set to 0 just before and read just
+    after, its train steps' sr_overflow summed; every kernel of `kerns`
+    must launch. Returns (the result, its launches, wall seconds, the
+    steps' sr_overflow, peak GiB)."""
+    from pointnerf_tpu_torch.ops import kernels
+    from pointnerf_tpu_torch.run import train_ft
+    for k in kernels.KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with StepItems() as steps:
+        res = train_ft.main(opt)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    check_launches(label, kerns)
+    tm = res["timing"]
+    if res["total_steps"] != opt.maximum_step or tm["steps"] != steps.steps:
+        raise AssertionError(f"{label} did not run its steps")
+    if not np.isfinite(res["final_psnr"]):
+        raise AssertionError(f"{label}: final PSNR {res['final_psnr']}")
+    return res, launches, wall, steps.sr_overflow, \
+        torch.cuda.max_memory_allocated() / 2**30
+
+
+def start_psnr(opt, train_ds, test_ds, n_views):
+    """The starting cloud's test PSNR over n_views views (seeded weights,
+    as main makes them), the cloud's size, and the grid's spec, build ms
+    and table."""
+    from pointnerf_tpu_torch.run import common, train_ft
+    from pointnerf_tpu_torch.train import trainer
+    from pointnerf_tpu_torch.utils.visualizer import Visualizer
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = train_ft.initial_points(opt, train_ds, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spec, grid = common.make_spec_and_grid(opt, state)
+    torch.cuda.synchronize()
+    grid_ms = 1e3 * (time.perf_counter() - t0)
+    st = trainer.create_train_state(opt, state,
+                                    torch.Generator().manual_seed(opt.seed))
+    psnr0 = train_ft.test(st, grid, opt, spec, test_ds, Visualizer(opt), 0,
+                          write_images=False, max_images=n_views)
+    return dict(st=st, spec=spec, grid=grid, init_s=init_s, grid_ms=grid_ms,
+                psnr0=psnr0, n=int(state["mask"].sum()))
+
+
 def scannet_options(root, **kw):
     """scannet_preset("scene0241_01") at its widths (640x480, vox_res 900,
     vsize 0.008, vscale 2, kernel and query 3³, SR 24, K 8, P 26, max_o
@@ -2422,7 +2590,6 @@ def scannet_path(root, smi: str):
     from pointnerf_tpu_torch.ops import kernels
     from pointnerf_tpu_torch.run import common, train_ft
     from pointnerf_tpu_torch.run.workload import make_scannet_scene
-    from pointnerf_tpu_torch.train import trainer
     from pointnerf_tpu_torch.utils.checkpoint import load_checkpoint
     from pointnerf_tpu_torch.utils.visualizer import Visualizer
     phase0 = time.perf_counter()
@@ -2434,7 +2601,6 @@ def scannet_path(root, smi: str):
                        side=SCANNET_SIDE, hole=SCANNET_HOLE)
     write_s = time.perf_counter() - t0
     opt = scannet_options(root)
-    dev = torch.device("cuda")
     t0 = time.perf_counter()
     train_ds = create_dataset(opt, "train")
     train_s = time.perf_counter() - t0
@@ -2456,40 +2622,23 @@ def scannet_path(root, smi: str):
         f"{min(per)}-{max(per)} points a frame after its vox_res-100 "
         f"downsample, {stats['n_points']} in all, {len(depth_pts)} after "
         f"the ranges crop")
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    state = train_ft.initial_points(opt, train_ds, dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_init = int(state["mask"].sum())
-    t0 = time.perf_counter()
-    spec, grid = common.make_spec_and_grid(opt, state)
-    torch.cuda.synchronize()
-    grid_ms = 1e3 * (time.perf_counter() - t0)
-    st = trainer.create_train_state(opt, state,
-                                    torch.Generator().manual_seed(opt.seed))
-    vis = Visualizer(opt)
-    psnr0 = train_ft.test(st, grid, opt, spec, test_ds, vis, 0,
-                          write_images=False, max_images=SCANNET_TEST_VIEWS)
-    log(f"scannet: load_points 2 init {init_s:.2f} s, {n_init} points after"
-        f" vox_res {opt.vox_res}; grid {spec.vdim} built in {grid_ms:.1f} ms"
-        f", {int(grid['num_occ'])} occupied voxels; test PSNR before "
-        f"training {psnr0:.3f} ({SCANNET_TEST_VIEWS} views); peak "
+    s0 = start_psnr(opt, train_ds, test_ds, SCANNET_TEST_VIEWS)
+    psnr0, n_init = s0["psnr0"], s0["n"]
+    log(f"scannet: load_points 2 init {s0['init_s']:.2f} s, {n_init} points"
+        f" after vox_res {opt.vox_res}; grid {s0['spec'].vdim} built in "
+        f"{s0['grid_ms']:.1f} ms, {int(s0['grid']['num_occ'])} occupied "
+        f"voxels; test PSNR before training {psnr0:.3f} "
+        f"({SCANNET_TEST_VIEWS} views); peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
     if n_init < SCANNET_MIN_POINTS:
         raise AssertionError(f"the sensor-depth cloud has {n_init} points")
-    del st, state, grid, train_ds
+    del s0, train_ds
     torch.cuda.empty_cache()
 
-    for k in kernels.KERNELS:
-        k.launches = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    res = train_ft.main(opt)
-    wall = time.perf_counter() - t0
-    ft = {k.name: k.launches for k in kernels.KERNELS}
+    res, ft, wall, _, peak = finetune_run(
+        "scannet finetune", opt, (kernels.TRUNK_FWD, kernels.TRUNK_BWD,
+                                  kernels.OCCUPANCY, kernels.SCATTER_ROWS))
     tm = res["timing"]
     R = opt.random_sample_size ** 2
     n_pts = int(res["state"].points["mask"].sum())
@@ -2501,15 +2650,9 @@ def scannet_path(root, smi: str):
         f"{tm['save_s']:.1f} s, datasets, init and the rest "
         f"{wall - sum(tm[k] for k in PHASES):.1f} s); final test PSNR "
         f"{res['final_psnr']:.3f} over {len(test_ds)} views; peak "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
-        f"{ft}; {smi}")
-    check_launches("scannet finetune", (kernels.TRUNK_FWD, kernels.TRUNK_BWD,
-                                        kernels.OCCUPANCY,
-                                        kernels.SCATTER_ROWS))
-    if res["total_steps"] != SCANNET_STEPS or not tm["grow_s"] > 0 or \
-            not np.isfinite(res["final_psnr"]):
-        raise AssertionError("the scannet finetune did not run its steps "
-                             "and a probe")
+        f"{peak:.2f} GiB; launches {ft}; {smi}")
+    if not tm["grow_s"] > 0:
+        raise AssertionError("the scannet finetune ran no probe")
     final_all = res["final_psnr"]
     del res
     torch.cuda.empty_cache()
@@ -2519,56 +2662,18 @@ def scannet_path(root, smi: str):
     ckpt = os.path.join(opt.checkpoints_dir, opt.experiment)
     ts, _ = load_checkpoint(ckpt, opt, device="cuda")
     spec, grid = common.make_spec_and_grid(opt, ts.points)
-    psnr1 = train_ft.test(ts, grid, opt, spec, test_ds, vis, SCANNET_STEPS,
-                          write_images=False, max_images=SCANNET_TEST_VIEWS)
+    psnr1 = train_ft.test(ts, grid, opt, spec, test_ds, Visualizer(opt),
+                          SCANNET_STEPS, write_images=False,
+                          max_images=SCANNET_TEST_VIEWS)
     log(f"scannet: test PSNR on the {SCANNET_TEST_VIEWS} views {psnr0:.3f} "
         f"before and {psnr1:.3f} after {SCANNET_STEPS} steps (all "
         f"{len(test_ds)} test views after: {final_all:.3f})")
     if not psnr1 > psnr0:
         raise AssertionError(f"test PSNR {psnr1:.3f} after training not "
                              f"above the initial {psnr0:.3f}")
-    item = test_ds.get_item(0, full_img=True)
-    counts = [k.launches for k in kernels.KERNELS]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    maps = common.render_image(ts, grid, opt, spec, item)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    for k, c in zip(kernels.KERNELS, counts):
-        k.launches = c
-    Wi, Hi = opt.img_wh
-    rgb, hit = maps["coarse_raycolor"], maps["ray_mask"][..., 0] > 0.5
-    chunk = opt.random_sample_size ** 2
-    per_chunk = hit.reshape(-1)[: (Hi * Wi // chunk) * chunk].reshape(
-        -1, chunk).sum(1)
-    # the chunk with the most hits and one with hits and misses
-    mixed = np.abs(per_chunk - chunk / 2)
-    pick = sorted({int(np.argmax(per_chunk)), int(np.argmin(mixed))})
-    sel = np.concatenate([np.arange(c * chunk, (c + 1) * chunk)
-                          for c in pick])
-    sub = dict(item, raydir=item["raydir"][:, sel],
-               pixel_idx=item["pixel_idx"][:, sel])
-    sub.pop("gt_image", None)
-    t0 = time.perf_counter()
-    cpu_ts, _ = load_checkpoint(ckpt, opt, device="cpu")
-    _, cpu_grid = common.make_spec_and_grid(opt, cpu_ts.points)
-    cpu = common.render_image(cpu_ts, cpu_grid, opt.replace(use_fused_trunk=1),
-                              spec, sub)
-    px, py = sub["pixel_idx"][0, :, 0].astype(int), \
-        sub["pixel_idx"][0, :, 1].astype(int)
-    np.testing.assert_array_equal(cpu["ray_mask"][py, px],
-                                  maps["ray_mask"][py, px])
-    np.testing.assert_allclose(cpu["coarse_raycolor"][py, px], rgb[py, px],
-                               **TT_CPU_TOL)
-    err = float(np.abs(cpu["coarse_raycolor"][py, px] - rgb[py, px]).max())
-    log(f"scannet render {Wi}x{Hi}: {1e3 * dt:.1f} ms/image, hit share "
-        f"{hit.mean():.4f}; CPU re-render of chunks {pick} ({len(sel)} rays,"
-        f" {int(hit.reshape(-1)[sel].sum())} hit) from the same checkpoint: "
-        f"max_abs_err {err:.3e} in {time.perf_counter() - t0:.1f} s")
-    if not 0.0 < hit.mean() < 1.0:
-        raise AssertionError("the test view has no hits and misses")
-    del ts, grid, cpu_ts, cpu_grid, maps, cpu
+    del ts, grid
     torch.cuda.empty_cache()
+    chunks_vs_cpu("scannet", ckpt, opt, test_ds.get_item(0, full_img=True))
 
     # load_points 3 on a scene of SCANNET_LP3_FRAMES frames: the mesh
     # points and the depth points in its empty voxels
@@ -2587,36 +2692,369 @@ def scannet_path(root, smi: str):
         mesh, ds.load_init_depth_points(vox_res=80), filter_res=100)
     filt_s = time.perf_counter() - t0
     del ds
-    for k in kernels.KERNELS:
-        k.launches = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    res = train_ft.main(lp3)
-    wall = time.perf_counter() - t0
-    l3 = {k.name: k.launches for k in kernels.KERNELS}
+    res, l3, wall, _, peak = finetune_run(
+        "scannet load_points 3", lp3, (kernels.TRUNK_FWD, kernels.TRUNK_BWD,
+                                       kernels.OCCUPANCY,
+                                       kernels.SCATTER_ROWS))
     n3 = int(res["state"].points["mask"].sum())
     log(f"scannet load_points 3 ({SCANNET_LP3_FRAMES} frames): {len(mesh)} "
         f"mesh points, {len(kept)} depth"
         f" points in voxels the mesh leaves empty (back-projection and "
         f"filter {filt_s:.2f} s), {n3} merged after the per-source "
         f"downsample; {res['timing']['steps']} steps in {wall:.1f} s, final"
-        f" test PSNR {res['final_psnr']:.3f}; peak "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f" test PSNR {res['final_psnr']:.3f}; peak {peak:.2f} GiB; launches "
         f"{l3}")
-    check_launches("scannet load_points 3", (kernels.TRUNK_FWD,
-                                             kernels.TRUNK_BWD,
-                                             kernels.OCCUPANCY,
-                                             kernels.SCATTER_ROWS))
-    if len(kept) == 0 or not len(mesh) < n3 <= len(mesh) + len(kept) or \
-            res["total_steps"] != SCANNET_LP3_STEPS or \
-            not np.isfinite(res["final_psnr"]):
+    if len(kept) == 0 or not len(mesh) < n3 <= len(mesh) + len(kept):
         raise AssertionError("the load_points 3 run did not merge the two "
                              "clouds and train")
     del res
     torch.cuda.empty_cache()
     log(f"scannet phase: {time.perf_counter() - phase0:.1f} s")
     return dec_ms, ft, l3
+
+
+# ------------------------------------- the vox-grid, LLFF and legacy phases
+def full_cell_share(st, grid, spec, opt, item):
+    """Over every ray of a full view (in groups of GROUP chunks): the
+    occupancy-selected shading samples (positions off the origin, where
+    the query parks empty slots), the share of them whose lattice cell
+    has all 8 corners, the empty slots that the corner query gives a full
+    cell anyway (the origin's, as JAX's query does), and the query's
+    q_overflow. Launches made here are put back."""
+    from pointnerf_tpu_torch.models.renderer import render_query
+    from pointnerf_tpu_torch.ops import kernels
+    from pointnerf_tpu_torch.train import trainer
+    counts = [k.launches for k in kernels.KERNELS]
+    ps = trainer.point_state_of(st)
+    dev = torch.device("cuda")
+    R = item["raydir"].shape[1]
+    step = GROUP * opt.random_sample_size ** 2
+    sel = full = origin = q_over = 0
+    with torch.inference_mode():
+        for s in range(0, R, step):
+            batch = {"raydir": torch.as_tensor(item["raydir"][:, s:s + step],
+                                               device=dev),
+                     "campos": torch.as_tensor(item["campos"], device=dev),
+                     "camrotc2w": torch.as_tensor(item["camrotc2w"],
+                                                  device=dev),
+                     "near": float(item["near"]), "far": float(item["far"])}
+            q = render_query(ps, grid, spec, opt, batch)
+            on = torch.any(q.sample_loc_w != 0, dim=-1)
+            cell = torch.all(q.sample_pidx >= 0, dim=-1)
+            sel += int(on.sum())
+            full += int((on & cell).sum())
+            origin += int((~on & cell).sum())
+            q_over += int(q.q_overflow)
+    for k, c in zip(kernels.KERNELS, counts):
+        k.launches = c
+    return sel, full, origin, q_over
+
+
+def voxgrid_options(root, cpath):
+    """The lego preset's widths (32-wide points, the 256-wide trunk, K 8,
+    SR 80, 400 depth samples, auto SR_budget) with the vox-grid querier:
+    NN -1 from the pickled cloud (num_point, point_noise, construct_res
+    and grid_res of VOX_*), the trilinear kernel without a second
+    normalisation, frozen positions, and k_tier 0 (every row of the
+    8-corner query fills its 8 slots, so K-tiering's narrow tier would
+    stay empty and its wide tier's quarter budget drop rows); VOX_STEPS
+    steps, one prune at VOX_PRUNE, the checkpoint at the end, no probe (it
+    refuses NN -1); the scene has VOX_TEST_VIEWS test views."""
+    from pointnerf_tpu_torch.config import nerf_synth_preset
+    return nerf_synth_preset("lego").replace(
+        data_root=root, scan="plate", img_wh=(VOX_WH, VOX_WH), load_points=1,
+        cloud_path=cpath, num_point=VOX_NUM_POINT, point_noise=VOX_NOISE,
+        NN=-1, construct_res=VOX_RES[0], grid_res=VOX_RES[1],
+        agg_distance_kernel="trilinear", agg_weight_norm=0, xyz_grad=0,
+        k_tier=0, checkpoints_dir=os.path.join(root, "checkpoints"),
+        experiment="plate_voxgrid", maximum_step=VOX_STEPS,
+        prune_iter=VOX_PRUNE, prune_max_iter=VOX_PRUNE, prob_freq=0,
+        print_freq=100, save_iter_freq=10 * VOX_STEPS, save_point_freq=0,
+        test_freq=0, test_num=VOX_TEST_VIEWS)
+
+
+def voxgrid_path(root, smi: str):
+    """The vox-grid querier on the card: a plate scene at VOX_WH² and a
+    pickle of VOX_CLOUD_SIDE² plate samples; the cloud drawn, jittered and
+    snapped to the lattice (host), its corner table and grid built, the
+    share of shading samples with a full cell, the starting test PSNR;
+    train_ft.main for VOX_STEPS steps with a prune (K1, K2, K3, K6), then
+    test_ft.main on its checkpoint (K1, K3), whose PSNR must equal the
+    driver's final test on the same views and pass the start; two chunks of a test view on
+    the CPU from the checkpoint (within TT_CPU_TOL). Returns the two runs'
+    launch counts."""
+    from pointnerf_tpu_torch.data import create_dataset
+    from pointnerf_tpu_torch.data.load_blender import (apply_point_noise,
+                                                       load_blender_cloud)
+    from pointnerf_tpu_torch.ops import kernels
+    from pointnerf_tpu_torch.ops.voxgrid import construct_grid_points
+    from pointnerf_tpu_torch.run import test_ft
+    from pointnerf_tpu_torch.run.workload import (make_plate_scene,
+                                                  write_cloud_pickle)
+    phase0 = time.perf_counter()
+    make_plate_scene(root, wh=(VOX_WH, VOX_WH), n_test=VOX_TEST_VIEWS)
+    cpath = os.path.join(root, "plate_cloud.pkl")
+    n_raw = write_cloud_pickle(cpath, side=VOX_CLOUD_SIDE)
+    opt = voxgrid_options(root, cpath)
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(opt.seed)
+    drawn, _ = load_blender_cloud(cpath, opt.num_point, rng)
+    noisy = apply_point_noise(drawn, opt.point_noise, rng)
+    lattice, gvs = construct_grid_points(noisy, *VOX_RES)
+    host_s = time.perf_counter() - t0
+    train_ds, test_ds = create_dataset(opt, "train"), \
+        create_dataset(opt, "test")
+    torch.cuda.reset_peak_memory_stats()
+    s0 = start_psnr(opt, train_ds, test_ds, VOX_TEST_VIEWS)
+    spec, grid = s0["spec"], s0["grid"]
+    table = grid["vox_table"]
+    sel, full, origin, q_over = full_cell_share(
+        s0["st"], grid, spec, opt, test_ds.get_item(0, full_img=True))
+    log(f"voxgrid: plate scene {VOX_WH}x{VOX_WH}; pickle {n_raw} samples, "
+        f"{len(drawn)} drawn, {len(noisy)} after {opt.point_noise}, "
+        f"{len(lattice)} lattice points (construct_res {VOX_RES[0]}, "
+        f"grid_res {VOX_RES[1]}, pitch {gvs:.6f}) in {host_s:.2f} s (host); "
+        f"init {s0['init_s']:.2f} s, {s0['n']} points; grid {spec.vdim}, "
+        f"{int(grid['num_occ'])} occupied voxels, corner table "
+        f"{spec.vox_dim} ({table.numel()} corners, "
+        f"{int((table >= 0).sum())} held), built in {s0['grid_ms']:.1f} ms;"
+        f" a test view's {sel} shading samples: {full} ({full / sel:.4f}) "
+        f"in a full cell, {origin} empty slots given the origin's cell, "
+        f"q_overflow {q_over}; test PSNR before training "
+        f"{s0['psnr0']:.3f} ({VOX_TEST_VIEWS} views); peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+    if s0["n"] != len(lattice) or not 0 < full < sel:
+        raise AssertionError("the lattice or its full cells are off")
+    psnr0 = s0["psnr0"]
+    del s0, grid, table, train_ds
+    torch.cuda.empty_cache()
+
+    res, ft, wall, sr_over, peak = finetune_run(
+        "voxgrid finetune", opt, (kernels.TRUNK_FWD, kernels.TRUNK_BWD,
+                                  kernels.OCCUPANCY, kernels.SCATTER_ROWS))
+    tm = res["timing"]
+    log(f"voxgrid finetune: {tm['steps']} steps, "
+        f"{1e3 * tm['train_s'] / tm['steps']:.1f} ms/step, wall {wall:.1f} s"
+        f" (prune {tm['prune_s']:.2f} s, test renders {tm['test_s']:.1f} s, "
+        f"checkpoints {tm['save_s']:.1f} s); prune (step, before, after) "
+        f"{tm['prune']}; corner table {res['spec'].vox_dim} kept through "
+        f"it; sr_overflow over the steps {sr_over}; final test PSNR "
+        f"{res['final_psnr']:.3f}; peak {peak:.2f} GiB; launches {ft}")
+    if len(tm["prune"]) != 1:
+        raise AssertionError("the voxgrid finetune did not prune once")
+    final = res["final_psnr"]
+    del res
+    torch.cuda.empty_cache()
+
+    ckpt = os.path.join(opt.checkpoints_dir, opt.experiment)
+    for k in kernels.KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = test_ft.main(opt.replace(resume_dir=ckpt))
+    test_s = time.perf_counter() - t0
+    tf = {k.name: k.launches for k in kernels.KERNELS}
+    check_launches("voxgrid test_ft", (kernels.TRUNK_FWD,
+                                       kernels.OCCUPANCY))
+    log(f"voxgrid test_ft: step {out['step']}, PSNR {out['psnr']:.3f} "
+        f"over {VOX_TEST_VIEWS} views (before training {psnr0:.3f}, the "
+        f"driver's final test {final:.3f}) in {test_s:.1f} s; launches {tf}")
+    # test_ft re-derives the lattice from the checkpoint's points: the same
+    # views render as the driver's last test rendered them
+    if out["step"] != VOX_STEPS or not abs(out["psnr"] - final) < 1e-3 \
+            or not out["psnr"] > psnr0:
+        raise AssertionError(f"test_ft PSNR {out['psnr']:.3f}: the driver's"
+                             f" {final:.3f}, the start's {psnr0:.3f}")
+    chunks_vs_cpu("voxgrid", ckpt, opt, test_ds.get_item(0, full_img=True))
+    log(f"voxgrid phase: {time.perf_counter() - phase0:.1f} s")
+    return ft, tf
+
+
+def llff_options(root):
+    """The lego preset's widths on an LLFF scene (dataset_name llff_ft,
+    LLFF_WH, load_points 1 from its fused.ply, the hold-out of every
+    LLFF_TESTSKIP-th view; no ranges crop: the loader's normalised frame
+    is not lego's box): LLFF_STEPS steps, no prune or probe, a checkpoint
+    at the end, LLFF_TEST_VIEWS test renders."""
+    from pointnerf_tpu_torch.config import nerf_synth_preset
+    return nerf_synth_preset("lego").replace(
+        dataset_name="llff_ft", data_root=root, scan="fern", img_wh=LLFF_WH,
+        load_points=1, testskip=LLFF_TESTSKIP,
+        ranges=(-100.0,) * 3 + (100.0,) * 3,
+        checkpoints_dir=os.path.join(root, "checkpoints"),
+        experiment="fern_llff", maximum_step=LLFF_STEPS, prune_iter=0,
+        prob_freq=0, print_freq=100, save_iter_freq=10 * LLFF_STEPS,
+        save_point_freq=0, test_freq=0, test_num=LLFF_TEST_VIEWS)
+
+
+def llff_path(root, smi: str):
+    """The LLFF finetune on the card: a plate scene in the LLFF layout
+    (run/workload.make_llff_scene, LLFF_VIEWS views at LLFF_WH, LLFF_SIDE²
+    fused.ply points), its splits read (host PNG decode), the starting
+    test PSNR; train_ft.main for LLFF_STEPS steps (K1, K2, K3, K6) whose
+    test PSNR must pass the start; two chunks of a test view on the CPU;
+    render_vid over LLFF_VID_FRAMES poses of the render split (K1, K3),
+    the GIF decoded back. Returns the two runs' launch counts."""
+    from pointnerf_tpu_torch.data import create_dataset
+    from pointnerf_tpu_torch.ops import kernels
+    from pointnerf_tpu_torch.run import common
+    from pointnerf_tpu_torch.run.render_vid import render_vid
+    from pointnerf_tpu_torch.run.workload import make_llff_scene
+    from pointnerf_tpu_torch.utils.checkpoint import load_checkpoint
+    from pointnerf_tpu_torch.utils.gif import read_gif
+    from pointnerf_tpu_torch.utils.visualizer import Visualizer
+    phase0 = time.perf_counter()
+    t0 = time.perf_counter()
+    n_written = make_llff_scene(root, n=LLFF_VIEWS, wh=LLFF_WH,
+                                side=LLFF_SIDE)
+    write_s = time.perf_counter() - t0
+    opt = llff_options(root)
+    t0 = time.perf_counter()
+    train_ds, test_ds = create_dataset(opt, "train"), \
+        create_dataset(opt, "test")
+    read_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    s0 = start_psnr(opt, train_ds, test_ds, LLFF_TEST_VIEWS)
+    log(f"llff: scene {LLFF_WH[0]}x{LLFF_WH[1]}, {LLFF_VIEWS} views "
+        f"({len(train_ds)} train, {len(test_ds)} test: holdoff "
+        f"{max(2, LLFF_TESTSKIP)}), near/far {train_ds.near_far}, written "
+        f"in {write_s:.1f} s, splits read in {read_s:.2f} s (host); "
+        f"{n_written} fused.ply points -> {s0['n']} after vox_res "
+        f"{opt.vox_res} in {s0['init_s']:.2f} s; grid {s0['spec'].vdim} "
+        f"built in {s0['grid_ms']:.1f} ms, "
+        f"{int(s0['grid']['num_occ'])} occupied voxels; test PSNR before "
+        f"training {s0['psnr0']:.3f} ({LLFF_TEST_VIEWS} views); peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+    psnr0 = s0["psnr0"]
+    del s0, train_ds
+    torch.cuda.empty_cache()
+
+    res, ft, wall, sr_over, peak = finetune_run(
+        "llff finetune", opt, (kernels.TRUNK_FWD, kernels.TRUNK_BWD,
+                               kernels.OCCUPANCY, kernels.SCATTER_ROWS))
+    tm = res["timing"]
+    log(f"llff finetune: {tm['steps']} steps, "
+        f"{1e3 * tm['train_s'] / tm['steps']:.1f} ms/step, wall {wall:.1f} s"
+        f" (test renders {tm['test_s']:.1f} s, checkpoints "
+        f"{tm['save_s']:.1f} s); sr_overflow over the steps {sr_over}; "
+        f"final test PSNR {res['final_psnr']:.3f} (before {psnr0:.3f}); "
+        f"peak {peak:.2f} GiB; launches {ft}")
+    if not res["final_psnr"] > psnr0:
+        raise AssertionError(f"llff test PSNR {res['final_psnr']:.3f} not "
+                             f"above the start's {psnr0:.3f}")
+    del res
+    torch.cuda.empty_cache()
+    ckpt = os.path.join(opt.checkpoints_dir, opt.experiment)
+    chunks_vs_cpu("llff", ckpt, opt, test_ds.get_item(0, full_img=True))
+
+    render_ds = create_dataset(opt, "render")
+    n_poses = len(render_ds)
+    render_ds.render_poses = render_ds.render_poses[:LLFF_VID_FRAMES]
+    render_ds.total = LLFF_VID_FRAMES
+    ts, _ = load_checkpoint(ckpt, opt, device="cuda")
+    spec, grid = common.make_spec_and_grid(opt, ts.points)
+    for k in kernels.KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vid = render_vid(ts, grid, opt, spec, render_ds, Visualizer(opt),
+                     LLFF_STEPS)
+    vid_s = time.perf_counter() - t0
+    rv = {k.name: k.launches for k in kernels.KERNELS}
+    check_launches("llff render_vid", (kernels.TRUNK_FWD, kernels.OCCUPANCY))
+    frames = read_gif(vid["video"])
+    log(f"llff render_vid: {vid['n_frames']} of the render split's {n_poses}"
+        f" poses in {vid_s:.1f} s ({1e3 * vid_s / vid['n_frames']:.1f} ms a "
+        f"frame with its PNG), GIF of {len(frames)} frames; launches {rv}")
+    if vid["n_frames"] != LLFF_VID_FRAMES or len(frames) != LLFF_VID_FRAMES:
+        raise AssertionError("the llff video does not hold its frames")
+    del ts, grid
+    torch.cuda.empty_cache()
+    log(f"llff phase: {time.perf_counter() - phase0:.1f} s")
+    return ft, rv
+
+
+def nsft_options(root):
+    """The lego preset's widths on the legacy NeRF-Synthetic dataset
+    (nerf_synth_ft, NSFT_WH²) with the MVS init over the pairs file's
+    view groups (load_points 0, the premlp and MVS_CONF_THRESH as in the
+    mvs phase): NSFT_STEPS steps, no prune or probe, a checkpoint at the
+    end, test renders of pairs.th's test frames."""
+    from pointnerf_tpu_torch.config import nerf_synth_preset
+    return nerf_synth_preset("lego").replace(
+        dataset_name="nerf_synth_ft", data_root=root, scan="plate",
+        img_wh=(NSFT_WH, NSFT_WH), load_points=0,
+        shading_feature_mlp_layer0=1, depth_conf_thresh=MVS_CONF_THRESH,
+        checkpoints_dir=os.path.join(root, "checkpoints"),
+        experiment="plate_legacy", maximum_step=NSFT_STEPS, prune_iter=0,
+        prob_freq=0, print_freq=25, save_iter_freq=10 * NSFT_STEPS,
+        save_point_freq=0, test_freq=0, test_num=NSFT_PAIRS["n_test"])
+
+
+def nsft_path(root, smi: str):
+    """The legacy NeRF-Synthetic finetune on the card: a plate scene at
+    NSFT_WH² with the pairs tables of NSFT_PAIRS
+    (run/workload.write_legacy_pairs); the MVS init over the pairs file's
+    view groups, timed (the dataset's fixed [2, 6] depth range cut to
+    MVS_NEAR_FAR for random weights, as the mvs phase cuts its planes);
+    the starting test PSNR on pairs.th's test frames; train_ft.main for
+    NSFT_STEPS steps (K1, K2, K3, K6) whose test PSNR must pass the
+    start; two chunks of a test view on the CPU. Returns the run's launch
+    counts."""
+    from pointnerf_tpu_torch.data import create_dataset, nerf_synth_ft
+    from pointnerf_tpu_torch.ops import kernels
+    from pointnerf_tpu_torch.run.workload import (make_plate_scene,
+                                                  write_legacy_pairs)
+    phase0 = time.perf_counter()
+    make_plate_scene(root, wh=(NSFT_WH, NSFT_WH))
+    write_legacy_pairs(root, **NSFT_PAIRS)
+    opt = nsft_options(root)
+    legacy = nerf_synth_ft.LEGACY_NEAR_FAR.copy()
+    nerf_synth_ft.LEGACY_NEAR_FAR[:] = MVS_NEAR_FAR
+    try:
+        train_ds, test_ds = create_dataset(opt, "train"), \
+            create_dataset(opt, "test")
+        torch.cuda.reset_peak_memory_stats()
+        s0 = start_psnr(opt, train_ds, test_ds, len(test_ds))
+        log(f"nerf_synth_ft: plate scene {NSFT_WH}x{NSFT_WH}; train ids "
+            f"{train_ds.id_list}, view groups {train_ds.view_id_list} (pairs"
+            f" txt), test ids {test_ds.id_list} (pairs.th); near/far "
+            f"{train_ds.near_far} (the dataset's {legacy} cut); MVS init "
+            f"{s0['init_s']:.2f} s: {s0['n']} points after the hull and "
+            f"vox_res {opt.vox_res}; grid {s0['spec'].vdim} built in "
+            f"{s0['grid_ms']:.1f} ms; test PSNR before training "
+            f"{s0['psnr0']:.3f}; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+        if s0["n"] < NSFT_MIN_POINTS:
+            raise AssertionError(f"the MVS init left {s0['n']} points")
+        psnr0 = s0["psnr0"]
+        del s0, train_ds
+        torch.cuda.empty_cache()
+        res, ft, wall, sr_over, peak = finetune_run(
+            "nerf_synth_ft finetune", opt,
+            (kernels.TRUNK_FWD, kernels.TRUNK_BWD, kernels.OCCUPANCY,
+             kernels.SCATTER_ROWS))
+        tm = res["timing"]
+        log(f"nerf_synth_ft finetune: {tm['steps']} steps, "
+            f"{1e3 * tm['train_s'] / tm['steps']:.1f} ms/step, wall "
+            f"{wall:.1f} s (the MVS init again, test renders "
+            f"{tm['test_s']:.1f} s, checkpoints {tm['save_s']:.1f} s); "
+            f"sr_overflow over the steps {sr_over}; final test PSNR "
+            f"{res['final_psnr']:.3f} (before {psnr0:.3f}); peak "
+            f"{peak:.2f} GiB; launches {ft}")
+        if not res["final_psnr"] > psnr0:
+            raise AssertionError(f"nerf_synth_ft test PSNR "
+                                 f"{res['final_psnr']:.3f} not above the "
+                                 f"start's {psnr0:.3f}")
+        del res
+        torch.cuda.empty_cache()
+        ckpt = os.path.join(opt.checkpoints_dir, opt.experiment)
+        chunks_vs_cpu("nerf_synth_ft", ckpt, opt,
+                      test_ds.get_item(0, full_img=True))
+    finally:
+        nerf_synth_ft.LEGACY_NEAR_FAR[:] = legacy
+    log(f"nerf_synth_ft phase: {time.perf_counter() - phase0:.1f} s")
+    return ft
 
 
 def tt_options(root):
@@ -2809,6 +3247,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from pointnerf_tpu_torch.ops import kernels
 
+    start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
@@ -2960,6 +3399,19 @@ def main() -> int:
         _, scannet_ft, scannet_lp3 = scannet_path(root, smi)
     torch.cuda.empty_cache()
 
+    # the vox-grid querier from a pickled cloud (K1, K2, K3, K6; test_ft:
+    # K1, K3), the LLFF finetune and its render path, and the legacy
+    # NeRF-Synthetic finetune from the pairs file's MVS init
+    with tempfile.TemporaryDirectory() as root:
+        vox_ft, vox_test = voxgrid_path(root, smi)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        llff_ft, llff_vid = llff_path(root, smi)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        nsft_ft = nsft_path(root, smi)
+    torch.cuda.empty_cache()
+
     # the evaluation phase: the T&T finetune, test_ft and LPIPS at
     # 1920x1080 (K1, K2, K3, K6)
     t0 = time.perf_counter()
@@ -2967,8 +3419,10 @@ def main() -> int:
         tt_ft, tt_test = tt_eval_path(root, smi)
     log(f"evaluation phase: {time.perf_counter() - t0:.1f} s")
 
+    log(f"chip_smoke: {time.perf_counter() - start:.1f} s from the start")
     runs = (serve, serve_s, train, train_s, finetune, video, mvs, dtu_inf,
-            dtu_gen, dtu_ft, dtu_pp, scannet_ft, scannet_lp3, tt_ft, tt_test)
+            dtu_gen, dtu_ft, dtu_pp, scannet_ft, scannet_lp3, vox_ft,
+            vox_test, llff_ft, llff_vid, nsft_ft, tt_ft, tt_test)
     report = {"kernels": []}
     for k, rows in ((kernels.TRUNK_FWD, k1), (kernels.TRUNK_BWD, k2),
                     (kernels.OCCUPANCY, k3), (kernels.SHADE_FWD, k4),

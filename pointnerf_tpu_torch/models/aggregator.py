@@ -1,7 +1,8 @@
 """Point aggregator: per-neighbor shading MLP + inverse-distance interpolation.
 
 PyTorch port of `pointnerf_tpu/models/aggregator.py` on the lego envelope:
-the mode-0 and mode-20 distances, the linear distance kernel, the conf
+the mode-0 and mode-20 distances, the fixed distance kernels (linear,
+numlinear, quadric, numquadric, avg, trilinear; axis weights), the conf
 clamp, orders 1 and 2 of the plain path, the fused-trunk branch and the
 fused-shade branch (`ops/trunk.py`). Every (shading point, neighbor) row is
 computed; invalid neighbors are removed by the weight mask, so shapes stay
@@ -169,15 +170,53 @@ def unit_axis_weight(opt) -> bool:
     return aw is None or bool(np.allclose(np.asarray(aw, np.float32), 1.0))
 
 
-def compute_weights(opt, dists, pnt_mask):
-    """Linear distance kernel (reference: :355-375): 1/‖d‖ per neighbor."""
-    if opt.agg_distance_kernel != "linear":
+FIXED_KERNELS = ("linear", "numlinear", "quadric", "numquadric", "avg",
+                 "trilinear")
+
+
+def compute_weights(opt, dists, pnt_mask, grid_vox_sz: float = 0.0):
+    """The fixed distance kernels (reference :355-485; JAX
+    aggregator.py:151-197): dists [B,R,SR,K,C], pnt_mask float
+    [B,R,SR,K] → weights [B,R,SR,K]. A non-unit agg_axis_weight scales the
+    xy radius and |z| (linear kernels) or the squared channels (quadric
+    kernels); numlinear divides by the neighbor count, the num* kernels
+    and trilinear skip the later normalisation, and trilinear takes the
+    lattice pitch `grid_vox_sz`.
+    The learned kernels (feat_intrp, meta_intrp, sh_intrp, gau_intrp) are
+    not ported."""
+    name = opt.agg_distance_kernel
+    if name not in FIXED_KERNELS:
         raise NotImplementedError(
-            f"agg_distance_kernel {opt.agg_distance_kernel} is not ported")
-    if not unit_axis_weight(opt):
-        raise NotImplementedError("non-unit agg_axis_weight is not ported")
-    w = 1.0 / torch.clamp(torch.linalg.norm(dists[..., :3], dim=-1), min=1e-6)
-    return pnt_mask * w
+            f"agg_distance_kernel {name} is not ported (ROADMAP §1 A4)")
+    aw = None if unit_axis_weight(opt) else torch.tensor(
+        np.asarray(opt.agg_axis_weight, np.float32), device=dists.device)
+
+    def axis_radius():
+        return torch.sqrt(torch.sum(torch.square(dists[..., :2]), dim=-1)) \
+            * aw[0] + torch.abs(dists[..., 2]) * aw[1]
+
+    if name == "linear":
+        r = torch.linalg.norm(dists[..., :3], dim=-1) if aw is None \
+            else axis_radius()
+        return pnt_mask * (1.0 / torch.clamp(r, min=1e-6))
+    if name == "numlinear":
+        r = torch.linalg.norm(dists, dim=-1) if aw is None else axis_radius()
+        w = pnt_mask * (1.0 / torch.clamp(r, min=1e-6))
+        return w / torch.clamp(torch.sum(pnt_mask, dim=-1, keepdim=True),
+                               min=1.0)
+    if name in ("quadric", "numquadric"):
+        if aw is not None:
+            q = torch.sum(torch.square(dists) * aw, dim=-1)
+        elif name == "quadric":
+            q = torch.sum(torch.square(dists[..., :3]), dim=-1)
+        else:
+            q = torch.sum(torch.square(dists), dim=-1)
+        return pnt_mask * (1.0 / torch.clamp(q, min=1e-8))
+    if name == "avg":
+        return pnt_mask * 1.0
+    d = 1.0 - torch.abs(dists * pnt_mask[..., None] / grid_vox_sz)
+    w = pnt_mask * d[..., 0] * d[..., 1] * d[..., 2]
+    return w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-8)
 
 
 def compute_dists(opt, sampled_xyz, sampled_xyz_pers, sample_loc,
@@ -208,10 +247,11 @@ def aggregator_forward(agg: Aggregator, opt,
                        sampled_color, sampled_Rw2c, sampled_dir, sampled_conf,
                        sampled_embedding, sampled_xyz_pers, sampled_xyz,
                        sample_pnt_mask, sample_loc, sample_loc_w,
-                       sample_ray_dirs):
+                       sample_ray_dirs, grid_vox_sz: float = 0.0):
     """Shading forward pass (reference PointAggregator.forward + viewmlp).
 
-    Inputs are [B,R,SR,K,*] / [B,R,SR,*] tensors. Returns (decoded
+    Inputs are [B,R,SR,K,*] / [B,R,SR,*] tensors; grid_vox_sz is the
+    lattice pitch the trilinear kernel divides by. Returns (decoded
     [B,R,SR,4], ray_valid [B,R,SR] bool, weight [B,R,SR,K],
     conf_coefficient [B,R,SR,K]).
     """
@@ -280,8 +320,12 @@ def aggregator_forward(agg: Aggregator, opt,
 
     dists = compute_dists(opt, sampled_xyz, sampled_xyz_pers, sample_loc,
                           sample_loc_w)
-    weight = compute_weights(opt, dists, mask_f)
-    if opt.agg_weight_norm > 0:
+    weight = compute_weights(opt, dists, mask_f, grid_vox_sz)
+    # no second normalisation for trilinear and the num* kernels (JAX
+    # aggregator.py:294-297)
+    name = opt.agg_distance_kernel
+    if opt.agg_weight_norm > 0 and name != "trilinear" \
+            and not name.startswith("num"):
         weight = weight / torch.clamp(torch.sum(weight, dim=-1, keepdim=True),
                                       min=1e-8)
     conf_coefficient = torch.ones_like(weight)

@@ -1,6 +1,7 @@
 """Neural-point ray-marching renderer (port of
-`pointnerf_tpu/models/renderer.py`: the world-coordinate query and the
-perspective-frustum one, `wcoord_query 0`).
+`pointnerf_tpu/models/renderer.py`: the world-coordinate query, the
+perspective-frustum one, `wcoord_query 0`, and the 8-corner vox-grid one,
+`NN < 0`).
 
 Shapes stay static as in the JAX package: shading rows are compacted into a
 fixed budget, the compacted rows split into a narrow (K=k_tier) and a wide
@@ -23,6 +24,7 @@ from ..ops.camera import w2pers
 from ..ops.frustum import build_frustum_grid, query_frustum_points
 from ..ops.grid import GridSpec
 from ..ops.query import expand_compacted, query_grid_points
+from ..ops.voxgrid import query_vox_grid
 from . import neural_points as npc
 from .aggregator import aggregator_forward, gradient_clamp
 
@@ -96,7 +98,8 @@ class _TierAssemble(torch.autograd.Function):
 
 
 def _tiered_aggregate(agg, point_state, opt, c_pidx, comp_valid, c_loc,
-                      c_loc_w, c_srd, camrotc2w, campos, kt):
+                      c_loc_w, c_srd, camrotc2w, campos, kt,
+                      grid_vox_sz: float = 0.0):
     """Two-tier neighbor-count split of the compacted shade phase.
 
     Rows whose valid neighbors all sit in the first `kt` slots run a K=kt
@@ -133,7 +136,7 @@ def _tiered_aggregate(agg, point_state, opt, c_pidx, comp_valid, c_loc,
             g["sampled_xyz_pers"], g["sampled_xyz"], g["sample_pnt_mask"],
             _take_rows(c_loc, src, valid, 0.0),
             _take_rows(c_loc_w, src, valid, 0.0),
-            _take_rows(c_srd, src, valid, 0.0))
+            _take_rows(c_srd, src, valid, 0.0), grid_vox_sz)
         return dec, w_t, cf_t
 
     decA, wA, cfA = run_tier(srcA, validA, kt)
@@ -212,8 +215,6 @@ def render_query(point_state: Dict, grid: Optional[Dict], spec: GridSpec,
     if opt.wcoord_query == 0:
         return _frustum_query(point_state, grid, spec, opt, batch, is_train,
                               u, prob, generator)
-    if opt.NN < 0:
-        raise NotImplementedError("the NN<0 vox-grid querier is not ported")
     raydir, campos = batch["raydir"], batch["campos"]
     gen = raygen.find_ray_generation_method(
         "near_far_disparity_linear" if opt.inverse > 0 else "near_far_linear")
@@ -223,6 +224,19 @@ def render_query(point_state: Dict, grid: Optional[Dict], spec: GridSpec,
                           near=float(batch["near"]), far=float(batch["far"]),
                           jitter=TRAIN_JITTER if is_train else 0.0, u=u)
     B, R = raydir.shape[0], raydir.shape[1]
+    if opt.NN < 0:
+        # vox-grid mode (JAX renderer.py:298-309): the occupancy select
+        # (K3) picks the shading samples, and their K = 8 "neighbors" are
+        # the corners of their lattice cell. The K = 1 KNN still runs,
+        # uncompacted, because ray_mask is defined by it (a ray is valid
+        # when a sample found a point within the radius); its indices are
+        # dropped. The shade phase compacts the rows.
+        _, sample_loc_w, ray_mask, q_overflow, _, occ_over = \
+            query_grid_points(campos, raydir, mid_ts, grid, spec, SR=opt.SR,
+                              K=1, Nc=0)
+        sample_pidx = query_vox_grid(sample_loc_w, grid["vox_table"], spec)
+        return QueryOut(sample_pidx, sample_loc_w, ray_mask, None,
+                        q_overflow, None, occ_over)
     if int(getattr(opt, "comp_groups", 1)) != 1:
         raise NotImplementedError("comp_groups > 1 is not ported")
     Nc = effective_sr_budget(opt, B * R * opt.SR) if not prob else 0
@@ -281,17 +295,35 @@ def render_shade(agg, point_state: Dict, spec: GridSpec, opt, batch: Dict,
     if prob and q_comp is not None:
         raise ValueError("probe mode needs an uncompacted query "
                          "(render_query(prob=True))")
-    if q_comp is None and 0 < effective_sr_budget(opt, S) < S and not prob:
-        # both queries compact whenever the budget is active; in the JAX
-        # package only the NN<0 vox-grid query leaves it to the shade phase
-        raise NotImplementedError("shade-side compaction (the NN<0 vox-grid "
-                                  "path) is not ported")
+    gvs = float(spec.vox_gvs)
+    RS = R * SR
+    Nc = effective_sr_budget(opt, S)
+    if q_comp is None and 0 < Nc < S and not prob:
+        # shade-side compaction (JAX renderer.py:350-390, one group): the
+        # vox-grid query returns full-shape indices, so the rows with a
+        # neighbor are packed here, each batch row into ceil(Nc/B) slots
+        # in row order; rows past the budget render empty and add to
+        # q_overflow. Row r of batch row b reads back packed slot
+        # b·Ncb + rank[r] (src_row), a zero row when not kept.
+        Ncb = -(-Nc // B)
+        ray_valid = torch.any(sample_pidx >= 0, dim=-1)        # [B,R,SR]
+        vmat = ray_valid.reshape(B, RS)
+        cum = torch.cumsum(vmat.to(torch.int32), dim=1, dtype=torch.int32)
+        comp_src, comp_valid, over = _tier_map(vmat, cum, Ncb)
+        q_overflow = q_overflow + over
+        boff = torch.arange(B, dtype=torch.int32,
+                            device=raydir.device)[:, None] * Ncb
+        src_row = torch.where(vmat & (cum <= Ncb), cum - 1 + boff,
+                              B * Ncb).reshape(-1).long()
+        q_comp = (comp_src, comp_valid,
+                  _take_rows(sample_pidx.reshape(B, RS, -1), comp_src,
+                             comp_valid, -1), ray_valid, None)
     if q_comp is not None:
-        # rows with >= 1 candidate were compacted by the query into a
-        # per-batch-row budget; the shade phase runs on those rows only
+        # rows with >= 1 candidate were compacted by the query (or just
+        # above) into a per-batch-row budget; the shade phase runs on
+        # those rows only
         comp_src, comp_valid, c_pidx_mat, ray_valid, counts = q_comp
         Ncb = comp_src.shape[1]
-        RS = R * SR
         goff = (torch.arange(B, device=raydir.device) * RS)[:, None]
         gsrc = (comp_src + goff).reshape(-1).long()
 
@@ -311,7 +343,7 @@ def render_shade(agg, point_state: Dict, spec: GridSpec, opt, batch: Dict,
         if 0 < kt < Kn:
             c_decoded, c_weight, c_conf, t_overflow = _tiered_aggregate(
                 agg, point_state, opt, c_pidx_mat, comp_valid, c_loc,
-                c_loc_w, c_srd, camrotc2w, campos, kt)
+                c_loc_w, c_srd, camrotc2w, campos, kt, gvs)
             q_overflow = q_overflow + t_overflow
         else:
             g = npc.gather_neighbors(point_state, c_pidx_mat[:, :, None, :],
@@ -320,9 +352,13 @@ def render_shade(agg, point_state: Dict, spec: GridSpec, opt, batch: Dict,
                 agg, opt, g["sampled_color"], g["Rw2c"], g["sampled_dir"],
                 g["sampled_conf"], g["sampled_embedding"],
                 g["sampled_xyz_pers"], g["sampled_xyz"],
-                g["sample_pnt_mask"], c_loc, c_loc_w, c_srd)
+                g["sample_pnt_mask"], c_loc, c_loc_w, c_srd, gvs)
 
         def scatter_back(c):
+            if counts is None:      # the gather form of JAX's unique scatter
+                flat = c.reshape((B * Ncb,) + c.shape[3:])
+                flat = torch.cat([flat, flat.new_zeros((1,) + c.shape[3:])])
+                return flat[src_row].reshape((B, R, SR) + c.shape[3:])
             out = expand_compacted(SR, c[:, :, 0], counts, comp_src,
                                    comp_valid)
             return out.reshape((B, R, SR) + c.shape[3:])
@@ -346,7 +382,7 @@ def render_shade(agg, point_state: Dict, spec: GridSpec, opt, batch: Dict,
             agg, opt, g["sampled_color"], g["Rw2c"], g["sampled_dir"],
             g["sampled_conf"], g["sampled_embedding"], g["sampled_xyz_pers"],
             g["sampled_xyz"], g["sample_pnt_mask"], sample_loc, sample_loc_w,
-            sample_ray_dirs)
+            sample_ray_dirs, gvs)
     sr_overflow = q_overflow
 
     # ray distances from the camera-depth cummax (reference volumetric :271-279)

@@ -22,6 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .voxgrid import build_vox_table
+
 LW = 128          # lanes per row of the dilated-occupancy table
 _SUPER_BLOCK = 4096  # occupied slots per superset block (bounds the
                      # [blk, kernel³·P, 4] candidate intermediate)
@@ -181,11 +183,10 @@ def build_grid(xyz: torch.Tensor, point_mask: torch.Tensor, spec: GridSpec
     xyz [N,3] float32, point_mask [N] bool. Returns coor_2_occ [vol] int32,
     occ_2_xyz [max_o,P,4] float32, coor_occ_rows [vol/128,128] int8,
     num_occ [] int32, and with superset_P > 0 also super_xyz
-    [max_o, 4·superset_P] float32 and coor_slot [vol] int32 — the layouts and
-    values of the JAX build.
+    [max_o, 4·superset_P] float32 and coor_slot [vol] int32, and with a
+    lattice in the spec (vox_dim, the NN < 0 vox-grid query) vox_table
+    [prod(vox_dim)] int32 — the layouts and values of the JAX build.
     """
-    if spec.vox_dim[0] > 0:
-        raise NotImplementedError("the NN<0 corner table is not ported")
     check_grid_volume(spec)
     dev = xyz.device
     N = xyz.shape[0]
@@ -238,6 +239,8 @@ def build_grid(xyz: torch.Tensor, point_mask: torch.Tensor, spec: GridSpec
 
     out = {"coor_2_occ": coor_2_occ, "occ_2_xyz": occ_2_xyz,
            "coor_occ_rows": coor_occ_rows, "num_occ": num_occ}
+    if spec.vox_dim[0] > 0:
+        out["vox_table"] = build_vox_table(xyz, point_mask, spec)
     if spec.superset_P > 0:
         out.update(_build_supersets(coords[order][kh], head_lin, head_slot,
                                     coor_2_occ, occ_2_xyz, spec))

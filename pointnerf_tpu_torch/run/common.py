@@ -4,8 +4,9 @@ rendering (port of `pointnerf_tpu/run/common.py`).
 Reference anchors: run/train_ft.py:51-167 (BRANCH B, the MVS point
 init), :636-732 (BRANCH C point loading: the provided cloud, sensor-depth
 points and their merge, `comb_file`), :252-414 (chunked test render),
-models/mvs/mvs_utils.py:484-561 (voxel partitions and downsamples). Not
-ported (raises): the pickled surface cloud (`cloud_path`, ROADMAP §1 A3).
+models/mvs/mvs_utils.py:484-561 (voxel partitions and downsamples),
+models/neural_points/neural_points.py:240-262 (the pickled surface cloud,
+`cloud_path`, snapped to a lattice for the NN < 0 vox-grid query).
 """
 
 from __future__ import annotations
@@ -20,11 +21,13 @@ import numpy as np
 import torch
 
 from ..config import PRESETS, Options, validate_options
+from ..data.load_blender import apply_point_noise, load_blender_cloud
 from ..data.ply import read_ply_points
 from ..models import neural_points as npc
 from ..models.renderer import effective_sr_budget
 from ..ops.frustum import build_frustum_grid
 from ..ops.grid import build_grid, make_grid_spec
+from ..ops.voxgrid import construct_grid_points, derive_lattice
 from ..train import trainer
 
 RAY_CHUNK_KEYS = ("raydir", "gt_image", "bg_ray")
@@ -221,10 +224,20 @@ def init_point_state_from_dataset(opt, dataset, device="cuda") -> Dict:
     alone, which drops the comb points, as the JAX package does),
     voxel-downsampled (for 3, source i at vox_res / 1.5^i), optionally
     resampled, then the per-point attributes (`_finish_point_state`), on
-    `device`."""
+    `device`. A `cloud_path` pickle takes the place of all of it (JAX
+    run/common.py:257-270): num_point samples drawn with replacement and
+    the point_noise jitter, both from RandomState(opt.seed), then with
+    construct_res > 0 the lattice of `construct_grid_points`; no crop,
+    downsample or resample."""
     if opt.cloud_path:
-        raise NotImplementedError("the pickled surface cloud (cloud_path) "
-                                  "is not ported (ROADMAP §1 A3)")
+        rng_cloud = np.random.RandomState(opt.seed)
+        xyz, _ = load_blender_cloud(opt.cloud_path, opt.num_point, rng_cloud)
+        xyz = apply_point_noise(xyz, opt.point_noise, rng_cloud)
+        if opt.construct_res > 0:
+            xyz, _ = construct_grid_points(xyz, opt.construct_res,
+                                           opt.grid_res)
+        return _finish_point_state(opt, dataset, xyz.astype(np.float32),
+                                   None, device)
     rgb = None
     sources = None
     depth_points = getattr(dataset, "load_init_depth_points", None)
@@ -426,13 +439,18 @@ def chunks_of_item(item: Dict, chunk_rays: int):
 @torch.inference_mode()
 def make_spec_and_grid(opt, state: Dict):
     """Grid spec from the live points' bounds, and the grid built on the
-    points' device."""
-    if opt.NN < 0:
-        raise NotImplementedError("the NN<0 vox-grid query is not ported")
+    points' device. NN < 0: the spec also carries the lattice (origin,
+    pitch, dims) derived from the live points, and the grid its corner
+    table (JAX run/common.py:374-384)."""
     mask = state["mask"].cpu().numpy()
     xyz = state["xyz"].cpu().numpy()[mask]
     spec = make_grid_spec(opt, points_min=xyz.min(0), points_max=xyz.max(0),
                           max_points=int(mask.sum()))
+    if opt.NN < 0:
+        mn, pitch, dims = derive_lattice(xyz)
+        spec = dataclasses.replace(
+            spec, vox_dim=tuple(int(d) for d in dims),
+            vox_space_min=tuple(float(v) for v in mn), vox_gvs=pitch)
     return spec, build_grid(state["xyz"], state["mask"], spec)
 
 

@@ -86,7 +86,14 @@ def probe_hole(ts, opt, dataset, frame_ids, visualizer,
     """Render probe frames and collect new point candidates where rays that
     hit border rays that miss (reference: train_ft.py:417-530). The probe
     query size comes from opt.prob_kernel_size by tier, so the probe
-    renders on a grid of its own."""
+    renders on a grid of its own. Under NN < 0 it raises ValueError: grown
+    points sit off the lattice the corner table indexes, and the JAX
+    driver's probe stops there with a KeyError (its probe grid has no
+    corner table; ROADMAP §3)."""
+    if opt.NN < 0:
+        raise ValueError("probe-and-grow does not run with the NN < 0 "
+                         "vox-grid query (grown points leave the lattice): "
+                         "set prob_freq 0")
     probe_opt = opt
     if len(opt.prob_kernel_size) >= 3:
         tier = int(np.sum(np.asarray(opt.prob_tiers) < total_steps))

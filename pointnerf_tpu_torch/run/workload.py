@@ -19,6 +19,10 @@ the evaluation phase, which scores with the random LPIPS weights of
 `lpips_state_dict`. `make_scannet_scene` writes it in ScanNet's
 `exported/` layout (`tests/fixtures.py::make_scannet_scene`'s geometry)
 with the port's JPEG, 16-bit PNG and PLY writers, for the ScanNet phase.
+`make_llff_scene` writes it in the LLFF layout, `write_legacy_pairs` the
+legacy NeRF-Synthetic dataset's pairs tables for a plate scene, and
+`write_cloud_pickle` a pickled surface cloud for `cloud_path`, for the
+llff, nerf_synth_ft and voxgrid phases.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 from ..config import nerf_synth_preset
+from ..data.llff_ft import center_poses
 from ..data.pfm import write_pfm
 from ..data.ply import write_ply_points
 from ..utils.jpeg import write_jpeg
@@ -83,10 +88,14 @@ def make_train_batch(opt, dev) -> Dict:
             "bg_color": torch.ones((1, 3), device=dev), "gt_image": on(gt)}
 
 
-def look_at_pose(campos):
-    """Blender-convention c2w looking at the origin, +z up."""
-    fwd = campos / np.linalg.norm(campos)
+def look_at_pose(campos, target=(0.0, 0.0, 0.0)):
+    """Blender-convention c2w looking at `target`, +z up (x along +x when
+    the camera looks straight down)."""
+    fwd = np.asarray(campos, np.float64) - np.asarray(target, np.float64)
+    fwd = fwd / np.linalg.norm(fwd)
     right = np.cross([0.0, 0.0, 1.0], fwd)
+    if np.linalg.norm(right) < 1e-8:
+        right = np.array([1.0, 0.0, 0.0])
     right /= np.linalg.norm(right)
     pose = np.eye(4)
     pose[:3, 0], pose[:3, 1], pose[:3, 2] = right, np.cross(fwd, right), fwd
@@ -113,6 +122,16 @@ def render_plate_rgba(c2w, focal, W, H, half=0.4):
     rgb = np.where(inside[..., None], plate_color(hit[..., 0], hit[..., 1]),
                    0.0)
     return np.concatenate([rgb, inside[..., None].astype(np.float64)], -1)
+
+
+def plate_points(side: int, half: float = 0.4, noise: float = 0.003,
+                 seed: int = 0) -> np.ndarray:
+    """A side² grid over the |x|, |y| <= half plate at z = 0, with
+    N(0, noise) jitter from RandomState(seed): float64 [side², 3]."""
+    g = np.linspace(-half, half, side)
+    gx, gy = np.meshgrid(g, g, indexing="ij")
+    xyz = np.stack([gx, gy, np.zeros_like(gx)], -1).reshape(-1, 3)
+    return xyz + np.random.RandomState(seed).normal(0, noise, xyz.shape)
 
 
 def make_plate_scene(root, wh=(400, 400), n_train=12, n_test=4,
@@ -146,16 +165,93 @@ def make_plate_scene(root, wh=(400, 400), n_train=12, n_test=4,
         with open(os.path.join(scene, f"transforms_{split}.json"), "w") as f:
             json.dump({"camera_angle_x": camera_angle_x, "frames": frames},
                        f)
-    rng = np.random.RandomState(0)
-    g = np.linspace(-0.4, 0.4, side)
-    gx, gy = np.meshgrid(g, g, indexing="ij")
-    xyz = np.stack([gx, gy, np.zeros_like(gx)], -1).reshape(-1, 3)
-    xyz = xyz + rng.normal(0, 0.003, xyz.shape)
+    xyz = plate_points(side)
     hx, hy, hr = hole
     xyz = xyz[(xyz[:, 0] - hx) ** 2 + (xyz[:, 1] - hy) ** 2 > hr ** 2]
     os.makedirs(os.path.join(scene, "colmap_results/dense"), exist_ok=True)
     write_ply_points(os.path.join(scene, "colmap_results/dense/fused.ply"),
                      xyz.astype(np.float32), plate_color(xyz[:, 0], xyz[:, 1]))
+    return len(xyz)
+
+
+def make_llff_scene(root, scan="fern", n=9, wh=(40, 30), focal=None,
+                    side=30):
+    """The plate in the LLFF layout, written with the port's PNG and PLY
+    writers (tests/fixtures.py::make_llff_scene's geometry at any size):
+    n forward-facing cameras on a 3-column grid of 0.3 pitch at z = 2.5,
+    centred on the plate, each looking at half its own xy offset;
+    images_4/imageNNN.png (the plate over white), poses_bounds.npy (LLFF's
+    [down, right, back] columns, hwf, bounds 1.5-4.0; `focal` defaults to
+    the fixture's 45 px at 40 px wide, scaled with the width), and
+    colmap_results/dense/fused.ply with a side² grid of noisy plate
+    points. The loader recentres the poses and scales them by 1/(0.75 ·
+    near) but reads fused.ply as it is (in both packages), so the points
+    are written in that normalised frame, where the views see the plate.
+    At the fixture's arguments the images and poses equal the fixture's.
+    Returns the number of points written."""
+    W, H = wh
+    focal = 45.0 * W / 40.0 if focal is None else float(focal)
+    scene = os.path.join(root, scan)
+    for d in ("images_4", "colmap_results/dense"):
+        os.makedirs(os.path.join(scene, d), exist_ok=True)
+    rows_n = -(-n // 3)
+    rows, poses = [], []
+    for i in range(n):
+        off = np.array([0.3 * ((i % 3) - 1),
+                        0.3 * ((i // 3) - (rows_n - 1) / 2), 2.5])
+        pose = look_at_pose(off, target=(off[0] * 0.5, off[1] * 0.5, 0.0))
+        rgba = render_plate_rgba(pose, focal, W, H)
+        rgb = rgba[..., :3] * rgba[..., 3:] + 1.0 * (1 - rgba[..., 3:])
+        write_png(os.path.join(scene, "images_4", f"image{i:03d}.png"),
+                  (np.clip(rgb, 0, 1) * 255).astype(np.uint8))
+        poses.append(pose[:3, :4])
+        R, t = pose[:3, :3], pose[:3, 3]
+        m = np.concatenate([-R[:, 1:2], R[:, 0:1], R[:, 2:3], t[:, None]], 1)
+        hwf = np.array([[H], [W], [focal]])
+        rows.append(np.concatenate([np.concatenate([m, hwf], 1).reshape(-1),
+                                    [1.5, 4.0]]))
+    np.save(os.path.join(scene, "poses_bounds.npy"), np.stack(rows))
+    xyz = plate_points(side)
+    _, avg = center_poses(np.stack(poses))
+    xyz_n = (np.concatenate([xyz, np.ones((len(xyz), 1))], 1)
+             @ np.linalg.inv(avg).T)[:, :3] / (1.5 * 0.75)
+    write_ply_points(os.path.join(scene, "colmap_results/dense/fused.ply"),
+                     xyz_n.astype(np.float32),
+                     plate_color(xyz[:, 0], xyz[:, 1]))
+    return len(xyz)
+
+
+def write_legacy_pairs(root, scan="plate", n_ref=4, n_extra=2, n_test=3):
+    """The legacy NeRF-Synthetic dataset's two tables for a plate scene
+    (tests/test_datasets_extra.py::_write_legacy_configs): the pairs txt
+    (refs 0..n_ref-1, each with the next two as sources, then n_extra more
+    groups) and dtu_configs/pairs.th ({scan}_test: the n_test frames after
+    the refs, {scan}_val: frame n_ref)."""
+    lst_dir = os.path.join(root, "nerf_synth_configs", "list")
+    os.makedirs(lst_dir, exist_ok=True)
+    lines = [f"{n_ref},{n_ref + n_extra}"]
+    for i in range(n_ref + n_extra):
+        lines += [str(i % n_ref),
+                  f"{(i + 1) % n_ref},{(i + 2) % n_ref}"]
+    with open(os.path.join(lst_dir, f"{scan}_finetune_init_pairs_final.txt"),
+              "w") as f:
+        f.write("\n".join(lines) + "\n")
+    cfg_dir = os.path.join(root, "dtu_configs")
+    os.makedirs(cfg_dir, exist_ok=True)
+    torch.save({f"{scan}_test": list(range(n_ref, n_ref + n_test)),
+                f"{scan}_val": [n_ref]}, os.path.join(cfg_dir, "pairs.th"))
+
+
+def write_cloud_pickle(path, side=30, half=0.42):
+    """A pickled surface cloud for `cloud_path`: a side² grid over the
+    plate with a 0.01·sin(7x) ripple in z (tests/test_voxgrid.py's cloud at
+    side 30), float32 under `point_xyz`. Returns the number of points."""
+    import pickle
+    g = np.linspace(-half, half, side)
+    gx, gy = np.meshgrid(g, g, indexing="ij")
+    xyz = np.stack([gx, gy, 0.01 * np.sin(gx * 7)], -1).reshape(-1, 3)
+    with open(path, "wb") as f:
+        pickle.dump({"point_xyz": xyz.astype(np.float32)}, f)
     return len(xyz)
 
 
@@ -289,11 +385,7 @@ def make_tt_scene(root, scan="Truck", n_train=6, n_test=2, wh=(40, 40),
                       (np.clip(rgba, 0, 1) * 255).astype(np.uint8))
             np.savetxt(os.path.join(scene, "pose", name + ".txt"),
                        pose_gl @ flip)
-    rng = np.random.RandomState(0)
-    g = np.linspace(-half, half, side)
-    gx, gy = np.meshgrid(g, g, indexing="ij")
-    xyz = np.stack([gx, gy, np.zeros_like(gx)], -1).reshape(-1, 3)
-    xyz = xyz + rng.normal(0, 0.003 * half / 0.4, xyz.shape)
+    xyz = plate_points(side, half, 0.003 * half / 0.4)
     write_ply_points(os.path.join(scene, "colmap_results/dense/fused.ply"),
                      xyz.astype(np.float32), plate_color(xyz[:, 0], xyz[:, 1]))
     return len(xyz)

@@ -1127,3 +1127,110 @@ def test_scannet_sensor_depth_step_and_render_on_card_match_cpu(dev,
     assert 0 < (b["ray_mask"] > 0.5).mean() < 1
     np.testing.assert_allclose(a["coarse_raycolor"], b["coarse_raycolor"],
                                **TOL)
+
+
+def test_vox_grid_step_and_render_on_card_match_cpu(dev, tmp_path):
+    """NN -1 from a pickled plate cloud on a small plate scene (lego's
+    trunk, trilinear weights, the shade-side compaction): the point state
+    and the corner table equal on both; one compute_grads from the same
+    state and draws on the card (K1, K2, K3, K6) and on the CPU (plain
+    versions), losses within 1e-4 and gradients within GRAD_REL in norm;
+    then a test view of 12 chunks rendered on both, masks equal and
+    colours within 1e-4."""
+    from pointnerf_tpu_torch.config import nerf_synth_preset
+    from pointnerf_tpu_torch.data import create_dataset
+    from pointnerf_tpu_torch.run import common, train_ft
+    from pointnerf_tpu_torch.run.workload import (make_plate_scene,
+                                                  write_cloud_pickle)
+    root = str(tmp_path)
+    make_plate_scene(root, wh=(48, 48), n_train=4, n_test=1)
+    cpath = str(tmp_path / "cloud.pkl")
+    write_cloud_pickle(cpath, side=60)
+    opt = nerf_synth_preset("lego").replace(
+        data_root=root, scan="plate", img_wh=(48, 48), random_sample_size=16,
+        load_points=1, cloud_path=cpath, num_point=2000,
+        point_noise="pointuniform_0.002", NN=-1, construct_res=8,
+        grid_res=32, agg_distance_kernel="trilinear", agg_weight_norm=0,
+        k_tier=0, SR_budget=512, use_fused_trunk=1)
+    train_ds, test_ds = create_dataset(opt, "train"), \
+        create_dataset(opt, "test")
+    item = train_ds.get_item(1, rng=np.random.RandomState(1))
+    agg = init_aggregator_params(opt, torch.Generator().manual_seed(0),
+                                 device="cpu")
+    u = torch.rand((1, 256, opt.z_depth_dim), generator=torch.Generator())
+    view = test_ds.get_item(0, full_img=True)
+    runs, images, tables = {}, {}, {}
+    for device in ("cpu", dev):
+        state = common.init_point_state_from_dataset(opt, train_ds,
+                                                     device=device)
+        spec, grid = common.make_spec_and_grid(opt, state)
+        tables[str(device)] = (spec, grid["vox_table"].cpu())
+        batch = {k: torch.as_tensor(item[k], device=device)
+                 for k in train_ft.BATCH_KEYS}
+        batch["near"], batch["far"] = float(item["near"]), float(item["far"])
+        st = trainer.make_train_state(copy.deepcopy(agg).to(device), state,
+                                      opt, torch.Generator(device=device))
+        for k in kernels.KERNELS:
+            k.launches = 0
+        runs[str(device)] = trainer.compute_grads(st, grid, batch, opt, spec,
+                                                  u.to(device))
+        images[str(device)] = common.render_image(st, grid, opt, spec, view)
+        on = ({kernels.TRUNK_FWD.name, kernels.TRUNK_BWD.name,
+               kernels.OCCUPANCY.name, kernels.SCATTER_ROWS.name}
+              if device == dev else set())
+        assert {k.name for k in kernels.KERNELS if k.launches} == on
+    assert tables["cpu"][0] == tables[str(dev)][0]
+    assert torch.equal(tables["cpu"][1], tables[str(dev)][1])
+    cpu, gpu = runs["cpu"], runs[str(dev)]
+    for k, v in cpu[0].items():
+        np.testing.assert_allclose(float(gpu[0][k]), float(v), rtol=1e-4,
+                                   err_msg=k)
+    for part in (1, 2):
+        for k, g in cpu[part].items():
+            d = gpu[part][k].cpu() - g
+            assert float(d.norm()) <= GRAD_REL * float(g.norm()), k
+    a, b = images[str(dev)], images["cpu"]
+    np.testing.assert_array_equal(a["ray_mask"], b["ray_mask"])
+    assert 0 < (b["ray_mask"] > 0.5).mean() < 1
+    np.testing.assert_allclose(a["coarse_raycolor"], b["coarse_raycolor"],
+                               **TOL)
+
+
+def test_vox_table_with_duplicate_corners_on_card_matches_cpu(dev):
+    """build_vox_table and query_vox_grid on the card against the CPU,
+    exactly: a lattice with jittered duplicates of its points in shuffled
+    order (the highest index holds a shared corner on both), points off
+    the box, a mask, and samples on cell faces and outside."""
+    from pointnerf_tpu_torch.ops import voxgrid
+    rng = np.random.RandomState(0)
+    cloud = rng.uniform(-0.4, 0.4, (4000, 3)).astype(np.float32)
+    cloud[:, 2] *= 0.05
+    lat, _ = voxgrid.construct_grid_points(cloud, 8, 32)
+    mn, pitch, dims = voxgrid.derive_lattice(lat)
+    spec = tgrid.GridSpec(
+        ranges_min=(0.0,) * 3, scaled_vsize=(1.0,) * 3, vdim=(1, 1, 1),
+        max_o=1, P=1, kernel_size=(1, 1, 1), query_size=(1, 1, 1),
+        radius_limit=1.0, vsize=(1.0,) * 3,
+        vox_dim=tuple(int(d) for d in dims),
+        vox_space_min=tuple(float(v) for v in mn), vox_gvs=float(pitch))
+    pick = rng.randint(0, len(lat), 3 * len(lat))
+    dup = lat[pick] + rng.uniform(-0.45, 0.45, (len(pick), 3)) * pitch
+    far = rng.uniform(-3, 3, (100, 3))
+    xyz = np.concatenate([lat, dup, far]).astype(np.float32)
+    xyz = xyz[rng.permutation(len(xyz))]
+    mask = rng.rand(len(xyz)) < 0.9
+    k = rng.randint(-1, dims + 1, (3000, 3))
+    face = (mn + k * np.float32(pitch)).astype(np.float32)
+    loc = np.concatenate([face, np.nextafter(face, np.float32(np.inf)),
+                          rng.uniform(-1, 1, (3000, 3)).astype(np.float32)])
+    loc = loc.reshape(1, -1, 3, 3)
+    out = {}
+    for device in ("cpu", dev):
+        table = voxgrid.build_vox_table(torch.as_tensor(xyz, device=device),
+                                        torch.as_tensor(mask, device=device),
+                                        spec)
+        out[str(device)] = (table.cpu(), voxgrid.query_vox_grid(
+            torch.as_tensor(loc, device=device), table, spec).cpu())
+    for a, b in zip(out["cpu"], out[str(dev)]):
+        assert torch.equal(a, b)
+    assert (out["cpu"][1] >= 0).all(-1).any()

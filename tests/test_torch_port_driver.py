@@ -292,9 +292,28 @@ def test_point_init_matches_jax(scene_root, tmp_path):
     got = tcommon.init_point_state_from_dataset(
         opt, create_dataset(opt, "train"), device="cpu")
     _assert_state_equal(got, want)
-    with pytest.raises(NotImplementedError, match="cloud_path"):
-        tcommon.init_point_state_from_dataset(
-            opt.replace(cloud_path="cloud.pkl"), None, device="cpu")
+    # the pickled surface cloud: draws, jitter and lattice from one seed
+    cpath = _write_cloud_pickle(str(tmp_path))
+    for extra in (dict(point_noise="pointuniform_0.002"),
+                  dict(point_noise="pointgaussian_0.001", construct_res=8,
+                       grid_res=32)):
+        jc = jopt.replace(cloud_path=cpath, num_point=500, **extra)
+        want = jcommon.init_point_state_from_dataset(
+            jc, jcreate(jc, split="train"), jax.random.PRNGKey(0))
+        got = tcommon.init_point_state_from_dataset(
+            _port(jc), create_dataset(_port(jc), "train"), device="cpu")
+        _assert_state_equal(got, want)
+
+
+def _write_cloud_pickle(root: str) -> str:
+    import pickle
+    rng = np.random.RandomState(3)
+    xyz = rng.uniform(-0.4, 0.4, (800, 3)).astype(np.float32)
+    xyz[:, 2] *= 0.05
+    path = os.path.join(root, "cloud.pkl")
+    with open(path, "wb") as f:
+        pickle.dump({"point_xyz": xyz}, f)
+    return path
 
 
 def test_dataset_items_match_jax(scene_root, tmp_path):

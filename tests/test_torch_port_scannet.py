@@ -264,8 +264,8 @@ def test_scannet_point_states_match_jax(sc_root, case):
 
 def test_depth_inits_fall_back_to_the_dataset_cloud(tmp_path):
     """A dataset without sensor depth (nerf_synth360_ft) takes its own
-    cloud for load_points 2 and 3, as JAX's hasattr tests do; only
-    cloud_path still raises."""
+    cloud for load_points 2 and 3, as JAX's hasattr tests do; a
+    cloud_path pickle takes the place of either, as in JAX."""
     root = str(tmp_path)
     make_nerf_synth_scene(root, wh=(40, 40))
     jopt = JOptions(data_root=root, scan="plate",
@@ -281,9 +281,21 @@ def test_depth_inits_fall_back_to_the_dataset_cloud(tmp_path):
             opt.replace(load_points=lp), create_dataset(opt, "train"),
             device="cpu")
         _assert_state_equal(got, want)
-    with pytest.raises(NotImplementedError, match="cloud_path"):
-        tcommon.init_point_state_from_dataset(
-            opt.replace(cloud_path="cloud.pkl"), None, device="cpu")
+    # a cloud_path pickle replaces every load_points source, in both
+    import pickle
+    cpath = os.path.join(root, "cloud.pkl")
+    with open(cpath, "wb") as f:
+        pickle.dump({"point_xyz": np.random.RandomState(1).uniform(
+            -0.4, 0.4, (300, 3)).astype(np.float32)}, f)
+    for lp in (2, 3):
+        jc = jopt.replace(load_points=lp, cloud_path=cpath, num_point=200,
+                          point_noise="pointuniformadd_0.01")
+        want = jcommon.init_point_state_from_dataset(
+            jc, jcreate(jc, split="train"), jax.random.PRNGKey(0))
+        oc = Options.from_json(jc.to_json())
+        got = tcommon.init_point_state_from_dataset(
+            oc, create_dataset(oc, "train"), device="cpu")
+        _assert_state_equal(got, want)
 
 
 def test_scannet_grey_frame_is_refused(tmp_path):
