@@ -4,9 +4,10 @@
 
 Builds the port's CUDA kernels from pointnerf_tpu_torch/csrc and holds each
 kernel against its plain PyTorch version at the shapes its path gives it
-(K1, K3 and K4 at a serving group's, K2 and K5 at a train step's, K3's
-select mode also at a train batch's, K6 at its micro-benchmark's and at a
-train step's, K7 at its micro-benchmark's).
+(K1, K3 and K4 at a serving group's, K2 and K5 at a train step's, K1 and
+K2 also at distance mode 30's 4-wide distances, K3's select mode also at a
+train batch's, K6 at its micro-benchmark's and at a train step's, K7 at
+its micro-benchmark's).
 Then it drives the port's main paths on the NeRF-Synthetic lego preset
 (random weights from a seeded torch.Generator, bench.py's 100k-point
 shell-and-blobs cloud), each in the default configuration (fused_shade=0:
@@ -23,12 +24,17 @@ K5, K3, K6):
 
 then the finetune driver, run/train_ft.main, at the lego preset's
 widths on a 400x400 plate scene it writes in the NeRF-Synthetic layout
-(FT_STEPS steps with a prune, probe-and-grows and a final checkpoint; the
-test PSNR must pass FT_PSNR and the PSNR before training), then main again,
-which must resume and stop at once, then run/render_vid.main on its
+(FT_STEPS steps with a prune, a probe-and-grow and a final checkpoint;
+the test PSNR must pass FT_PSNR and the PSNR before training), then main
+again, which must resume and stop at once, then run/render_vid.main on its
 checkpoint (the NeRF-Synthetic render path's 20 frames and their GIF,
 decoded back, each frame within the palette bound of its PNG); then the
-MVS point init
+aggregator's other shading envelopes on the same plate scene
+(run/workload.envelope_options: distance mode 30 through K1 and K2 at a
+4-wide distance, sh_intrp, gau_intrp, bfloat16 products, order 0 and
+block2 through the composition; ENV_STEPS steps each, the loss must fall,
+one chunk of a test view against the CPU, mode 30 also through test_ft
+and one render_vid frame); then the MVS point init
 (load_points 0, the lego preset's default) on an 800x800 plate scene:
 gen_points_filter_embeddings over every view triplet of the 12 train views
 (MVSNet depth over 128 planes, fusion, embeddings, the visual hull, the
@@ -150,9 +156,10 @@ SCATTER_REL = 1e-4                    # K6 vs plain, per entry, of the sum
 SCATTER_SCRIPT = dict(S=384000, cap=102400, C=42, dup=6.0)  # scatter_pallas
 OCC_U = 96                            # occ_micro3's distinct-row budget
 FT_WH = 400                           # finetune views (plate scene)
-FT_STEPS = 800                        # finetune steps
+FT_STEPS = 300                        # finetune steps
 FT_PRUNE = 200                        # the one prune
-FT_PROBE = 250                        # probe-and-grow every FT_PROBE steps
+FT_PROBE = 250                        # the one probe-and-grow (every
+                                      # FT_PROBE steps)
 FT_PSNR = 16.0                        # final test PSNR bar (dB)
 PHASES = ("train_s", "prune_s", "grow_s", "test_s", "save_s")
 FT_PROB_THRESH = -0.7                 # probe opacity gate off, as the ficus
@@ -169,7 +176,8 @@ MVS_NEAR_FAR = (2.5, 3.5)             # the plate scene's own depth range
                                       # them a unit behind the plate, where
                                       # the visual hull removes them
 MVS_CONF_THRESH = 0.0                 # random weights never reach lego's 0.8
-MVS_STEPS = 300                       # finetune steps from the MVS cloud
+MVS_STEPS = 100                       # finetune steps from the MVS cloud
+MVS_TEST_VIEWS = 1                    # test views of the MVS plate scene
 MVS_MIN_POINTS = 2000                 # the init must leave a few thousand
 MVS_TOL = dict(rtol=1e-4, atol=1e-4)  # one triplet, card vs CPU
 MVS_INDEX_TIE = 1e-4                  # conf jumps where the regressed depth
@@ -216,11 +224,11 @@ TT_HALF = 0.19                        # plate half-width: inside Truck's
                                       # ranges (y from -0.598 to 0.203)
 TT_RADIUS = 0.6                       # camera distance: the plate spans
                                       # about 1,200 of 1,920 columns
-TT_STEPS = 100                        # finetune steps: one checkpoint
+TT_STEPS = 50                         # finetune steps: one checkpoint
 TT_CPU_TOL = dict(rtol=1e-5, atol=1e-5)  # test_ft chunks, card vs CPU
 LPIPS_RTOL = 1e-4                     # one LPIPS distance, card vs CPU
 LPIPS_REPS = 5                        # timed LPIPS calls a net
-DTU_FT_STEPS = 200                    # dtu_ft finetune steps (plane bg)
+DTU_FT_STEPS = 100                    # dtu_ft finetune steps (plane bg)
 DTU_FT_TEST_STEP = 3                  # test_num_step: views 0 and 3 of the
                                       # 6 held out (the preset's 10 holds
                                       # out one of real DTU's 49)
@@ -249,8 +257,8 @@ SCANNET_RADIUS = 2.0                  # cameras 2.06 m from the origin, at
                                       # 29 deg: plate depths 1-4 m
 SCANNET_SIDE = 200                    # pcd.ply: a 200² grid over the plate
 SCANNET_HOLE = (0.6, -0.4, 0.5)       # less a disk the sensor depth fills
-SCANNET_STEPS = 200                   # of the preset's 200,000
-SCANNET_PROBE = 150                   # prob_freq: one probe-and-grow
+SCANNET_STEPS = 100                   # of the preset's 200,000
+SCANNET_PROBE = 75                    # prob_freq: one probe-and-grow
 SCANNET_TEST_VIEWS = 2                # test renders (test_num)
 SCANNET_LP3_STEPS = 20                # the load_points 3 run's steps, on
 SCANNET_LP3_FRAMES = 5                # a scene of its own: 1 train / 4
@@ -287,24 +295,31 @@ VOX_NUM_POINT = 100_000               # num_point: drawn from the pickle
 VOX_NOISE = "pointuniform_0.002"      # point_noise
 VOX_RES = (64, 256)                   # construct_res, grid_res: a lattice
                                       # of 299,441 points at pitch 3.6 mm
-VOX_STEPS = 200                       # finetune steps
-VOX_PRUNE = 100                       # the one prune
-VOX_TEST_VIEWS = 2                    # test renders (test_num)
+VOX_STEPS = 50                        # finetune steps
+VOX_PRUNE = 25                        # the one prune
+VOX_TEST_VIEWS = 1                    # test renders (test_num)
 LLFF_WH = (1008, 756)                 # fern's images_4 size
 LLFF_VIEWS = 20                       # forward-facing views
 LLFF_TESTSKIP = 8                     # LLFF's hold-out of every 8th view:
                                       # 3 test, 17 train
 LLFF_SIDE = 317                       # fused.ply: a 317² grid, 100,489
                                       # points
-LLFF_STEPS = 200                      # finetune steps
+LLFF_STEPS = 100                      # finetune steps
 LLFF_TEST_VIEWS = 2                   # test renders (test_num)
 LLFF_VID_FRAMES = 3                   # poses of the render split rendered
 NSFT_WH = 800                         # the legacy NeRF-Synthetic views
-NSFT_PAIRS = dict(n_ref=3, n_extra=2, n_test=2)
+NSFT_PAIRS = dict(n_ref=3, n_extra=2, n_test=1)
                                       # pairs txt: 3 ref views, 2 more view
-                                      # groups; pairs.th: 2 test frames
+                                      # groups; pairs.th: 1 test frame
 NSFT_STEPS = 50                       # finetune steps from the MVS cloud
 NSFT_MIN_POINTS = 2000                # the init must leave a few thousand
+ENV_STEPS = dict(pers30=50, sh_intrp=50, gau_intrp=50, bf16=50, order0=20,
+                 block2=20)           # envelopes phase: steps per run
+ENV_BF16_TOL = dict(rtol=0.0, atol=2e-4)  # bf16 chunk, card vs CPU: the
+                                      # envelope tests' BF16_REL (2e-4) of
+                                      # the largest colour (1); the float32
+                                      # sums differ in order, and an ulp can
+                                      # flip a bf16 rounding
 PEAK_FP32 = 67e12                     # H100 SXM fp32 FLOP/s outside the
                                       # tensor cores, at 700 W (data sheet)
 PEAK_TF32 = 495e12                    # H100 SXM dense TF32 tensor-core
@@ -474,11 +489,12 @@ def trunk_macs(ops) -> int:
     return sum(t.numel() for t in ops if t.shape[0] > 1)
 
 
-def tier_sums(rows):
+def tier_sums(rows, mode: int = 20):
     """(ms, plain_ms, bound_ms, bound_fp32_ms) of the order-2 checks at the
-    narrow and the wide tier summed: one group's or one step's work of the
-    kernel."""
-    picked = [r for r in rows if r["order"] == 2 and r.get("mode", 20) == 20]
+    narrow and the wide tier summed, at distance mode `mode`: one group's or
+    one step's work of the kernel."""
+    picked = [r for r in rows
+              if r["order"] == 2 and r.get("mode", 20) == mode]
     assert {r["tier"] for r in picked} == {"narrow", "wide"}
     return tuple(sum(r[k] for r in picked)
                  for k in ("ms", "plain_ms", "bound_ms", "bound_fp32_ms"))
@@ -542,8 +558,16 @@ def build_workload(dev):
             make_item(opt), grid_ms)
 
 
-def check_trunk(agg, opt, Ncb: int, NtB: int):
-    """K1 against fused_trunk_reference at one serving group's tier shapes."""
+def trunk_cases(agg, agg30):
+    """(dist mode, aggregator, distance width dd, order-1 flag) of the
+    trunk checks: dd 6 (mode 20, lego's) at orders 2 and 1, and dd 4
+    (mode 30, C1 264 at lego widths) at order 2."""
+    return ((20, agg, 6, False), (20, agg, 6, True), (30, agg30, 4, False))
+
+
+def check_trunk(agg, agg30, opt, Ncb: int, NtB: int):
+    """K1 against fused_trunk_reference at one serving group's tier
+    shapes, at the distance widths of modes 20 and 30."""
     from pointnerf_tpu_torch.ops import trunk as tt
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(1)
@@ -555,12 +579,13 @@ def check_trunk(agg, opt, Ncb: int, NtB: int):
                            ("wide", opt.K, NtB)):
         S = n_pts * K
         emb = (torch.rand(S, Fe, generator=g) - 0.5).to(dev)
-        d = (0.02 * torch.randn(S, 6, generator=g)).to(dev)
+        d6 = (0.02 * torch.randn(S, 6, generator=g)).to(dev)
         ex3 = (2 * torch.rand(S, 7, generator=g) - 1).to(dev)
         w = (torch.rand(S, 1, generator=g)
              * (torch.rand(S, 1, generator=g) < 0.3)).to(dev)
-        for order1 in (False, True):
-            ops = tt.pack_trunk_params(agg, Fe, 6, nf, nd,
+        for mode, a, dd, order1 in trunk_cases(agg, agg30):
+            d = d6 if dd == 6 else d6[:, :dd].contiguous()
+            ops = tt.pack_trunk_params(a, Fe, dd, nf, nd,
                                        with_alpha=not order1)
             args = (L1, L3, nf, nd, K, opt.act_super > 0, order1, emb, d, ex3,
                     w, ops)
@@ -583,14 +608,15 @@ def check_trunk(agg, opt, Ncb: int, NtB: int):
             b_ms, b_by, b32_ms = trunk_bound(
                 2 * mac, nbytes(emb, d, ex3, w, *ops, *got))
             log(f"K1 trunk_fwd {tier} K={K} order={1 if order1 else 2} "
+                f"mode={mode} C1={sum(int(o.shape[0]) for o in ops[:3])} "
                 f"rows={S}: max_abs_err={err:.3e} "
                 f"max_abs_err/max|plain|={rel:.3e} "
                 f"kernel={ms:.3f} ms plain={plain_ms:.3f} ms "
                 + bound_text(2 * mac, ms, b_ms, b_by, b32_ms))
-            rows.append(dict(tier=tier, order=1 if order1 else 2, err=err,
-                             ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                             bound_fp32_ms=b32_ms))
-        del emb, d, ex3, w
+            rows.append(dict(tier=tier, order=1 if order1 else 2,
+                             mode=mode, err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_fp32_ms=b32_ms))
+        del emb, d, d6, ex3, w
     return rows
 
 
@@ -608,10 +634,10 @@ def trunk_bwd_inputs(opt, S: int, K: int, gen: torch.Generator, dev):
     return [t.to(dev) for t in (emb, d, ex3, w, dfeat, dalpha)]
 
 
-def check_trunk_bwd(agg, opt, Ncb: int, NtB: int):
+def check_trunk_bwd(agg, agg30, opt, Ncb: int, NtB: int):
     """K2 against fused_trunk_bwd_reference at one train step's tier
     shapes (narrow: Ncb rows at K=k_tier, wide: NtB shading points x K),
-    orders 1 and 2. The derivative of LeakyReLU jumps at 0, so rows with a
+    orders 1 and 2 at mode 20's distance width and order 2 at mode 30's. The derivative of LeakyReLU jumps at 0, so rows with a
     pre-activation within KINK of 0 get neighbor weight 0 (no cotangent
     reaches their layers; their count is printed). Per-row cotangents are
     then held at K2_ROW_TOL; each weight gradient sums every row, so it is
@@ -627,9 +653,10 @@ def check_trunk_bwd(agg, opt, Ncb: int, NtB: int):
     for tier, K, n_pts in (("narrow", opt.k_tier if opt.k_tier > 0 else 1,
                             Ncb), ("wide", opt.K, NtB)):
         S = n_pts * K
-        emb, d, ex3, w, dfeat, dalpha = trunk_bwd_inputs(opt, S, K, g, dev)
-        for order1 in (False, True):
-            ops = tt.pack_trunk_params(agg, Fe, 6, nf, nd,
+        emb, d6, ex3, w, dfeat, dalpha = trunk_bwd_inputs(opt, S, K, g, dev)
+        for mode, a, dd, order1 in trunk_cases(agg, agg30):
+            d = d6 if dd == 6 else d6[:, :dd].contiguous()
+            ops = tt.pack_trunk_params(a, Fe, dd, nf, nd,
                                        with_alpha=not order1)
             ops = [o.detach() for o in ops]
             zs = tt.trunk_activations(L1, L3, nf, nd, emb, d, ex3, ops,
@@ -667,6 +694,7 @@ def check_trunk_bwd(agg, opt, Ncb: int, NtB: int):
                 flops,
                 nbytes(*args[7:11], *ops, *args[12:], *got[:4], *got[4]))
             log(f"K2 trunk_bwd {tier} K={K} order={1 if order1 else 2} "
+                f"mode={mode} C1={sum(int(o.shape[0]) for o in ops[:3])} "
                 f"rows={S}: per-row max_abs_err={row_err:.3e} "
                 f"({S - int(smooth.sum())} rows within {KINK:g} of a "
                 f"LeakyReLU kink weighted 0) "
@@ -676,9 +704,10 @@ def check_trunk_bwd(agg, opt, Ncb: int, NtB: int):
                 + bound_text(flops, ms, b_ms, b_by, b32_ms) + "; "
                 + scratch_text(L1, L3, ops, S))
             rows.append(dict(tier=tier, order=1 if order1 else 2,
-                             err=row_err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=b_ms, bound_fp32_ms=b32_ms))
-        del emb, d, ex3, w, dfeat, dalpha
+                             mode=mode, err=row_err, ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_fp32_ms=b32_ms))
+        del emb, d, d6, ex3, w, dfeat, dalpha
     return rows
 
 
@@ -1567,7 +1596,7 @@ def mvs_options(root):
         checkpoints_dir=os.path.join(root, "checkpoints"),
         experiment="plate_mvs", maximum_step=MVS_STEPS, prune_iter=0,
         prob_freq=0, print_freq=100, save_iter_freq=10 * MVS_STEPS,
-        save_point_freq=0, test_freq=0, test_num=4)
+        save_point_freq=0, test_freq=0, test_num=MVS_TEST_VIEWS)
 
 
 def mvs_triplet_check(opt, mvs, sample):
@@ -1648,7 +1677,7 @@ def mvs_path(root):
     from pointnerf_tpu_torch.run.workload import make_plate_scene
     from pointnerf_tpu_torch.train import trainer
     from pointnerf_tpu_torch.utils.visualizer import Visualizer
-    make_plate_scene(root, wh=(MVS_WH, MVS_WH))
+    make_plate_scene(root, wh=(MVS_WH, MVS_WH), n_test=MVS_TEST_VIEWS)
     opt = mvs_options(root)
     dev = torch.device("cuda")
     train_ds = create_dataset(opt, "train")
@@ -2428,17 +2457,21 @@ def check_image_io(root):
 # ---------------------------------- shared by the scene finetune phases
 class StepItems:
     """Within the block, the sum of every train_step's sr_overflow (the
-    query's and the shade-side compaction's dropped rows) and the step
-    count, from the items the driver fetches anyway."""
+    query's and the shade-side compaction's dropped rows), each step's
+    loss_total and the step count, from the items the driver fetches
+    anyway."""
 
     def __enter__(self):
         from pointnerf_tpu_torch.train import trainer
         self.trainer, self.step = trainer, trainer.train_step
         self.sr_overflow, self.steps = 0, 0
 
+        self.losses = []
+
         def spy(*a, **kw):
             ts, items = self.step(*a, **kw)
             self.sr_overflow += int(float(items["sr_overflow"]))
+            self.losses.append(float(items["loss_total"]))
             self.steps += 1
             return ts, items
         trainer.train_step = spy
@@ -2448,13 +2481,14 @@ class StepItems:
         self.trainer.train_step = self.step
 
 
-def chunks_vs_cpu(label, ckpt, opt, item):
+def chunks_vs_cpu(label, ckpt, opt, item, tol=TT_CPU_TOL, n_chunks=2):
     """The checkpoint on the card: a timed render of the full view, then
-    two of its chunks (the one with the most hits and one with hits and
-    misses) rendered again on the CPU from the same checkpoint with the
-    kernels' plain versions; ray_mask equal, colours within TT_CPU_TOL.
-    Launches made here are put back. Returns (ms per image, max_abs_err,
-    hit share, the render's counters)."""
+    n_chunks of its chunks (one with hits and misses, and with two the one
+    with the most hits) rendered again on the CPU from the same checkpoint
+    with the kernels' plain versions; ray_mask equal, colours within
+    `tol`. Launches made here are put back. Returns (ms per image,
+    max_abs_err, hit share, the render's counters)."""
+    from pointnerf_tpu_torch.ops.trunk import fused_trunk_ok
     from pointnerf_tpu_torch.ops import kernels
     from pointnerf_tpu_torch.run import common
     from pointnerf_tpu_torch.utils.checkpoint import load_checkpoint
@@ -2474,8 +2508,9 @@ def chunks_vs_cpu(label, ckpt, opt, item):
     chunk = opt.random_sample_size ** 2
     per_chunk = hit.reshape(-1)[: (Hi * Wi // chunk) * chunk].reshape(
         -1, chunk).sum(1)
-    pick = sorted({int(np.argmax(per_chunk)),
-                   int(np.argmin(np.abs(per_chunk - chunk / 2)))})
+    mixed = int(np.argmin(np.abs(per_chunk - chunk / 2)))
+    pick = sorted({int(np.argmax(per_chunk)), mixed}) if n_chunks == 2 \
+        else [mixed]
     sel = np.concatenate([np.arange(c * chunk, (c + 1) * chunk)
                           for c in pick])
     sub = dict(item, raydir=item["raydir"][:, sel],
@@ -2484,14 +2519,16 @@ def chunks_vs_cpu(label, ckpt, opt, item):
     t0 = time.perf_counter()
     cpu_ts, _ = load_checkpoint(ckpt, opt, device="cpu")
     _, cpu_grid = common.make_spec_and_grid(opt, cpu_ts.points)
-    cpu = common.render_image(cpu_ts, cpu_grid, opt.replace(use_fused_trunk=1),
-                              spec, sub)
+    # the CPU runs K1's plain version where the card runs K1
+    cpu = common.render_image(
+        cpu_ts, cpu_grid, opt.replace(use_fused_trunk=int(fused_trunk_ok(
+            opt))), spec, sub)
     px, py = sub["pixel_idx"][0, :, 0].astype(int), \
         sub["pixel_idx"][0, :, 1].astype(int)
     np.testing.assert_array_equal(cpu["ray_mask"][py, px],
                                   maps["ray_mask"][py, px])
     np.testing.assert_allclose(cpu["coarse_raycolor"][py, px], rgb[py, px],
-                               **TT_CPU_TOL)
+                               **tol)
     err = float(np.abs(cpu["coarse_raycolor"][py, px] - rgb[py, px]).max())
     log(f"{label} render {Wi}x{Hi}: {1e3 * dt:.1f} ms/image, hit share "
         f"{hit.mean():.4f}, sr_overflow {stats.get('sr_overflow')}, "
@@ -2506,11 +2543,12 @@ def chunks_vs_cpu(label, ckpt, opt, item):
     return 1e3 * dt, err, float(hit.mean()), stats
 
 
-def finetune_run(label, opt, kerns):
+def finetune_run(label, opt, kerns, losses=None):
     """train_ft.main with the counts set to 0 just before and read just
-    after, its train steps' sr_overflow summed; every kernel of `kerns`
-    must launch. Returns (the result, its launches, wall seconds, the
-    steps' sr_overflow, peak GiB)."""
+    after, its train steps' sr_overflow summed (and each step's loss_total
+    appended to `losses`); every kernel of `kerns` must launch. Returns
+    (the result, its launches, wall seconds, the steps' sr_overflow, peak
+    GiB)."""
     from pointnerf_tpu_torch.ops import kernels
     from pointnerf_tpu_torch.run import train_ft
     for k in kernels.KERNELS:
@@ -2521,6 +2559,8 @@ def finetune_run(label, opt, kerns):
     with StepItems() as steps:
         res = train_ft.main(opt)
     wall = time.perf_counter() - t0
+    if losses is not None:
+        losses += steps.losses
     launches = {k.name: k.launches for k in kernels.KERNELS}
     check_launches(label, kerns)
     tm = res["timing"]
@@ -2974,6 +3014,120 @@ def llff_path(root, smi: str):
     return ft, rv
 
 
+def envelopes_options(root, name):
+    """The finetune phase's lego options on its plate scene with the
+    envelope `name` of run/workload.ENVELOPES switched on: ENV_STEPS[name]
+    steps, no prune or probe, a checkpoint at the end, the final test
+    over the scene's 4 test views."""
+    from pointnerf_tpu_torch.run.workload import envelope_options
+    steps = ENV_STEPS[name]
+    return envelope_options(name, finetune_options(root)).replace(
+        experiment=f"env_{name}", maximum_step=steps, prune_iter=0,
+        prune_max_iter=0, prob_freq=0, print_freq=steps,
+        save_iter_freq=10 * steps)
+
+
+def envelopes_path(root, smi: str):
+    """The aggregator's other shading envelopes on the card, each a
+    train_ft run on the finetune phase's plate scene (FT_WH², lego widths):
+    pers30 (distance mode 30: K1, K2 at dd 4, K3, K6), sh_intrp,
+    gau_intrp, bf16, order0 and block2 (the composition around K3 and K6:
+    no K1, K2, K4 or K5). Each prints ms/step, the test PSNR before and
+    after over the 4 test views, the peak and the launches, and renders
+    one chunk of a test view on the CPU from its checkpoint (1e-5; bf16
+    ENV_BF16_TOL). pers30 also renders through test_ft and one render_vid
+    frame. Raises on a non-finite output, a loss that does not fall (the
+    mean of the last five steps against the first five), a chunk outside
+    its tolerance, or the kernels above. Returns each run's launches."""
+    from pointnerf_tpu_torch.data import create_dataset
+    from pointnerf_tpu_torch.ops import kernels
+    from pointnerf_tpu_torch.run import common, test_ft
+    from pointnerf_tpu_torch.run.render_vid import render_vid
+    from pointnerf_tpu_torch.utils.checkpoint import load_checkpoint
+    from pointnerf_tpu_torch.utils.visualizer import Visualizer
+    phase0 = time.perf_counter()
+    fused = (kernels.TRUNK_FWD, kernels.TRUNK_BWD, kernels.SHADE_FWD,
+             kernels.SHADE_BWD)
+    runs = []
+    for name in ENV_STEPS:
+        opt = envelopes_options(root, name)
+        train_ds, test_ds = create_dataset(opt, "train"), \
+            create_dataset(opt, "test")
+        torch.cuda.reset_peak_memory_stats()
+        s0 = start_psnr(opt, train_ds, test_ds, len(test_ds))
+        psnr0 = s0["psnr0"]
+        del s0, train_ds
+        torch.cuda.empty_cache()
+        kerns = fused[:2] if name == "pers30" else ()
+        losses = []
+        res, ft, wall, _, peak = finetune_run(
+            f"envelopes {name}", opt,
+            kerns + (kernels.OCCUPANCY, kernels.SCATTER_ROWS), losses)
+        tm = res["timing"]
+        head, tail = np.mean(losses[:5]), np.mean(losses[-5:])
+        ms_step = 1e3 * tm["train_s"] / tm["steps"]
+        ckpt = os.path.join(opt.checkpoints_dir, opt.experiment)
+        tol = ENV_BF16_TOL if name == "bf16" else TT_CPU_TOL
+        ms_img, err, _, _ = chunks_vs_cpu(
+            f"envelopes {name}", ckpt, opt,
+            test_ds.get_item(0, full_img=True), tol=tol, n_chunks=1)
+        log(f"envelopes {name}: {tm['steps']} steps, {ms_step:.1f} ms/step "
+            f"(host clock around each step and its items' fetch), wall "
+            f"{wall:.1f} s (test renders {tm['test_s']:.1f} s, checkpoint "
+            f"{tm['save_s']:.1f} s); loss_total mean of the first 5 steps "
+            f"{head:.6f} -> last 5 {tail:.6f}; test PSNR {psnr0:.3f} -> "
+            f"{res['final_psnr']:.3f} ({len(test_ds)} views); one chunk "
+            f"card vs CPU max_abs_err {err:.3e} (tolerance {tol}); render "
+            f"{ms_img:.1f} ms/image; peak {peak:.2f} GiB; launches {ft}")
+        if not (np.isfinite(losses).all() and tail < head):
+            raise AssertionError(f"envelopes {name}: the loss does not fall "
+                                 f"({head} -> {tail})")
+        if name != "pers30" and any(ft[k.name] for k in fused):
+            raise AssertionError(f"envelopes {name} launched a fused trunk "
+                                 f"or shade kernel: {ft}")
+        runs.append(ft)
+        del res
+        torch.cuda.empty_cache()
+        if name != "pers30":
+            continue
+        for k in kernels.KERNELS:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = test_ft.main(opt.replace(resume_dir=ckpt))
+        test_s = time.perf_counter() - t0
+        tf = {k.name: k.launches for k in kernels.KERNELS}
+        check_launches("envelopes pers30 test_ft",
+                       (kernels.TRUNK_FWD, kernels.OCCUPANCY))
+        render_ds = create_dataset(opt, "render")
+        render_ds.render_poses = render_ds.render_poses[:1]
+        render_ds.total = 1
+        ts, _ = load_checkpoint(ckpt, opt, device="cuda")
+        spec, grid = common.make_spec_and_grid(opt, ts.points)
+        for k in kernels.KERNELS:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vid = render_vid(ts, grid, opt, spec, render_ds, Visualizer(opt),
+                         opt.maximum_step)
+        vid_s = time.perf_counter() - t0
+        rv = {k.name: k.launches for k in kernels.KERNELS}
+        check_launches("envelopes pers30 render_vid",
+                       (kernels.TRUNK_FWD, kernels.OCCUPANCY))
+        log(f"envelopes pers30 test_ft: step {out['step']}, PSNR "
+            f"{out['psnr']:.3f} in {test_s:.1f} s; launches {tf}; "
+            f"render_vid: {vid['n_frames']} frame in {vid_s:.1f} s; "
+            f"launches {rv}")
+        if out["step"] != opt.maximum_step or not np.isfinite(out["psnr"]) \
+                or vid["n_frames"] != 1:
+            raise AssertionError("the pers30 test_ft or render_vid failed")
+        runs += [tf, rv]
+        del ts, grid
+        torch.cuda.empty_cache()
+    log(f"envelopes phase: {time.perf_counter() - phase0:.1f} s; {smi}")
+    return runs
+
+
 def nsft_options(root):
     """The lego preset's widths on the legacy NeRF-Synthetic dataset
     (nerf_synth_ft, NSFT_WH²) with the MVS init over the pairs file's
@@ -3248,6 +3402,10 @@ def main() -> int:
     from pointnerf_tpu_torch.ops import kernels
 
     start = time.perf_counter()
+
+    def timeline(label):
+        log(f"timeline: {label} done, {time.perf_counter() - start:.1f} s "
+            f"from the start")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
@@ -3290,14 +3448,26 @@ def main() -> int:
     tier_rows = lambda rows: tier_shapes(opt, rows)
     agg0 = init_aggregator_params(opt.replace(agg_dist_pers=0),
                                   torch.Generator().manual_seed(5), device=dev)
+    agg30 = init_aggregator_params(opt.replace(agg_dist_pers=30),
+                                   torch.Generator().manual_seed(6),
+                                   device=dev)
     with torch.inference_mode():
-        k1 = check_trunk(agg, opt, *tier_rows(GROUP * chunk * opt.SR))
+        k1 = check_trunk(agg, agg30, opt,
+                         *tier_rows(GROUP * chunk * opt.SR))
         k3 = check_occupancy(item, grid, spec, opt, GROUP * chunk)
         k4 = check_shade({20: agg, 0: agg0}, opt,
                          *tier_rows(GROUP * chunk * opt.SR))
-    k2 = check_trunk_bwd(agg, opt, *tier_rows(chunk * opt.SR))
+    k2 = check_trunk_bwd(agg, agg30, opt, *tier_rows(chunk * opt.SR))
     k5 = check_shade_bwd(agg, opt, *tier_rows(chunk * opt.SR))
-    del agg0
+    for name, rows in (("K1", k1), ("K2", k2)):
+        t20, t30 = tier_sums(rows), tier_sums(rows, 30)
+        log(f"{name} narrow + wide, C1 284 (mode 20) -> 264 (mode 30): "
+            f"kernel {t20[0]:.3f} -> {t30[0]:.3f} ms (the C1 284 time "
+            f"scaled by 264/284: {t20[0] * 264 / 284:.3f}), plain "
+            f"{t20[1]:.3f} -> {t30[1]:.3f} ms, bound (3xTF32) "
+            f"{t20[2]:.3f} -> {t30[2]:.3f} ms, bound_fp32 {t20[3]:.3f} -> "
+            f"{t30[3]:.3f} ms")
+    del agg0, agg30
     torch.cuda.empty_cache()
     # K6 at its script's shapes (its train-step shapes follow the train
     # path), K7 at occ_micro3's
@@ -3309,6 +3479,7 @@ def main() -> int:
     del idx_np, upd_np
     k7 = check_row_select(dev)
     torch.cuda.empty_cache()
+    timeline("kernel checks")
 
     # the main paths, default (K1, K2, K3, K6 in training) then fused_shade
     # (K4, K5, K3, K6 in training)
@@ -3361,6 +3532,7 @@ def main() -> int:
         raise AssertionError(f"the fused_shade step-1 loss differs by {rel}")
     del st, batch, state, grid, ts, agg
     torch.cuda.empty_cache()
+    timeline("serve and train")
 
     # the finetune driver at lego widths: K1, K2, K3, K6; then from the
     # MVS init
@@ -3369,10 +3541,16 @@ def main() -> int:
         finetune = finetune_path(root)
         torch.cuda.empty_cache()
         video = video_path(root)
+        torch.cuda.empty_cache()
+        # the other shading envelopes on the same plate scene: pers30
+        # (K1, K2, K3, K6), the rest around K3 and K6
+        envelopes = envelopes_path(root, smi)
     torch.cuda.empty_cache()
+    timeline("finetune, render_vid, envelopes")
     with tempfile.TemporaryDirectory() as root:
         mvs = mvs_path(root)
     torch.cuda.empty_cache()
+    timeline("mvs")
 
     # the feed-forward DTU paths: inference (frustum querier, K1 in order
     # 1), then generalizable training (K1, K2, K3, K6)
@@ -3386,18 +3564,21 @@ def main() -> int:
         torch.cuda.empty_cache()
         dtu_gen = dtu_gen_path(root)
     torch.cuda.empty_cache()
+    timeline("dtu_inf, dtu_gen")
 
     # the DTU per-scene finetune with the plane background (K1, K2, K3,
     # K6), its planepoints run and the resampler
     with tempfile.TemporaryDirectory() as root:
         dtu_ft, dtu_pp = dtu_ft_path(root, smi)
     torch.cuda.empty_cache()
+    timeline("dtu_ft")
 
     # the ScanNet finetune from sensor depth (K1, K2, K3, K6) at the
     # sensors' sizes, its image I/O and its load_points 3 run
     with tempfile.TemporaryDirectory() as root:
         _, scannet_ft, scannet_lp3 = scannet_path(root, smi)
     torch.cuda.empty_cache()
+    timeline("scannet")
 
     # the vox-grid querier from a pickled cloud (K1, K2, K3, K6; test_ft:
     # K1, K3), the LLFF finetune and its render path, and the legacy
@@ -3405,12 +3586,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         vox_ft, vox_test = voxgrid_path(root, smi)
     torch.cuda.empty_cache()
+    timeline("voxgrid")
     with tempfile.TemporaryDirectory() as root:
         llff_ft, llff_vid = llff_path(root, smi)
     torch.cuda.empty_cache()
+    timeline("llff")
     with tempfile.TemporaryDirectory() as root:
         nsft_ft = nsft_path(root, smi)
     torch.cuda.empty_cache()
+    timeline("nerf_synth_ft")
 
     # the evaluation phase: the T&T finetune, test_ft and LPIPS at
     # 1920x1080 (K1, K2, K3, K6)
@@ -3420,9 +3604,9 @@ def main() -> int:
     log(f"evaluation phase: {time.perf_counter() - t0:.1f} s")
 
     log(f"chip_smoke: {time.perf_counter() - start:.1f} s from the start")
-    runs = (serve, serve_s, train, train_s, finetune, video, mvs, dtu_inf,
-            dtu_gen, dtu_ft, dtu_pp, scannet_ft, scannet_lp3, vox_ft,
-            vox_test, llff_ft, llff_vid, nsft_ft, tt_ft, tt_test)
+    runs = (serve, serve_s, train, train_s, finetune, video, *envelopes,
+            mvs, dtu_inf, dtu_gen, dtu_ft, dtu_pp, scannet_ft, scannet_lp3,
+            vox_ft, vox_test, llff_ft, llff_vid, nsft_ft, tt_ft, tt_test)
     report = {"kernels": []}
     for k, rows in ((kernels.TRUNK_FWD, k1), (kernels.TRUNK_BWD, k2),
                     (kernels.OCCUPANCY, k3), (kernels.SHADE_FWD, k4),

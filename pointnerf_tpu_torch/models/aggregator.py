@@ -1,12 +1,15 @@
 """Point aggregator: per-neighbor shading MLP + inverse-distance interpolation.
 
-PyTorch port of `pointnerf_tpu/models/aggregator.py` on the lego envelope:
-the mode-0 and mode-20 distances, the fixed distance kernels (linear,
-numlinear, quadric, numquadric, avg, trilinear; axis weights), the conf
-clamp, orders 1 and 2 of the plain path, the fused-trunk branch and the
-fused-shade branch (`ops/trunk.py`). Every (shading point, neighbor) row is
-computed; invalid neighbors are removed by the weight mask, so shapes stay
-static.
+PyTorch port of `pointnerf_tpu/models/aggregator.py`: every distance mode
+(-1, 0, 1, 2, 10, 20, 30) and `dist_xyz_deno`; the fixed distance kernels
+(linear, numlinear, quadric, numquadric, avg, trilinear; axis weights) and
+the learned ones that read point channels (sh_intrp, gau_intrp); the conf
+clamp; orders 0, 1 and 2; block1, block2 and block3; float32 or bfloat16
+products (`networks.apply_mlp`); the fused-trunk branch and the fused-shade
+branch (`ops/trunk.py`). Every (shading point, neighbor) row is computed;
+invalid neighbors are removed by the weight mask, so shapes stay static.
+Option sets that fail in the JAX package too raise ValueError
+(`check_envelope`).
 """
 
 from __future__ import annotations
@@ -18,8 +21,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.geometry import compute_world2local_dist
+from ..ops.grid import true_div
 from ..ops.pe import positional_encoding
-from .networks import apply_mlp, apply_mlp_pieces, init_mlp, linears, make_mlp
+from ..ops.sh import sh_basis
+from .networks import (COMPUTE_DTYPES, apply_mlp, apply_mlp_pieces, init_mlp,
+                       linears, make_mlp)
 
 BRANCHES = ("block1", "block2", "block3", "alpha_branch", "color_branch")
 
@@ -88,6 +95,10 @@ class Aggregator(nn.Module):
     def __init__(self, branches: Dict[str, nn.Sequential]):
         super().__init__()
         for name, seq in branches.items():
+            if name == "feat_weight_mlp":
+                raise ValueError("feat_weight_mlp belongs to "
+                                 "agg_distance_kernel feat_intrp, which both "
+                                 "packages refuse")
             if name not in BRANCHES:
                 raise ValueError(f"unknown aggregator branch {name}")
             setattr(self, name, seq)
@@ -96,12 +107,56 @@ class Aggregator(nn.Module):
         return hasattr(self, name)
 
 
+DIST_MODES = (0, 1, 2, 10, 20, 30)        # and any negative mode
+
+
+def check_envelope(opt) -> None:
+    """Raise ValueError, naming the option, for the option sets the JAX
+    package fails on as well: the feat_intrp and meta_intrp kernels (JAX's
+    compute_weights raises); an agg_*_xyz_mode other than "None" (its dims
+    add channels no forward piece supplies); order 0 with a point color or
+    dir mode "1" (block3's extras are per neighbor, its input per shading
+    point); block2 with num_feat_freqs > 0 at order > 0 (block2 is sized
+    without the distances the forward passes it); sh_intrp reading more
+    channels than the points hold. Also an unknown distance mode, order
+    or compute dtype."""
+    k = opt.agg_distance_kernel
+    if k in ("feat_intrp", "meta_intrp"):
+        raise ValueError(f"agg_distance_kernel {k} is unsupported (the JAX "
+                         "package's compute_weights raises for it too)")
+    for name in ("agg_feat_xyz_mode", "agg_alpha_xyz_mode",
+                 "agg_color_xyz_mode"):
+        if getattr(opt, name) != "None":
+            raise ValueError(f"{name} {getattr(opt, name)}: the aggregator "
+                             "takes only None (no piece supplies the point "
+                             "channels its dims count)")
+    if k == "sh_intrp" and opt.sh_degree ** 2 > opt.point_features_dim:
+        raise ValueError(f"sh_degree {opt.sh_degree} reads "
+                         f"{opt.sh_degree ** 2} point channels of "
+                         f"{opt.point_features_dim}")
+    if opt.agg_intrp_order not in (0, 1, 2):
+        raise ValueError(f"agg_intrp_order {opt.agg_intrp_order}")
+    if opt.agg_intrp_order == 0 and ("1" in list(opt.point_color_mode)
+                                     or "1" in list(opt.point_dir_mode)):
+        raise ValueError("agg_intrp_order 0 takes point_color_mode and "
+                         "point_dir_mode 0 (block3's color and dir inputs "
+                         "are per neighbor)")
+    if opt.shading_feature_mlp_layer2 > 0 and opt.num_feat_freqs > 0 \
+            and opt.agg_intrp_order > 0:
+        raise ValueError("shading_feature_mlp_layer2 > 0 takes "
+                         "num_feat_freqs 0 at agg_intrp_order > 0 (block2 "
+                         "is sized without the distances it is passed)")
+    if opt.agg_dist_pers >= 0 and opt.agg_dist_pers not in DIST_MODES:
+        raise ValueError(f"illegal agg_dist_pers {opt.agg_dist_pers}")
+    if opt.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {opt.compute_dtype}")
+
+
 def init_aggregator_params(opt, generator: torch.Generator = None,
                            device="cuda") -> Aggregator:
     """Build and initialize the aggregator (reference: viewmlp_init :276-348)
     on `device` (the card unless the caller names another)."""
-    if opt.agg_distance_kernel == "feat_intrp":
-        raise NotImplementedError("the feat_intrp weight MLP is not ported")
+    check_envelope(opt)
     dims = aggregator_dims(opt)
     f = opt.shading_feature_num
     act = opt.act_type
@@ -172,22 +227,47 @@ def unit_axis_weight(opt) -> bool:
 
 FIXED_KERNELS = ("linear", "numlinear", "quadric", "numquadric", "avg",
                  "trilinear")
+SH_ACTS = {"sigmoid": torch.sigmoid, "tanh": torch.tanh,
+           "passfunc": lambda x: x}
+SH_DIST_FUNCS = {
+    "sh_linear": lambda n: 1.0 / torch.clamp(n, min=1e-8),
+    "sh_quadric": lambda n: 1.0 / torch.clamp(torch.square(n), min=1e-8),
+    "passfunc": torch.ones_like}
 
 
-def compute_weights(opt, dists, pnt_mask, grid_vox_sz: float = 0.0):
-    """The fixed distance kernels (reference :355-485; JAX
-    aggregator.py:151-197): dists [B,R,SR,K,C], pnt_mask float
+def compute_weights(opt, dists, pnt_mask, grid_vox_sz: float = 0.0,
+                    coefs=None, vsize=None):
+    """The distance kernels (reference :355-485; JAX
+    aggregator.py:151-219): dists [B,R,SR,K,C], pnt_mask float
     [B,R,SR,K] → weights [B,R,SR,K]. A non-unit agg_axis_weight scales the
     xy radius and |z| (linear kernels) or the squared channels (quadric
     kernels); numlinear divides by the neighbor count, the num* kernels
     and trilinear skip the later normalisation, and trilinear takes the
-    lattice pitch `grid_vox_sz`.
-    The learned kernels (feat_intrp, meta_intrp, sh_intrp, gau_intrp) are
-    not ported."""
+    lattice pitch `grid_vox_sz`. The learned kernels read `coefs`, the
+    point channels they consume (`_kernel_feat_consumed`): sh_intrp a
+    spherical-harmonics lobe over the neighbor's direction times a
+    distance falloff, gau_intrp an anisotropic gaussian of radius up to
+    20·vsize[2]."""
     name = opt.agg_distance_kernel
+    if name == "sh_intrp":
+        dist_norm = torch.linalg.norm(dists, dim=-1)
+        dirs = dists / torch.clamp(dist_norm[..., None], min=1e-8)
+        shall = sh_basis(dirs, opt.sh_degree, flip_dir=False)
+        return pnt_mask * torch.sum(SH_ACTS[opt.sh_act](shall * coefs),
+                                    dim=-1) \
+            * SH_DIST_FUNCS[opt.sh_dist_func](dist_norm)
+    if name == "gau_intrp":
+        if vsize is None:
+            raise ValueError("gau_intrp needs the grid's vsize")
+        scale = torch.abs(coefs[..., 0])
+        radii = float(vsize[2]) * 20 * torch.sigmoid(coefs[..., 1:4])
+        rotations = torch.clamp(coefs[..., 4:7], -np.pi / 4, np.pi / 4)
+        gau = compute_world2local_dist(dists[..., :3], radii,
+                                       rotations)[..., 0]
+        return pnt_mask * scale * torch.exp(
+            -0.5 * torch.sum(torch.square(gau), dim=-1))
     if name not in FIXED_KERNELS:
-        raise NotImplementedError(
-            f"agg_distance_kernel {name} is not ported (ROADMAP §1 A4)")
+        raise ValueError(f"unsupported agg_distance_kernel {name}")
     aw = None if unit_axis_weight(opt) else torch.tensor(
         np.asarray(opt.agg_axis_weight, np.float32), device=dists.device)
 
@@ -220,21 +300,44 @@ def compute_weights(opt, dists, pnt_mask, grid_vox_sz: float = 0.0):
 
 
 def compute_dists(opt, sampled_xyz, sampled_xyz_pers, sample_loc,
-                  sample_loc_w):
-    """agg_dist_pers 0: the world diff; 20: [world diff, perspective diff]
-    (reference :748-796)."""
-    if opt.agg_dist_pers == 0:
-        return sampled_xyz - sample_loc_w[..., None, :]
-    if opt.agg_dist_pers != 20:
-        raise NotImplementedError(f"agg_dist_pers {opt.agg_dist_pers} is not "
-                                  "ported")
-    xd = sampled_xyz_pers[..., 0] * sampled_xyz_pers[..., 2] \
-        - sample_loc[..., None, 0] * sample_loc[..., None, 2]
-    yd = sampled_xyz_pers[..., 1] * sampled_xyz_pers[..., 2] \
-        - sample_loc[..., None, 1] * sample_loc[..., None, 2]
-    zd = sampled_xyz_pers[..., 2] - sample_loc[..., None, 2]
-    pers = torch.stack([xd, yd, zd], dim=-1)
-    return torch.cat([sampled_xyz - sample_loc_w[..., None, :], pers], dim=-1)
+                  sample_loc_w, sample_ray_dirs):
+    """The agg_dist_pers modes (reference :748-796; JAX aggregator.py:
+    222-252): < 0 the sample's world location itself; 0 the world diff; 1
+    the perspective diff; 2 the depth-scaled perspective diff; 10 [world,
+    perspective]; 20 [world, depth-scaled perspective]; 30 [the world
+    diff's projection on the ray, world diff]."""
+    mode = opt.agg_dist_pers
+    if mode < 0:
+        return sample_loc_w[..., None, :].expand(sampled_xyz.shape)
+    w_d = sampled_xyz - sample_loc_w[..., None, :]
+    if mode == 0:
+        return w_d
+    if mode == 1:
+        return sampled_xyz_pers - sample_loc[..., None, :]
+    if mode in (2, 20):
+        xd = sampled_xyz_pers[..., 0] * sampled_xyz_pers[..., 2] \
+            - sample_loc[..., None, 0] * sample_loc[..., None, 2]
+        yd = sampled_xyz_pers[..., 1] * sampled_xyz_pers[..., 2] \
+            - sample_loc[..., None, 1] * sample_loc[..., None, 2]
+        zd = sampled_xyz_pers[..., 2] - sample_loc[..., None, 2]
+        pers = torch.stack([xd, yd, zd], dim=-1)
+        return pers if mode == 2 else torch.cat([w_d, pers], dim=-1)
+    if mode == 10:
+        return torch.cat([w_d, sampled_xyz_pers - sample_loc[..., None, :]],
+                         dim=-1)
+    if mode == 30:
+        proj = torch.sum(w_d * sample_ray_dirs[..., None, :], dim=-1,
+                         keepdim=True)
+        return torch.cat([proj, w_d], dim=-1)
+    raise ValueError(f"illegal agg_dist_pers {mode}")
+
+
+def dist_denominator(opt, vsize) -> float:
+    """dist_xyz_deno · ‖vsize‖ in float32, the JAX package's divisor."""
+    if vsize is None:
+        raise ValueError("dist_xyz_deno needs the grid's vsize")
+    return float(np.float32(opt.dist_xyz_deno
+                            * np.linalg.norm(np.asarray(vsize, np.float64))))
 
 
 def _rot3(v, M):
@@ -247,33 +350,29 @@ def aggregator_forward(agg: Aggregator, opt,
                        sampled_color, sampled_Rw2c, sampled_dir, sampled_conf,
                        sampled_embedding, sampled_xyz_pers, sampled_xyz,
                        sample_pnt_mask, sample_loc, sample_loc_w,
-                       sample_ray_dirs, grid_vox_sz: float = 0.0):
+                       sample_ray_dirs, grid_vox_sz: float = 0.0,
+                       vsize=None):
     """Shading forward pass (reference PointAggregator.forward + viewmlp).
 
     Inputs are [B,R,SR,K,*] / [B,R,SR,*] tensors; grid_vox_sz is the
-    lattice pitch the trilinear kernel divides by. Returns (decoded
-    [B,R,SR,4], ray_valid [B,R,SR] bool, weight [B,R,SR,K],
-    conf_coefficient [B,R,SR,K]).
+    lattice pitch the trilinear kernel divides by, vsize the grid's voxel
+    size (gau_intrp's radius and dist_xyz_deno's divisor). The products run
+    in opt.compute_dtype, as every caller of the JAX package's
+    aggregator_forward passes it. Returns (decoded [B,R,SR,4], ray_valid
+    [B,R,SR] bool, weight [B,R,SR,K], conf_coefficient [B,R,SR,K]).
     """
     from ..ops.trunk import (fused_shade, fused_shade_ok, fused_trunk,
                              fused_trunk_ok, pack_trunk_params)
+    check_envelope(opt)
     if sampled_Rw2c.dim() != 2:
         raise NotImplementedError("per-point Rw2c is not ported")
-    if opt.agg_intrp_order not in (1, 2):
-        raise NotImplementedError(f"agg_intrp_order {opt.agg_intrp_order} "
-                                  "is not ported")
-    if opt.compute_dtype != "float32":
-        raise NotImplementedError("the port computes in float32 only")
-    if not (agg.has("block1") and agg.has("block3")) or agg.has("block2"):
-        raise NotImplementedError("the port runs the block1 + block3 trunk "
-                                  "only")
-    if opt.dist_xyz_deno > 0.0:
-        raise NotImplementedError("dist_xyz_deno is not ported")
+    cd = opt.compute_dtype
     B, R, SR, K, _ = sampled_xyz.shape
     mask_f = sample_pnt_mask.to(torch.float32)
     ray_valid = torch.any(sample_pnt_mask, dim=-1)
     S_pt = B * R * SR
-    order1 = opt.agg_intrp_order == 1
+    order = opt.agg_intrp_order
+    order1 = order == 1
 
     RT = sampled_Rw2c.t().to(sample_ray_dirs.dtype)
     viewdirs = _rot3(sample_ray_dirs, RT)
@@ -285,20 +384,21 @@ def aggregator_forward(agg: Aggregator, opt,
 
     def heads(feat_pt, alpha):
         if alpha is None:
-            alpha = raw2out_density(opt, apply_mlp(agg.alpha_branch, feat_pt))
+            alpha = raw2out_density(opt, apply_mlp(agg.alpha_branch, feat_pt,
+                                                   cd))
         color = raw2out_color(opt, apply_mlp_pieces(
-            agg.color_branch, [feat_pt, viewdirs_pe.reshape(S_pt, -1)]))
+            agg.color_branch, [feat_pt, viewdirs_pe.reshape(S_pt, -1)], cd))
         out = torch.cat([alpha, color], dim=-1).reshape(B, R, SR, 4)
         return out * ray_valid[..., None].to(out.dtype)
 
     # fused shade (ops/trunk.py): distances, weights, conf and the trunk in
     # one kernel, whose backward emits the per-attribute cotangents, so
     # dists, weight and w_eff are never formed here. As in the JAX package:
-    # on CUDA it runs when fused_shade != 0 and the config is inside
-    # fused_shade_ok; on the CPU when fused_shade > 0 (the plain versions);
-    # outside the envelope the paths below run.
+    # on CUDA it runs when fused_shade != 0, the products are float32 and
+    # the config is inside fused_shade_ok; on the CPU when fused_shade > 0
+    # (the plain versions); otherwise the paths below run.
     fs = int(getattr(opt, "fused_shade", 0))
-    use_shade = (fs != 0 and fused_shade_ok(opt)
+    use_shade = (fs != 0 and cd == "float32" and fused_shade_ok(opt)
                  and (sampled_xyz.device.type == "cuda" or fs > 0)
                  and all(t is not None for t in (sampled_conf, sampled_color,
                                                  sampled_dir)))
@@ -319,8 +419,13 @@ def aggregator_forward(agg: Aggregator, opt,
                 conf_row.reshape(B, R, SR, K))
 
     dists = compute_dists(opt, sampled_xyz, sampled_xyz_pers, sample_loc,
-                          sample_loc_w)
-    weight = compute_weights(opt, dists, mask_f, grid_vox_sz)
+                          sample_loc_w, sample_ray_dirs)
+    # a learned kernel reads the first channels of each point's embedding;
+    # the rest is what the trunk sees
+    n_k = _kernel_feat_consumed(opt)
+    weight = compute_weights(opt, dists, mask_f, grid_vox_sz,
+                             sampled_embedding[..., :n_k], vsize)
+    emb = sampled_embedding[..., n_k:]
     # no second normalisation for trilinear and the num* kernels (JAX
     # aggregator.py:294-297)
     name = opt.agg_distance_kernel
@@ -332,49 +437,78 @@ def aggregator_forward(agg: Aggregator, opt,
     if sampled_conf is not None:
         conf_coefficient = gradient_clamp(sampled_conf[..., 0], 0.0001, 1.0)
     w_eff = weight * conf_coefficient                          # [B,R,SR,K]
+    Fe = emb.shape[-1]
 
-    d_raw = torch.cat([_rot3(dists[..., :3], RT), dists[..., 3:]], dim=-1)
+    def trunk(pieces, d_flat, extra):
+        """block1, block2 (with the distances at order > 0) and block3
+        (with the color and dir inputs), each where present."""
+        x = apply_mlp_pieces(agg.block1, pieces, cd) if agg.has("block1") \
+            else torch.cat(pieces, dim=-1)
+        if agg.has("block2"):
+            x = apply_mlp_pieces(agg.block2, [x] + d_flat, cd)
+        if agg.has("block3"):
+            x = apply_mlp_pieces(agg.block3, [x] + extra, cd)
+        return x
+
+    if order == 0:
+        # the K-weighted embedding is shaded once per point (JAX
+        # aggregator.py:335-341, 517-523)
+        feat = torch.sum(emb * w_eff[..., None], dim=-2).reshape(S_pt, Fe)
+        pieces = [feat]
+        if opt.num_feat_freqs > 0:
+            pieces.append(positional_encoding(feat, opt.num_feat_freqs))
+        x = trunk(pieces, [], [])
+        return (heads(x, raw2out_density(opt, apply_mlp(agg.alpha_branch, x,
+                                                        cd))),
+                ray_valid, weight, conf_coefficient)
+
+    d = dists
+    if opt.dist_xyz_deno > 0.0:
+        d = true_div(d, dist_denominator(opt, vsize))
+    # world → local on the first three channels, whatever they hold (under
+    # mode 30 [proj, wdx, wdy]; JAX aggregator.py:379-383)
+    d_raw = torch.cat([_rot3(d[..., :3], RT), d[..., 3:]], dim=-1)
     color_feats = []             # block3's extra inputs (ex3 for the kernel)
     if sampled_color is not None and "1" in list(opt.point_color_mode):
         color_feats.append(sampled_color.reshape(-1, 3))
     if sampled_dir is not None and "1" in list(opt.point_dir_mode):
         sdir = _rot3(sampled_dir.reshape(-1, 3), RT)
         ovd = ori_viewdirs[..., None, :].expand(B, R, SR, K, 3).reshape(-1, 3)
-        color_feats += [sdir - ovd, torch.sum(sdir * ovd, dim=-1, keepdim=True)]
+        color_feats += [sdir - ovd,
+                        torch.sum(sdir * ovd, dim=-1, keepdim=True)]
 
-    # fused trunk (ops/trunk.py): on CUDA, K1 runs wherever the config is
-    # inside its envelope, whatever use_fused_trunk says. On the CPU,
-    # use_fused_trunk=1 picks the kernel's plain version; other values the
-    # unfused composition below.
+    # fused trunk (ops/trunk.py): on CUDA, K1 runs wherever the products
+    # are float32 and the config is inside its envelope, whatever
+    # use_fused_trunk says. On the CPU, use_fused_trunk=1 picks the
+    # kernel's plain version; other values the unfused composition below.
+    # Under bfloat16 both packages run the composition.
     uf = int(getattr(opt, "use_fused_trunk", 0))
-    if uf > 0 and not fused_trunk_ok(opt):
+    if uf > 0 and cd == "float32" and not fused_trunk_ok(opt):
         raise ValueError("use_fused_trunk=1 with an unsupported aggregator "
                          "config")
-    use_fused = fused_trunk_ok(opt) and (sampled_xyz.device.type == "cuda"
-                                         or uf > 0)
+    use_fused = cd == "float32" and fused_trunk_ok(opt) and (
+        sampled_xyz.device.type == "cuda" or uf > 0)
     if use_fused:
-        Fd = sampled_embedding.shape[-1]
         ex3 = torch.cat(color_feats, dim=-1)
-        ops = pack_trunk_params(agg, Fd, d_raw.shape[-1], opt.num_feat_freqs,
+        ops = pack_trunk_params(agg, Fe, d_raw.shape[-1], opt.num_feat_freqs,
                                 abs(opt.dist_xyz_freq), with_alpha=not order1)
         feat_pt, alpha = fused_trunk(
             opt.shading_feature_mlp_layer1, opt.shading_feature_mlp_layer3,
             opt.num_feat_freqs, abs(opt.dist_xyz_freq), K, opt.act_super > 0,
-            order1, sampled_embedding.reshape(-1, Fd).contiguous(),
+            order1, emb.reshape(-1, Fe).contiguous(),
             d_raw.reshape(-1, d_raw.shape[-1]).contiguous(), ex3.contiguous(),
             w_eff.reshape(-1, 1).contiguous(), ops)
         return heads(feat_pt, alpha), ray_valid, weight, conf_coefficient
 
     if opt.dist_xyz_freq != 0:
         d_raw = positional_encoding(d_raw, abs(opt.dist_xyz_freq))
-    pieces = [sampled_embedding.reshape(-1, sampled_embedding.shape[-1])]
+    d_flat = d_raw.reshape(-1, d_raw.shape[-1])
+    pieces = [emb.reshape(-1, Fe)]
     if opt.num_feat_freqs > 0:
-        pe = positional_encoding(sampled_embedding, opt.num_feat_freqs)
+        pe = positional_encoding(emb, opt.num_feat_freqs)
         pieces.append(pe.reshape(-1, pe.shape[-1]))
-    pieces.append(d_raw.reshape(-1, d_raw.shape[-1]))
-
-    x = apply_mlp_pieces(agg.block1, pieces)
-    x = apply_mlp_pieces(agg.block3, [x] + color_feats)
+    pieces.append(d_flat)
+    x = trunk(pieces, [d_flat], color_feats)
 
     Fo = x.shape[-1]
     feat_pt = torch.sum(x.reshape(B, R, SR, K, Fo) * w_eff[..., None],
@@ -382,8 +516,7 @@ def aggregator_forward(agg: Aggregator, opt,
     alpha = None
     if not order1:
         # per-neighbor alpha, then interpolate (reference :601-639)
-        alpha_k = raw2out_density(opt, apply_mlp(agg.alpha_branch, x))
+        alpha_k = raw2out_density(opt, apply_mlp(agg.alpha_branch, x, cd))
         alpha = torch.sum(alpha_k.reshape(B, R, SR, K, 1) * w_eff[..., None],
                           dim=-2).reshape(-1, 1)
     return heads(feat_pt, alpha), ray_valid, weight, conf_coefficient
-

@@ -72,27 +72,61 @@ def linears(seq: nn.Sequential):
     return [m for m in seq if isinstance(m, nn.Linear)]
 
 
-def apply_mlp(seq: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
-    """Apply the stack (activations are part of the Sequential)."""
-    return seq(x)
+COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
-def apply_mlp_pieces(seq: nn.Sequential, pieces: Sequence[torch.Tensor]
-                     ) -> torch.Tensor:
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16 (to nearest even) and held in float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _linear(x: torch.Tensor, w: torch.Tensor, compute_dtype: str,
+            bias: torch.Tensor = None) -> torch.Tensor:
+    """x @ w.T (+ bias) with the operands in `compute_dtype`, accumulated
+    in float32, as the JAX package's ``jnp.dot(x.astype(cd), w.astype(cd),
+    preferred_element_type=float32)``. Under bfloat16 both operands are
+    rounded to bfloat16 and multiplied in float32: a product of two
+    bfloat16 values is exact in float32, where a product of bfloat16
+    tensors in torch would round its output to bfloat16. The bias is added
+    in float32."""
+    if compute_dtype == "bfloat16":
+        x, w = _round_bf16(x), _round_bf16(w)
+    elif compute_dtype != "float32":
+        raise ValueError(f"compute_dtype {compute_dtype} is neither float32 "
+                         "nor bfloat16")
+    return F.linear(x, w, bias)
+
+
+def _run(mods, x: torch.Tensor, compute_dtype: str) -> torch.Tensor:
+    for m in mods:
+        x = _linear(x, m.weight, compute_dtype, m.bias) \
+            if isinstance(m, nn.Linear) else m(x)
+    return x
+
+
+def apply_mlp(seq: nn.Sequential, x: torch.Tensor,
+              compute_dtype: str = "float32") -> torch.Tensor:
+    """Apply the stack (activations are part of the Sequential), each
+    product in `compute_dtype` with float32 accumulation."""
+    return _run(seq, x, compute_dtype)
+
+
+def apply_mlp_pieces(seq: nn.Sequential, pieces: Sequence[torch.Tensor],
+                     compute_dtype: str = "float32") -> torch.Tensor:
     """apply_mlp(concat(pieces)) as one first-layer matmul per piece:
-    concat(x1..xn) @ W == Σ_i xi @ W[rows_i]."""
+    concat(x1..xn) @ W == Σ_i xi @ W[rows_i], summed in piece order."""
     first = seq[0]
     w = first.weight                                   # [out, in]
     off = 0
     x = None
     for p in pieces:
         k = p.shape[-1]
-        term = F.linear(p, w[:, off:off + k])
+        term = _linear(p, w[:, off:off + k], compute_dtype)
         x = term if x is None else x + term
         off += k
     if off != w.shape[1]:
         raise ValueError(f"pieces span {off} inputs, layer takes {w.shape[1]}")
-    return seq[1:](x + first.bias)
+    return _run(seq[1:], x + first.bias, compute_dtype)
 
 
 def make_lr_schedule(opt, base_lr: float):

@@ -99,14 +99,16 @@ class _TierAssemble(torch.autograd.Function):
 
 def _tiered_aggregate(agg, point_state, opt, c_pidx, comp_valid, c_loc,
                       c_loc_w, c_srd, camrotc2w, campos, kt,
-                      grid_vox_sz: float = 0.0):
+                      grid_vox_sz: float = 0.0, vsize=None):
     """Two-tier neighbor-count split of the compacted shade phase.
 
     Rows whose valid neighbors all sit in the first `kt` slots run a K=kt
     aggregator over the full row budget; the rest run the full-K aggregator
     over a k_tier_wide_frac budget, whose overflow is counted. The tiers
-    partition the rows, so the result equals the single-tier computation,
-    including the conf value masked slots carry (point slot 0's clamped
+    partition the rows, so the result equals the single-tier computation
+    for every distance kernel, order and dtype (a masked slot carries zero
+    weight in each kernel, and the normalisation sums over K), including
+    the conf value masked slots carry (point slot 0's clamped
     conf, the safe-index-0 gather's).
 
     c_pidx [BG,Ncb,K]; c_loc/c_loc_w/c_srd [BG,Ncb,1,3]. Returns
@@ -136,7 +138,7 @@ def _tiered_aggregate(agg, point_state, opt, c_pidx, comp_valid, c_loc,
             g["sampled_xyz_pers"], g["sampled_xyz"], g["sample_pnt_mask"],
             _take_rows(c_loc, src, valid, 0.0),
             _take_rows(c_loc_w, src, valid, 0.0),
-            _take_rows(c_srd, src, valid, 0.0), grid_vox_sz)
+            _take_rows(c_srd, src, valid, 0.0), grid_vox_sz, vsize)
         return dec, w_t, cf_t
 
     decA, wA, cfA = run_tier(srcA, validA, kt)
@@ -343,7 +345,7 @@ def render_shade(agg, point_state: Dict, spec: GridSpec, opt, batch: Dict,
         if 0 < kt < Kn:
             c_decoded, c_weight, c_conf, t_overflow = _tiered_aggregate(
                 agg, point_state, opt, c_pidx_mat, comp_valid, c_loc,
-                c_loc_w, c_srd, camrotc2w, campos, kt, gvs)
+                c_loc_w, c_srd, camrotc2w, campos, kt, gvs, spec.vsize)
             q_overflow = q_overflow + t_overflow
         else:
             g = npc.gather_neighbors(point_state, c_pidx_mat[:, :, None, :],
@@ -352,7 +354,7 @@ def render_shade(agg, point_state: Dict, spec: GridSpec, opt, batch: Dict,
                 agg, opt, g["sampled_color"], g["Rw2c"], g["sampled_dir"],
                 g["sampled_conf"], g["sampled_embedding"],
                 g["sampled_xyz_pers"], g["sampled_xyz"],
-                g["sample_pnt_mask"], c_loc, c_loc_w, c_srd, gvs)
+                g["sample_pnt_mask"], c_loc, c_loc_w, c_srd, gvs, spec.vsize)
 
         def scatter_back(c):
             if counts is None:      # the gather form of JAX's unique scatter
@@ -382,7 +384,7 @@ def render_shade(agg, point_state: Dict, spec: GridSpec, opt, batch: Dict,
             agg, opt, g["sampled_color"], g["Rw2c"], g["sampled_dir"],
             g["sampled_conf"], g["sampled_embedding"], g["sampled_xyz_pers"],
             g["sampled_xyz"], g["sample_pnt_mask"], sample_loc, sample_loc_w,
-            sample_ray_dirs, gvs)
+            sample_ray_dirs, gvs, spec.vsize)
     sr_overflow = q_overflow
 
     # ray distances from the camera-depth cummax (reference volumetric :271-279)

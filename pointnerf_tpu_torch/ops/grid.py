@@ -251,11 +251,16 @@ def _build_supersets(head_coords, head_lin, head_slot, coor_2_occ, occ_2_xyz,
                      spec: GridSpec) -> Dict[str, torch.Tensor]:
     """Per occupied voxel: its superset_P nearest candidates from the
     kernel_size³ neighborhood (super_xyz, SoA rows [x·P2|y·P2|z·P2|idx·P2]),
-    and every dilated voxel's nearest occupied slot (coor_slot)."""
+    and every dilated voxel's nearest occupied slot (coor_slot).
+
+    A slot past the occupied ones holds voxel (0, 0, 0), as in the JAX
+    build, so all of them take one row: it is computed once and repeated,
+    and the blocks run over the occupied slots only."""
     dev = coor_2_occ.device
     P2 = spec.superset_P
     occ_coords = torch.zeros((spec.max_o, 3), dtype=torch.int32, device=dev)
     occ_coords[head_slot.long()] = head_coords
+    n_live = head_slot.shape[0]          # occupied slots kept: 0..n_live-1
 
     lx = (spec.kernel_size[0] + 1) // 2 - 1
     pads = spec.superset_pad
@@ -270,9 +275,7 @@ def _build_supersets(head_coords, head_lin, head_slot, coor_2_occ, occ_2_xyz,
     flat_tiles = occ_2_xyz.reshape(spec.max_o, spec.P * 4)
     k = min(P2, O * spec.P)
 
-    blocks = []
-    for s0 in range(0, spec.max_o, _SUPER_BLOCK):
-        cc = occ_coords[s0:s0 + _SUPER_BLOCK]                     # [BS,3]
+    def block(cc):
         BS = cc.shape[0]
         nb = cc[:, None, :] + offs                                # [BS,O,3]
         nb_in = torch.all((nb >= 0) & (nb < vdim), dim=-1)
@@ -300,8 +303,14 @@ def _build_supersets(head_coords, head_lin, head_slot, coor_2_occ, occ_2_xyz,
         if k < P2:
             sel = torch.cat([sel, torch.full((BS, P2 - k, 4), 1.0e8,
                                              device=dev)], dim=1)
-        blocks.append(torch.cat([sel[..., 0], sel[..., 1], sel[..., 2],
-                                 sel[..., 3]], dim=-1))
+        return torch.cat([sel[..., 0], sel[..., 1], sel[..., 2],
+                          sel[..., 3]], dim=-1)
+
+    blocks = [block(occ_coords[s0:min(s0 + _SUPER_BLOCK, n_live)])
+              for s0 in range(0, n_live, _SUPER_BLOCK)]
+    if n_live < spec.max_o:
+        empty = block(occ_coords[n_live:n_live + 1])
+        blocks.append(empty.expand(spec.max_o - n_live, -1))
     super_xyz = torch.cat(blocks, dim=0)
 
     # dilated voxel -> NEAREST occupied slot in the query_size window

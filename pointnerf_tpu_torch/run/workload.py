@@ -22,7 +22,9 @@ with the port's JPEG, 16-bit PNG and PLY writers, for the ScanNet phase.
 `make_llff_scene` writes it in the LLFF layout, `write_legacy_pairs` the
 legacy NeRF-Synthetic dataset's pairs tables for a plate scene, and
 `write_cloud_pickle` a pickled surface cloud for `cloud_path`, for the
-llff, nerf_synth_ft and voxgrid phases.
+llff, nerf_synth_ft and voxgrid phases. `envelope_options` switches one
+of the aggregator's other shading envelopes on (the envelope tests and
+chip_smoke's envelopes phase).
 """
 
 from __future__ import annotations
@@ -45,6 +47,27 @@ from ..utils.png import write_png
 def lego_options():
     return nerf_synth_preset("lego").replace(max_o=280000,
                                              random_sample_size=60)
+
+
+# one shading envelope each, on top of lego's options: the distance mode
+# 30, the learned kernels, bfloat16 products, order 0 (with the point color
+# and dir modes it needs) and block2 (with the feature PE it needs off)
+ENVELOPES = {
+    "pers30": dict(agg_dist_pers=30),
+    "sh_intrp": dict(agg_distance_kernel="sh_intrp"),
+    "gau_intrp": dict(agg_distance_kernel="gau_intrp"),
+    "bf16": dict(compute_dtype="bfloat16"),
+    "order0": dict(agg_intrp_order=0, point_color_mode="0",
+                   point_dir_mode="0"),
+    "block2": dict(shading_feature_mlp_layer2=1, num_feat_freqs=0),
+}
+
+
+def envelope_options(name: str, opt=None):
+    """`opt` (lego's preset if None) with the envelope `name` of ENVELOPES
+    switched on; an unknown name raises KeyError."""
+    base = nerf_synth_preset("lego") if opt is None else opt
+    return base.replace(**ENVELOPES[name])
 
 
 def make_cloud(opt, n_points: int = 100_000, rng=None):

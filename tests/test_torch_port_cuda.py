@@ -137,6 +137,54 @@ def test_trunk_bwd_kernel_matches_plain(dev, K, L1, L3, order, act_super):
         assert float((a - b).abs().max()) <= SUM_REL * float(b.abs().max())
 
 
+DIST_WIDTHS = {3: 1, 4: 30, 6: 20}     # dd → an agg_dist_pers giving it
+
+
+@pytest.mark.parametrize("K", [1, 8])
+@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize("dd", sorted(DIST_WIDTHS))
+def test_trunk_kernels_at_distance_widths(dev, dd, order, K):
+    """K1 and K2 at the distance widths of every mode (3: -1/1/2, 4: 30,
+    6: 10/20), with dist_xyz_freq 5 (nd 5, lego's): C1 = 8 + 2·2·8 +
+    2·5·dd, against their plain versions."""
+    opt = _opt(order=order, dist_xyz_freq=5, agg_dist_pers=DIST_WIDTHS[dd])
+    agg = init_aggregator_params(opt, torch.Generator().manual_seed(dd),
+                                 device=dev)
+    g = torch.Generator().manual_seed(10 * dd + K)
+    S = 37 * K
+    emb = (torch.rand(S, 8, generator=g) - 0.5).to(dev)
+    d = (0.05 * torch.randn(S, dd, generator=g)).to(dev)
+    ex3 = (2 * torch.rand(S, 7, generator=g) - 1).to(dev)
+    w = torch.rand(S, 1, generator=g).to(dev)
+    ops = [o.detach() for o in tt.pack_trunk_params(agg, 8, dd, 2, 5,
+                                                    with_alpha=order == 2)]
+    o1 = order == 1
+    before = (kernels.TRUNK_FWD.launches, kernels.TRUNK_BWD.launches)
+    with torch.inference_mode():
+        got = tt.fused_trunk(2, 2, 2, 5, K, True, o1, emb, d, ex3, w, ops)
+        want = tt.fused_trunk_reference(2, 2, 2, 5, K, True, o1, emb, d,
+                                        ex3, w, ops)
+    for a, b in zip(got, want):
+        if b is not None:
+            torch.testing.assert_close(a, b, **TOL)
+    zs = tt.trunk_activations(2, 2, 2, 5, emb, d, ex3, ops, not o1)
+    for z in zs[2] + zs[4]:
+        w = w * (z.abs() >= KINK).all(dim=1, keepdim=True)
+    dfeat = torch.randn(S // K, 32, generator=g).to(dev)
+    dalpha = None if o1 else torch.randn(S // K, 1, generator=g).to(dev)
+    args = (2, 2, 2, 5, K, True, o1, emb, d, ex3, w, ops, dfeat, dalpha)
+    got = tt.trunk_bwd(*args)
+    want = tt.fused_trunk_bwd_reference(*args)
+    torch.cuda.synchronize()
+    assert (kernels.TRUNK_FWD.launches, kernels.TRUNK_BWD.launches) \
+        == (before[0] + 1, before[1] + 1)
+    assert got[1].shape == (S, dd)
+    for a, b in zip(got[:4], want[:4]):
+        torch.testing.assert_close(a, b, **TOL)
+    for a, b in zip(got[4], want[4]):
+        assert float((a - b).abs().max()) <= SUM_REL * float(b.abs().max())
+
+
 def test_trunk_bwd_weight_grads_are_reproducible(dev):
     """No float atomics: two launches give bit-equal weight gradients."""
     args = _bwd_args(dev, 8, 2, 2, 2, True)

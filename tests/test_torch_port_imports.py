@@ -38,6 +38,25 @@ def test_port_modules_import_without_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+@pytest.mark.parametrize("module", ["pointnerf_tpu_torch.ops.sh",
+                                    "pointnerf_tpu_torch.ops.geometry"])
+def test_copied_numeric_modules_import_alone(module):
+    """The port's copies of the JAX package's ops/sh.py and
+    ops/geometry.py import on their own without JAX or the JAX package."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX_", "XLA_"))}
+    probe = (f"import sys, {module} as m\n"
+             "bad = [n for n in sys.modules if n.split('.')[0] in "
+             "('jax', 'jaxlib', 'pointnerf_tpu')]\n"
+             "sys.exit(1 if bad or not m.__file__.startswith(sys.argv[1]) "
+             "else 0)")
+    proc = subprocess.run([sys.executable, "-c", probe,
+                           os.path.join(REPO, "pointnerf_tpu_torch")],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_constructors_default_to_the_card():
     """The four constructors of the port's state place it on the card
     unless told otherwise; where there is none, the default raises as

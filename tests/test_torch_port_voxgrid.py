@@ -293,11 +293,22 @@ def test_distance_kernel_matches_jax(kernel, aw, C):
     np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), **GRAD_TOL)
 
 
-def test_learned_kernels_still_raise():
-    for k in ("feat_intrp", "meta_intrp", "sh_intrp", "gau_intrp"):
-        with pytest.raises(NotImplementedError, match=k):
-            tagg.compute_weights(Options(agg_distance_kernel=k),
-                                 torch.zeros(1, 8, 3), torch.ones(1, 8))
+@pytest.mark.parametrize("k", ["feat_intrp", "meta_intrp"])
+def test_learned_kernels_still_raise(k):
+    """feat_intrp and meta_intrp fail in both packages: JAX's
+    compute_weights raises ValueError, and so does the port's (sh_intrp
+    and gau_intrp run: test_torch_port_envelopes.py)."""
+    with pytest.raises(ValueError,
+                       match=f"unsupported agg_distance_kernel {k}"):
+        jagg.compute_weights(JOptions(agg_distance_kernel=k), None,
+                             jnp.zeros((1, 8, 8)), jnp.zeros((1, 8, 3)),
+                             jnp.ones((1, 8)), (0.1,) * 3, 0.1)
+    with pytest.raises(ValueError, match=f"agg_distance_kernel {k}"):
+        tagg.compute_weights(Options(agg_distance_kernel=k),
+                             torch.zeros(1, 8, 3), torch.ones(1, 8))
+    with pytest.raises(ValueError, match=f"agg_distance_kernel {k}"):
+        tagg.init_aggregator_params(Options(agg_distance_kernel=k),
+                                    device="cpu")
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
