@@ -14,9 +14,9 @@ shell-and-blobs cloud), each in the default configuration (fused_shade=0:
 K1, K2, K3, K6) and in the fused_shade configuration (fused_shade=1: K4,
 K5, K3, K6):
 
-- serving: one full 800x800 image through render_image, two chunks of it
-  re-rendered on the CPU with the plain versions; the fused_shade image is
-  held against the default one;
+- serving: one full 800x800 image through render_image, the chunk of it
+  with the most hits re-rendered on the CPU with the plain versions; the
+  fused_shade image is held against the default one;
 - training: bench.py's 3,600-ray batch through create_train_state and
   train_step, one warm-up step and TRAIN_STEPS timed ones, then one
   compute_grads on the card against the CPU's plain versions; the
@@ -79,13 +79,22 @@ fused.ply; LLFF_STEPS steps, two chunks against the CPU, render_vid over
 LLFF_VID_FRAMES render poses); the legacy NeRF-Synthetic finetune
 (nerf_synth_ft at 800x800, the MVS init over a pairs file's view groups,
 pairs.th's test frames; NSFT_STEPS steps, two chunks against the CPU),
-each phase's test PSNR before and after; and last
+each phase's test PSNR before and after; the ProbNet init
+(manual_depth_view -1) on an 800x800 plate, one depth view against the
+CPU, the init timed by part, PN_STEPS finetune steps (K1, K2, K3, K6),
+and ProbNet at dtu_gen's 640x512 (dtu_gen refuses it, as JAX fails
+there; PNG_STEPS steps of ProbNet's own backward, one step's gradients
+against the CPU); scene editing on the finetune phase's checkpoint (half
+the cloud rotated and lifted, per-point Rw2c: K1 and K3, one chunk
+against the CPU, test_ft reading the composite back) and the headless
+viewer (PLY, turntable and growth frames splatted on the card, one
+splat equal to the CPU's); and last
 the evaluation phase at 1920x1080: a plate scene in the Tanks&Temples layout
 (run/workload.make_tt_scene, 501,264 fused.ply points), train_ft.main with
 tt_preset("Truck") for TT_STEPS steps and load_points 1 (K1, K2, K3, K6),
 run/test_ft.main on its checkpoint with LPIPS alex and vgg from random
 weights written for the run (K1, K3), a timed render of one test view,
-two of its chunks rendered again on the CPU from the same checkpoint
+one of its chunks rendered again on the CPU from the same checkpoint
 (within 1e-5), and one 1920x1080 LPIPS distance on the card against the
 CPU.
 
@@ -97,6 +106,11 @@ fails), and turns TF32 off in cuBLAS and cuDNN, so the plain versions
 stay full fp32. The trunk kernels' bound is their 3xTF32 tensor-core
 products (`bound_ms`), with the fp32 SIMT bound beside it
 (`bound_fp32_ms`).
+
+To hold the script under 600 s with the ProbNet, editing and viewer
+phases, the CPU re-renders of serving, dtu_inf, scannet and the T&T
+test_ft take one chunk each (were two), the T&T plate holds one test view
+(was two), and the earlier finetunes run fewer steps (PERF.md §4, "was").
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; every kernel of the path's configuration must have launched in it,
@@ -156,9 +170,9 @@ SCATTER_REL = 1e-4                    # K6 vs plain, per entry, of the sum
 SCATTER_SCRIPT = dict(S=384000, cap=102400, C=42, dup=6.0)  # scatter_pallas
 OCC_U = 96                            # occ_micro3's distinct-row budget
 FT_WH = 400                           # finetune views (plate scene)
-FT_STEPS = 300                        # finetune steps
-FT_PRUNE = 200                        # the one prune
-FT_PROBE = 250                        # the one probe-and-grow (every
+FT_STEPS = 200                        # finetune steps
+FT_PRUNE = 100                        # the one prune
+FT_PROBE = 150                        # the one probe-and-grow (every
                                       # FT_PROBE steps)
 FT_PSNR = 16.0                        # final test PSNR bar (dB)
 PHASES = ("train_s", "prune_s", "grow_s", "test_s", "save_s")
@@ -176,7 +190,7 @@ MVS_NEAR_FAR = (2.5, 3.5)             # the plate scene's own depth range
                                       # them a unit behind the plate, where
                                       # the visual hull removes them
 MVS_CONF_THRESH = 0.0                 # random weights never reach lego's 0.8
-MVS_STEPS = 100                       # finetune steps from the MVS cloud
+MVS_STEPS = 50                        # finetune steps from the MVS cloud
 MVS_TEST_VIEWS = 1                    # test views of the MVS plate scene
 MVS_MIN_POINTS = 2000                 # the init must leave a few thousand
 MVS_TOL = dict(rtol=1e-4, atol=1e-4)  # one triplet, card vs CPU
@@ -216,7 +230,10 @@ ALPHA_SHIFT = 5.0                     # alpha-head bias added for that
                                       # outputs equal)
 VIDEO_FRAMES = 20                     # the NeRF-Synthetic render path
 TT_WH = (1920, 1080)                  # tt_preset's img_wh (the T&T PNGs)
-TT_VIEWS = (6, 2)                     # train / test views of the T&T scene
+TT_VIEWS = (6, 1)                     # train / test views of the T&T scene
+                                      # (was 6 / 2)
+TT_TEST_NUM = 1                       # of them rendered by the finetune's
+                                      # final test and by test_ft (was 2)
 TT_SIDE = 708                         # fused.ply: a 708² grid, 501,264
                                       # points (T&T clouds hold 0.5-1.6 M;
                                       # Truck's max_o is 1.6 M)
@@ -224,7 +241,7 @@ TT_HALF = 0.19                        # plate half-width: inside Truck's
                                       # ranges (y from -0.598 to 0.203)
 TT_RADIUS = 0.6                       # camera distance: the plate spans
                                       # about 1,200 of 1,920 columns
-TT_STEPS = 50                         # finetune steps: one checkpoint
+TT_STEPS = 30                         # finetune steps: one checkpoint
 TT_CPU_TOL = dict(rtol=1e-5, atol=1e-5)  # test_ft chunks, card vs CPU
 LPIPS_RTOL = 1e-4                     # one LPIPS distance, card vs CPU
 LPIPS_REPS = 5                        # timed LPIPS calls a net
@@ -257,10 +274,10 @@ SCANNET_RADIUS = 2.0                  # cameras 2.06 m from the origin, at
                                       # 29 deg: plate depths 1-4 m
 SCANNET_SIDE = 200                    # pcd.ply: a 200² grid over the plate
 SCANNET_HOLE = (0.6, -0.4, 0.5)       # less a disk the sensor depth fills
-SCANNET_STEPS = 100                   # of the preset's 200,000
-SCANNET_PROBE = 75                    # prob_freq: one probe-and-grow
+SCANNET_STEPS = 50                    # of the preset's 200,000
+SCANNET_PROBE = 40                    # prob_freq: one probe-and-grow
 SCANNET_TEST_VIEWS = 2                # test renders (test_num)
-SCANNET_LP3_STEPS = 20                # the load_points 3 run's steps, on
+SCANNET_LP3_STEPS = 10                # the load_points 3 run's steps, on
 SCANNET_LP3_FRAMES = 5                # a scene of its own: 1 train / 4
                                       # test frames (the driver's final
                                       # test renders every test frame)
@@ -304,7 +321,7 @@ LLFF_TESTSKIP = 8                     # LLFF's hold-out of every 8th view:
                                       # 3 test, 17 train
 LLFF_SIDE = 317                       # fused.ply: a 317² grid, 100,489
                                       # points
-LLFF_STEPS = 100                      # finetune steps
+LLFF_STEPS = 50                       # finetune steps
 LLFF_TEST_VIEWS = 2                   # test renders (test_num)
 LLFF_VID_FRAMES = 3                   # poses of the render split rendered
 NSFT_WH = 800                         # the legacy NeRF-Synthetic views
@@ -313,7 +330,9 @@ NSFT_PAIRS = dict(n_ref=3, n_extra=2, n_test=1)
                                       # groups; pairs.th: 1 test frame
 NSFT_STEPS = 50                       # finetune steps from the MVS cloud
 NSFT_MIN_POINTS = 2000                # the init must leave a few thousand
-ENV_STEPS = dict(pers30=50, sh_intrp=50, gau_intrp=50, bf16=50, order0=20,
+ENV_TEST_VIEWS = 1                    # envelopes: test views rendered
+                                      # before and after (was 4)
+ENV_STEPS = dict(pers30=30, sh_intrp=30, gau_intrp=30, bf16=30, order0=20,
                  block2=20)           # envelopes phase: steps per run
 ENV_BF16_TOL = dict(rtol=0.0, atol=2e-4)  # bf16 chunk, card vs CPU: the
                                       # envelope tests' BF16_REL (2e-4) of
@@ -326,6 +345,30 @@ PEAK_TF32 = 495e12                    # H100 SXM dense TF32 tensor-core
                                       # FLOP/s, at 700 W (data sheet)
 TF32_PASSES = 3                       # the trunk kernels' 3xTF32 split: 3
                                       # TF32 products per fp32 multiply-add
+PN_WH = 800                           # the ProbNet phase: lego's views
+PN_TRAIN = 5                          # train views of its plate: a few
+                                      # triplets (full_comb, hull)
+PN_STEPS = 50                         # finetune steps from the ProbNet cloud
+PN_DPROB_THRESH = 0.0                 # random weights: a near-uniform prob
+                                      # volume, mass ~ num_neighbor / D, so
+                                      # lego's 0.8 keeps nothing (logged)
+PN_TOL = dict(rtol=1e-4, atol=1e-4)   # one depth view, card vs CPU
+PN_MASS_TIE = 1e-4                    # keep masks compared away from this
+                                      # distance to the threshold
+PN_MIN_POINTS = 1000                  # the init must leave a thousand
+PNG_STEPS = 5                         # ProbNet steps at dtu_gen's size
+PNG_CPU_D = 32                        # depth planes of its card-vs-CPU
+                                      # gradient (the CPU's float64 backward
+                                      # grows with D)
+PNG_F32_SPREAD = 2.0                  # the card's float32 gradient no
+                                      # further off float64 than this times
+                                      # the CPU's float32 (readings: 0.96 at
+                                      # D 16, 1.13 at D 8, 0.68 at D 32;
+                                      # PERF.md)
+EDIT_LIFT = 0.15                      # the edited half: rotated 90° about z
+                                      # and lifted this far
+VIS_FRAMES = 8                        # turntable frames
+VIS_SIZE = 512                        # turntable and growth frames' side
 PEAK_BYTES = 3.35e12                  # H100 SXM HBM3 bytes/s (data sheet)
 GRAPH_REPS = 100                      # calls captured in one CUDA graph
 GRAPH_REPLAYS = 5                     # timed replays of it
@@ -1074,7 +1117,8 @@ def sass_calls(kernel):
 def serve_path(opt, state, spec, grid, agg, ts, item, label, kerns):
     """The serving main path: one full image through render_image, twice
     (the first call warms the allocator and cuBLAS; the counts cover the
-    second), then two of its chunks re-rendered on the CPU. Every kernel of
+    second), then its chunk with the most hits re-rendered on the CPU.
+    Every kernel of
     `kerns` must launch, no other trunk kernel. Returns (launch counts, the
     image's maps, render stats)."""
     from pointnerf_tpu_torch.ops import kernels
@@ -1110,9 +1154,10 @@ def serve_path(opt, state, spec, grid, agg, ts, item, label, kerns):
     if not np.allclose(rgb[~hit], 1.0, atol=1e-6):
         raise AssertionError("missed rays do not show the white background")
 
-    # two chunks rendered again on the CPU with the plain versions
+    # the chunk with the most hits rendered again on the CPU with the
+    # plain versions
     per_chunk = hit.reshape(-1)[: (H * W // chunk) * chunk].reshape(-1, chunk)
-    pick = np.sort(np.argsort(-per_chunk.sum(1), kind="stable")[:2])
+    pick = np.sort(np.argsort(-per_chunk.sum(1), kind="stable")[:1])
     sel = np.concatenate([np.arange(c * chunk, (c + 1) * chunk) for c in pick])
     sub = dict(item, raydir=item["raydir"][:, sel],
                pixel_idx=item["pixel_idx"][:, sel])
@@ -1493,15 +1538,16 @@ def finetune_options(root):
     """The lego preset at full widths on the plate scene, with the
     finetune phase's cadence: FT_STEPS steps, one prune, a probe-and-grow
     every FT_PROBE steps (opacity gate FT_PROB_THRESH), one checkpoint at
-    the end, test renders of the 4 test views before and after."""
+    the end, three point dumps (the visualize phase's growth video), test
+    renders of the 4 test views before and after."""
     from pointnerf_tpu_torch.config import nerf_synth_preset
     return nerf_synth_preset("lego").replace(
         data_root=root, scan="plate", img_wh=(FT_WH, FT_WH), load_points=1,
         checkpoints_dir=os.path.join(root, "checkpoints"),
         experiment="plate_ft", maximum_step=FT_STEPS, prune_iter=FT_PRUNE,
         prune_max_iter=FT_PRUNE, prob_freq=FT_PROBE, print_freq=100,
-        save_iter_freq=10 * FT_STEPS, save_point_freq=0, test_freq=0,
-        test_num=4, prob_thresh=FT_PROB_THRESH)
+        save_iter_freq=10 * FT_STEPS, save_point_freq=FT_STEPS // 3,
+        test_freq=0, test_num=4, prob_thresh=FT_PROB_THRESH)
 
 
 def finetune_path(root):
@@ -1842,11 +1888,12 @@ def dtu_inf_path(root, dev=torch.device("cuda")):
     if stats["n_points"] == 0 or not (img > 0).any():
         raise AssertionError("the dtu_inf image rendered no point")
 
-    # two chunks, the card and the CPU rendering them from the same points
+    # the brightest chunk, the card and the CPU rendering it from the same
+    # points
     chunk = opt.random_sample_size ** 2
     per_chunk = img.reshape(-1, 3).sum(-1)[: (H * W // chunk) * chunk]
     pick = np.sort(np.argsort(-per_chunk.reshape(-1, chunk).sum(1),
-                              kind="stable")[:2])
+                              kind="stable")[:1])
     sel = np.concatenate([np.arange(c * chunk, (c + 1) * chunk) for c in pick])
     sub = dict(item, raydir=item["raydir"][:, sel],
                pixel_idx=item["pixel_idx"][:, sel])
@@ -2713,7 +2760,8 @@ def scannet_path(root, smi: str):
                              f"above the initial {psnr0:.3f}")
     del ts, grid
     torch.cuda.empty_cache()
-    chunks_vs_cpu("scannet", ckpt, opt, test_ds.get_item(0, full_img=True))
+    chunks_vs_cpu("scannet", ckpt, opt, test_ds.get_item(0, full_img=True),
+                  n_chunks=1)
 
     # load_points 3 on a scene of SCANNET_LP3_FRAMES frames: the mesh
     # points and the depth points in its empty voxels
@@ -3018,13 +3066,13 @@ def envelopes_options(root, name):
     """The finetune phase's lego options on its plate scene with the
     envelope `name` of run/workload.ENVELOPES switched on: ENV_STEPS[name]
     steps, no prune or probe, a checkpoint at the end, the final test
-    over the scene's 4 test views."""
+    over ENV_TEST_VIEWS of the scene's 4 test views."""
     from pointnerf_tpu_torch.run.workload import envelope_options
     steps = ENV_STEPS[name]
     return envelope_options(name, finetune_options(root)).replace(
         experiment=f"env_{name}", maximum_step=steps, prune_iter=0,
         prune_max_iter=0, prob_freq=0, print_freq=steps,
-        save_iter_freq=10 * steps)
+        save_iter_freq=10 * steps, test_num=ENV_TEST_VIEWS)
 
 
 def envelopes_path(root, smi: str):
@@ -3033,7 +3081,7 @@ def envelopes_path(root, smi: str):
     pers30 (distance mode 30: K1, K2 at dd 4, K3, K6), sh_intrp,
     gau_intrp, bf16, order0 and block2 (the composition around K3 and K6:
     no K1, K2, K4 or K5). Each prints ms/step, the test PSNR before and
-    after over the 4 test views, the peak and the launches, and renders
+    after over ENV_TEST_VIEWS test view, the peak and the launches, and renders
     one chunk of a test view on the CPU from its checkpoint (1e-5; bf16
     ENV_BF16_TOL). pers30 also renders through test_ft and one render_vid
     frame. Raises on a non-finite output, a loss that does not fall (the
@@ -3054,7 +3102,7 @@ def envelopes_path(root, smi: str):
         train_ds, test_ds = create_dataset(opt, "train"), \
             create_dataset(opt, "test")
         torch.cuda.reset_peak_memory_stats()
-        s0 = start_psnr(opt, train_ds, test_ds, len(test_ds))
+        s0 = start_psnr(opt, train_ds, test_ds, ENV_TEST_VIEWS)
         psnr0 = s0["psnr0"]
         del s0, train_ds
         torch.cuda.empty_cache()
@@ -3076,7 +3124,7 @@ def envelopes_path(root, smi: str):
             f"{wall:.1f} s (test renders {tm['test_s']:.1f} s, checkpoint "
             f"{tm['save_s']:.1f} s); loss_total mean of the first 5 steps "
             f"{head:.6f} -> last 5 {tail:.6f}; test PSNR {psnr0:.3f} -> "
-            f"{res['final_psnr']:.3f} ({len(test_ds)} views); one chunk "
+            f"{res['final_psnr']:.3f} ({ENV_TEST_VIEWS} view); one chunk "
             f"card vs CPU max_abs_err {err:.3e} (tolerance {tol}); render "
             f"{ms_img:.1f} ms/image; peak {peak:.2f} GiB; launches {ft}")
         if not (np.isfinite(losses).all() and tail < head):
@@ -3211,6 +3259,436 @@ def nsft_path(root, smi: str):
     return ft
 
 
+# ------------------------------------------------ the ProbNet point init
+def probnet_options(root):
+    """The lego preset with the ProbNet init (load_points 0,
+    manual_depth_view -1 at the preset's depth_grid 128, pad 24,
+    num_neighbor 1) on the PN_WH² plate scene, with the premlp and the MVS
+    phase's depth range (MVS_NEAR_FAR) for random weights, dprob_thresh
+    PN_DPROB_THRESH, PN_STEPS finetune steps with no prune or probe, one
+    test view."""
+    return mvs_options(root).replace(
+        manual_depth_view=-1, dprob_thresh=PN_DPROB_THRESH,
+        experiment="plate_probnet", maximum_step=PN_STEPS,
+        save_iter_freq=10 * PN_STEPS, test_num=1)
+
+
+PN_PARTS = ("cost_s", "unet_s", "filter_s", "embed_s")
+
+
+def probnet_view_check(opt, mvs, sample):
+    """One depth view of the ProbNet init on the card and on the CPU with
+    the same weights and draws: the mass within PN_TOL; the keep masks at
+    dprob_thresh and at lego's 0.8 equal away from PN_MASS_TIE of the
+    threshold; the card's own keep rows at the CPU's median mass off the
+    uniform plateau (a threshold that splits the pixels) equal to the
+    CPU's mass filter there, with both kept and dropped pixels among those
+    compared; xyz,
+    embedding, color, dir and conf within PN_TOL on the rows kept on both
+    whose visibility agrees. Returns the card's ms by part."""
+    from pointnerf_tpu_torch.models.mvs import points_model as pm
+    hp = sample["mvs_images"].shape[-2] // 4 + 2 * opt.pad
+    wp = sample["mvs_images"].shape[-1] // 4 + 2 * opt.pad
+    noise = [torch.randn((opt.num_each_depth, hp, wp),
+                         generator=torch.Generator().manual_seed(1))]
+    out, maps, stats, secs = {}, {}, {}, {}
+    for name, net in (("card", mvs), ("cpu", copy.deepcopy(mvs).cpu())):
+        maps[name], stats[name] = {}, {}
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out[name] = pm.gen_points(net, opt, sample, noise=noise,
+                                      maps=maps[name], stats=stats[name])
+        secs[name] = time.perf_counter() - t0
+    np_ = lambda t: t.detach().cpu().numpy()
+    mass_c, mass_h = np_(maps["card"]["mass"][0]), np_(maps["cpu"]["mass"][0])
+    np.testing.assert_allclose(mass_c, mass_h, err_msg="mass", **PN_TOL)
+    kept = {}
+    for thresh in (opt.dprob_thresh, 0.8):
+        away = np.abs(mass_h - thresh) > PN_MASS_TIE
+        kc, kh = mass_c > thresh, mass_h > thresh
+        if not np.array_equal(kc[away], kh[away]):
+            raise AssertionError(f"probnet keep masks differ at {thresh}")
+        kept[thresh] = int(kh.sum())
+    # the median mass off the uniform plateau num_neighbor / D (the
+    # padding's and the featureless pixels')
+    flat = opt.num_neighbor / opt.depth_grid
+    split = float(np.median(mass_h[np.abs(mass_h - flat) > PN_MASS_TIE]))
+    with torch.inference_mode():
+        keep_s = np_(pm.gen_points(mvs, opt.replace(dprob_thresh=split),
+                                   sample, noise=noise)["keep"])
+    away = np.tile((np.abs(mass_h - split) > PN_MASS_TIE).reshape(-1),
+                   opt.num_each_depth)
+    want = np.tile((mass_h > split).reshape(-1), opt.num_each_depth)
+    n_split = (int(want[away].sum()), int((~want[away]).sum()))
+    if not np.array_equal(keep_s[away], want[away]) or min(n_split) == 0:
+        raise AssertionError(f"probnet keep rows at the median mass {split}"
+                             f" differ from the CPU's filter, or one side "
+                             f"is empty {n_split}")
+    keep_c, keep_h = np_(out["card"]["keep"]), np_(out["cpu"]["keep"])
+    vis = np.all(np_(maps["card"]["vis"][0]) == np_(maps["cpu"]["vis"][0]),
+                 axis=-1)
+    rows = keep_c & keep_h & vis
+    errs = {}
+    for k in ("xyz_w", "embedding", "color", "dir", "conf"):
+        a, b = np_(out["card"][k])[rows], np_(out["cpu"][k])[rows]
+        errs[k] = float(np.abs(a - b).max())
+        np.testing.assert_allclose(a, b, err_msg=k, **PN_TOL)
+    ms = {k: 1e3 * stats["card"][k] for k in PN_PARTS}
+    log(f"probnet: one depth view {hp}x{wp} padded, D {opt.depth_grid}, "
+        f"card vs CPU: mass within {PN_TOL} (range {mass_h.min():.5f}-"
+        f"{mass_h.max():.5f}); kept at dprob_thresh {opt.dprob_thresh}: "
+        f"{kept[opt.dprob_thresh]} of {mass_h.size}, at lego's 0.8: "
+        f"{kept[0.8]}; the card's keep rows at the CPU's median mass off "
+        f"the plateau {flat:.6f}, {split:.6f}, equal to its filter on the "
+        f"{int(away.sum())} rows "
+        f"away from it ({n_split[0]} kept, {n_split[1]} dropped); rows "
+        f"{len(keep_h)}, compared {int(rows.sum())} "
+        f"({int((keep_c & keep_h & ~vis).sum())} visibility ties); max abs "
+        f"err {errs}; card {secs['card']:.2f} s (ms by part {ms}), CPU "
+        f"{secs['cpu']:.1f} s")
+    if rows.sum() < 0.9 * keep_h.sum():
+        raise AssertionError("probnet: too few rows compared card vs CPU")
+    return ms
+
+
+def probnet_path(root, smi: str):
+    """The ProbNet-initialised finetune on the card (load_points 0,
+    manual_depth_view -1; no kernel of its own: cuDNN convs and plain
+    PyTorch): the plate scene at PN_WH², one depth view held against the
+    CPU, the init over every triplet timed by part (cost volume, U-Net,
+    moments and filter, samples and embedding), the starting test PSNR,
+    then train_ft.main for PN_STEPS steps (K1, K2, K3, K6), whose start
+    must hold the timed init's points and whose test PSNR must pass the
+    start. Returns the run's launch counts."""
+    from pointnerf_tpu_torch.data import create_dataset
+    from pointnerf_tpu_torch.models import neural_points as npc
+    from pointnerf_tpu_torch.models.mvs import points_model as pm
+    from pointnerf_tpu_torch.ops import kernels
+    from pointnerf_tpu_torch.run import common
+    from pointnerf_tpu_torch.run.workload import make_plate_scene
+    from pointnerf_tpu_torch.train import trainer
+    phase0 = time.perf_counter()
+    make_plate_scene(root, wh=(PN_WH, PN_WH), n_train=PN_TRAIN, n_test=1)
+    opt = probnet_options(root)
+    dev = torch.device("cuda")
+    train_ds, test_ds = create_dataset(opt, "train"), \
+        create_dataset(opt, "test")
+    mvs = pm.MvsPoints(opt, torch.Generator().manual_seed(opt.seed),
+                       device=dev)
+    probnet_view_check(opt, mvs, train_ds.get_init_item(0))
+    stats = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        common.gen_points_filter_embeddings(opt, train_ds, mvs=mvs,
+                                            device=dev, stats=stats)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    T = stats["triplets"]
+    per = {k: round(1e3 * stats[k] / T, 1) for k in PN_PARTS}
+    log(f"probnet: plate scene {PN_WH}x{PN_WH}, {PN_TRAIN} train views, "
+        f"{T} triplets (one depth view each), D {opt.depth_grid}, pad "
+        f"{opt.pad}, near/far {MVS_NEAR_FAR}, dprob_thresh "
+        f"{opt.dprob_thresh}: ms per depth view by part {per}; hull "
+        f"{1e3 * stats['hull_s']:.1f} ms, voxel downsample "
+        f"{1e3 * stats['vox_s']:.1f} ms (host); wall {wall:.2f} s; points "
+        f"kept {stats['n_keep']}, after the hull {stats['n_hull']}, after "
+        f"the downsample (vox_res {opt.vox_res}) {stats['n_vox']}; peak "
+        f"{peak:.2f} GiB; {smi}")
+    if stats["n_vox"] < PN_MIN_POINTS:
+        raise AssertionError(f"the ProbNet init left {stats['n_vox']} points")
+    del mvs
+    torch.cuda.empty_cache()
+    s0 = start_psnr(opt, train_ds, test_ds, 1)
+    psnr0 = s0["psnr0"]
+    del s0, train_ds
+    torch.cuda.empty_cache()
+    res, ft, wall, sr_over, peak = finetune_run(
+        "probnet finetune", opt, (kernels.TRUNK_FWD, kernels.TRUNK_BWD,
+                                  kernels.OCCUPANCY, kernels.SCATTER_ROWS))
+    tm = res["timing"]
+    n_start = int(npc.num_active(trainer.point_state_of(res["state"])))
+    log(f"probnet finetune: {n_start} points from the ProbNet init, "
+        f"{tm['steps']} steps, {1e3 * tm['train_s'] / tm['steps']:.1f} "
+        f"ms/step, wall {wall:.1f} s (the init again, test renders "
+        f"{tm['test_s']:.1f} s, checkpoints {tm['save_s']:.1f} s); "
+        f"sr_overflow over the steps {sr_over}; final test PSNR "
+        f"{res['final_psnr']:.3f} (initial cloud {psnr0:.3f}); peak "
+        f"{peak:.2f} GiB; launches {ft}")
+    if n_start != stats["n_vox"]:
+        raise AssertionError(f"main started from {n_start} points, the "
+                             f"timed init made {stats['n_vox']}")
+    if not res["final_psnr"] > psnr0:
+        raise AssertionError(f"probnet test PSNR {res['final_psnr']:.3f} "
+                             f"not above the start's {psnr0:.3f}")
+    log(f"probnet phase: {time.perf_counter() - phase0:.1f} s")
+    return ft
+
+
+def first_views(sample, n: int):
+    """A feed-forward bundle cut to its first n views (dtu's hold 3
+    sources and the target; ProbNet's cost volume takes 3)."""
+    out = {}
+    for k, v in sample.items():
+        v = np.asarray(v)
+        if k == "proj_mats":
+            v = v[:n, :n]
+        elif v.ndim >= 1 and v.shape[0] == len(sample["view_ids"]) and \
+                k != "near_fars_depth":
+            v = v[:n]
+        out[k] = v
+    return out
+
+
+PN_SLICE_TIE = 1e-4                   # e·D this near an integer: the mass's
+                                      # slice floor(e·D) jumps there
+
+
+def slice_tie_weights(mvs, opt, sample, noise):
+    """Per row 0 where the pixel's e·D lies within PN_SLICE_TIE of an
+    integer (uniform prob volumes put it at D/2 exactly, and the two
+    devices' sums land on either side), else 1: [rows, 1] on the CPU."""
+    from pointnerf_tpu_torch.models.mvs import points_model as pm
+    from pointnerf_tpu_torch.models.mvs.probnet import prob_moments
+    maps = {}
+    with torch.no_grad():
+        pm.gen_points(copy.deepcopy(mvs).cpu(), opt, sample, noise=noise,
+                      maps=maps, training=True)
+    w = []
+    for prob in maps["prob"]:
+        eD = prob_moments(prob)[0].reshape(-1) * prob.shape[0]
+        far = (eD - torch.round(eD)).abs() >= PN_SLICE_TIE
+        w.append(far.repeat(opt.num_each_depth))
+    return torch.cat(w).to(torch.float32)[:, None]
+
+
+def probnet_grads(mvs, opt, sample, noise, w=None):
+    """ProbNet's parameter gradients of sum(w·conf) + 1e-3·sum(xyz_w)
+    through gen_points on batch statistics, flattened."""
+    from pointnerf_tpu_torch.models.mvs import points_model as pm
+    mvs.probnet.requires_grad_(True)
+    out = pm.gen_points(mvs, opt, sample, noise=noise, training=True)
+    conf = out["conf"] if w is None else out["conf"] * w.to(
+        out["conf"].device)
+    loss = conf.sum() + (out["xyz_w"] * 1e-3).sum()
+    grads = torch.autograd.grad(loss, list(mvs.probnet.parameters()))
+    return loss, torch.cat([g.reshape(-1) for g in grads])
+
+
+def probnet_gen_path(root, smi: str):
+    """ProbNet at dtu_gen's size (640x512, D 128, pad 24). dtu_gen itself
+    refuses it on the card (a ValueError naming manual_depth_view: dtu's
+    bundles hold 4 views, ProbNet takes 3; JAX's conv fails there). Then
+    ProbNet trains on the first three views of a dtu_gen item: PNG_STEPS
+    Adam steps of sum(conf) + 1e-3·sum(xyz) through gen_points on batch
+    statistics (ProbNet's backward, the path dtu_gen would run), timed;
+    every gradient finite and one nonzero; one step's gradients against
+    the CPU's at PNG_CPU_D planes and one depth view, the conf of
+    slice-tie rows weighted 0 (`slice_tie_weights`), in float64 on both
+    devices within GRAD_REL in norm; in float32 within GRAD_REL, or the
+    card's no further off the CPU's float64 than PNG_F32_SPREAD times the
+    CPU's float32 (float32 alone sits ~1e-3 off float64 there: a 3D U-Net
+    on batch statistics over a million voxels)."""
+    from pointnerf_tpu_torch.data import create_dataset
+    from pointnerf_tpu_torch.run import train as gen
+    phase0 = time.perf_counter()
+    dev = torch.device("cuda")
+    opt = dtu_gen_options(root).replace(manual_depth_view=-1,
+                                        dprob_thresh=PN_DPROB_THRESH)
+    ds = create_dataset(opt, "train")
+    item = ds.get_item(0, rng=np.random.RandomState(0))
+    sample = item.pop("mvs_sample")
+    st = gen.create_gen_state(opt, device=dev)
+    try:
+        gen.gen_train_step(st, sample, gen.batch_of(item, dev), opt,
+                           gen.make_render_spec(opt, ds, gen.point_slots(opt)))
+    except ValueError as e:
+        log(f"probnet_gen: dtu_gen refuses ProbNet on the card: {e}")
+    else:
+        raise AssertionError("dtu_gen ran ProbNet on a 4-view bundle")
+    mvs = st.mvs.requires_grad_(False)
+    del st
+    sample3 = first_views(sample, 3)
+    H, W = DTU_WH[1], DTU_WH[0]
+    hp, wp = H // 4 + 2 * opt.pad, W // 4 + 2 * opt.pad
+    gen_ = torch.Generator().manual_seed(2)
+    mvs.probnet.requires_grad_(True)
+    adam = torch.optim.Adam(list(mvs.probnet.parameters()), lr=opt.lr)
+    losses, gnorms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(PNG_STEPS):
+        noise = [torch.randn((opt.num_each_depth, hp, wp), generator=gen_)
+                 for _ in str(opt.depth_vid)]
+        loss, g = probnet_grads(mvs, opt, sample3, noise)
+        if not bool(torch.isfinite(g).all()) or not float(g.abs().max()) > 0:
+            raise AssertionError("ProbNet's gradients are not finite and "
+                                 "nonzero")
+        off = 0
+        for p in mvs.probnet.parameters():
+            p.grad = g[off:off + p.numel()].reshape(p.shape)
+            off += p.numel()
+        adam.step()
+        adam.zero_grad(set_to_none=True)
+        losses.append(float(loss.detach()))
+        gnorms.append(float(g.norm()))
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / PNG_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # one step's gradients, card against CPU, at PNG_CPU_D planes and one
+    # depth view
+    cut = opt.replace(depth_grid=PNG_CPU_D, depth_vid="0")
+    noise = [torch.randn((cut.num_each_depth, hp, wp), generator=gen_)
+             for _ in str(cut.depth_vid)]
+    t1 = time.perf_counter()
+    w = slice_tie_weights(mvs, cut, sample3, noise)
+    nets = {"card": mvs, "cpu": copy.deepcopy(mvs).cpu()}
+    nets.update({k + "64": copy.deepcopy(v).double()
+                 for k, v in list(nets.items())})
+    grads = {k: probnet_grads(v, cut, sample3, noise, w)[1].double().cpu()
+             for k, v in nets.items()}
+    del nets
+    rd = lambda a, b: float((grads[a] - grads[b]).norm() / grads[b].norm())
+    rel, rel64 = rd("card", "cpu"), rd("card64", "cpu64")
+    off = {k: rd(k, "cpu64") for k in ("card", "cpu")}
+    log(f"probnet_gen: ProbNet on 3 views of a dtu_gen item at "
+        f"{W}x{H} ({hp}x{wp} padded, D {opt.depth_grid}), batch statistics:"
+        f" {PNG_STEPS} steps of forward + backward + Adam at {step_ms:.1f} "
+        f"ms/step, loss {losses[0]:.4f} -> {losses[-1]:.4f}, gradient "
+        f"norms {[round(v, 4) for v in gnorms]}; peak {peak:.2f} GiB; one "
+        f"step's gradients card vs CPU at D {PNG_CPU_D}, one depth view, "
+        f"the conf of {int((w == 0).sum())} of {len(w)} slice-tie rows "
+        f"weighted 0: ||diff|| / ||cpu|| float64 {rel64:.3e}, float32 "
+        f"{rel:.3e} (bar {GRAD_REL}); float32 off the CPU's float64: card "
+        f"{off['card']:.3e}, CPU {off['cpu']:.3e} "
+        f"({time.perf_counter() - t1:.1f} s); {smi}")
+    if not rel64 <= GRAD_REL:
+        raise AssertionError(f"ProbNet float64 gradients card vs CPU: "
+                             f"{rel64:.3e}")
+    if not (rel <= GRAD_REL or off["card"] <= PNG_F32_SPREAD * off["cpu"]):
+        raise AssertionError(f"ProbNet float32 gradients card vs CPU: "
+                             f"{rel:.3e}, off float64 {off}")
+    mvs.probnet.requires_grad_(False)
+    log(f"probnet_gen phase: {time.perf_counter() - phase0:.1f} s")
+
+
+# ---------------------------------------- scene editing and the viewer
+def editing_path(root, smi: str):
+    """Scene editing on the card from the finetune phase's checkpoint,
+    staged as edit_srcs/plate_ft: the whole cloud, plus its x < 0 half
+    rotated 90° about z and lifted EDIT_LIFT (per-point Rw2c), composed by
+    run/editing.main, which renders one test view and the render split's
+    video (20 poses; the counts reset just before and read just after: K1
+    and K3 must launch, K4 not) and saves the composite; one chunk of the test
+    view rendered again on the CPU from it (within 1e-5); test_ft reads it
+    back (K1, K3). Returns the launch counts of main and of test_ft."""
+    import shutil
+    from pointnerf_tpu_torch.data import create_dataset
+    from pointnerf_tpu_torch.ops import kernels
+    from pointnerf_tpu_torch.run import editing, test_ft
+    phase0 = time.perf_counter()
+    ft = finetune_options(root)
+    src = os.path.join(ft.checkpoints_dir, "edit_srcs", ft.experiment)
+    for d in ("parts_index", "transforms"):
+        os.makedirs(os.path.join(src, d), exist_ok=True)
+    for f in (f"{FT_STEPS}_net_ray_marching.npz", f"{FT_STEPS}_states.npz"):
+        shutil.copy(os.path.join(ft.checkpoints_dir, ft.experiment, f), src)
+    raw = np.load(os.path.join(src, f"{FT_STEPS}_net_ray_marching.npz"))
+    xyz = raw["neural_points.xyz"][0]
+    half = xyz[:, 0] < 0
+    np.savetxt(os.path.join(src, "parts_index", "half.txt"),
+               half.astype(np.int32))
+    M = np.eye(4)
+    M[:3, :3] = [[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]]
+    M[2, 3] = EDIT_LIFT
+    np.savetxt(os.path.join(src, "transforms", "rot90lift.txt"), M)
+    opt = ft.replace(experiment="plate_edit", test_num=1, save_point_freq=0)
+    parts = ([ft.experiment] * 2, ["all", "half"], ["no", "rot90lift"])
+    for k in kernels.KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = editing.main(opt, *parts, device="cuda")
+    wall = time.perf_counter() - t0
+    n_poses = len(create_dataset(opt, "render"))
+    ed = {k.name: k.launches for k in kernels.KERNELS}
+    check_launches("editing", (kernels.TRUNK_FWD, kernels.OCCUPANCY))
+    log(f"editing: {len(xyz)} source points + {int(half.sum())} moved = "
+        f"{out['n_points']} composed (per-point Rw2c), test PSNR "
+        f"{out['psnr']:.3f} on 1 view, render_vid {out['n_frames']} frames "
+        f"(the render split's {n_poses}), "
+        f"composite saved; wall {wall:.1f} s; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{ed}")
+    if out["n_points"] != len(xyz) + int(half.sum()) or \
+            out["n_frames"] != n_poses or not np.isfinite(out["psnr"]):
+        raise AssertionError("editing.main did not compose and render")
+    ckpt = os.path.join(opt.checkpoints_dir, opt.experiment)
+    chunks_vs_cpu("editing", ckpt, opt,
+                  create_dataset(opt, "test").get_item(0, full_img=True),
+                  n_chunks=1)
+    for k in kernels.KERNELS:
+        k.launches = 0
+    back = test_ft.main(opt.replace(resume_dir=ckpt))
+    tf = {k.name: k.launches for k in kernels.KERNELS}
+    check_launches("editing test_ft", (kernels.TRUNK_FWD, kernels.OCCUPANCY))
+    log(f"editing test_ft: step {back['step']}, PSNR {back['psnr']:.3f} "
+        f"(editing's {out['psnr']:.3f}); launches {tf}")
+    if back["step"] != 0 or abs(back["psnr"] - out["psnr"]) > 1e-4:
+        raise AssertionError("test_ft did not read the composite back")
+    log(f"editing phase: {time.perf_counter() - phase0:.1f} s; {smi}")
+    return ed, tf
+
+
+def visualize_path(root, smi: str):
+    """The headless viewer on the finetune phase's checkpoint: the PLY,
+    a VIS_FRAMES-frame turntable at VIS_SIZE² and a growth video from its
+    point dumps, splatted on the card (run/visualize.py); one frame's
+    splat must equal the CPU's pixel for pixel."""
+    from pointnerf_tpu_torch.run import visualize as vz
+    phase0 = time.perf_counter()
+    ft = finetune_options(root)
+    ckpt = os.path.join(ft.checkpoints_dir, ft.experiment)
+    out = os.path.join(root, "vis")
+    os.makedirs(out, exist_ok=True)
+    xyz, rgb, conf = vz.load_point_cloud(ckpt)
+    vz.write_ply(os.path.join(out, "cloud.ply"), xyz, rgb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vid = vz.render_turntable(xyz, rgb, os.path.join(out, "turntable"),
+                              n_frames=VIS_FRAMES, size=VIS_SIZE)
+    turn_s = time.perf_counter() - t0
+    dumps = sorted(os.listdir(os.path.join(ckpt, "points")))
+    t0 = time.perf_counter()
+    grow = vz.render_grow(os.path.join(ckpt, "points"),
+                          os.path.join(out, "grow"), size=VIS_SIZE)
+    grow_s = time.perf_counter() - t0
+    center, radius = vz.frame_cloud(xyz)
+    focal = VIS_SIZE / (2.0 * np.tan(np.deg2rad(50.0) / 2.0))
+    c2w = vz.orbit_pose(center, radius, 1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = vz.splat_render(xyz, rgb, c2w, VIS_SIZE, VIS_SIZE, focal)
+    torch.cuda.synchronize()
+    splat_ms = 1e3 * (time.perf_counter() - t0)
+    host = vz.splat_render(xyz, rgb, c2w, VIS_SIZE, VIS_SIZE, focal,
+                           device="cpu")
+    same = bool(torch.equal(card.cpu(), host))
+    log(f"visualize: {len(xyz)} points above conf 0.1, PLY "
+        f"{os.path.getsize(os.path.join(out, 'cloud.ply'))} bytes; "
+        f"turntable {VIS_FRAMES} frames at {VIS_SIZE}² in {turn_s:.2f} s "
+        f"({vid}); growth video of dumps {dumps} in {grow_s:.2f} s; one "
+        f"splat {splat_ms:.1f} ms on the card, equal to the CPU's: {same}; "
+        f"{smi}")
+    if not same or grow is None or len(dumps) < 3:
+        raise AssertionError("visualize: the splat differs from the CPU's "
+                             "or the dumps are missing")
+    log(f"visualize phase: {time.perf_counter() - phase0:.1f} s")
+
+
 def tt_options(root):
     """tt_preset("Truck") at its widths (1920x1080, ranges, vsize 0.002,
     vscale 3, SR 40, K 8, P 10, max_o 1.6 M, the 256-wide MLP, auto
@@ -3223,7 +3701,7 @@ def tt_options(root):
         checkpoints_dir=os.path.join(root, "checkpoints"),
         experiment="truck_ft", maximum_step=TT_STEPS, print_freq=50,
         save_iter_freq=10 * TT_STEPS, save_point_freq=0, test_freq=0,
-        test_num=TT_VIEWS[1])
+        test_num=TT_TEST_NUM)
 
 
 def tt_eval_path(root, smi: str):
@@ -3298,8 +3776,8 @@ def tt_eval_path(root, smi: str):
     peak = torch.cuda.max_memory_allocated() / 2**30
     check_launches("test_ft", (kernels.TRUNK_FWD, kernels.OCCUPANCY))
     scores = out["scores"]
-    log(f"test_ft {TT_WH[0]}x{TT_WH[1]}: {TT_VIEWS[1]} images in "
-        f"{wall:.1f} s ({1e3 * wall / TT_VIEWS[1]:.1f} ms an image with the "
+    log(f"test_ft {TT_WH[0]}x{TT_WH[1]}: {TT_TEST_NUM} image in "
+        f"{wall:.1f} s ({1e3 * wall / TT_TEST_NUM:.1f} ms an image with the "
         f"checkpoint load, PNG writes and scoring), PSNR {out['psnr']:.3f}, "
         f"scores { {k: round(v, 5) for k, v in scores.items()} }, peak "
         f"{peak:.2f} GiB; launches {test}; {smi}")
@@ -3335,7 +3813,7 @@ def tt_eval_path(root, smi: str):
                              "hits and misses")
     chunk = opt.random_sample_size ** 2
     per_chunk = hit.reshape(-1)[: (H * W // chunk) * chunk].reshape(-1, chunk)
-    pick = np.sort(np.argsort(-per_chunk.sum(1), kind="stable")[:2])
+    pick = np.sort(np.argsort(-per_chunk.sum(1), kind="stable")[:1])
     sel = np.concatenate([np.arange(c * chunk, (c + 1) * chunk) for c in pick])
     sub = dict(item, raydir=item["raydir"][:, sel],
                pixel_idx=item["pixel_idx"][:, sel])
@@ -3545,12 +4023,23 @@ def main() -> int:
         # the other shading envelopes on the same plate scene: pers30
         # (K1, K2, K3, K6), the rest around K3 and K6
         envelopes = envelopes_path(root, smi)
+        torch.cuda.empty_cache()
+        # scene editing from the finetune's checkpoint (K1, K3; test_ft
+        # K1, K3) and the viewer on it and its point dumps
+        edit, edit_test = editing_path(root, smi)
+        torch.cuda.empty_cache()
+        visualize_path(root, smi)
     torch.cuda.empty_cache()
-    timeline("finetune, render_vid, envelopes")
+    timeline("finetune, render_vid, envelopes, editing, visualize")
     with tempfile.TemporaryDirectory() as root:
         mvs = mvs_path(root)
     torch.cuda.empty_cache()
     timeline("mvs")
+    # the ProbNet-initialised finetune (K1, K2, K3, K6)
+    with tempfile.TemporaryDirectory() as root:
+        probnet = probnet_path(root, smi)
+    torch.cuda.empty_cache()
+    timeline("probnet")
 
     # the feed-forward DTU paths: inference (frustum querier, K1 in order
     # 1), then generalizable training (K1, K2, K3, K6)
@@ -3563,8 +4052,12 @@ def main() -> int:
         dtu_inf = dtu_inf_path(root)
         torch.cuda.empty_cache()
         dtu_gen = dtu_gen_path(root)
+        torch.cuda.empty_cache()
+        # ProbNet at dtu_gen's size: dtu_gen refuses it, ProbNet's own
+        # backward on 3 of the item's views (cuDNN, no kernel of the port)
+        probnet_gen_path(root, smi)
     torch.cuda.empty_cache()
-    timeline("dtu_inf, dtu_gen")
+    timeline("dtu_inf, dtu_gen, probnet_gen")
 
     # the DTU per-scene finetune with the plane background (K1, K2, K3,
     # K6), its planepoints run and the resampler
@@ -3605,8 +4098,9 @@ def main() -> int:
 
     log(f"chip_smoke: {time.perf_counter() - start:.1f} s from the start")
     runs = (serve, serve_s, train, train_s, finetune, video, *envelopes,
-            mvs, dtu_inf, dtu_gen, dtu_ft, dtu_pp, scannet_ft, scannet_lp3,
-            vox_ft, vox_test, llff_ft, llff_vid, nsft_ft, tt_ft, tt_test)
+            edit, edit_test, mvs, probnet, dtu_inf, dtu_gen, dtu_ft, dtu_pp,
+            scannet_ft, scannet_lp3, vox_ft, vox_test, llff_ft, llff_vid,
+            nsft_ft, tt_ft, tt_test)
     report = {"kernels": []}
     for k, rows in ((kernels.TRUNK_FWD, k1), (kernels.TRUNK_BWD, k2),
                     (kernels.OCCUPANCY, k3), (kernels.SHADE_FWD, k4),

@@ -364,8 +364,6 @@ def aggregator_forward(agg: Aggregator, opt,
     from ..ops.trunk import (fused_shade, fused_shade_ok, fused_trunk,
                              fused_trunk_ok, pack_trunk_params)
     check_envelope(opt)
-    if sampled_Rw2c.dim() != 2:
-        raise NotImplementedError("per-point Rw2c is not ported")
     cd = opt.compute_dtype
     B, R, SR, K, _ = sampled_xyz.shape
     mask_f = sample_pnt_mask.to(torch.float32)
@@ -374,8 +372,13 @@ def aggregator_forward(agg: Aggregator, opt,
     order = opt.agg_intrp_order
     order1 = order == 1
 
-    RT = sampled_Rw2c.t().to(sample_ray_dirs.dtype)
-    viewdirs = _rot3(sample_ray_dirs, RT)
+    # sampled_Rw2c: [3,3], or per neighbor [B,R,SR,K,3,3] (scene editing,
+    # reference viewmlp :492-506): the ray's view direction then turns
+    # with its first neighbor's rotation, the distances and the point dirs
+    # with each neighbor's (JAX aggregator.py:312-318, 379-384, 480-486)
+    uni = sampled_Rw2c.dim() == 2
+    RT = sampled_Rw2c.transpose(-1, -2).to(sample_ray_dirs.dtype)
+    viewdirs = _rot3(sample_ray_dirs, RT if uni else RT[:, :, :, 0])
     if opt.num_viewdir_freqs > 0:
         vd = positional_encoding(viewdirs, opt.num_viewdir_freqs, ori=True)
         ori_viewdirs, viewdirs_pe = vd[..., :3], vd[..., 3:]
@@ -398,7 +401,7 @@ def aggregator_forward(agg: Aggregator, opt,
     # the config is inside fused_shade_ok; on the CPU when fused_shade > 0
     # (the plain versions); otherwise the paths below run.
     fs = int(getattr(opt, "fused_shade", 0))
-    use_shade = (fs != 0 and cd == "float32" and fused_shade_ok(opt)
+    use_shade = (fs != 0 and uni and cd == "float32" and fused_shade_ok(opt)
                  and (sampled_xyz.device.type == "cuda" or fs > 0)
                  and all(t is not None for t in (sampled_conf, sampled_color,
                                                  sampled_dir)))
@@ -472,7 +475,7 @@ def aggregator_forward(agg: Aggregator, opt,
     if sampled_color is not None and "1" in list(opt.point_color_mode):
         color_feats.append(sampled_color.reshape(-1, 3))
     if sampled_dir is not None and "1" in list(opt.point_dir_mode):
-        sdir = _rot3(sampled_dir.reshape(-1, 3), RT)
+        sdir = _rot3(sampled_dir, RT).reshape(-1, 3)
         ovd = ori_viewdirs[..., None, :].expand(B, R, SR, K, 3).reshape(-1, 3)
         color_feats += [sdir - ovd,
                         torch.sum(sdir * ovd, dim=-1, keepdim=True)]
@@ -481,7 +484,9 @@ def aggregator_forward(agg: Aggregator, opt,
     # are float32 and the config is inside its envelope, whatever
     # use_fused_trunk says. On the CPU, use_fused_trunk=1 picks the
     # kernel's plain version; other values the unfused composition below.
-    # Under bfloat16 both packages run the composition.
+    # Under bfloat16 both packages run the composition. K1 takes d_raw and
+    # the dirs already rotated, so a per-neighbor Rw2c (scene editing)
+    # runs it too; JAX composes that trunk in XLA (ROADMAP §2).
     uf = int(getattr(opt, "use_fused_trunk", 0))
     if uf > 0 and cd == "float32" and not fused_trunk_ok(opt):
         raise ValueError("use_fused_trunk=1 with an unsupported aggregator "

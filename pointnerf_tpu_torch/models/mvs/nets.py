@@ -112,7 +112,8 @@ class OfclFeatureNet(nn.Module):
 
 class _Up(nn.Sequential):
     """ConvTranspose3d(k 3, stride 2, pad 1, output_padding 1, no bias) →
-    BatchNorm3d, as the original `Sequential` (keys `0`, `1`); ReLU after."""
+    BatchNorm3d, as the original `Sequential` (keys `0`, `1`); ReLU after.
+    `batch_stats` normalises as `ConvBnAct` does."""
 
     def __init__(self, cin, cout, generator=None):
         super().__init__(nn.ConvTranspose3d(cin, cout, 3, 2, 1, 1, bias=False),
@@ -121,8 +122,10 @@ class _Up(nn.Sequential):
         # drawn with a [cout, cin] conv's bound, as JAX draws it
         _init_conv(self[0], cin * 27, generator)
 
-    def forward(self, x):
-        return torch.relu(super().forward(x))
+    def forward(self, x, batch_stats: bool = False):
+        y = self[0](x)
+        return torch.relu(batch_norm_stats(y, self[1]) if batch_stats
+                          else self[1](y))
 
 
 class CostRegNet(nn.Module):

@@ -7,19 +7,22 @@ query_embedding (points reprojected into the views, FPN features, colors,
 per-view directions and confidence sampled there, compressed 63 → C by a
 small MLP, :198-259), forward (:345-383).
 
-Covered: manual_depth_view 0 (given depths), 1 (MVSNet depth with fusion)
-and ≥ 2 (top-k depth hypotheses), `far_plane_shift`, `default_conf > 1`
-(`reassign_conf`), `depth_occ`. The ProbNet branch (manual_depth_view −1)
-is not ported (ROADMAP §1 item 8, with generalizable training).
+Covered: manual_depth_view 0 (given depths), 1 (MVSNet depth with fusion),
+≥ 2 (top-k depth hypotheses) and −1 (ProbNet's learned depth
+distribution, `probnet.py`; JAX's `_gen_points_probnet`),
+`far_plane_shift`, `default_conf > 1` (`reassign_conf`), `depth_occ`.
 
-The Gaussian depth jitter is drawn from a torch generator, or injected
-(`noise`, standard normal draws), so that a test can feed JAX's draws.
+The Gaussian depth jitter (and ProbNet's samples) is drawn from a torch
+generator, or injected (`noise`, standard normal draws), so that a test
+can feed JAX's draws.
 
 `gen_points(training=True)` is the feed-forward path's (JAX's
 `gen_points(..., training=True)`): MVSNet and the fusion stay frozen under
 no_grad (`run/train.py:52-57` of the JAX package splits them off), while
 the FPN, with BatchNorm on batch statistics, and the premlp record
-gradients into the embeddings wherever the caller enables them.
+gradients into the embeddings wherever the caller enables them. ProbNet
+is not frozen there (JAX's split_mvs_params freezes only `mvsnet`): its
+whole branch runs with autograd and batch statistics.
 """
 
 from __future__ import annotations
@@ -38,25 +41,25 @@ from . import fusion
 from .fusion import apply_mat
 from .mvsnet import depth_index, mvsnet_forward
 from .nets import MVSNet, FPNFeatureNet
+from .probnet import (ProbNet, build_volume_costvar_img, check_views,
+                      check_volume, prob_filter_mass, prob_moments,
+                      prob_volume)
 
 ROW_KEYS = ("xyz_w", "embedding", "color", "dir", "conf", "keep")
 
 
 class MvsPoints(nn.Module):
     """The nets of the MVS point init: `mvsnet` (depth), `featurenet` (the
-    FPN features each point samples) and, with shading_feature_mlp_layer0
-    > 0, `premlp` (63 → point_features_dim). Weights come from `generator`
-    (torch's default generator if None); BatchNorm is in eval mode and
-    nothing requires grad. On `device`, the card unless the caller names
-    another."""
+    FPN features each point samples), with shading_feature_mlp_layer0
+    > 0 `premlp` (63 → point_features_dim), and with manual_depth_view −1
+    `probnet` (JAX's init_mvs_points_params). Weights come from
+    `generator` (torch's default generator if None); BatchNorm is in eval
+    mode and nothing requires grad. On `device`, the card unless the
+    caller names another."""
 
     def __init__(self, opt, generator: Optional[torch.Generator] = None,
                  device="cuda"):
         super().__init__()
-        if opt.manual_depth_view == -1:
-            raise NotImplementedError(
-                "the ProbNet point init (manual_depth_view -1) is not ported "
-                "(ROADMAP §1 item 8)")
         self.mvsnet = MVSNet(generator)
         self.featurenet = FPNFeatureNet(generator)
         self.premlp = None
@@ -65,6 +68,8 @@ class MvsPoints(nn.Module):
                 opt.shading_feature_mlp_layer0
             self.premlp = init_mlp(dims, opt.act_type, final_act=True,
                                    generator=generator)
+        self.probnet = ProbNet(generator) \
+            if opt.manual_depth_view == -1 else None
         self.to(device).eval().requires_grad_(False)
 
 
@@ -256,7 +261,9 @@ def gen_points(mvs: MvsPoints, opt, sample: Dict,
 
     training: the FPN normalises with batch statistics, and the embedding
     half (FPN, point samples, premlp) runs with autograd as the caller sets
-    it; otherwise all of it runs under no_grad. depths: `mvs_depths`'s
+    it; otherwise all of it runs under no_grad (ProbNet's branch records
+    gradients wherever the caller enables them, at eval BatchNorm too, as
+    jax.grad of JAX's does). depths: `mvs_depths`'s
     output for this sample, computed before (the frozen half is then
     skipped).
 
@@ -271,12 +278,23 @@ def gen_points(mvs: MvsPoints, opt, sample: Dict,
 
     `stats`, if given, receives host seconds by phase (the device
     synchronized at each phase's end): mvs_s (depth: MVSNet or top-k),
-    fusion_s, embed_s (jitter, unprojection, features, premlp). `maps`
-    receives per depth view the depth, conf and prob maps of MVSNet
-    (`depth`, `conf`, `prob`, `index`: the regressed bin index before
-    truncation) and the rows' visibility in each sampled view (`vis`,
-    [N, views] per depth view).
+    fusion_s, embed_s (jitter, unprojection, features, premlp); under
+    ProbNet cost_s (the cost volume), unet_s (U-Net, head, softmax),
+    filter_s (moments, mass filter) and embed_s (samples, unprojection,
+    features, premlp). `maps` receives per depth view the depth, conf and
+    prob maps of MVSNet (`depth`, `conf`, `prob`, `index`: the regressed
+    bin index before truncation), or ProbNet's `prob` and `mass`, and the
+    rows' visibility in each sampled view (`vis`, [N, views] per depth
+    view).
+
+    manual_depth_view −1 (ProbNet): noise holds per depth view the
+    standard normal draws [num_each_depth, hp, wp] of the samples around
+    each padded feature pixel's expected depth; rows are ordered depth
+    view, sample, padded feature pixel.
     """
+    if opt.manual_depth_view == -1:
+        return _gen_points_probnet(mvs, opt, sample, noise, generator,
+                                   stats, maps, training)
     if depths is None:
         depths = mvs_depths(mvs, opt, sample, stats, maps)
     with torch.set_grad_enabled(training and torch.is_grad_enabled()):
@@ -284,9 +302,10 @@ def gen_points(mvs: MvsPoints, opt, sample: Dict,
                              stats, maps, training)
 
 
-def _on(sample: Dict, dev):
+def _on(sample: Dict, dev, dtype=torch.float32):
+    """sample[k] rounded to float32, as a `dtype` tensor on dev."""
     return lambda k: torch.as_tensor(np.asarray(sample[k], np.float32),
-                                     device=dev)
+                                     device=dev).to(dtype)
 
 
 @torch.no_grad()
@@ -297,9 +316,8 @@ def mvs_depths(mvs: MvsPoints, opt, sample: Dict,
     the given depths, mode 0) and the fusion's keep mask and confidence.
     Returns {"depth", "keep", "conf"}, each [Vd, (dnum,) H, W]."""
     if opt.manual_depth_view == -1:
-        raise NotImplementedError(
-            "the ProbNet point init (manual_depth_view -1) is not ported "
-            "(ROADMAP §1 item 8)")
+        raise ValueError("manual_depth_view -1 has no frozen depth half: "
+                         "ProbNet trains with the embeddings (gen_points)")
     dev = next(mvs.parameters()).device
     on = _on(sample, dev)
     imgs = on("mvs_images")
@@ -431,4 +449,99 @@ def _embed_points(mvs, opt, sample, depths, noise, generator, stats, maps,
         out["keep"].append(keep_rows)
     synchronize(dev)
     stats["embed_s"] += time.perf_counter() - t2
+    return {k: torch.cat(v, dim=0) for k, v in out.items()}
+
+
+def _gen_points_probnet(mvs, opt, sample, noise, generator, stats, maps,
+                        training):
+    """The learned-probability init (JAX's `_gen_points_probnet`,
+    reference mvs_points_model.py:282-296): per depth view the cost
+    volume, ProbNet's prob volume, its moments and mass filter
+    (mass > dprob_thresh), the samples clip(e + std·noise, 0, 1) on the
+    padded feature grid, unprojected with the feature-resolution intrinsic
+    whose principal point is shifted by `pad`, and their embeddings with
+    the mass as conf. It runs in the nets' dtype (float64 for a double
+    MvsPoints, on the same float32 inputs)."""
+    dev = next(mvs.parameters()).device
+    dtype = next(mvs.probnet.parameters()).dtype
+    on = _on(sample, dev, dtype)
+    imgs = on("mvs_images")
+    _, _, H, W = imgs.shape
+    depth_vids = [int(v) for v in str(opt.depth_vid)]
+    near_far = on("near_fars")[0]
+    intrinsics, w2cs, c2ws = on("intrinsics"), on("w2cs"), on("c2ws")
+    W2Cinv = torch.linalg.inv(torch.as_tensor(
+        np.asarray(sample["w2cs"], np.float32))).to(dev)
+    stats = {} if stats is None else stats
+    for k in ("cost_s", "unet_s", "filter_s", "embed_s"):
+        stats.setdefault(k, 0.0)
+    t0 = time.perf_counter()
+    img_feats = mvs.featurenet(imgs, batch_stats=training)
+    feats = img_feats[-1]                                    # [V,32,h,w]
+    h, w = feats.shape[-2:]
+    D = opt.depth_grid
+    check_views(imgs.shape[0], feats.shape[1])
+    check_volume(D, h, w, opt.pad)
+    # jnp.linspace(0, 1, D): iota / (D − 1), the last entry 1
+    lin = np.append(np.arange(D - 1, dtype=np.float32) / np.float32(D - 1),
+                    np.float32(1.0))
+    dvals = near_far[0] + (near_far[1] - near_far[0]) * \
+        torch.as_tensor(lin, device=dev)
+    proj_all = on("proj_mats")                               # [V,V,3,4]
+    scale = np.float32(h / H)
+    N = opt.num_each_depth
+    out = {k: [] for k in ROW_KEYS}
+    synchronize(dev)
+    stats["embed_s"] += time.perf_counter() - t0
+    for i, vid in enumerate(depth_vids):
+        t0 = time.perf_counter()
+        cost = build_volume_costvar_img(imgs, feats, proj_all[vid], dvals,
+                                        opt.pad, vid)
+        synchronize(dev)
+        t1 = time.perf_counter()
+        prob = prob_volume(mvs.probnet, cost, training)      # [D,hp,wp]
+        del cost
+        synchronize(dev)
+        t2 = time.perf_counter()
+        e, std = prob_moments(prob)
+        mass = prob_filter_mass(prob, e, opt.num_neighbor)
+        mask = mass > opt.dprob_thresh
+        if maps is not None:
+            maps.setdefault("prob", []).append(prob)
+            maps.setdefault("mass", []).append(mass)
+        del prob
+        synchronize(dev)
+        t3 = time.perf_counter()
+        hp, wp = e.shape
+        draw = noise[i].to(dev, dtype) if noise is not None else \
+            torch.randn((N, hp, wp), generator=generator).to(dev, dtype)
+        sampled = torch.clamp(e[None] + std[None] * draw, 0.0, 1.0)
+        K = np.asarray(sample["intrinsics"][vid], np.float32)
+        pad = np.float32(opt.pad)
+        K_feat = np.array([[K[0, 0] * scale, 0.0, K[0, 2] * scale + pad],
+                           [0.0, K[1, 1] * scale, K[1, 2] * scale + pad],
+                           [0.0, 0.0, 1.0]], np.float32)
+        Kinv = torch.linalg.inv(torch.as_tensor(K_feat)).to(dev)
+        cam_xyz = depth2point(sampled, Kinv, near_far).reshape(-1, 3)
+        conf_rows = mass.reshape(-1, 1).repeat(N, 1)
+        keep_rows = mask.reshape(-1).repeat(N)
+        vis = [] if maps is not None else None
+        emb, col, drs, cf = query_embedding(
+            mvs, opt, img_feats, cam_xyz, conf_rows, intrinsics, c2ws, w2cs,
+            H, W, vid, vis=vis)
+        if vis is not None:
+            maps.setdefault("vis", []).append(torch.stack(vis, dim=-1))
+        hom = torch.cat([cam_xyz, torch.ones_like(cam_xyz[:, :1])], dim=-1)
+        out["xyz_w"].append(apply_mat(hom, W2Cinv[vid][:3]))
+        out["embedding"].append(emb)
+        out["color"].append(col)
+        out["dir"].append(drs)
+        out["conf"].append(cf)
+        out["keep"].append(keep_rows)
+        synchronize(dev)
+        t4 = time.perf_counter()
+        stats["cost_s"] += t1 - t0
+        stats["unet_s"] += t2 - t1
+        stats["filter_s"] += t3 - t2
+        stats["embed_s"] += t4 - t3
     return {k: torch.cat(v, dim=0) for k, v in out.items()}

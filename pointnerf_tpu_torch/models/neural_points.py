@@ -33,8 +33,9 @@ def create_point_cloud(xyz: np.ndarray,
                        capacity: Optional[int] = None,
                        device="cuda") -> Dict[str, Optional[torch.Tensor]]:
     """Build the padded state dict from host arrays: xyz [N,3], embedding
-    [N,C], color/direction [N,3], conf [N,1], Rw2c [3,3] (identity if None),
-    on `device` (the card unless the caller names another)."""
+    [N,C], color/direction [N,3], conf [N,1], Rw2c [3,3] (identity if
+    None) or per point [N,3,3] (scene editing; the padding slots take the
+    identity), on `device` (the card unless the caller names another)."""
     n = xyz.shape[0]
     cap = capacity or round_capacity(n)
     if cap < n:
@@ -51,9 +52,13 @@ def create_point_cloud(xyz: np.ndarray,
     if Rw2c is None:
         Rw2c = np.eye(3, dtype=np.float32)
     Rw2c = np.asarray(Rw2c, np.float32)
-    if Rw2c.ndim != 2:
-        raise NotImplementedError("per-point Rw2c (scene editing) is not "
-                                  "ported")
+    if Rw2c.ndim == 3:
+        if Rw2c.shape[0] != n:
+            raise ValueError(f"per-point Rw2c has {Rw2c.shape[0]} rows for "
+                             f"{n} points")
+        out = np.tile(np.eye(3, dtype=np.float32), (cap, 1, 1))
+        out[:n] = Rw2c
+        Rw2c = out
     return {
         "xyz": pad(np.asarray(xyz, np.float32), SENTINEL),
         "embedding": pad(np.asarray(embedding, np.float32)),
@@ -136,7 +141,9 @@ def gather_neighbors(state: Dict, sample_pidx: torch.Tensor,
     sample_pidx: [B,R,SR,K] int32 (-1 = missing). All point attributes are
     packed into one [N, C] row table and gathered once (differentiable in
     the trainable buffers; see _GatherRows); the perspective coordinates are
-    computed for the gathered points only.
+    computed for the gathered points only. A per-point Rw2c [N,3,3] (scene
+    editing) is gathered per neighbor, [B,R,SR,K,3,3]; a missing neighbor
+    reads point 0's, as it reads its other attributes.
     """
     B = sample_pidx.shape[0]
     shape = tuple(sample_pidx.shape)
@@ -170,6 +177,9 @@ def gather_neighbors(state: Dict, sample_pidx: torch.Tensor,
     xyz_pers = torch.stack([xyz_c[..., 0] / xyz_c[..., 2],
                             xyz_c[..., 1] / xyz_c[..., 2],
                             xyz_c[..., 2]], dim=-1)
+    rw2c = state["Rw2c"]
+    if rw2c.dim() == 3:
+        rw2c = rw2c.reshape(-1, 9)[safe].reshape(shape + (3, 3))
     return {
         "sampled_xyz": xyz,
         "sampled_xyz_pers": xyz_pers,
@@ -178,5 +188,5 @@ def gather_neighbors(state: Dict, sample_pidx: torch.Tensor,
         "sampled_dir": split.get("dir"),
         "sampled_conf": split.get("conf"),
         "sample_pnt_mask": pnt_mask,
-        "Rw2c": state["Rw2c"],
+        "Rw2c": rw2c,
     }

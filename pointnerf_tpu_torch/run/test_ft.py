@@ -34,7 +34,7 @@ def main(opt, device="cuda") -> Dict:
     Returns the mean PSNR of the renders, the scores and the step."""
     if opt.n_devices not in (0, 1):
         raise NotImplementedError("multi-GPU serving is not ported "
-                                  "(ROADMAP §1 item 10)")
+                                  "(ROADMAP §1 item 7)")
     ckpt_dir = opt.resume_dir or os.path.join(opt.checkpoints_dir,
                                               opt.experiment)
     visualizer = Visualizer(opt)

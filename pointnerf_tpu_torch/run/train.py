@@ -16,7 +16,9 @@ manual_std_depth 0 nothing is drawn, and no eval path jitters), so the
 port generates them once per item and renders the image through
 `run/common.render_image`, which builds the frustum grid once per image.
 With manual_std_depth > 0 the per-chunk draws would differ, and inference
-raises.
+raises. ProbNet (manual_depth_view −1) takes 3-view bundles and dtu's
+hold 4 (3 sources and the target): both packages refuse it here
+(ROADMAP §3), though ProbNet joins the MVS chain as in JAX.
 
 Usage: python -m pointnerf_tpu_torch.run.train --preset dtu_inf
 --data_root <dir> [--device cpu] [Options flags]
@@ -53,9 +55,9 @@ BATCH_KEYS = ("raydir", "campos", "camrotc2w", "bg_color", "gt_image")
 
 @dataclass
 class GenTrainState:
-    """The aggregator, the MVS nets (MVSNet frozen; the FPN featurenet and
-    the premlp trainable), an Adam over each chain, the step, and the
-    generator of the render's draws (on the nets' device)."""
+    """The aggregator, the MVS nets (MVSNet frozen; the FPN featurenet,
+    the premlp and ProbNet trainable), an Adam over each chain, the step,
+    and the generator of the render's draws (on the nets' device)."""
     aggregator: Aggregator
     mvs: pm.MvsPoints
     opt_net: torch.optim.Adam
@@ -64,7 +66,8 @@ class GenTrainState:
     generator: torch.Generator
 
     def mvs_params(self) -> Dict[str, torch.nn.Parameter]:
-        """The trainable MVS parameters by name (featurenet, premlp)."""
+        """The trainable MVS parameters by name (featurenet, premlp,
+        probnet)."""
         return {k: p for k, p in self.mvs.named_parameters()
                 if not k.startswith("mvsnet.")}
 
@@ -73,12 +76,12 @@ def make_gen_state(aggregator: Aggregator, mvs: pm.MvsPoints, opt,
                    generator: torch.Generator, step: int = 0
                    ) -> GenTrainState:
     """GenTrainState around existing nets, with fresh Adam moments: the
-    FPN and the premlp require grad, MVSNet does not (JAX's
+    FPN, the premlp and ProbNet require grad, MVSNet does not (JAX's
     split_mvs_params)."""
     mvs.requires_grad_(False)
-    mvs.featurenet.requires_grad_(True)
-    if mvs.premlp is not None:
-        mvs.premlp.requires_grad_(True)
+    for net in (mvs.featurenet, mvs.premlp, mvs.probnet):
+        if net is not None:
+            net.requires_grad_(True)
     mvs_lr = opt.mvs_lr if opt.mvs_lr is not None else opt.lr
     state = GenTrainState(aggregator, mvs, None, None, step, generator)
     state.opt_net = torch.optim.Adam(aggregator.parameters(), lr=opt.lr,

@@ -27,9 +27,10 @@ precomputes one background map per train and test frame from the init
 views and the starting cloud (`models/mvs/bg.create_all_bg`), and every
 train batch and test render carries its rays' `bg_ray`.
 
-Not ported (raise NotImplementedError): n_devices > 1 (ROADMAP §1 item 7),
-the ProbNet init (manual_depth_view -1, item 5), profile_dir (profile with
-profile_render.py), and steps_per_dispatch (ignored: one call per step).
+Not ported (raise NotImplementedError): n_devices > 1 (ROADMAP §1 item 7)
+and profile_dir (profile with profile_render.py); steps_per_dispatch is
+ignored (one call per step). The MVS init takes ProbNet's learned depth
+distribution with manual_depth_view -1 (`models/mvs/probnet.py`).
 With gen_vid the run ends with a video of the render path
 (`render_vid.render_vid`); a dataset with no render split skips it with a
 line in the log, and any other failure raises (the JAX driver logs every
@@ -268,9 +269,6 @@ def _check_ported(opt) -> None:
     if opt.n_devices not in (0, 1):
         raise NotImplementedError("multi-GPU training is not ported "
                                   "(ROADMAP §1 item 7)")
-    if opt.load_points < 1 and opt.manual_depth_view == -1:
-        raise NotImplementedError("the ProbNet point init (manual_depth_view"
-                                  " -1) is not ported (ROADMAP §1 item 5)")
     if opt.profile_dir:
         raise NotImplementedError("profile_dir is not ported; profile with "
                                   "profile_render.py")

@@ -20,8 +20,9 @@ The driver's checkpoints (port of `pointnerf_tpu/utils/checkpoint.py:106-
                                both Adam states included
   {steps}_gen.npz              the generalizable driver's state under the
                                JAX `GenTrainState`'s key paths (the
-                               aggregator, the FPN and premlp, MVSNet, both
-                               Adam states, the step)
+                               aggregator, the FPN, premlp and
+                               ProbNet, MVSNet, both Adam states,
+                               the step)
 
 The port writes the point-Adam moments per buffer
 (``.opt_state_pts/0/.mu/{buffer}``) and reads that layout or the packed
@@ -168,8 +169,10 @@ def from_jax_train_state(ts, opt, device="cuda") -> "trainer.TrainState":
 
 _BN_KEYS = {"scale": "weight", "bias": "bias", "mean": "running_mean",
             "var": "running_var"}
-_UP_BLOCK = re.compile(r"^(mvsnet\.cost_regularization\.conv(?:7|9|11))\."
-                       r"(conv|bn)\.")
+# the U-Nets' transposed-conv blocks: {conv, bn} in the JAX trees, the
+# original Sequential's {0, 1} in the port's
+_UP_BLOCK = re.compile(r"^((?:mvsnet\.cost_regularization|probnet\.costreg)"
+                       r"\.conv(?:7|9|11))\.(conv|bn)\.")
 
 
 def _conv_keys(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
@@ -189,24 +192,33 @@ def _conv_keys(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
             _conv_keys(v, f"{prefix}{k}.", out)
 
 
-def from_jax_mvs_params(params: Dict, opt, device="cuda") -> MvsPoints:
-    """The JAX MVS parameter tree (`init_mvs_points_params`, leaves as
-    numpy: mvsnet, featurenet, premlp) → the port's `MvsPoints`, on
-    `device` (the card unless the caller names another). The transposed
-    convs (CostRegNet's conv7/9/11) take the original `Sequential`'s keys
-    (0: ConvTranspose3d, 1: BatchNorm3d); premlp weights [in, out] become
-    Linear's [out, in]."""
-    mvs = MvsPoints(opt, torch.Generator(), device=device)
-    flat: Dict[str, np.ndarray] = {}
-    _conv_keys(params["mvsnet"], "mvsnet.", flat)
-    _conv_keys(params["featurenet"], "featurenet.", flat)
-    sd = {}
+def _up_keys(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Conv keys of a JAX tree with the transposed-conv blocks renamed to
+    the original `Sequential`'s (0: ConvTranspose3d, 1: BatchNorm3d)."""
+    out = {}
     for k, v in flat.items():
         m = _UP_BLOCK.match(k)
         if m:
             k = f"{m.group(1)}.{0 if m.group(2) == 'conv' else 1}." \
                 + k[m.end():]
-        sd[k] = torch.as_tensor(np.array(v, np.float32), device=device)
+        out[k] = v
+    return out
+
+
+def from_jax_mvs_params(params: Dict, opt, device="cuda") -> MvsPoints:
+    """The JAX MVS parameter tree (`init_mvs_points_params`, leaves as
+    numpy: mvsnet, featurenet, premlp, probnet) → the port's `MvsPoints`,
+    on `device` (the card unless the caller names another). The transposed
+    convs (CostRegNet's and ProbNet's conv7/9/11) take the original
+    `Sequential`'s keys (0: ConvTranspose3d, 1: BatchNorm3d); premlp
+    weights [in, out] become Linear's [out, in]."""
+    mvs = MvsPoints(opt, torch.Generator(), device=device)
+    flat: Dict[str, np.ndarray] = {}
+    for name in ("mvsnet", "featurenet", "probnet"):
+        if name in params:
+            _conv_keys(params[name], f"{name}.", flat)
+    sd = {k: torch.as_tensor(np.array(v, np.float32), device=device)
+          for k, v in _up_keys(flat).items()}
     for i, layer in enumerate(params.get("premlp") or []):
         sd[f"premlp.{2 * i}.weight"] = torch.as_tensor(
             np.array(layer["w"], np.float32).T, device=device)
@@ -246,6 +258,17 @@ def load_net_ray_marching_npz(path: str) -> Tuple[Dict, Dict]:
     numpy dicts in the JAX layout (w [in,out]; unpadded [N,C] point arrays),
     ready for `from_jax_params`."""
     return import_reference_dict(dict(np.load(path)))
+
+
+def load_reference_torch(path: str, opt=None) -> Tuple[Dict, Dict]:
+    """A reference ``{iter}_net_ray_marching.pth`` (a torch state dict of
+    the reference key names) → (agg_params, point_arrays), as
+    `import_reference_dict`. Read with weights_only=True: tensors and
+    containers only (the JAX package's torch.load unpickles anything)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    raw = {k: v.detach().numpy() if isinstance(v, torch.Tensor)
+           else np.asarray(v) for k, v in sd.items()}
+    return import_reference_dict(raw, opt)
 
 
 def export_reference_npz(path: str, agg: Aggregator, point_state: Dict
@@ -432,8 +455,8 @@ def load_checkpoint(ckpt_dir: str, opt, device="cuda",
 
 # ------------------------------------------------ the generalizable state
 _BN_JAX = {v: k for k, v in _BN_KEYS.items()}
-_UP_TORCH = re.compile(r"^(mvsnet\.cost_regularization\.conv(?:7|9|11))\."
-                       r"([01])\.")
+_UP_TORCH = re.compile(r"^((?:mvsnet\.cost_regularization|probnet\.costreg)"
+                       r"\.conv(?:7|9|11))\.([01])\.")
 
 
 def _mvs_jax_path(key: str) -> Tuple[Optional[str], bool]:
@@ -459,7 +482,7 @@ def _mvs_jax_path(key: str) -> Tuple[Optional[str], bool]:
 def gen_state_arrays(state) -> Dict[str, np.ndarray]:
     """A `run/train.GenTrainState` flattened under the JAX
     `GenTrainState`'s key paths (`save_pytree_npz`): agg_params,
-    mvs_train (featurenet with its BatchNorm statistics, premlp),
+    mvs_train (featurenet with its BatchNorm statistics, premlp, probnet),
     mvs_frozen (mvsnet), both optax chains (the MVS moments of the
     statistics, which take no gradient, are zeros) and the step."""
     agg = state.aggregator
@@ -497,10 +520,13 @@ def gen_state_arrays(state) -> Dict[str, np.ndarray]:
 
 
 def _mvs_torch_tensors(tree: Dict) -> Dict[str, np.ndarray]:
-    """A JAX mvs_train-shaped tree (featurenet, premlp; as numpy) by the
-    port's `MvsPoints` names, premlp weights transposed to [out, in]."""
+    """A JAX mvs_train-shaped tree (featurenet, premlp, probnet; as numpy)
+    by the port's `MvsPoints` names, premlp weights transposed to [out,
+    in]."""
     flat: Dict[str, np.ndarray] = {}
-    _conv_keys(tree.get("featurenet", {}), "featurenet.", flat)
+    for name in ("featurenet", "probnet"):
+        _conv_keys(tree.get(name, {}), f"{name}.", flat)
+    flat = _up_keys(flat)
     for i, layer in enumerate(tree.get("premlp") or []):
         flat[f"premlp.{2 * i}.weight"] = np.asarray(layer["w"]).T
         flat[f"premlp.{2 * i}.bias"] = np.asarray(layer["b"])

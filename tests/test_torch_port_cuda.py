@@ -554,10 +554,26 @@ def test_shade_render_goes_through_k4_and_matches_cpu(dev, dist_mode):
     _render_card_vs_cpu(dev, fused_shade=1, agg_dist_pers=dist_mode)
 
 
-def _render_card_vs_cpu(dev, **kw):
-    """Render a small scene on the CPU and on the card with options `kw`;
-    the card launches the forward kernels of the configuration (K4 with
-    fused_shade, else K1) and K3, the CPU none, and the outputs agree."""
+@pytest.mark.parametrize("use_fused_trunk", [-1, 1])
+def test_edited_render_goes_through_k1_and_matches_cpu(dev, use_fused_trunk):
+    """Per-point Rw2c (scene editing), random rotations: the card renders
+    through K1 on the per-neighbor rotated distances and dirs, the CPU
+    through the composition (-1) or K1's plain version (1), and the
+    images agree."""
+    _render_card_vs_cpu(dev, per_point_rw2c=True,
+                        use_fused_trunk=use_fused_trunk)
+
+
+def _rotations(n, rng):
+    q, _ = np.linalg.qr(rng.normal(size=(n, 3, 3)))
+    return q.astype(np.float32)
+
+
+def _render_card_vs_cpu(dev, per_point_rw2c=False, **kw):
+    """Render a small scene on the CPU and on the card with options `kw`
+    (and random per-point Rw2c if asked); the card launches the forward
+    kernels of the configuration (K4 with fused_shade, else K1) and K3,
+    the CPU none, and the outputs agree."""
     shade = kw.get("fused_shade", 0) > 0
     rng = np.random.RandomState(0)
     xyz = rng.uniform(-0.4, 0.4, (800, 3)).astype(np.float32)
@@ -572,6 +588,8 @@ def _render_card_vs_cpu(dev, **kw):
                  color=rng.uniform(0, 1, (n, 3)),
                  direction=rng.normal(size=(n, 3)),
                  conf=np.full((n, 1), 0.8))
+    if per_point_rw2c:
+        cloud["Rw2c"] = _rotations(n, rng)
     agg = init_aggregator_params(opt, torch.Generator().manual_seed(0),
                                  device="cpu")
     px = np.linspace(-0.15, 0.15, 24, dtype=np.float32)
@@ -1282,3 +1300,80 @@ def test_vox_table_with_duplicate_corners_on_card_matches_cpu(dev):
     for a, b in zip(out["cpu"], out[str(dev)]):
         assert torch.equal(a, b)
     assert (out["cpu"][1] >= 0).all(-1).any()
+
+
+def test_splat_on_card_equals_cpu(dev):
+    """The viewer's splat (run/visualize.py) on the card equals the CPU's
+    pixel for pixel: duplicate pixels resolved by the painter's rank, not
+    by the scatter's write order."""
+    from pointnerf_tpu_torch.run import visualize as vz
+    rng = np.random.RandomState(1)
+    xyz = rng.normal(size=(20000, 3)).astype(np.float32) * 0.5
+    xyz[10000:] = xyz[:10000]            # copies: the same pixels and depths
+    rgb = rng.uniform(size=(20000, 3)).astype(np.float32)
+    center, radius = vz.frame_cloud(xyz)
+    for az in (0.0, 2.0):
+        c2w = vz.orbit_pose(center, radius, az)
+        card = vz.splat_render(xyz, rgb, c2w, 128, 96, 110.0, 3, device=dev)
+        host = vz.splat_render(xyz, rgb, c2w, 128, 96, 110.0, 3,
+                               device="cpu")
+        assert card.is_cuda
+        assert torch.equal(card.cpu(), host)
+
+
+def test_probnet_gen_points_on_card_matches_cpu(dev, tmp_path):
+    """One ProbNet triplet (manual_depth_view -1, 64x64 plate scene, 16
+    depth planes, pad 8) on the card against the CPU, cuDNN's TF32 off:
+    the mass and the rows within TOL, keep masks equal away from
+    dprob_thresh; under batch statistics ProbNet's parameter gradients of
+    sum(conf) + 1e-3·sum(xyz) within GRAD_REL in norm (slice-tie pixels'
+    conf weighted 0)."""
+    from pointnerf_tpu_torch.data import create_dataset
+    from pointnerf_tpu_torch.models.mvs import points_model as pm
+    from pointnerf_tpu_torch.models.mvs.probnet import prob_moments
+    opt = _plate_driver_opt(str(tmp_path)).replace(
+        load_points=0, shading_feature_mlp_layer0=1, manual_depth_view=-1,
+        depth_grid=16, pad=8, num_neighbor=3, dprob_thresh=0.188,
+        near_plane=2.5, far_plane=3.5)
+    sample = create_dataset(opt, "train").get_init_item(0)
+    mvs = pm.MvsPoints(opt, torch.Generator().manual_seed(0), device="cpu")
+    noise = [torch.randn(1, 32, 32, generator=torch.Generator()
+                         .manual_seed(1))]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        maps_c, maps_h = {}, {}
+        card = pm.gen_points(copy.deepcopy(mvs).to(dev), opt, sample,
+                             noise=noise, maps=maps_c)
+        host = pm.gen_points(mvs, opt, sample, noise=noise, maps=maps_h)
+        grads = []
+        # the conf of pixels whose e·D lies within 1e-4 of an integer
+        # weighted 0: the mass's slice jumps there
+        stat = {}
+        with torch.no_grad():
+            pm.gen_points(mvs, opt, sample, noise=noise, maps=stat,
+                          training=True)
+        eD = prob_moments(stat["prob"][0])[0].reshape(-1) * 16
+        w = ((eD - eD.round()).abs() >= 1e-4).float()[:, None]
+        for net, d in ((copy.deepcopy(mvs).to(dev), dev), (mvs, "cpu")):
+            net.probnet.requires_grad_(True)
+            o = pm.gen_points(net, opt, sample, noise=noise, training=True)
+            loss = (o["conf"] * w.to(d)).sum() + (o["xyz_w"] * 1e-3).sum()
+            params = list(net.probnet.parameters())
+            grads.append(torch.cat([g.reshape(-1).cpu() for g in
+                                    torch.autograd.grad(loss, params)]))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    mass = maps_h["mass"][0].reshape(-1)
+    torch.testing.assert_close(maps_c["mass"][0].cpu().reshape(-1), mass,
+                               **TOL)
+    away = (mass - opt.dprob_thresh).abs() > 1e-4
+    assert torch.equal(card["keep"].cpu()[away], host["keep"][away])
+    rows = host["keep"] & away & torch.all(maps_c["vis"][0].cpu()
+                                           == maps_h["vis"][0], dim=-1)
+    assert rows.any()
+    for k in ("xyz_w", "embedding", "color", "dir", "conf"):
+        torch.testing.assert_close(card[k].cpu()[rows], host[k][rows], **TOL)
+    g_card, g_host = grads
+    assert torch.isfinite(g_card).all() and g_card.abs().max() > 0
+    assert float((g_card - g_host).norm() / g_host.norm()) <= GRAD_REL

@@ -160,3 +160,29 @@ def test_port_imports_no_image_library():
     proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("module,entry_points", [
+    ("pointnerf_tpu_torch.models.mvs.probnet", ()),
+    ("pointnerf_tpu_torch.run.editing", ("main", "compose_parts")),
+    ("pointnerf_tpu_torch.run.visualize", ("splat_render", "render_turntable",
+                                           "render_grow")),
+])
+def test_probnet_editing_visualize_import_alone(module, entry_points):
+    """The ProbNet init, the editing driver and the viewer import on their
+    own without JAX or the JAX package (nor an image library), and their
+    entry points run on the card unless the caller names another device."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX_", "XLA_"))}
+    probe = (f"import sys, {module}\n"
+             "bad = [n for n in sys.modules if n.split('.')[0] in "
+             f"('jax', 'jaxlib', 'pointnerf_tpu') + {_IMAGE_LIBS!r}]\n"
+             "sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    import importlib
+    mod = importlib.import_module(module)
+    for name in entry_points:
+        fn = getattr(mod, name)
+        assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -458,6 +458,10 @@ def test_mvs_entry_points_default_to_the_card():
 
 
 def test_mvs_points_refuses_probnet():
+    """ProbNet (manual_depth_view -1) is built, but has no frozen depth
+    half: mvs_depths refuses it (gen_points runs its branch whole)."""
     _, topt = mvs_options(manual_depth_view=-1)
-    with pytest.raises(NotImplementedError, match="ProbNet"):
-        tpm.MvsPoints(topt, device="cpu")
+    mvs = tpm.MvsPoints(topt, device="cpu")
+    assert mvs.probnet is not None
+    with pytest.raises(ValueError, match="ProbNet"):
+        tpm.mvs_depths(mvs, topt, {})
