@@ -22,6 +22,18 @@ K5, K3, K6):
   compute_grads on the card against the CPU's plain versions; the
   fused_shade step-1 loss is held against the default one;
 
+then the multi-GPU runner (pointnerf_tpu_torch/parallel/) on the one
+card, from the same cloud and batch: at world size 1 on NCCL in this
+process, PAR_STEPS runner train steps against the unsharded train_step
+from the same state and draws (loss items within STEP1_RTOL, gradients
+within GRAD_REL in norm) and one serving group by mesh serving against
+the unsharded render; then two ranks that share the card over gloo
+(host-staged; NCCL takes one rank a card), spawned once, at mesh_points 1
+and 2, PAR_GLOO_STEPS steps each against the unsharded step at the same
+gates, each rank's at-rest bytes of the point shards half the whole at
+mesh_points 2; and, after the finetune below, test_ft with --n_devices -1
+on its checkpoint, whose PSNR must equal the single-device test_ft's;
+
 then the finetune driver, run/train_ft.main, at the lego preset's
 widths on a 400x400 plate scene it writes in the NeRF-Synthetic layout
 (FT_STEPS steps with a prune, a probe-and-grow and a final checkpoint;
@@ -369,6 +381,10 @@ EDIT_LIFT = 0.15                      # the edited half: rotated 90° about z
                                       # and lifted this far
 VIS_FRAMES = 8                        # turntable frames
 VIS_SIZE = 512                        # turntable and growth frames' side
+PAR_STEPS = 5                         # runner train steps at world size 1
+PAR_GLOO_STEPS = 2                    # steps of each mesh_points on the two
+                                      # gloo ranks sharing the card
+PAR_PSNR_TOL = 1e-3                   # test_ft on the runner vs one device
 PEAK_BYTES = 3.35e12                  # H100 SXM HBM3 bytes/s (data sheet)
 GRAPH_REPS = 100                      # calls captured in one CUDA graph
 GRAPH_REPLAYS = 5                     # timed replays of it
@@ -1623,6 +1639,241 @@ def finetune_path(root):
         f"{res2['final_psnr']:.3f}")
     if res2["total_steps"] != FT_STEPS or res2["timing"]["steps"] != 0:
         raise AssertionError("the second main did not resume and stop")
+    return launches
+
+
+# ------------------------------------------------------ the parallel phase
+class Uncounted:
+    """Inside the block the kernels' launch counts are put back on exit: a
+    comparison run that must not count towards a path's launches."""
+
+    def __enter__(self):
+        from pointnerf_tpu_torch.ops import kernels
+        self.saved = {k.name: k.launches for k in kernels.KERNELS}
+        return self
+
+    def __exit__(self, *exc):
+        from pointnerf_tpu_torch.ops import kernels
+        for k in kernels.KERNELS:
+            k.launches = self.saved[k.name]
+
+
+def grads_rel(got, want):
+    """(worst name, ||got - want|| / ||want||) over the gradients of the
+    dicts of (net, point) gradients `want`."""
+    worst = ("", 0.0)
+    for part in (0, 1):
+        for k, w in want[part].items():
+            d = torch.as_tensor(got[part][k]).to(w.device) - w
+            rel = float(d.norm() / w.norm()) if w.norm() > 0 \
+                else float(d.norm())
+            worst = max(worst, (k, rel), key=lambda t: t[1])
+    return worst
+
+
+def items_rel(got, want):
+    """The largest relative difference of the loss items (the counters
+    must be equal)."""
+    for k in ("sr_overflow", "occ_overflow"):
+        if k in want and float(got[k]) != float(want[k]):
+            raise AssertionError(f"{k} differs: {float(got[k])} vs "
+                                 f"{float(want[k])}")
+    return max(abs(float(got[k]) - float(v)) / max(abs(float(v)), 1e-12)
+               for k, v in want.items())
+
+
+def unsharded_steps(opt, state, spec, grid, batch, draws):
+    """The reference: compute_grads and one train_step per draw from a
+    fresh state on one device (uncounted). Returns (grads, items, ms/step)."""
+    from pointnerf_tpu_torch.train import trainer
+    st = trainer.create_train_state(opt, state,
+                                    torch.Generator().manual_seed(0))
+    with Uncounted():
+        items, g_net, g_pts = trainer.compute_grads(st, grid, batch, opt,
+                                                    spec, draws[0])
+        steps = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for u in draws:
+            steps.append({k: float(v) for k, v in trainer.train_step(
+                st, grid, batch, opt, spec, u=u)[1].items()})
+        torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / len(draws)
+    return (g_net, g_pts), (items, steps), ms
+
+
+def parallel_path(opt, state, spec, grid, agg, item, root):
+    """The multi-GPU runner on the one card (bench.py's batch and cloud).
+    World size 1 on NCCL, in this process (parallel.driver.launch): PAR_STEPS
+    runner train steps against the unsharded train_step from the same
+    state and draws (loss items within STEP1_RTOL, the first step's
+    gradients within GRAD_REL in norm), then one serving group by mesh
+    serving against the unsharded render (SHADE_IMAGE_TOL). Then two ranks
+    sharing the card over gloo (NCCL takes one rank a card), spawned once:
+    mesh_points 1 (two ray shards, comp_groups 2) and 2 (two point shards),
+    PAR_GLOO_STEPS steps each against the unsharded step at the same
+    comp_groups, at the same gates, each rank's at-rest bytes of the
+    capacity buffers and bucket tables half the whole at mesh_points 2.
+    Returns (world-1 launches, the gloo ranks' launches summed)."""
+    from pointnerf_tpu_torch.ops import kernels
+    from pointnerf_tpu_torch.parallel import checks
+    from pointnerf_tpu_torch.parallel.dp import sharded_grads
+    from pointnerf_tpu_torch.parallel.driver import launch
+    from pointnerf_tpu_torch.run import common
+    from pointnerf_tpu_torch.run.workload import make_train_batch
+    from pointnerf_tpu_torch.train import trainer
+    from pointnerf_tpu_torch.utils.checkpoint import train_state_arrays
+    dev = torch.device("cuda")
+    batch = make_train_batch(opt, dev)
+    R = batch["raydir"].shape[1]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    draws = [torch.rand((1, R, opt.z_depth_dim), generator=gen, device=dev)
+             for _ in range(PAR_STEPS)]
+    fresh = lambda: trainer.create_train_state(
+        opt, state, torch.Generator().manual_seed(0))
+    chunk = opt.random_sample_size ** 2
+    sub = dict(item, raydir=item["raydir"][:, :GROUP * chunk],
+               pixel_idx=item["pixel_idx"][:, :GROUP * chunk])
+    with Uncounted():           # a warm-up step, so both timings are warm
+        trainer.train_step(fresh(), grid, batch, opt, spec, u=draws[0])
+    ref_g, (ref_items, ref_steps), ref_ms = unsharded_steps(
+        opt, state, spec, grid, batch, draws)
+    with Uncounted():
+        want_img = common.render_image(trainer.ServeState(agg, state), grid,
+                                       opt, spec, sub, group=GROUP)
+
+    def world1(device=None, runner=None):
+        out = {"backend": runner.mesh.backend, "mesh": runner.mesh.shape}
+        st = runner.place_state(fresh(), opt)
+        g = runner.place_grid(grid, spec)
+        with Uncounted():
+            items, g_net, g_pts = sharded_grads(st, g, batch, opt, spec,
+                                                runner.mesh, draws[0])
+            runner.train_step(runner.place_state(fresh(), opt), g, batch,
+                              opt, spec, u=draws[0])       # a warm-up step
+        out["grad_rel"] = grads_rel((g_net, g_pts), ref_g)
+        out["items_rel"] = items_rel(items, ref_items)
+        for k in kernels.KERNELS:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = [{k: float(v) for k, v in runner.train_step(
+            st, g, batch, opt, spec, u=u)[1].items()} for u in draws]
+        torch.cuda.synchronize()
+        out["ms"] = 1e3 * (time.perf_counter() - t0) / len(draws)
+        out["steps_rel"] = max(items_rel(a, b)
+                               for a, b in zip(steps, ref_steps))
+        out["losses"] = [s["loss_total"] for s in steps]
+        t0 = time.perf_counter()
+        img = common.render_image(runner.place_state(fresh(), opt), g, opt,
+                                  spec, sub, group=GROUP, runner=runner)
+        torch.cuda.synchronize()
+        out["serve_ms"] = 1e3 * (time.perf_counter() - t0)
+        out["launches"] = {k.name: k.launches for k in kernels.KERNELS}
+        out["img_err"] = float(np.abs(img["coarse_raycolor"]
+                                      - want_img["coarse_raycolor"]).max())
+        out["mask_equal"] = bool(np.array_equal(img["ray_mask"],
+                                                want_img["ray_mask"]))
+        return out
+
+    w1 = launch(world1, (), 1, 1, "cuda", os.path.join(root, "world1"))
+    log(f"parallel world size 1 ({w1['backend']}, mesh {w1['mesh']}): "
+        f"{PAR_STEPS} runner steps {w1['ms']:.1f} ms/step against the "
+        f"unsharded train_step's {ref_ms:.1f} ms/step (same draws, state "
+        f"and card); loss items rel diff {w1['items_rel']:.3e} at the "
+        f"first compute_grads, {w1['steps_rel']:.3e} over the steps; "
+        f"gradients worst {w1['grad_rel'][0]} {w1['grad_rel'][1]:.3e}; "
+        f"loss_total {w1['losses'][0]:.6f} -> {w1['losses'][-1]:.6f}; "
+        f"one serving group ({GROUP} chunks) by mesh serving "
+        f"{w1['serve_ms']:.1f} ms, max_abs_diff {w1['img_err']:.3e} to the "
+        f"unsharded render, ray_mask equal {w1['mask_equal']}; launches "
+        f"{w1['launches']}")
+    if not (w1["items_rel"] <= STEP1_RTOL and w1["steps_rel"] <= STEP1_RTOL):
+        raise AssertionError("the world-size-1 runner's loss items differ")
+    if not w1["grad_rel"][1] <= GRAD_REL:
+        raise AssertionError(f"the world-size-1 runner's gradient of "
+                             f"{w1['grad_rel'][0]} differs")
+    if not (w1["img_err"] <= SHADE_IMAGE_TOL and w1["mask_equal"]):
+        raise AssertionError("mesh serving differs from the render")
+    check_launches("parallel world size 1", (
+        kernels.TRUNK_FWD, kernels.TRUNK_BWD, kernels.OCCUPANCY,
+        kernels.SCATTER_ROWS))
+
+    # two gloo ranks on the one card: mesh_points 1 (comp_groups 2) and 2
+    np_batch = {k: (v.cpu().numpy() if torch.is_tensor(v) else v)
+                for k, v in batch.items()}
+    flat = train_state_arrays(fresh())
+    jobs = [dict(kind="step", opt=opt.to_json(), points=M, state=flat,
+                 grid=None, spec=spec, batch=np_batch, all_ranks=True,
+                 draws=[u.cpu().numpy() for u in draws[:PAR_GLOO_STEPS]])
+            for M in (1, 2)]
+    refs = {1: unsharded_steps(opt.replace(comp_groups=2), state, spec, grid,
+                               batch, draws[:PAR_GLOO_STEPS]),
+            2: (ref_g, (ref_items, ref_steps[:PAR_GLOO_STEPS]), ref_ms)}
+    t0 = time.perf_counter()
+    res = launch(checks.run_jobs, (jobs,), 2, 1, "cuda",
+                 os.path.join(root, "gloo"), backend="gloo", shared=True)
+    wall = time.perf_counter() - t0
+    gloo_launches = {k.name: 0 for k in kernels.KERNELS}
+    whole = None
+    for M, ranks in zip((1, 2), res):
+        g_want, (i_want, s_want), ms_want = refs[M]
+        for r in ranks:
+            worst = grads_rel((r["g_net"], r["g_pts"]), g_want)
+            rel = max([items_rel(r["items"], i_want)]
+                      + [items_rel(a, b) for a, b in
+                         zip(r["step_items"], s_want)])
+            log(f"parallel gloo (host-staged, 2 ranks on one card) "
+                f"mesh_points {M} rank {r['rank']}: "
+                f"{1e3 * np.mean(r['step_s']):.1f} ms/step against the "
+                f"unsharded {ms_want:.1f} ms/step; loss items rel diff "
+                f"{rel:.3e}; gradients worst {worst[0]} {worst[1]:.3e}; "
+                f"compaction map {r['comp_shape']}; at rest "
+                f"{r['bytes']['capacity_bytes']} capacity bytes, "
+                f"{r['bytes']['bucket_bytes']} bucket-table bytes; "
+                f"launches {r['launches']}")
+            if not (rel <= STEP1_RTOL and worst[1] <= GRAD_REL):
+                raise AssertionError(f"the gloo ranks at mesh_points {M} "
+                                     f"differ from the unsharded step")
+            for k, v in r["launches"].items():
+                gloo_launches[k] += v
+            if M == 1:
+                whole = r["bytes"]
+            elif any(2 * r["bytes"][k] != whole[k] for k in whole):
+                raise AssertionError(f"rank {r['rank']} holds "
+                                     f"{r['bytes']} at rest, not half of "
+                                     f"{whole}")
+    log(f"parallel gloo: one spawn of 2 ranks, both jobs, {wall:.1f} s")
+    for k in (kernels.TRUNK_FWD, kernels.TRUNK_BWD, kernels.OCCUPANCY,
+              kernels.SCATTER_ROWS):
+        if not gloo_launches[k.name]:
+            raise AssertionError(f"the gloo ranks never launched {k.name}")
+    return w1["launches"], gloo_launches
+
+
+def parallel_test_ft(root):
+    """test_ft --n_devices -1 (one card: a world-size-1 runner on NCCL,
+    mesh serving) on the finetune phase's checkpoint against the
+    single-device test_ft: the PSNR within PAR_PSNR_TOL. Returns its launch
+    counts."""
+    from pointnerf_tpu_torch.ops import kernels
+    from pointnerf_tpu_torch.run import test_ft
+    opt = finetune_options(root)
+    with Uncounted():
+        single = test_ft.main(opt)
+    for k in kernels.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    mesh = test_ft.main(opt.replace(n_devices=-1))
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    log(f"parallel test_ft --n_devices -1: PSNR {mesh['psnr']:.4f} against "
+        f"the single-device {single['psnr']:.4f} on step {mesh['step']}, "
+        f"{wall:.1f} s; launches {launches}")
+    if abs(mesh["psnr"] - single["psnr"]) > PAR_PSNR_TOL:
+        raise AssertionError("test_ft on the runner scores otherwise")
+    check_launches("parallel test_ft", (kernels.TRUNK_FWD,
+                                        kernels.OCCUPANCY))
     return launches
 
 
@@ -4008,17 +4259,29 @@ def main() -> int:
         f"vs {losses[0]:.7f} (relative difference {rel:.3e})")
     if not rel <= STEP1_RTOL:
         raise AssertionError(f"the fused_shade step-1 loss differs by {rel}")
-    del st, batch, state, grid, ts, agg
+    del st, batch, ts
     torch.cuda.empty_cache()
     timeline("serve and train")
 
+    # the multi-GPU runner on the one card: world size 1 on NCCL (K1, K2,
+    # K3, K6), two gloo ranks sharing the card (the same kernels)
+    import tempfile
+    with tempfile.TemporaryDirectory() as root:
+        par_w1, par_gloo = parallel_path(opt, state, spec, grid, agg, item,
+                                         root)
+    del state, grid, agg
+    torch.cuda.empty_cache()
+    timeline("parallel")
+
     # the finetune driver at lego widths: K1, K2, K3, K6; then from the
     # MVS init
-    import tempfile
     with tempfile.TemporaryDirectory() as root:
         finetune = finetune_path(root)
         torch.cuda.empty_cache()
         video = video_path(root)
+        torch.cuda.empty_cache()
+        # test_ft on a world-size-1 runner (K1, K3)
+        par_test = parallel_test_ft(root)
         torch.cuda.empty_cache()
         # the other shading envelopes on the same plate scene: pers30
         # (K1, K2, K3, K6), the rest around K3 and K6
@@ -4097,7 +4360,8 @@ def main() -> int:
     log(f"evaluation phase: {time.perf_counter() - t0:.1f} s")
 
     log(f"chip_smoke: {time.perf_counter() - start:.1f} s from the start")
-    runs = (serve, serve_s, train, train_s, finetune, video, *envelopes,
+    runs = (serve, serve_s, train, train_s, par_w1, par_gloo, par_test,
+            finetune, video, *envelopes,
             edit, edit_test, mvs, probnet, dtu_inf, dtu_gen, dtu_ft, dtu_pp,
             scannet_ft, scannet_lp3, vox_ft, vox_test, llff_ft, llff_vid,
             nsft_ft, tt_ft, tt_test)

@@ -2,7 +2,13 @@
 models/base_rendering_model.py:533-662).
 
 Every loss is a masked mean over the static ray batch, numerically the
-reference's masked_select mean for nonzero mask counts.
+reference's masked_select mean for nonzero mask counts. Each is a ratio of
+sums, so a batch split over ray shards (`parallel.dp`) computes it from the
+shards' sums: `compute_losses` applies `red` to every numerator and
+denominator, and `over_shards` evaluates it with each of them summed over
+the shards (forward; the backward passes the cotangent to the shard's own
+sum), so the losses are the whole batch's and the gradients, summed over
+the shards, are the whole batch's too.
 """
 
 from __future__ import annotations
@@ -12,13 +18,50 @@ from typing import Dict, Tuple
 import torch
 
 
-def _masked_mse(pred, gt, mask):
+def _keep(x):
+    return x
+
+
+class _Total(torch.autograd.Function):
+    """The whole batch's sum in place of this shard's partial sum x:
+    forward the total, backward the identity to x."""
+
+    @staticmethod
+    def forward(ctx, x, total):
+        return total.clone()
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None
+
+
+def over_shards(fn, reduce):
+    """fn(red) with every red(x) (a scalar partial sum) replaced by its sum
+    over the ray shards, in one call of `reduce` (a sum over the shards of
+    a vector): a first pass without gradient records the partial sums,
+    `reduce` sums them all at once, and a second pass gives each red(x)
+    its total with the identity backward to x."""
+    parts = []
+    with torch.no_grad():
+        fn(lambda x: parts.append(x.reshape(()).to(torch.float32)) or x)
+    totals = iter(reduce(torch.stack(parts)).unbind(0))
+    return fn(lambda x: _Total.apply(x, next(totals).to(x.dtype)))
+
+
+def _masked_mse(pred, gt, mask, red=_keep):
     """Mean over masked elements of (pred-gt)²; 0 if the mask is empty."""
     m = mask.to(pred.dtype)
-    num = torch.sum(torch.square(pred - gt) * m[..., None])
-    den = torch.sum(m) * pred.shape[-1]
+    num = red(torch.sum(torch.square(pred - gt) * m[..., None]))
+    den = red(torch.sum(m)) * pred.shape[-1]
     return torch.where(den > 0, num / torch.clamp(den, min=1.0),
                        torch.zeros((), dtype=pred.dtype, device=pred.device))
+
+
+def _mean(x, red=_keep):
+    """torch.mean of x over the whole batch."""
+    if red is _keep:
+        return torch.mean(x)
+    return red(torch.sum(x)) / red(x.new_tensor(float(x.numel())))
 
 
 def _pair(items, weights):
@@ -33,10 +76,12 @@ def _pair(items, weights):
 
 
 def compute_losses(opt, output: Dict, gt_image: torch.Tensor,
-                   gt_mask: torch.Tensor = None, gt_depth: torch.Tensor = None
-                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                   gt_mask: torch.Tensor = None, gt_depth: torch.Tensor = None,
+                   red=_keep) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Total training loss and the per-item dict. gt_image [B,R,3];
-    gt_mask/gt_depth [B,R] (needed iff depth or bg loss items are set)."""
+    gt_mask/gt_depth [B,R] (needed iff depth or bg loss items are set).
+    red: applied to every numerator and denominator (`over_shards`); the
+    identity for a whole batch."""
     total = 0.0
     items = {}
     ray_mask = output["ray_mask"]
@@ -44,16 +89,16 @@ def compute_losses(opt, output: Dict, gt_image: torch.Tensor,
     for name, w in _pair(opt.color_loss_items, opt.color_loss_weights):
         if name.startswith("ray_masked"):
             loss = _masked_mse(output[name[len("ray_masked") + 1:]], gt_image,
-                               ray_mask)
+                               ray_mask, red)
         elif name.startswith("ray_miss"):
             # the reference scales the miss MSE by the miss count
             # (base_rendering_model.py:560): the sum of per-ray MSEs
             miss = (~ray_mask).to(gt_image.dtype)
-            loss = torch.sum(torch.square(output[name[len("ray_miss") + 1:]]
-                                          - gt_image) * miss[..., None]) \
-                / gt_image.shape[-1]
+            loss = red(torch.sum(torch.square(
+                output[name[len("ray_miss") + 1:]] - gt_image)
+                * miss[..., None])) / gt_image.shape[-1]
         else:
-            loss = torch.mean(torch.square(output[name] - gt_image))
+            loss = _mean(torch.square(output[name] - gt_image), red)
         items["loss_" + name] = loss
         total = total + loss * w + 1e-6
 
@@ -61,7 +106,7 @@ def compute_losses(opt, output: Dict, gt_image: torch.Tensor,
     for name, w in _pair(opt.depth_loss_items, opt.depth_loss_weights):
         m = gt_mask.to(gt_depth.dtype)
         pred = output[name].reshape(m.shape)
-        loss = torch.mean(torch.square(pred * m - gt_depth * m))
+        loss = _mean(torch.square(pred * m - gt_depth * m), red)
         items["loss_" + name] = loss
         total = total + loss * w
 
@@ -69,7 +114,7 @@ def compute_losses(opt, output: Dict, gt_image: torch.Tensor,
     for name, w in _pair(opt.bg_loss_items, opt.bg_loss_weights):
         inv = 1.0 - gt_mask.to(gt_image.dtype)
         pred = output[name].reshape(inv.shape)
-        loss = torch.mean(torch.square(pred * inv - inv))
+        loss = _mean(torch.square(pred * inv - inv), red)
         items["loss_" + name] = loss
         total = total + loss * w
 
@@ -85,21 +130,22 @@ def compute_losses(opt, output: Dict, gt_image: torch.Tensor,
             v = torch.clamp(c, eps, 1.0 - eps)
             term = torch.where(output["compact_valid"],
                                torch.log(v) + torch.log(1.0 - v), const)
-            n_total = torch.sum(output["zero_one_total"]).to(term.dtype)
-            loss = (torch.sum(term) + (n_total - term.numel()) * const) \
+            n_total = red(torch.sum(output["zero_one_total"]).to(term.dtype))
+            n_kept = red(term.new_tensor(float(term.numel())))
+            loss = (red(torch.sum(term)) + (n_total - n_kept) * const) \
                 / n_total
         elif output.get(name) is None:
             continue
         else:
             val = torch.clamp(output[name], opt.zero_epsilon,
                               1.0 - opt.zero_epsilon)
-            loss = torch.mean(torch.log(val) + torch.log(1.0 - val))
+            loss = _mean(torch.log(val) + torch.log(1.0 - val), red)
         items["loss_" + name] = loss
         total = total + loss * w
 
     # l2 regularization (reference :644-651): MSE of the output against 0
     for name, w in _pair(opt.l2_size_loss_items, opt.l2_size_loss_weights):
-        loss = torch.mean(torch.square(output[name]))
+        loss = _mean(torch.square(output[name]), red)
         items["loss_" + name] = loss
         total = total + loss * w
 
@@ -109,8 +155,8 @@ def compute_losses(opt, output: Dict, gt_image: torch.Tensor,
             w_out, conf = output["weight_compact"], output["conf_compact"]
         else:
             w_out, conf = output["weight"], output["conf_coefficient"]
-        loss = torch.sum(w_out * torch.abs(1.0 - torch.exp(-2.0 * conf))) \
-            / (torch.sum(w_out) + 1e-6)
+        loss = red(torch.sum(w_out * torch.abs(1.0 - torch.exp(-2.0 * conf)))) \
+            / (red(torch.sum(w_out)) + 1e-6)
         items["loss_sparse"] = loss
         total = total + loss * opt.sparse_loss_weight
 

@@ -179,6 +179,27 @@ def effective_sr_budget(opt, rows: int) -> int:
     return Nc
 
 
+def comp_budget(opt, B: int, R: int, SR: int, shards=(1, 1)):
+    """(G, Ncb) of the query's compaction for B camera rows of R rays:
+    each row's rays split into G contiguous groups of Ncb budget rows each
+    (Ncb 0: no compaction). shards = (b, r): this batch is one of b·r equal
+    pieces of a batch of b·B rows by r·R rays (a rank's ray shard,
+    `parallel.dp`), so the auto budget reads the global row count, the
+    global budget splits over the b·B·comp_groups groups of the whole
+    batch, and the piece holds comp_groups / r of each row's groups. A
+    comp_groups that r does not divide raises ValueError."""
+    b, r = shards
+    Bg, Rg = B * b, R * r
+    Gg = max(1, int(getattr(opt, "comp_groups", 1)))
+    if Gg % r:
+        raise ValueError(f"comp_groups={Gg} must be a multiple of the "
+                         f"{r} ray shards")
+    Nc = effective_sr_budget(opt, Bg * Rg * SR)
+    if not 0 < Nc < Bg * Rg * SR:
+        return Gg // r, 0
+    return Gg // r, -(-Nc // (Bg * Gg))
+
+
 class QueryOut(NamedTuple):
     """Result of the query phase."""
     sample_pidx: Optional[torch.Tensor]     # [B,R,SR,K] int32 (None if comp)
@@ -198,10 +219,13 @@ def render_query(point_state: Dict, grid: Optional[Dict], spec: GridSpec,
                  opt, batch: Dict, is_train: bool = False,
                  u: Optional[torch.Tensor] = None,
                  prob: bool = False,
-                 generator: Optional[torch.Generator] = None) -> QueryOut:
+                 generator: Optional[torch.Generator] = None,
+                 shards=(1, 1)) -> QueryOut:
     """Query phase: ray samples → voxel walk → KNN indices. No gradient
     flows through it. Probe mode needs every row's statistics, so it runs
-    uncompacted.
+    uncompacted. The world-coordinate KNN query compacts the rows per ray
+    group (`comp_budget`: opt.comp_groups groups per camera row; `shards`
+    when the batch is a rank's piece of a wider one).
 
     World coordinates: at train the depth samples are jittered by the
     uniform draws u [B,R,z_depth_dim] (on the rays' device).
@@ -214,6 +238,9 @@ def render_query(point_state: Dict, grid: Optional[Dict], spec: GridSpec,
     priorities drawn from `generator` (a fixed seed without one, as the
     JAX package's fixed key at eval). The samples carry their own ray
     directions."""
+    if tuple(shards) != (1, 1) and (opt.wcoord_query == 0 or opt.NN < 0):
+        raise ValueError("a ray-sharded query needs the world-coordinate "
+                         "KNN query (wcoord_query 1, NN > 0)")
     if opt.wcoord_query == 0:
         return _frustum_query(point_state, grid, spec, opt, batch, is_train,
                               u, prob, generator)
@@ -239,12 +266,11 @@ def render_query(point_state: Dict, grid: Optional[Dict], spec: GridSpec,
         sample_pidx = query_vox_grid(sample_loc_w, grid["vox_table"], spec)
         return QueryOut(sample_pidx, sample_loc_w, ray_mask, None,
                         q_overflow, None, occ_over)
-    if int(getattr(opt, "comp_groups", 1)) != 1:
-        raise NotImplementedError("comp_groups > 1 is not ported")
-    Nc = effective_sr_budget(opt, B * R * opt.SR) if not prob else 0
+    G, Ncb = comp_budget(opt, B, R, opt.SR, shards)
     (sample_pidx, sample_loc_w, ray_mask, q_overflow, comp,
      occ_over) = query_grid_points(
-        campos, raydir, mid_ts, grid, spec, SR=opt.SR, K=opt.K, Nc=Nc)
+        campos, raydir, mid_ts, grid, spec, SR=opt.SR, K=opt.K,
+        G=G, Ncb=0 if prob else Ncb)
     return QueryOut(sample_pidx, sample_loc_w, ray_mask, None, q_overflow,
                     comp, occ_over)
 
@@ -324,17 +350,21 @@ def render_shade(agg, point_state: Dict, spec: GridSpec, opt, batch: Dict,
         # rows with >= 1 candidate were compacted by the query (or just
         # above) into a per-batch-row budget; the shade phase runs on
         # those rows only
+        # comp_groups: the leading dim is B·G, each group a contiguous
+        # block of RS / G rows of its camera row, and comp_src indexes
+        # inside the block
         comp_src, comp_valid, c_pidx_mat, ray_valid, counts = q_comp
-        Ncb = comp_src.shape[1]
-        goff = (torch.arange(B, device=raydir.device) * RS)[:, None]
+        BG, Ncb = comp_src.shape
+        goff = (torch.arange(BG, device=raydir.device)
+                * (RS // (BG // B)))[:, None]
         gsrc = (comp_src + goff).reshape(-1).long()
 
         def compact(a):
             out = a.reshape((S,) + a.shape[3:])[gsrc]
-            v = comp_valid.reshape((B * Ncb,) + (1,) * (out.dim() - 1))
+            v = comp_valid.reshape((BG * Ncb,) + (1,) * (out.dim() - 1))
             out = torch.where(v, out, torch.zeros((), dtype=out.dtype,
                                                   device=out.device))
-            return out.reshape((B, Ncb, 1) + a.shape[3:])
+            return out.reshape((BG, Ncb, 1) + a.shape[3:])
 
         c_loc, c_loc_w = compact(sample_loc), compact(sample_loc_w)
         c_srd = compact(sample_ray_dirs)
@@ -370,9 +400,9 @@ def render_shade(agg, point_state: Dict, spec: GridSpec, opt, batch: Dict,
         conf_coefficient = scatter_back(c_conf)
         decoded = decoded * ray_valid[..., None].to(decoded.dtype)
         compact_losses = {
-            "conf_compact": c_conf,                       # [B,Ncb,1,K]
+            "conf_compact": c_conf,                       # [BG,Ncb,1,K]
             "weight_compact": c_weight.detach(),
-            "compact_valid": comp_valid.reshape(B, Ncb, 1, 1),
+            "compact_valid": comp_valid.reshape(BG, Ncb, 1, 1),
             "zero_one_total": torch.full((), S * c_conf.shape[-1],
                                          dtype=torch.int64,
                                          device=c_conf.device),
@@ -471,8 +501,8 @@ def _probe_stats(opacity, sample_loc_w, weight, conf_coefficient,
 
 
 def render_forward(agg, point_state: Dict, grid: Optional[Dict],
-                   spec: GridSpec, opt, batch: Dict, prob: bool = False
-                   ) -> Dict:
+                   spec: GridSpec, opt, batch: Dict, prob: bool = False,
+                   shards=(1, 1)) -> Dict:
     """Render a batch of rays (query + shade), at eval.
 
     batch: raydir [B,R,3], campos [B,3], camrotc2w [B,3,3], near/far
@@ -482,5 +512,6 @@ def render_forward(agg, point_state: Dict, grid: Optional[Dict],
     coarse_point_opacity, ...), with the probe statistics when `prob` is
     set (see render_shade).
     """
-    q = render_query(point_state, grid, spec, opt, batch, prob=prob)
+    q = render_query(point_state, grid, spec, opt, batch, prob=prob,
+                     shards=shards)
     return render_shade(agg, point_state, spec, opt, batch, q, prob=prob)

@@ -469,47 +469,61 @@ def knn_neighbors(sample_loc: torch.Tensor, sample_mask: torch.Tensor,
 
 def query_grid_points(campos: torch.Tensor, raydir: torch.Tensor,
                       tvals: torch.Tensor, grid, spec: GridSpec, SR: int,
-                      K: int, Nc: int = 0):
+                      K: int, Nc: int = 0, G: int = 1, Ncb: int = 0):
     """Full query pipeline (reference host orchestration cu:305-433).
 
     campos [B,3], raydir [B,R,3], tvals [B,R,D] ray-march depths. The
     occupancy test and the shading-point select are one `occupancy_select`
     (K3 on the card): exact and without a row budget, so the JAX package's
-    `occ_segments` option has nothing to choose here. Nc > 0: the KNN runs
-    only on the first Ncb = ceil(Nc/B) occupancy-valid shading rows of each
-    batch row; rows past the budget get no neighbors and count in
-    q_overflow.
+    `occ_segments` option has nothing to choose here.
+
+    Compaction: each batch row's R rays split into G contiguous groups
+    (opt.comp_groups), and each group's occupancy-valid shading rows are
+    packed, in row order, into a budget of Ncb rows; the KNN runs on those
+    rows only, and rows past a group's budget get no neighbors and count in
+    q_overflow. Nc > 0 (below B·R·SR) gives Ncb = ceil(Nc / (B·G)), the
+    JAX package's split of a global budget; Ncb > 0 gives the per-group
+    budget itself (a ray shard's, `models.renderer.comp_budget`). A G that
+    does not divide R raises ValueError.
 
     Returns (sample_pidx [B,R,SR,K] or None, sample_loc_w [B,R,SR,3],
     ray_mask [B,R] bool, q_overflow [] int32, comp, occ_overflow [] int32);
     with the budget active, sample_pidx is None and comp = (comp_src
-    [B,Ncb], comp_valid [B,Ncb], c_pidx [B,Ncb,K], row_valid [B,R,SR],
-    counts [B,R]).
+    [B·G,Ncb] rows within the group, comp_valid [B·G,Ncb], c_pidx
+    [B·G,Ncb,K], row_valid [B,R,SR], counts [B·G,R/G]).
     """
     sample_loc_w, sample_mask, counts, occ_overflow = occupancy_select(
         campos, raydir, tvals, grid, spec, SR)
     B, R = raydir.shape[0], raydir.shape[1]
     S = B * R * SR
-    RS = R * SR
 
     def knn(loc, mask):
         if spec.superset_P > 0:
             return knn_neighbors_superset(loc, mask, grid, spec, K)
         return knn_neighbors(loc, mask, grid, spec, K)
 
-    if 0 < Nc < S:
-        Ncb = -(-Nc // B)
-        comp_src, comp_valid, n_total = compact_row_map(counts, Ncb, SR)
-        goff = (torch.arange(B, device=tvals.device) * RS)[:, None]
+    G = max(1, int(G))
+    if Ncb <= 0 and 0 < Nc < S:
+        Ncb = -(-Nc // (B * G))
+    if Ncb > 0:
+        if R % G:
+            raise ValueError(f"comp_groups={G} must divide the per-camera "
+                             f"ray count R={R}")
+        BG, Rg = B * G, R // G
+        comp_src, comp_valid, n_total = compact_row_map(
+            counts.reshape(BG, Rg), Ncb, SR)
+        goff = (torch.arange(BG, device=tvals.device) * (Rg * SR))[:, None]
         c_loc = sample_loc_w.reshape(S, 3)[(comp_src + goff).reshape(-1)]
-        c_loc = c_loc.reshape(B, Ncb, 3)
+        c_loc = c_loc.reshape(BG, Ncb, 3)
         c_pidx = knn(c_loc[:, :, None, :], comp_valid[:, :, None])[:, :, 0]
         c_pidx = torch.where(comp_valid[..., None], c_pidx, -1)
         c_has = comp_valid & torch.any(c_pidx >= 0, dim=-1)
-        row_valid = scatter_row_valid(comp_src, comp_valid, c_has, R, SR)
+        row_valid = scatter_row_valid(comp_src, comp_valid, c_has, Rg,
+                                      SR).reshape(B, R, SR)
         ray_mask = torch.any(row_valid, dim=-1)
         q_overflow = torch.clamp(n_total - Ncb, min=0).sum(dtype=torch.int32)
-        comp = (comp_src, comp_valid, c_pidx, row_valid, counts)
+        comp = (comp_src, comp_valid, c_pidx, row_valid,
+                counts.reshape(BG, Rg))
         return None, sample_loc_w, ray_mask, q_overflow, comp, occ_overflow
 
     sample_pidx = knn(sample_loc_w, sample_mask)

@@ -458,7 +458,7 @@ def make_spec_and_grid(opt, state: Dict):
 def render_image(ts: trainer.ServeState, grid, opt, spec, item: Dict,
                  keys: Tuple[str, ...] = ("coarse_raycolor", "ray_mask"),
                  group: int = 8, stats: Optional[Dict] = None,
-                 prob: bool = False) -> Dict[str, np.ndarray]:
+                 prob: bool = False, runner=None) -> Dict[str, np.ndarray]:
     """Chunked full-image render into [H,W,C] host maps (reference
     run/train_ft.py:283-322 test, :470-494 probe_hole).
 
@@ -479,7 +479,34 @@ def render_image(ts: trainer.ServeState, grid, opt, spec, item: Dict,
     occ_overflow and the group count; and where it builds the frustum
     grid, its host seconds (grid_s, the device synchronized) and occupied
     voxels (num_occ).
+
+    Mesh serving (a `parallel.MeshRunner`, every rank calling with its
+    placed state and grid): the point shards and bucket tables are joined
+    once per image; each group's wide batch splits over the ray shards
+    (comp_groups set to their number unless the user set it, so each rank
+    compacts and shades its own rays into its own budget slices; a chunk
+    the shards do not divide raises ValueError), the uncompacted renders
+    split each chunk, and the ray outputs are gathered, so every rank
+    holds the image. The budget ladder reads the overflow summed over the
+    ranks: every rank takes the same rung. The frustum query is
+    single-device (ValueError).
     """
+    plane = 1
+    if runner is not None:
+        if opt.wcoord_query == 0:
+            raise ValueError("mesh serving needs the world-coordinate query: "
+                             "the frustum path (wcoord_query 0) renders on "
+                             "one device")
+        mesh = runner.mesh
+        plane = mesh.plane
+        if (opt.random_sample_size ** 2) % plane:
+            raise ValueError(f"a chunk of {opt.random_sample_size ** 2} rays "
+                             f"does not split over {plane} ray shards "
+                             f"(random_sample_size)")
+        if int(getattr(opt, "comp_groups", 1)) == 1 and plane > 1:
+            opt = opt.replace(comp_groups=plane)
+        ts = runner.whole_points(ts)
+        grid = runner.whole_grid(grid)
     dev = ts.points["xyz"].device
     if opt.wcoord_query == 0 and (grid is None or "xyz_pers" not in grid):
         t0 = time.perf_counter()
@@ -524,11 +551,51 @@ def render_image(ts: trainer.ServeState, grid, opt, spec, item: Dict,
             if int(opt_used.SR_budget) > 0:
                 opt_used = opt_used.replace(
                     SR_budget=int(opt_used.SR_budget) * len(pending))
-            return trainer.eval_chunks_stacked(ts, grid, stacked, const_batch,
-                                               opt_used, spec)
+            if runner is None:
+                return trainer.eval_chunks_stacked(
+                    ts, grid, stacked, const_batch, opt_used, spec)
+            out = trainer.eval_chunks_stacked(
+                ts, grid, stacked, const_batch, opt_used, spec,
+                part=(mesh.ray_index, plane))
+            return _join_wide(out, len(pending))
         # budget-off rung or probe: chunk-sized uncompacted renders
-        return trainer.eval_chunks(ts, grid, stacked, const_batch, opt_used,
-                                   spec, prob=prob)
+        if runner is None:
+            return trainer.eval_chunks(ts, grid, stacked, const_batch,
+                                       opt_used, spec, prob=prob)
+        w = chunk // plane
+        mine = {k: v[:, :, mesh.ray_index * w:(mesh.ray_index + 1) * w]
+                for k, v in stacked.items()}
+        return _join_chunks(trainer.eval_chunks(ts, grid, mine, const_batch,
+                                                opt_used, spec, prob=prob))
+
+    def _join_wide(out, n):
+        """A rank's piece of the wide render → every chunk's [n,1,C,...]
+        outputs, gathered over the ray shards; the overflow summed."""
+        res = {}
+        for k in keys:
+            if k in out:
+                g = mesh.gather_plane(out[k])          # [plane, 1, w, ...]
+                res[k] = g.reshape((n, 1, chunk) + tuple(g.shape[3:]))
+        for k in ("sr_overflow", "occ_overflow"):
+            if k in out:
+                res[k] = torch.zeros(n, dtype=out[k].dtype, device=dev)
+                res[k][0] = mesh.plane_sum(out[k])
+        return res
+
+    def _join_chunks(out):
+        """Each chunk's ray slices [n,1,C/plane,...] → [n,1,C,...]; the
+        per-chunk counters [n] summed."""
+        res = {}
+        for k in keys:
+            if k in out:
+                g = mesh.gather_plane(out[k])   # [plane, n, 1, w, ...]
+                g = g.movedim(0, 2)             # [n, 1, plane, w, ...]
+                res[k] = g.reshape(g.shape[:2] + (chunk,)
+                                   + tuple(g.shape[4:]))
+        for k in ("sr_overflow", "occ_overflow"):
+            if k in out:
+                res[k] = mesh.plane_sum(out[k])
+        return res
 
     def finish(pending, rung_used):
         nonlocal rung, overflow, occ_overflow, n_groups
@@ -567,7 +634,7 @@ def render_image(ts: trainer.ServeState, grid, opt, spec, item: Dict,
     if stats is not None:
         stats.update(sr_overflow=overflow, occ_overflow=occ_overflow,
                      groups=n_groups)
-    if overflow > 0:
+    if overflow > 0 and (runner is None or runner.is_main):
         print(f"[render_image] note: SR_budget overflow on {overflow} shading "
               f"rows; groups re-rendered up the budget ladder")
     return maps

@@ -18,6 +18,7 @@ import os
 from typing import Dict
 
 from ..data import create_dataset
+from ..parallel.driver import launch, world_size
 from ..train import trainer
 from ..utils.checkpoint import latest_step, load_checkpoint
 from ..utils.visualizer import Visualizer
@@ -31,28 +32,48 @@ def main(opt, device="cuda") -> Dict:
     `device` (the card unless the caller names another) into
     images/test_{step}/, and score it there (scores.txt; LPIPS from
     opt.lpips_alex_path / lpips_vgg_path, skipped where none is given).
-    Returns the mean PSNR of the renders, the scores and the step."""
-    if opt.n_devices not in (0, 1):
-        raise NotImplementedError("multi-GPU serving is not ported "
-                                  "(ROADMAP §1 item 7)")
+    Returns the mean PSNR of the renders, the scores and the step. Options
+    that ask for more than one device render by mesh serving on that many
+    ranks (`parallel.driver.launch`); rank 0 loads the checkpoint, writes
+    the images and scores them."""
     ckpt_dir = opt.resume_dir or os.path.join(opt.checkpoints_dir,
                                               opt.experiment)
-    visualizer = Visualizer(opt)
+    n = world_size(opt, device)
+    if n:
+        return launch(_test, (opt, ckpt_dir), n, opt.mesh_points, device,
+                      ckpt_dir)
+    return _test(opt, ckpt_dir, device)
+
+
+def _test(opt, ckpt_dir: str, device, runner=None) -> Dict:
+    main_rank = runner is None or runner.is_main
+    visualizer = Visualizer(opt) if runner is None else \
+        runner.visualizer(lambda: Visualizer(opt))
     test_ds = create_dataset(opt, split="test")
     step = None if opt.resume_iter in ("", "latest", "best") \
         else int(opt.resume_iter)
     found = latest_step(ckpt_dir) if step is None else step
     if found is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
-    ts, counters = load_checkpoint(ckpt_dir, opt, device=device, step=found)
-    spec, grid = make_spec_and_grid(opt, trainer.point_state_of(ts))
-    visualizer.print_details(
-        f"loaded step {found} (best_PSNR {counters.get('best_PSNR', 0):.3f})")
-
+    ts = grid = spec = None
+    if main_rank:
+        ts, counters = load_checkpoint(ckpt_dir, opt, device=device,
+                                       step=found)
+        spec, grid = make_spec_and_grid(opt, trainer.point_state_of(ts))
+        visualizer.print_details(f"loaded step {found} (best_PSNR "
+                                 f"{counters.get('best_PSNR', 0):.3f})")
+    if runner is not None:
+        visualizer.print_details(runner.describe())
+        ts = runner.place_state(ts, opt)
+        spec = runner.mesh.broadcast_object(spec)
+        grid = runner.place_grid(grid, spec)
     mean_psnr = test(ts, grid, opt, spec, test_ds, visualizer, found,
-                     max_images=opt.test_num if opt.test_num > 0 else None)
-    scores = score_test_images(visualizer, found, opt, device)
-    visualizer.print_details(f"scores: {scores}")
+                     max_images=opt.test_num if opt.test_num > 0 else None,
+                     runner=runner)
+    scores = None
+    if main_rank:
+        scores = score_test_images(visualizer, found, opt, device)
+        visualizer.print_details(f"scores: {scores}")
     return {"psnr": mean_psnr, "scores": scores, "step": found}
 
 

@@ -27,9 +27,12 @@ precomputes one background map per train and test frame from the init
 views and the starting cloud (`models/mvs/bg.create_all_bg`), and every
 train batch and test render carries its rays' `bg_ray`.
 
-Not ported (raise NotImplementedError): n_devices > 1 (ROADMAP §1 item 7)
-and profile_dir (profile with profile_render.py); steps_per_dispatch is
-ignored (one call per step). The MVS init takes ProbNet's learned depth
+Multi-GPU (--n_devices, --gpu_ids, --mesh_points) runs the driver on
+the ranks of `parallel.driver.launch`: the ray batch, and with
+mesh_points > 1 the point buffers, shard over the ranks, and the host
+events run on rank 0 on the gathered state. Not ported (raises
+NotImplementedError): profile_dir (profile with profile_render.py);
+steps_per_dispatch is ignored (one call per step). The MVS init takes ProbNet's learned depth
 distribution with manual_depth_view -1 (`models/mvs/probnet.py`).
 With gen_vid the run ends with a video of the render path
 (`render_vid.render_vid`); a dataset with no render split skips it with a
@@ -56,6 +59,7 @@ from ..data.loader import Prefetcher
 from ..models import neural_points as npc
 from ..models.networks import PlateauTracker
 from ..models.renderer import effective_sr_budget
+from ..parallel.driver import launch, world_size
 from ..train import trainer
 from ..utils.checkpoint import latest_step, load_checkpoint, save_checkpoint
 from ..utils.metrics import psnr as psnr_fn, report_metrics
@@ -83,14 +87,16 @@ def bloat_mask(mask: np.ndarray, shift: int = 1) -> np.ndarray:
 
 
 def probe_hole(ts, opt, dataset, frame_ids, visualizer,
-               total_steps: int) -> Dict[str, np.ndarray]:
+               total_steps: int, runner=None) -> Dict[str, np.ndarray]:
     """Render probe frames and collect new point candidates where rays that
     hit border rays that miss (reference: train_ft.py:417-530). The probe
     query size comes from opt.prob_kernel_size by tier, so the probe
     renders on a grid of its own. Under NN < 0 it raises ValueError: grown
     points sit off the lattice the corner table indexes, and the JAX
     driver's probe stops there with a KeyError (its probe grid has no
-    corner table; ROADMAP §3)."""
+    corner table; ROADMAP §3). Under a runner every rank builds the probe
+    grid from the joined points and the probe renders by mesh serving, so
+    every rank finds the same candidates."""
     if opt.NN < 0:
         raise ValueError("probe-and-grow does not run with the NN < 0 "
                          "vox-grid query (grown points leave the lattice): "
@@ -102,15 +108,18 @@ def probe_hole(ts, opt, dataset, frame_ids, visualizer,
         if len(ks) == 3:
             probe_opt = opt.replace(query_size=tuple(int(k) for k in ks))
     probe_opt = probe_opt.replace(random_sample="no_crop")
-    pstate = trainer.point_state_of(ts)
+    pstate = trainer.point_state_of(ts) if runner is None else \
+        runner.whole_points(ts).points
     pspec, pgrid = make_spec_and_grid(probe_opt, pstate)
+    if runner is not None:
+        pgrid = runner.shard_grid(pgrid, pspec)
 
     cand: Dict[str, list] = {k: [] for k in
                              ("xyz", "embedding", "color", "dir", "conf")}
     for fid in frame_ids:
         item = dataset.get_item(int(fid), full_img=True)
         maps = render_image(ts, pgrid, probe_opt, pspec, item, prob=True,
-                            keys=PROBE_KEYS)
+                            keys=PROBE_KEYS, runner=runner)
         H, W = int(item["h"]), int(item["w"])
         gt = item["gt_image"][0].reshape(H, W, 3)
         bg = item["bg_color"][0]
@@ -224,9 +233,10 @@ def with_bg_ray(item: Dict, bg_map: Optional[np.ndarray]) -> Dict:
 
 def test(ts, grid, opt, spec, dataset, visualizer, total_steps: int,
          max_images: Optional[int] = None, write_images: bool = True,
-         bg_maps=None) -> float:
+         bg_maps=None, runner=None) -> float:
     """Render the held-out split, with the frames' background maps where
-    given; mean PSNR over the images (reference: train_ft.py:252-414)."""
+    given (by mesh serving under a runner); mean PSNR over the images
+    (reference: train_ft.py:252-414)."""
     n = len(dataset) if max_images is None else min(max_images, len(dataset))
     psnrs = []
     agg_items: Dict[str, list] = {}
@@ -234,7 +244,8 @@ def test(ts, grid, opt, spec, dataset, visualizer, total_steps: int,
         item = with_bg_ray(dataset.get_item(i, full_img=True),
                            None if bg_maps is None else bg_maps[i])
         maps = render_image(ts, grid, opt.replace(random_sample="no_crop"),
-                            spec, item, keys=("coarse_raycolor", "ray_mask"))
+                            spec, item, keys=("coarse_raycolor", "ray_mask"),
+                            runner=runner)
         H, W = int(item["h"]), int(item["w"])
         gt = item["gt_image"][0].reshape(H, W, 3)
         img = maps["coarse_raycolor"]
@@ -266,9 +277,6 @@ def score_test_images(visualizer, total_steps: int, opt, device) -> Dict:
 
 
 def _check_ported(opt) -> None:
-    if opt.n_devices not in (0, 1):
-        raise NotImplementedError("multi-GPU training is not ported "
-                                  "(ROADMAP §1 item 7)")
     if opt.profile_dir:
         raise NotImplementedError("profile_dir is not ported; profile with "
                                   "profile_render.py")
@@ -356,56 +364,112 @@ def main(opt, max_steps: Optional[int] = None, device="cuda") -> Dict:
     items), in prunes, probe-and-grows, test renders, checkpoint writes
     and the plane background's precompute (`bg_s`), the number of steps
     run, the points before and after each prune and grow, and the plane
-    points added (`plane_points`)."""
+    points added (`plane_points`).
+
+    Options that ask for more than one device (--n_devices, --gpu_ids,
+    --mesh_points; `parallel.driver.world_size`) run the driver on that
+    many ranks (`parallel.driver.launch`), and rank 0's result comes back:
+    the state is then the final ServeState and the grid the whole grid,
+    both on the CPU when the ranks were processes of their own."""
     _check_ported(opt)
     if opt.timestamp:
         opt = opt.replace(timestamp=False, experiment=opt.experiment
                           + time.strftime("_%m%d_%H%M%S"))
-    if opt.verbose:
-        print(opt.to_json())
-    dev = torch.device(device)
-    rng = np.random.RandomState(opt.seed)
-    ckpt_dir = os.path.join(opt.checkpoints_dir, opt.experiment)
-    os.makedirs(ckpt_dir, exist_ok=True)
-    with open(os.path.join(ckpt_dir, "opt.json"), "w") as f:
-        f.write(opt.to_json())
-    visualizer = Visualizer(opt)
-    train_ds = create_dataset(opt, split="train")
-    test_ds = create_dataset(opt, split="test")
+    n = world_size(opt, device)
+    if n:
+        return launch(_train, (opt, max_steps), n, opt.mesh_points, device,
+                      os.path.join(opt.checkpoints_dir, opt.experiment))
+    return _train(opt, max_steps, device)
 
-    total_steps, best_psnr, best_iter = 0, 0.0, 0
-    plateau = PlateauTracker(mode="max") if opt.lr_policy == "plateau" \
-        else None
-    resume = latest_step(ckpt_dir) is not None
-    # the plane background reads the starting cloud, resumed or not, as the
-    # JAX driver does
+
+def _start(opt, train_ds, test_ds, dev, visualizer, ckpt_dir, resume,
+           plane, plateau) -> Dict:
+    """The run's starting state on one device: the train state (the
+    starting cloud with its plane points, or the newest checkpoint), the
+    resumed counters and options, the plane background, its grid spec and
+    grid."""
     init_state = initial_points(opt, train_ds, dev) \
         if not resume or has_plane_background(opt, train_ds) else None
     n_plane = 0
+    if plane is not None and init_state is not None:
+        init_state = add_plane_points(init_state, plane, dev)
+        n_plane = len(plane[0])
+        visualizer.print_details(f"added {n_plane} background plane points")
+    start = {"total_steps": 0, "best_psnr": 0.0, "best_iter": 0,
+             "opt": opt, "plateau": None, "n_plane": n_plane}
+    if resume:
+        ts, counters = load_checkpoint(ckpt_dir, opt, device=dev)
+        start.update(total_steps=counters["total_steps"],
+                     best_psnr=counters.get("best_PSNR", 0.0),
+                     best_iter=counters.get("best_iter", 0))
+        if "lr" in counters:
+            start["opt"] = opt.replace(lr=counters["lr"], plr=counters["plr"])
+        if plateau is not None:
+            plateau.load_state_dict(counters)
+            start["plateau"] = plateau.state_dict()
+        visualizer.print_details(f"resumed at step {start['total_steps']}")
+    else:
+        ts = trainer.create_train_state(
+            opt, init_state, torch.Generator().manual_seed(opt.seed))
+    start["bg_train"], start["bg_test"], start["bg_s"] = plane_background(
+        opt, train_ds, test_ds, init_state, dev, visualizer)
+    start["spec"], start["grid"] = make_spec_and_grid(
+        opt, trainer.point_state_of(ts))
+    n_active = int(npc.num_active(trainer.point_state_of(ts)))
+    visualizer.print_details(
+        f"start: {n_active} active points, grid {start['spec'].vdim}, steps "
+        f"{start['total_steps']}")
+    start["ts"] = ts
+    return start
+
+
+def _train(opt, max_steps: Optional[int], device, runner=None) -> Dict:
+    """The driver on one device, or on a rank of `launch` (runner): every
+    rank draws the same batches and frames and takes the same decisions
+    from the same loss items; rank 0 starts the run and runs the host
+    events on the gathered state (`MeshRunner.host_event`), and writes
+    every file."""
+    dev = torch.device(device)
+    main_rank = runner is None or runner.is_main
+    rng = np.random.RandomState(opt.seed)
+    ckpt_dir = os.path.join(opt.checkpoints_dir, opt.experiment)
+    os.makedirs(ckpt_dir, exist_ok=True)
+    resume = latest_step(ckpt_dir) is not None
+    if runner is not None:
+        resume = runner.mesh.broadcast_object(resume)
+    if main_rank:
+        if opt.verbose:
+            print(opt.to_json())
+        with open(os.path.join(ckpt_dir, "opt.json"), "w") as f:
+            f.write(opt.to_json())
+    visualizer = Visualizer(opt) if runner is None else \
+        runner.visualizer(lambda: Visualizer(opt))
+    train_ds = create_dataset(opt, split="train")
+    test_ds = create_dataset(opt, split="test")
+
+    plateau = PlateauTracker(mode="max") if opt.lr_policy == "plateau" \
+        else None
+    plane = None
     if opt.bgmodel.startswith("planepoints") and \
             hasattr(train_ds, "get_plane_param_points"):
         # drawn from rng before any frame choice, resumed or not
         plane = train_ds.get_plane_param_points(rng)
-        if init_state is not None:
-            init_state = add_plane_points(init_state, plane, dev)
-            n_plane = len(plane[0])
-            visualizer.print_details(
-                f"added {n_plane} background plane points")
-    if resume:
-        ts, counters = load_checkpoint(ckpt_dir, opt, device=dev)
-        total_steps = counters["total_steps"]
-        best_psnr = counters.get("best_PSNR", 0.0)
-        best_iter = counters.get("best_iter", 0)
-        if "lr" in counters:
-            opt = opt.replace(lr=counters["lr"], plr=counters["plr"])
-        if plateau is not None:
-            plateau.load_state_dict(counters)
-        visualizer.print_details(f"resumed at step {total_steps}")
+    start = _start(opt, train_ds, test_ds, dev, visualizer, ckpt_dir,
+                   resume, plane, plateau) if main_rank else None
+    if runner is None:
+        ts, grid = start["ts"], start["grid"]
     else:
-        ts = trainer.create_train_state(
-            opt, init_state, torch.Generator().manual_seed(opt.seed))
-    bg_train, bg_test, bg_s = plane_background(opt, train_ds, test_ds,
-                                               init_state, dev, visualizer)
+        visualizer.print_details(runner.describe())
+        ts = runner.place_state(start and start.pop("ts"), opt)
+        grid_whole = start and start.pop("grid")
+        start = runner.mesh.broadcast_object(start)
+        grid = runner.place_grid(grid_whole, start["spec"])
+        if plateau is not None and start["plateau"] is not None:
+            plateau.load_state_dict(start["plateau"])
+    opt, spec = start["opt"], start["spec"]
+    total_steps = start["total_steps"]
+    best_psnr, best_iter = start["best_psnr"], start["best_iter"]
+    bg_train, bg_test = start["bg_train"], start["bg_test"]
 
     def extra_counters():
         out = {"lr": opt.lr, "plr": opt.plr}
@@ -413,14 +477,20 @@ def main(opt, max_steps: Optional[int] = None, device="cuda") -> Dict:
             out.update(plateau.state_dict())
         return out
 
-    spec, grid = make_spec_and_grid(opt, trainer.point_state_of(ts))
-    n_active = int(npc.num_active(trainer.point_state_of(ts)))
-    visualizer.print_details(
-        f"start: {n_active} active points, grid {spec.vdim}, steps "
-        f"{total_steps}")
+    def event(fn):
+        """fn(whole ts) -> (ts, grid, info) on the whole state: here, or
+        on rank 0 with the result placed on every rank."""
+        if runner is None:
+            return fn(ts)
+        return runner.host_event(ts, grid, spec, opt, fn)
+
+    def whole():
+        """The whole train state (on rank 0 under a runner, else None)."""
+        return ts if runner is None else runner.gather_state(ts, opt)
+
     timing = {"train_s": 0.0, "prune_s": 0.0, "grow_s": 0.0, "test_s": 0.0,
-              "save_s": 0.0, "bg_s": bg_s, "steps": 0, "prune": [],
-              "grow": [], "plane_points": n_plane}
+              "save_s": 0.0, "bg_s": start["bg_s"], "steps": 0, "prune": [],
+              "grow": [], "plane_points": start["n_plane"]}
 
     # ray-miss frame ranking (reference: mvs_points_volumetric_model.py:
     # 134-166)
@@ -438,6 +508,18 @@ def main(opt, max_steps: Optional[int] = None, device="cuda") -> Dict:
                                 None if bg_train is None else bg_train[fid])
     batch_keys = BATCH_KEYS + (("bg_ray",) if bg_train is not None else ())
 
+    def pruned(st):
+        before = int(npc.num_active(trainer.point_state_of(st)))
+        st = prune_points(st, opt)
+        after = int(npc.num_active(trainer.point_state_of(st)))
+        return st, trainer.rebuild_grid(st, spec), (before, after)
+
+    def grown(st):
+        before = int(npc.num_active(trainer.point_state_of(st)))
+        st, dropped = grow_from_candidates(st, opt, cand)
+        after = int(npc.num_active(trainer.point_state_of(st)))
+        return st, trainer.rebuild_grid(st, spec), (before, after, dropped)
+
     prefetcher = Prefetcher(produce, depth=max(1, opt.prefetch_depth))
     miss_key = "loss_ray_miss_coarse_raycolor"
     try:
@@ -445,10 +527,7 @@ def main(opt, max_steps: Optional[int] = None, device="cuda") -> Dict:
             if opt.prune_iter > 0 and 0 < total_steps <= opt.prune_max_iter \
                     and total_steps % opt.prune_iter == 0:
                 t0 = time.perf_counter()
-                before = int(npc.num_active(trainer.point_state_of(ts)))
-                ts = prune_points(ts, opt)
-                grid = trainer.rebuild_grid(ts, spec)
-                after = int(npc.num_active(trainer.point_state_of(ts)))
+                ts, grid, (before, after) = event(pruned)
                 timing["prune_s"] += time.perf_counter() - t0
                 timing["prune"].append((total_steps, before, after))
                 visualizer.print_details(
@@ -474,12 +553,9 @@ def main(opt, max_steps: Optional[int] = None, device="cuda") -> Dict:
                 else:
                     frame_ids = rng.permutation(len(train_ds))[:num_probe]
                 cand = probe_hole(ts, opt, probe_ds, frame_ids, visualizer,
-                                  total_steps)
+                                  total_steps, runner=runner)
                 if cand:
-                    before = int(npc.num_active(trainer.point_state_of(ts)))
-                    ts, dropped = grow_from_candidates(ts, opt, cand)
-                    grid = trainer.rebuild_grid(ts, spec)
-                    after = int(npc.num_active(trainer.point_state_of(ts)))
+                    ts, grid, (before, after, dropped) = event(grown)
                     timing["grow"].append((total_steps, before, after))
                     visualizer.print_details(
                         f"grow at {total_steps}: {before} -> {after} points"
@@ -494,7 +570,10 @@ def main(opt, max_steps: Optional[int] = None, device="cuda") -> Dict:
             batch["near"], batch["far"] = float(host["near"]), \
                 float(host["far"])
             t0 = time.perf_counter()
-            ts, items = trainer.train_step(ts, grid, batch, opt, spec)
+            if runner is None:
+                ts, items = trainer.train_step(ts, grid, batch, opt, spec)
+            else:
+                ts, items = runner.train_step(ts, grid, batch, opt, spec)
             names = list(items)
             values = torch.stack([items[k].to(torch.float32).reshape(())
                                   for k in names]).cpu().tolist()
@@ -505,7 +584,8 @@ def main(opt, max_steps: Optional[int] = None, device="cuda") -> Dict:
 
             if opt.grid_rebuild_every > 0 and opt.xyz_grad > 0 and \
                     total_steps % opt.grid_rebuild_every == 0:
-                grid = trainer.rebuild_grid(ts, spec)
+                ts, grid, _ = event(
+                    lambda st: (st, trainer.rebuild_grid(st, spec), None))
             if opt.prob_freq > 0 and miss_key in items:
                 loss_miss = items[miss_key]
                 hit = np.flatnonzero(top_miss_ids == fid)
@@ -536,21 +616,26 @@ def main(opt, max_steps: Optional[int] = None, device="cuda") -> Dict:
                 visualizer.print_losses(total_steps)
             if opt.save_point_freq > 0 and \
                     total_steps % opt.save_point_freq == 0:
-                st = {k: (None if v is None else v.detach().cpu().numpy())
-                      for k, v in trainer.point_state_of(ts).items()}
-                visualizer.save_neural_points(total_steps, st["xyz"],
-                                              st["color"], st["conf"],
-                                              st["mask"])
+                st = whole()
+                if st is not None:
+                    st = {k: (None if v is None else v.detach().cpu().numpy())
+                          for k, v in trainer.point_state_of(st).items()}
+                    visualizer.save_neural_points(total_steps, st["xyz"],
+                                                  st["color"], st["conf"],
+                                                  st["mask"])
             if total_steps % opt.save_iter_freq == 0:
                 t0 = time.perf_counter()
-                save_checkpoint(ckpt_dir, total_steps, ts, opt, best_psnr,
-                                best_iter, extra_counters=extra_counters())
+                st = whole()
+                if st is not None:
+                    save_checkpoint(ckpt_dir, total_steps, st, opt,
+                                    best_psnr, best_iter,
+                                    extra_counters=extra_counters())
                 timing["save_s"] += time.perf_counter() - t0
             if opt.test_freq > 0 and total_steps % opt.test_freq == 0:
                 t0 = time.perf_counter()
                 cur = test(ts, grid, opt, spec, test_ds, visualizer,
                            total_steps, max_images=opt.test_num,
-                           bg_maps=bg_test)
+                           bg_maps=bg_test, runner=runner)
                 timing["test_s"] += time.perf_counter() - t0
                 if cur > best_psnr:
                     best_psnr, best_iter = cur, total_steps
@@ -563,19 +648,22 @@ def main(opt, max_steps: Optional[int] = None, device="cuda") -> Dict:
         prefetcher.close()
 
     t0 = time.perf_counter()
-    save_checkpoint(ckpt_dir, total_steps, ts, opt, best_psnr, best_iter,
-                    extra_counters=extra_counters())
+    final_state = whole()
+    if final_state is not None:
+        save_checkpoint(ckpt_dir, total_steps, final_state, opt, best_psnr,
+                        best_iter, extra_counters=extra_counters())
     timing["save_s"] += time.perf_counter() - t0
     t0 = time.perf_counter()
     final_psnr = test(ts, grid, opt, spec, test_ds, visualizer, total_steps,
-                      bg_maps=bg_test)
+                      bg_maps=bg_test, runner=runner)
     timing["test_s"] += time.perf_counter() - t0
     if final_psnr > best_psnr:
         best_psnr, best_iter = final_psnr, total_steps
     visualizer.print_details(
         f"done: {total_steps} steps in {time.time() - t_start:.1f}s, "
         f"final PSNR {final_psnr:.3f}, best {best_psnr:.3f}@{best_iter}")
-    scores = score_test_images(visualizer, total_steps, opt, dev)
+    scores = score_test_images(visualizer, total_steps, opt, dev) \
+        if main_rank else None
     video = None
     if opt.gen_vid:
         # the final video over the render path (reference: train_ft.py:
@@ -585,14 +673,17 @@ def main(opt, max_steps: Optional[int] = None, device="cuda") -> Dict:
             from .render_vid import render_vid
             video = render_vid(ts, grid, opt, spec,
                                create_dataset(opt, split="render"),
-                               visualizer, total_steps)["video"]
+                               visualizer, total_steps,
+                               runner=runner)["video"]
         else:
             visualizer.print_details(f"gen_vid skipped: dataset "
                                      f"{opt.dataset_name} has no render "
                                      f"split")
+    if runner is not None:
+        grid = runner.whole_grid(grid)
     return {"total_steps": total_steps, "final_psnr": final_psnr,
             "best_psnr": best_psnr, "best_iter": best_iter, "scores": scores,
-            "video": video, "state": ts, "grid": grid, "spec": spec,
+            "video": video, "state": final_state, "grid": grid, "spec": spec,
             "bg_test": bg_test,
             "timing": timing}
 

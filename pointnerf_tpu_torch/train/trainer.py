@@ -26,7 +26,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..models.aggregator import Aggregator, init_aggregator_params
-from ..models.losses import compute_losses
+from ..models.losses import compute_losses, over_shards
 from ..models.networks import make_lr_schedule
 from ..models.neural_points import SENTINEL
 from ..models.renderer import render_forward, render_query, render_shade
@@ -139,12 +139,12 @@ def jitter_draws(state: TrainState, batch: Dict, opt) -> torch.Tensor:
 
 
 def _render(state: TrainState, grid, spec, opt, batch: Dict,
-            u: torch.Tensor) -> Dict:
+            u: torch.Tensor, shards=(1, 1)) -> Dict:
     """Query (no gradient, outside any recomputation), then the shade
     phase, rematerialized in the backward pass when opt.remat is set."""
     with torch.no_grad():
         q = render_query(state.points, grid, spec, opt, batch, is_train=True,
-                         u=u)
+                         u=u, shards=shards)
     keys = list(state.pt_train)
 
     def shade(*train):
@@ -158,7 +158,7 @@ def _render(state: TrainState, grid, spec, opt, batch: Dict,
 
 
 def _chunked_render(state: TrainState, grid, spec, opt, batch: Dict,
-                    u: torch.Tensor) -> Dict:
+                    u: torch.Tensor, shards=(1, 1)) -> Dict:
     """The render over ray_chunk-sized chunks, outputs joined: ray-shaped
     leaves along the ray axis, the compact-form loss leaves stacked on a
     leading chunk axis (compute_losses sums them), counters summed."""
@@ -169,7 +169,7 @@ def _chunked_render(state: TrainState, grid, spec, opt, batch: Dict,
         sl = slice(i * C, (i + 1) * C)
         sub = dict(batch, **{k: v[:, sl] for k, v in batch.items()
                              if k in RAY_KEYS and torch.is_tensor(v)})
-        outs.append(_render(state, grid, spec, opt, sub, u[:, sl]))
+        outs.append(_render(state, grid, spec, opt, sub, u[:, sl], shards))
     keys = ["coarse_raycolor", "ray_mask"]
     if opt.depth_loss_items:
         keys.append("coarse_depth")
@@ -187,23 +187,35 @@ def _chunked_render(state: TrainState, grid, spec, opt, batch: Dict,
 
 
 def compute_grads(state: TrainState, grid, batch: Dict, opt, spec,
-                  u: torch.Tensor):
+                  u: torch.Tensor, shards=(1, 1), reduce=None):
     """Loss items and the gradients of both parameter groups for one batch
     (forward and backward only). u: the depth jitter's draws
     [B,R,z_depth_dim]. Returns (items, net grads by parameter name, point
-    grads by buffer name); items are detached."""
+    grads by buffer name); items are detached.
+
+    A rank of a ray-sharded step (`parallel.dp`) passes its shard of the
+    batch with `shards` (its place in the whole batch, for the compaction
+    budget) and `reduce` (the sum over the shards of a vector: the losses'
+    sums and the counters go through it in one call, `losses.over_shards`):
+    the items are then the whole batch's, and the gradients this shard's
+    part of the whole batch's."""
     R = batch["raydir"].shape[1]
     C = int(opt.ray_chunk)
     if C > 0 and R > C and R % C == 0:
-        output = _chunked_render(state, grid, spec, opt, batch, u)
+        output = _chunked_render(state, grid, spec, opt, batch, u, shards)
     else:
-        output = _render(state, grid, spec, opt, batch, u)
-    total, items = compute_losses(opt, output, batch["gt_image"],
-                                  gt_mask=batch.get("gt_mask"),
-                                  gt_depth=batch.get("gt_depth"))
-    items["sr_overflow"] = output["sr_overflow"].to(torch.float32)
-    if "occ_overflow" in output:
-        items["occ_overflow"] = output["occ_overflow"].to(torch.float32)
+        output = _render(state, grid, spec, opt, batch, u, shards)
+
+    def losses(red):
+        total, items = compute_losses(opt, output, batch["gt_image"],
+                                      gt_mask=batch.get("gt_mask"),
+                                      gt_depth=batch.get("gt_depth"), red=red)
+        for k in ("sr_overflow", "occ_overflow"):
+            if k in output:
+                items[k] = red(output[k].to(torch.float32))
+        return total, items
+    total, items = losses(lambda x: x) if reduce is None else \
+        over_shards(losses, reduce)
     named = dict(state.aggregator.named_parameters())
     params = list(named.values()) + list(state.pt_train.values())
     grads = torch.autograd.grad(total, params, allow_unused=True)
@@ -225,6 +237,13 @@ def train_step(state: TrainState, grid, batch: Dict, opt, spec,
     if u is None:
         u = jitter_draws(state, batch, opt)
     items, g_net, g_pts = compute_grads(state, grid, batch, opt, spec, u)
+    return apply_grads(state, g_net, g_pts, opt), items
+
+
+def apply_grads(state: TrainState, g_net: Dict, g_pts: Dict, opt
+                ) -> TrainState:
+    """The two Adam updates from the gradients by name, in place (the
+    second half of `train_step`), and the step count."""
     net_on = pts_on = 1.0
     if opt.alter_step > 0:
         phase = (state.step // opt.alter_step) % 2
@@ -242,16 +261,17 @@ def train_step(state: TrainState, grid, batch: Dict, opt, spec,
         optim.step()
         optim.zero_grad(set_to_none=True)
     state.step += 1
-    return state, items
+    return state
 
 
 @torch.inference_mode()
 def eval_step(state, grid: Dict, batch: Dict, opt, spec,
-              prob: bool = False) -> Dict:
+              prob: bool = False, shards=(1, 1)) -> Dict:
     """No-grad forward for test/render (reference base_model.test); with
-    `prob` the uncompacted probe render of point growing."""
+    `prob` the uncompacted probe render of point growing; `shards` for a
+    rank's piece of a wider batch (`models.renderer.comp_budget`)."""
     return render_forward(state.aggregator, point_state_of(state), grid, spec,
-                          opt, batch, prob=prob)
+                          opt, batch, prob=prob, shards=shards)
 
 
 @torch.inference_mode()
@@ -271,7 +291,7 @@ def eval_chunks(state, grid: Dict, stacked: Dict, const_batch: Dict, opt,
 
 @torch.inference_mode()
 def eval_chunks_stacked(state, grid: Dict, stacked: Dict, const_batch: Dict,
-                        opt, spec) -> Dict:
+                        opt, spec, part=None) -> Dict:
     """Render n ray chunks of one camera as ONE wide eval_step.
 
     Same contract as eval_chunks ([n, 1, C, ...] in and out). Rays are
@@ -280,9 +300,21 @@ def eval_chunks_stacked(state, grid: Dict, stacked: Dict, const_batch: Dict,
     scale with the row space; callers scale explicit ones by n). Only
     per-ray outputs come back; `sr_overflow` (a group total) comes back as
     [n] with the total at slot 0.
+
+    part = (i, r): render only the i-th of r equal contiguous pieces of the
+    wide batch's rays (a rank of mesh serving, `run.common.render_image`),
+    with the compaction budget and groups of the whole wide batch
+    (`models.renderer.comp_budget`); the per-ray outputs come back as
+    [1, n·C/r, ...] and `sr_overflow` as this piece's total.
     """
     n, _, C = next(iter(stacked.values())).shape[:3]
     wide = {k: v.reshape((1, n * C) + v.shape[3:]) for k, v in stacked.items()}
+    if part is not None:
+        i, r = part
+        w = n * C // r
+        wide = {k: v[:, i * w:(i + 1) * w] for k, v in wide.items()}
+        return eval_step(state, grid, dict(const_batch, **wide), opt, spec,
+                         shards=(1, r))
     out = eval_step(state, grid, dict(const_batch, **wide), opt, spec)
     split: Dict = {}
     for k, v in out.items():

@@ -434,8 +434,8 @@ def test_png_codec_matches_imageio(tmp_path):
 def test_driver_trains_like_the_jax_driver(scene_root, tmp_path):
     """The whole driver on the fixture scene with tiny_train_opt (260 steps,
     two prunes, probes every 120 steps, checkpoints): PSNR > 16, the files
-    on disk, a resume that stops at once, and the final PSNR within 1.5 dB
-    of the JAX driver's on the same scene and options."""
+    on disk, a resume that stops at once (also on two ranks), and the final
+    PSNR within 1.5 dB of the JAX driver's on the same scene and options."""
     jopt = tiny_train_opt(scene_root, os.path.join(tmp_path, "jax"))
     want = jdriver.main(jopt)
     opt = _port(tiny_train_opt(scene_root, os.path.join(tmp_path, "port")))
@@ -452,8 +452,11 @@ def test_driver_trains_like_the_jax_driver(scene_root, tmp_path):
     assert res["scores"]["psnr"] > 16.0
     again = tdriver.main(opt, device="cpu")
     assert again["total_steps"] == 260 and again["timing"]["steps"] == 0
-    with pytest.raises(NotImplementedError):
-        tdriver.main(opt.replace(n_devices=2), device="cpu")
+    # two gloo ranks resume the same checkpoint: no step, and the final
+    # test, rendered by mesh serving, scores as the one-device run's
+    ranks = tdriver.main(opt.replace(n_devices=2), device="cpu")
+    assert ranks["total_steps"] == 260 and ranks["timing"]["steps"] == 0
+    assert abs(ranks["final_psnr"] - again["final_psnr"]) < 1e-3
 
 
 def test_cli_runs_the_driver_on_the_cpu(scene_root, tmp_path):

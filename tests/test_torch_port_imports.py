@@ -186,3 +186,32 @@ def test_probnet_editing_visualize_import_alone(module, entry_points):
     for name in entry_points:
         fn = getattr(mod, name)
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("module", [
+    "pointnerf_tpu_torch.parallel", "pointnerf_tpu_torch.parallel.mesh",
+    "pointnerf_tpu_torch.parallel.dp", "pointnerf_tpu_torch.parallel.points",
+    "pointnerf_tpu_torch.parallel.driver",
+    "pointnerf_tpu_torch.parallel.checks",
+    "pointnerf_tpu_torch.scripts.multichip_bench"])
+def test_parallel_modules_import_alone(module):
+    """The multi-GPU modules (and the rank-side checks the spawned ranks
+    import) load without JAX, the JAX package or an image library, so a
+    rank never imports them."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX_", "XLA_"))}
+    probe = (f"import sys, {module}\n"
+             "bad = [n for n in sys.modules if n.split('.')[0] in "
+             f"('jax', 'jaxlib', 'pointnerf_tpu') + {_IMAGE_LIBS!r}]\n"
+             "sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    """chip_smoke.py, which the GPU machine runs with its parallel phase's
+    spawned ranks, names no module of JAX or of the JAX package."""
+    names = _imported_modules(os.path.join(REPO, "chip_smoke.py"))
+    assert not names & {"jax", "jaxlib", "optax", "pointnerf_tpu"}
+    assert "pointnerf_tpu_torch" in names
