@@ -7,20 +7,27 @@ kernel against its plain PyTorch version at the shapes its path gives it
 (K1, K3 and K4 at a serving group's, K2 and K5 at a train step's, K1 and
 K2 also at distance mode 30's 4-wide distances, K3's select mode also at a
 train batch's, K6 at its micro-benchmark's and at a train step's, K7 at
-its micro-benchmark's).
+its micro-benchmark's; K1b and K2b, the trunk's bfloat16 form, at the
+serving group's and the train step's tier shapes, orders 2 and 1, by
+quantiles of |kernel - plain| / max|plain| (BF16_BARS, BF16_GRAD_BARS,
+BF16_DW_BARS), and against K1 and K2 on the same inputs (BF16_VS_F32)).
 Then it drives the port's main paths on the NeRF-Synthetic lego preset
 (random weights from a seeded torch.Generator, bench.py's 100k-point
 shell-and-blobs cloud), each in the default configuration (fused_shade=0:
 K1, K2, K3, K6) and in the fused_shade configuration (fused_shade=1: K4,
-K5, K3, K6):
+K5, K3, K6), and in the trunk_bf16 configuration (trunk_dtype bfloat16:
+K1b, K2b, K3, K6):
 
 - serving: one full 800x800 image through render_image, the chunk of it
   with the most hits re-rendered on the CPU with the plain versions; the
-  fused_shade image is held against the default one;
+  fused_shade image is held against the default one; trunk_bf16 renders
+  the image's busiest group of 8 chunks, held against the default image
+  (BF16_IMAGE_TOL) and its busiest chunk against the CPU (ENV_BF16_TOL);
 - training: bench.py's 3,600-ray batch through create_train_state and
   train_step, one warm-up step and TRAIN_STEPS timed ones, then one
-  compute_grads on the card against the CPU's plain versions; the
-  fused_shade step-1 loss is held against the default one;
+  compute_grads on the card against the CPU's plain versions (trunk_bf16:
+  within GRAD_REL_BF16); the fused_shade step-1 loss is held against the
+  default one;
 
 then the multi-GPU runner (pointnerf_tpu_torch/parallel/) on the one
 card, from the same cloud and batch: at world size 1 on NCCL in this
@@ -44,7 +51,8 @@ decoded back, each frame within the palette bound of its PNG); then the
 aggregator's other shading envelopes on the same plate scene
 (run/workload.envelope_options: distance mode 30 through K1 and K2 at a
 4-wide distance, sh_intrp, gau_intrp, bfloat16 products, order 0 and
-block2 through the composition; ENV_STEPS steps each, the loss must fall,
+block2 through the composition, trunk_bf16 through K1b and K2b;
+ENV_STEPS steps each, the loss must fall,
 one chunk of a test view against the CPU, mode 30 also through test_ft
 and one render_vid frame); then the MVS point init
 (load_points 0, the lego preset's default) on an 800x800 plate scene:
@@ -74,7 +82,7 @@ the port's image I/O on a fixed 1296x968 frame and a 640x480 16-bit depth
 map, whose JPEG bytes, decoded pixels, PNG round trip and nearest resizes
 must hash to digests frozen from Pillow and cv2, the decode timed; a plate
 scene in ScanNet's exported/ layout at the sensors' sizes
-(run/workload.make_scannet_scene, 20 frames), its datasets and the depth
+(run/workload.make_scannet_scene, 15 frames), its datasets and the depth
 back-projection timed, train_ft.main for SCANNET_STEPS steps with a
 probe (K1, K2, K3, K6) whose test PSNR on two views must pass the initial
 cloud's, two chunks of a test view rendered again on the CPU (within
@@ -112,17 +120,29 @@ CPU.
 
 Before the checks it counts the HMMA instructions in the SASS of each
 trunk kernel's library (K1, K2, K4, K5 run their products on the tensor
-cores in a 3xTF32 split; a count of 0 fails) and the subroutine calls in
+cores in a 3xTF32 split, K1b and K2b in bf16; a count of 0 fails) and the subroutine calls in
 K3's (its indices are 32-bit; a call, such as 64-bit integer division,
 fails), and turns TF32 off in cuBLAS and cuDNN, so the plain versions
 stay full fp32. The trunk kernels' bound is their 3xTF32 tensor-core
 products (`bound_ms`), with the fp32 SIMT bound beside it
-(`bound_fp32_ms`).
+(`bound_fp32_ms`); K1b's and K2b's one bf16 product per multiply-add at
+PEAK_BF16, with the float32 kernel's time on the same inputs beside it
+(`float32_kernel_ms`).
 
 To hold the script under 600 s with the ProbNet, editing and viewer
 phases, the CPU re-renders of serving, dtu_inf, scannet and the T&T
 test_ft take one chunk each (were two), the T&T plate holds one test view
-(was two), and the earlier finetunes run fewer steps (PERF.md §4, "was").
+(was two), and the earlier finetunes run fewer steps (PERF.md §4, "was");
+for the trunk_bf16 checks, configuration and envelope, the first
+finetune runs 150 steps (was 200), the envelopes but trunk_bf16 15 (were
+30 and 20), the runner 3 at world size 1 (was 5) and each gloo job 1 (was
+2), the MVS and ProbNet finetunes 40 (were 50), dtu_gen 5 (was 10),
+probnet_gen 3 (was 5), dtu_ft 70 and its planepoints run 10 (were 100 and
+20), scannet 40 with its probe at 30 (were 50 and 40) and its load_points
+3 run 5 (was 10), llff 30 (was 50), the T&T finetune 10 (was 30);
+scannet renders one test view before and after (was two) and llff's
+render_vid two poses (was three), and the scannet scene holds 15 frames
+(was 20). K1b and K2b are timed at order 2 only.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; every kernel of the path's configuration must have launched in it,
@@ -172,6 +192,15 @@ GRAD_REL = 1e-3                       # card vs CPU gradients, ||diff|| /
                                       # differs, and a row whose LeakyReLU
                                       # input lies within rounding of 0 may
                                       # take the other slope on the card
+GRAD_REL_BF16 = 1e-2                  # the same under trunk_dtype bfloat16:
+                                      # a float32 ulp of another summation
+                                      # order flips a bfloat16 operand, and
+                                      # the PE input gradient scales such a
+                                      # flip by up to 2^4; measured 4.0e-3
+                                      # (embedding; the net's <= 1.2e-4),
+                                      # while the bf16 function sits 6e-2 to
+                                      # 1e-1 off float32's in the point
+                                      # gradients (CPU against CPU)
 SHADE_IMAGE_TOL = 1e-4                # fused_shade=1 image vs the default
                                       # one: the same math, other order
 STEP1_RTOL = 1e-5                     # fused_shade=1 step-1 loss vs default
@@ -182,9 +211,9 @@ SCATTER_REL = 1e-4                    # K6 vs plain, per entry, of the sum
 SCATTER_SCRIPT = dict(S=384000, cap=102400, C=42, dup=6.0)  # scatter_pallas
 OCC_U = 96                            # occ_micro3's distinct-row budget
 FT_WH = 400                           # finetune views (plate scene)
-FT_STEPS = 200                        # finetune steps
-FT_PRUNE = 100                        # the one prune
-FT_PROBE = 150                        # the one probe-and-grow (every
+FT_STEPS = 150                        # finetune steps (was 200)
+FT_PRUNE = 75                         # the one prune (was 100)
+FT_PROBE = 110                        # the one probe-and-grow (was 150; every
                                       # FT_PROBE steps)
 FT_PSNR = 16.0                        # final test PSNR bar (dB)
 PHASES = ("train_s", "prune_s", "grow_s", "test_s", "save_s")
@@ -202,7 +231,8 @@ MVS_NEAR_FAR = (2.5, 3.5)             # the plate scene's own depth range
                                       # them a unit behind the plate, where
                                       # the visual hull removes them
 MVS_CONF_THRESH = 0.0                 # random weights never reach lego's 0.8
-MVS_STEPS = 50                        # finetune steps from the MVS cloud
+MVS_STEPS = 40                        # finetune steps from the MVS cloud
+                                      # (was 50)
 MVS_TEST_VIEWS = 1                    # test views of the MVS plate scene
 MVS_MIN_POINTS = 2000                 # the init must leave a few thousand
 MVS_TOL = dict(rtol=1e-4, atol=1e-4)  # one triplet, card vs CPU
@@ -227,7 +257,8 @@ DTU_RANGES = (-0.6, -0.6, -0.25, 0.6, 0.6, 0.25)  # dtu_gen's world grid
                                       # tests/test_generalizable.py sets
                                       # them: the preset's ±100 gives a
                                       # 50,005³-voxel grid
-GEN_STEPS = 10                        # timed dtu_gen steps after a warm-up
+GEN_STEPS = 5                         # timed dtu_gen steps after a warm-up
+                                      # (was 10)
 GEN_CPU_RAYS = 784                    # rays of the card-vs-CPU gradient
                                       # check of a dtu_gen step (28²)
 ALPHA_SHIFT = 5.0                     # alpha-head bias added for that
@@ -253,15 +284,17 @@ TT_HALF = 0.19                        # plate half-width: inside Truck's
                                       # ranges (y from -0.598 to 0.203)
 TT_RADIUS = 0.6                       # camera distance: the plate spans
                                       # about 1,200 of 1,920 columns
-TT_STEPS = 30                         # finetune steps: one checkpoint
+TT_STEPS = 10                         # finetune steps: one checkpoint (was
+                                      # 30)
 TT_CPU_TOL = dict(rtol=1e-5, atol=1e-5)  # test_ft chunks, card vs CPU
 LPIPS_RTOL = 1e-4                     # one LPIPS distance, card vs CPU
 LPIPS_REPS = 5                        # timed LPIPS calls a net
-DTU_FT_STEPS = 100                    # dtu_ft finetune steps (plane bg)
+DTU_FT_STEPS = 70                     # dtu_ft finetune steps (plane bg;
+                                      # was 100)
 DTU_FT_TEST_STEP = 3                  # test_num_step: views 0 and 3 of the
                                       # 6 held out (the preset's 10 holds
                                       # out one of real DTU's 49)
-DTU_FT_PP_STEPS = 20                  # the planepoints run's steps
+DTU_FT_PP_STEPS = 10                  # the planepoints run's steps (was 20)
 DTU_FT_PLANE = ((0.0, 0.0, -0.2), (0.0, 0.0, -1.0), (1.0, 1.0, 1.0))
                                       # the plate scene's white back plane
                                       # under the plate, patched into
@@ -280,16 +313,20 @@ RESIZE_OUT_SHA = ("d6205e32ba872d26ddac141b18b49a92"
 SCANNET_SCAN = "scene0241_01"         # scannet_preset's default scene
 SCANNET_COLOR_WH = (1296, 968)        # ScanNet's colour sensor
 SCANNET_DEPTH_WH = (640, 480)         # and its depth sensor
-SCANNET_FRAMES = 20                   # 4 train / 16 test (NSVF step-5 rule)
+SCANNET_FRAMES = 15                   # 3 train / 12 test (NSVF step-5 rule;
+                                      # was 20: 4 / 16; the init cloud keeps
+                                      # 109,154 points over the floor below)
 SCANNET_HALF = 2.0                    # plate half-width: a 4 x 4 m floor
 SCANNET_RADIUS = 2.0                  # cameras 2.06 m from the origin, at
                                       # 29 deg: plate depths 1-4 m
 SCANNET_SIDE = 200                    # pcd.ply: a 200² grid over the plate
 SCANNET_HOLE = (0.6, -0.4, 0.5)       # less a disk the sensor depth fills
-SCANNET_STEPS = 50                    # of the preset's 200,000
-SCANNET_PROBE = 40                    # prob_freq: one probe-and-grow
-SCANNET_TEST_VIEWS = 2                # test renders (test_num)
-SCANNET_LP3_STEPS = 10                # the load_points 3 run's steps, on
+SCANNET_STEPS = 40                    # of the preset's 200,000 (was 50)
+SCANNET_PROBE = 30                    # prob_freq: one probe-and-grow (was
+                                      # 40)
+SCANNET_TEST_VIEWS = 1                # test renders (test_num; was 2)
+SCANNET_LP3_STEPS = 5                 # the load_points 3 run's steps (was
+                                      # 10), on
 SCANNET_LP3_FRAMES = 5                # a scene of its own: 1 train / 4
                                       # test frames (the driver's final
                                       # test renders every test frame)
@@ -333,9 +370,10 @@ LLFF_TESTSKIP = 8                     # LLFF's hold-out of every 8th view:
                                       # 3 test, 17 train
 LLFF_SIDE = 317                       # fused.ply: a 317² grid, 100,489
                                       # points
-LLFF_STEPS = 50                       # finetune steps
+LLFF_STEPS = 30                       # finetune steps (was 50)
 LLFF_TEST_VIEWS = 2                   # test renders (test_num)
-LLFF_VID_FRAMES = 3                   # poses of the render split rendered
+LLFF_VID_FRAMES = 2                   # poses of the render split rendered
+                                      # (was 3)
 NSFT_WH = 800                         # the legacy NeRF-Synthetic views
 NSFT_PAIRS = dict(n_ref=3, n_extra=2, n_test=1)
                                       # pairs txt: 3 ref views, 2 more view
@@ -344,8 +382,10 @@ NSFT_STEPS = 50                       # finetune steps from the MVS cloud
 NSFT_MIN_POINTS = 2000                # the init must leave a few thousand
 ENV_TEST_VIEWS = 1                    # envelopes: test views rendered
                                       # before and after (was 4)
-ENV_STEPS = dict(pers30=30, sh_intrp=30, gau_intrp=30, bf16=30, order0=20,
-                 block2=20)           # envelopes phase: steps per run
+ENV_STEPS = dict(pers30=15, sh_intrp=15, gau_intrp=15, bf16=15, order0=15,
+                 block2=15, trunk_bf16=30)  # envelopes phase: steps per
+                                      # run (the first four were 30, order0
+                                      # and block2 20)
 ENV_BF16_TOL = dict(rtol=0.0, atol=2e-4)  # bf16 chunk, card vs CPU: the
                                       # envelope tests' BF16_REL (2e-4) of
                                       # the largest colour (1); the float32
@@ -355,12 +395,58 @@ PEAK_FP32 = 67e12                     # H100 SXM fp32 FLOP/s outside the
                                       # tensor cores, at 700 W (data sheet)
 PEAK_TF32 = 495e12                    # H100 SXM dense TF32 tensor-core
                                       # FLOP/s, at 700 W (data sheet)
+PEAK_BF16 = 989e12                    # H100 SXM dense bf16 tensor-core
+                                      # FLOP/s, at 700 W (data sheet)
+BF16_BARS = dict(median=1e-6, p99=1e-3, max=5e-3)  # K1b vs plain, by
+                                      # quantiles of |diff| / max|plain|: an
+                                      # ulp of another summation order ahead
+                                      # of a bfloat16 rounding flips that
+                                      # operand by a bfloat16 ulp. The
+                                      # medians and maxima are tests/
+                                      # test_torch_port_trunk_bf16.py's; p99
+                                      # is 10x its: the tensor cores' sums
+                                      # sit further from the plain version's
+                                      # than two CPU orders do, and four
+                                      # 256-wide layers flip more operands
+                                      # a row (wide tier: alpha p99 1.8e-4)
+BF16_GRAD_BARS = dict(median=1e-5, p99=1e-3, max=1.5e-1)  # K2b vs plain,
+                                      # each per-row cotangent: measured at
+                                      # these shapes median <= 6e-8, p99 <=
+                                      # 1.5e-4, max 6.6e-2 (a few rows: the
+                                      # PE input gradient scales a flipped
+                                      # rounding of dx·cos by up to 2^4)
+BF16_DW_BARS = dict(median=1e-4, p99=2e-3, max=2e-2)  # K2b's flat dW vs
+                                      # plain: each entry sums ~1e5 rows, and
+                                      # the flipped operands among them add
+                                      # up (measured median <= 2.3e-5, p99
+                                      # 8.2e-4, max 9.4e-3); a misplaced
+                                      # rounding moves every entry by ~2^-9
+                                      # of a term, a median of ~1e-3
+KINK_BF16 = 1e-3                      # the bf16 form's kink margin: a
+                                      # flipped rounding upstream moves a
+                                      # pre-activation by up to ~1e-4 (one
+                                      # row at 1.8e-4 took the other slope
+                                      # in the cuda tests)
+BF16_VS_F32 = dict(fwd=2e-2, demb=1.2e-1)  # K1b / K2b against K1 / K2 on
+                                      # the same inputs, of max|K1|, |K2|:
+                                      # JAX's own bars for its bf16 kernel
+                                      # (tests/test_pallas_trunk.py:155-162,
+                                      # 32-wide layers), or 1.25x the plain
+                                      # versions' own distance where that is
+                                      # larger: at lego widths the bf16
+                                      # function's demb sits 0.13-0.15 of
+                                      # scale off float32's (plain against
+                                      # plain, on a CPU)
+BF16_IMAGE_TOL = 2e-2                 # trunk_bf16 serving group against the
+                                      # float32 image on its pixels: the
+                                      # forward bar above, on colours <= 1
 TF32_PASSES = 3                       # the trunk kernels' 3xTF32 split: 3
                                       # TF32 products per fp32 multiply-add
 PN_WH = 800                           # the ProbNet phase: lego's views
 PN_TRAIN = 5                          # train views of its plate: a few
                                       # triplets (full_comb, hull)
-PN_STEPS = 50                         # finetune steps from the ProbNet cloud
+PN_STEPS = 40                         # finetune steps from the ProbNet cloud
+                                      # (was 50)
 PN_DPROB_THRESH = 0.0                 # random weights: a near-uniform prob
                                       # volume, mass ~ num_neighbor / D, so
                                       # lego's 0.8 keeps nothing (logged)
@@ -368,7 +454,8 @@ PN_TOL = dict(rtol=1e-4, atol=1e-4)   # one depth view, card vs CPU
 PN_MASS_TIE = 1e-4                    # keep masks compared away from this
                                       # distance to the threshold
 PN_MIN_POINTS = 1000                  # the init must leave a thousand
-PNG_STEPS = 5                         # ProbNet steps at dtu_gen's size
+PNG_STEPS = 3                         # ProbNet steps at dtu_gen's size
+                                      # (was 5)
 PNG_CPU_D = 32                        # depth planes of its card-vs-CPU
                                       # gradient (the CPU's float64 backward
                                       # grows with D)
@@ -381,8 +468,10 @@ EDIT_LIFT = 0.15                      # the edited half: rotated 90° about z
                                       # and lifted this far
 VIS_FRAMES = 8                        # turntable frames
 VIS_SIZE = 512                        # turntable and growth frames' side
-PAR_STEPS = 5                         # runner train steps at world size 1
-PAR_GLOO_STEPS = 2                    # steps of each mesh_points on the two
+PAR_STEPS = 3                         # runner train steps at world size 1
+                                      # (was 5)
+PAR_GLOO_STEPS = 1                    # steps (was 2) of each mesh_points on
+                                      # the two
                                       # gloo ranks sharing the card
 PAR_PSNR_TOL = 1e-3                   # test_ft on the runner vs one device
 PEAK_BYTES = 3.35e12                  # H100 SXM HBM3 bytes/s (data sheet)
@@ -485,6 +574,36 @@ def trunk_bound(flops: float, nbytes_: float):
     return ms, by, bound(flops, nbytes_)[0]
 
 
+def bf16_bound(flops: float, nbytes_: float):
+    """(least ms, what bounds it) of K1b or K2b: one bf16 tensor-core
+    product per multiply-add at PEAK_BF16, or the bytes at PEAK_BYTES."""
+    tc_ms, bytes_ms = 1e3 * flops / PEAK_BF16, 1e3 * nbytes_ / PEAK_BYTES
+    return (tc_ms, "operations") if tc_ms >= bytes_ms else (bytes_ms,
+                                                            "bytes")
+
+
+def rel_quantiles(got, want) -> dict:
+    """median, p99 and max of |got - want| / max|want| over the entries."""
+    r = ((got - want).abs().double() / (want.abs().max().double()
+                                        + 1e-30)).flatten().sort().values
+    n = r.numel()
+    return dict(median=float(r[(n - 1) // 2]),
+                p99=float(r[int(round(0.99 * (n - 1)))]), max=float(r[-1]))
+
+
+def hold_quantiles(what: str, got, want, bars) -> dict:
+    """rel_quantiles of got against want; raises on a bar they exceed."""
+    q = rel_quantiles(got, want)
+    miss = {k: q[k] for k in bars if not q[k] <= bars[k]}
+    if miss:
+        raise AssertionError(f"{what}: quantiles {q} exceed {bars}")
+    return q
+
+
+def qtext(q: dict) -> str:
+    return "/".join(f"{q[k]:.2e}" for k in ("median", "p99", "max"))
+
+
 def bound_text(flops: float, ms: float, b_ms: float, b_by: str,
                b32_ms: float) -> str:
     """A trunk kernel's rate and both its bounds, with the share of each."""
@@ -523,12 +642,13 @@ def sass(kernel) -> str:
 
 def tensor_core_products():
     """HMMA instructions in the SASS of each trunk kernel's library
-    (cuobjdump -sass): K1, K2, K4 and K5 must issue their products on the
-    tensor cores. Returns {kernel name: count}."""
+    (cuobjdump -sass): K1, K2, K4, K5, K1b and K2b must issue their
+    products on the tensor cores. Returns {kernel name: count}."""
     from pointnerf_tpu_torch.ops import kernels
     counts = {}
     for k in (kernels.TRUNK_FWD, kernels.TRUNK_BWD, kernels.SHADE_FWD,
-              kernels.SHADE_BWD):
+              kernels.SHADE_BWD, kernels.TRUNK_FWD_BF16,
+              kernels.TRUNK_BWD_BF16):
         counts[k.name] = sum("HMMA" in line
                              for line in sass(k).splitlines())
         if not counts[k.name]:
@@ -548,15 +668,15 @@ def trunk_macs(ops) -> int:
     return sum(t.numel() for t in ops if t.shape[0] > 1)
 
 
-def tier_sums(rows, mode: int = 20):
-    """(ms, plain_ms, bound_ms, bound_fp32_ms) of the order-2 checks at the
-    narrow and the wide tier summed, at distance mode `mode`: one group's or
-    one step's work of the kernel."""
+def tier_sums(rows, mode: int = 20,
+              keys=("ms", "plain_ms", "bound_ms", "bound_fp32_ms")):
+    """`keys` of the order-2 checks at the narrow and the wide tier summed,
+    at distance mode `mode`: one group's or one step's work of the
+    kernel."""
     picked = [r for r in rows
               if r["order"] == 2 and r.get("mode", 20) == mode]
     assert {r["tier"] for r in picked} == {"narrow", "wide"}
-    return tuple(sum(r[k] for r in picked)
-                 for k in ("ms", "plain_ms", "bound_ms", "bound_fp32_ms"))
+    return tuple(sum(r[k] for r in picked) for k in keys)
 
 
 def tier_shapes(opt, rows: int):
@@ -617,6 +737,12 @@ def build_workload(dev):
             make_item(opt), grid_ms)
 
 
+def trunk_tiers(opt, Ncb: int, NtB: int):
+    """(tier, K, shading points) of the narrow and the wide tier."""
+    return (("narrow", opt.k_tier if opt.k_tier > 0 else 1, Ncb),
+            ("wide", opt.K, NtB))
+
+
 def trunk_cases(agg, agg30):
     """(dist mode, aggregator, distance width dd, order-1 flag) of the
     trunk checks: dd 6 (mode 20, lego's) at orders 2 and 1, and dd 4
@@ -634,8 +760,7 @@ def check_trunk(agg, agg30, opt, Ncb: int, NtB: int):
     nf, nd = opt.num_feat_freqs, abs(opt.dist_xyz_freq)
     Fe = opt.point_features_dim
     rows = []
-    for tier, K, n_pts in (("narrow", opt.k_tier if opt.k_tier > 0 else 1, Ncb),
-                           ("wide", opt.K, NtB)):
+    for tier, K, n_pts in trunk_tiers(opt, Ncb, NtB):
         S = n_pts * K
         emb = (torch.rand(S, Fe, generator=g) - 0.5).to(dev)
         d6 = (0.02 * torch.randn(S, 6, generator=g)).to(dev)
@@ -709,8 +834,7 @@ def check_trunk_bwd(agg, agg30, opt, Ncb: int, NtB: int):
     nf, nd = opt.num_feat_freqs, abs(opt.dist_xyz_freq)
     Fe = opt.point_features_dim
     rows = []
-    for tier, K, n_pts in (("narrow", opt.k_tier if opt.k_tier > 0 else 1,
-                            Ncb), ("wide", opt.K, NtB)):
+    for tier, K, n_pts in trunk_tiers(opt, Ncb, NtB):
         S = n_pts * K
         emb, d6, ex3, w, dfeat, dalpha = trunk_bwd_inputs(opt, S, K, g, dev)
         for mode, a, dd, order1 in trunk_cases(agg, agg30):
@@ -768,6 +892,156 @@ def check_trunk_bwd(agg, agg30, opt, Ncb: int, NtB: int):
                              bound_fp32_ms=b32_ms))
         del emb, d, d6, ex3, w, dfeat, dalpha
     return rows
+
+
+def check_trunk_bf16(agg, opt, Ncb: int, NtB: int):
+    """K1b (trunk_dtype bfloat16) against fused_trunk_reference with bf16
+    at one serving group's tier shapes, orders 2 and 1, held by the
+    quantiles of BF16_BARS; and against K1 on the same inputs, within
+    JAX's bf16-vs-f32 bar. K1 is timed beside it."""
+    from pointnerf_tpu_torch.ops import trunk as tt
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(1)
+    L1, L3 = opt.shading_feature_mlp_layer1, opt.shading_feature_mlp_layer3
+    nf, nd = opt.num_feat_freqs, abs(opt.dist_xyz_freq)
+    Fe = opt.point_features_dim
+    rows = []
+    for tier, K, n_pts in trunk_tiers(opt, Ncb, NtB):
+        S = n_pts * K
+        emb = (torch.rand(S, Fe, generator=g) - 0.5).to(dev)
+        d = (0.02 * torch.randn(S, 6, generator=g)).to(dev)
+        ex3 = (2 * torch.rand(S, 7, generator=g) - 1).to(dev)
+        w = (torch.rand(S, 1, generator=g)
+             * (torch.rand(S, 1, generator=g) < 0.3)).to(dev)
+        for order1 in (False, True):
+            ops = tt.pack_trunk_params(agg, Fe, 6, nf, nd,
+                                       with_alpha=not order1)
+            args = (L1, L3, nf, nd, K, opt.act_super > 0, order1, emb, d,
+                    ex3, w, ops)
+            got = tt.fused_trunk(*args, bf16=True)
+            want = tt.fused_trunk_reference(*args, bf16=True)
+            f32 = tt.fused_trunk(*args)
+            ref32 = tt.fused_trunk_reference(*args)
+            torch.cuda.synchronize()
+            qs, err, vs32, plain32 = [], 0.0, 0.0, 0.0
+            for a, b, c, e in zip(got, want, f32, ref32):
+                if b is None:
+                    continue
+                qs.append(hold_quantiles("K1b", a, b, BF16_BARS))
+                err = max(err, float((a - b).abs().max()))
+                vs32 = max(vs32, float((a - c).abs().max() / c.abs().max()))
+                plain32 = max(plain32,
+                              float((b - e).abs().max() / e.abs().max()))
+            bar32 = max(BF16_VS_F32["fwd"], 1.25 * plain32)
+            if not vs32 <= bar32:
+                raise AssertionError(f"K1b off K1 by {vs32:.3e} of scale")
+            row = dict(tier=tier, order=1 if order1 else 2, err=err)
+            text = (f"K1b trunk_fwd_bf16 {tier} K={K} order={row['order']} "
+                    f"rows={S}: vs plain |diff|/max median/p99/max "
+                    f"{', '.join(qtext(q) for q in qs)}, max_abs_err="
+                    f"{err:.3e}; vs K1 {vs32:.3e} of scale (bar {bar32:.3e};"
+                    f" plain bf16 vs plain float32 {plain32:.3e})")
+            if not order1:     # timed at order 2, the summed work
+                row.update(zip(("ms", "plain_ms"), timed_pair(
+                    lambda: tt.fused_trunk(*args, bf16=True),
+                    lambda: tt.fused_trunk_reference(*args, bf16=True))))
+                row["f32_ms"] = cuda_time(lambda: tt.fused_trunk(*args), 3)
+                flops = 2 * S * trunk_macs(ops)
+                row["bound_ms"], b_by = bf16_bound(
+                    flops, nbytes(emb, d, ex3, w, *ops, *got))
+                text += bf16_time_text(row, flops, b_by, "K1")
+            log(text)
+            rows.append(row)
+        del emb, d, ex3, w
+    return rows
+
+
+def check_trunk_bwd_bf16(agg, opt, Ncb: int, NtB: int):
+    """K2b against fused_trunk_bwd_reference with bf16 at one train step's
+    tier shapes, orders 2 and 1: rows whose LeakyReLU input lies within
+    KINK_BF16 of 0 get neighbor weight 0, then each per-row cotangent is
+    held by the quantiles of BF16_GRAD_BARS and the flat dW by those of
+    BF16_DW_BARS; two launches
+    give bit-equal dW; demb against K2's on the same inputs within JAX's
+    bf16-vs-f32 bar. K2 is timed beside it."""
+    from pointnerf_tpu_torch.ops import trunk as tt
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(2)
+    L1, L3 = opt.shading_feature_mlp_layer1, opt.shading_feature_mlp_layer3
+    nf, nd = opt.num_feat_freqs, abs(opt.dist_xyz_freq)
+    Fe = opt.point_features_dim
+    flat = lambda grads: torch.cat([t.flatten() for t in grads])
+    rows = []
+    for tier, K, n_pts in trunk_tiers(opt, Ncb, NtB):
+        S = n_pts * K
+        emb, d, ex3, w, dfeat, dalpha = trunk_bwd_inputs(opt, S, K, g, dev)
+        for order1 in (False, True):
+            ops = [o.detach() for o in tt.pack_trunk_params(
+                agg, Fe, 6, nf, nd, with_alpha=not order1)]
+            zs = tt.trunk_activations(L1, L3, nf, nd, emb, d, ex3, ops,
+                                      not order1, True)
+            smooth = torch.ones(S, dtype=torch.bool, device=dev)
+            for z in zs[2] + zs[4]:
+                smooth &= (z.abs() >= KINK_BF16).all(dim=1)
+            args = (L1, L3, nf, nd, K, opt.act_super > 0, order1, emb, d,
+                    ex3, w * smooth[:, None], ops, dfeat,
+                    None if order1 else dalpha)
+            got = tt.trunk_bwd(*args, bf16=True)
+            again = tt.trunk_bwd(*args, bf16=True)
+            want = tt.fused_trunk_bwd_reference(*args, bf16=True)
+            f32 = tt.trunk_bwd(*args)
+            ref32 = tt.fused_trunk_bwd_reference(*args)
+            torch.cuda.synchronize()
+            qs = [hold_quantiles("K2b", a, b, BF16_GRAD_BARS)
+                  for a, b in zip(got[:4], want[:4])]
+            qw = hold_quantiles("K2b dW", flat(got[4]), flat(want[4]),
+                                BF16_DW_BARS)
+            if not all(torch.equal(a, c) for a, c in zip(got[4], again[4])):
+                raise AssertionError("K2b weight gradients differ between "
+                                     "two launches on the same inputs")
+            vs32 = float((got[0] - f32[0]).abs().max() / f32[0].abs().max())
+            plain32 = float((want[0] - ref32[0]).abs().max()
+                            / ref32[0].abs().max())
+            bar32 = max(BF16_VS_F32["demb"], 1.25 * plain32)
+            if not vs32 <= bar32:
+                raise AssertionError(f"K2b demb off K2's by {vs32:.3e}")
+            err = max(float((a - b).abs().max())
+                      for a, b in zip(got[:4], want[:4]))
+            row = dict(tier=tier, order=1 if order1 else 2, err=err)
+            text = (f"K2b trunk_bwd_bf16 {tier} K={K} order={row['order']} "
+                    f"rows={S} ({S - int(smooth.sum())} within "
+                    f"{KINK_BF16:g} of a LeakyReLU kink weighted 0): vs "
+                    f"plain |diff|/max median/p99/max demb, dd, dex3, dw "
+                    f"{', '.join(qtext(q) for q in qs)}, dW {qtext(qw)}, "
+                    f"max_abs_err={err:.3e}, dW bit-equal over two launches;"
+                    f" demb vs K2 {vs32:.3e} of scale (bar {bar32:.3e}; "
+                    f"plain bf16 vs plain float32 {plain32:.3e})")
+            if not order1:     # timed at order 2, the summed work
+                row.update(zip(("ms", "plain_ms"), timed_pair(
+                    lambda: tt.trunk_bwd(*args, bf16=True),
+                    lambda: tt.fused_trunk_bwd_reference(*args, bf16=True))))
+                row["f32_ms"] = cuda_time(lambda: tt.trunk_bwd(*args), 3)
+                flops = 3 * 2 * S * trunk_macs(ops)
+                row["bound_ms"], b_by = bf16_bound(flops, nbytes(
+                    *args[7:11], *ops, *args[12:], *got[:4], *got[4]))
+                text += bf16_time_text(row, flops, b_by, "K2")
+            log(text)
+            rows.append(row)
+        del emb, d, ex3, w, dfeat, dalpha
+    return rows
+
+
+def bf16_time_text(row, flops: float, b_by: str, f32_name: str) -> str:
+    """The printed times of a K1b or K2b check row."""
+    ms = row["ms"]
+    return (f"; kernel={ms:.3f} ms plain={row['plain_ms']:.3f} ms "
+            f"{f32_name}={row['f32_ms']:.3f} ms ({flops / ms / 1e9:.2f} "
+            f"TFLOP/s) bound={row['bound_ms']:.3f} ms ({b_by}, bf16 at "
+            f"{PEAK_BF16 / 1e12:.0f} TFLOP/s; "
+            f"{100 * row['bound_ms'] / ms:.0f}% of the kernel's time)")
+
+
+BF16_KEYS = ("ms", "plain_ms", "bound_ms", "f32_ms")   # K1b/K2b rows, summed
 
 
 def shade_inputs(opt, S: int, K: int, gen: torch.Generator, dev):
@@ -1198,10 +1472,88 @@ def serve_path(opt, state, spec, grid, agg, ts, item, label, kerns):
     return launches, maps, stats
 
 
+def serve_group_path(opt, state, spec, grid, agg, ts, item, ref, ref_opt,
+                     label, kerns):
+    """One serving group through render_image: the GROUP consecutive
+    chunks of the image with the most hits in `ref` (the maps of the
+    configuration `ref_opt`), twice (the counts cover the second). Every
+    kernel of `kerns` must launch, no other trunk kernel; the ray mask must
+    equal ref's on the group's pixels, the colours be finite and within
+    BF16_IMAGE_TOL of ref's; the group's busiest chunk is rendered again on
+    the CPU with the plain versions (colours within ENV_BF16_TOL). The
+    same group under ref_opt is timed after it. Returns the launch
+    counts."""
+    from pointnerf_tpu_torch.ops import kernels
+    from pointnerf_tpu_torch.run import common
+    from pointnerf_tpu_torch.train.trainer import ServeState
+    chunk = opt.random_sample_size ** 2
+    rays = GROUP * chunk
+    hit_ref = ref["ray_mask"][..., 0].reshape(-1) > 0.5
+    per_group = hit_ref[: (H * W // rays) * rays].reshape(-1, rays).sum(1)
+    sel = np.arange(rays) + int(np.argmax(per_group)) * rays
+    sub = lambda idx: dict(item, raydir=item["raydir"][:, idx],
+                           pixel_idx=item["pixel_idx"][:, idx])
+    pix = lambda it: (it["pixel_idx"][0, :, 1].astype(int),
+                      it["pixel_idx"][0, :, 0].astype(int))
+    common.render_image(ts, grid, opt, spec, sub(sel), group=GROUP)
+    for k in kernels.KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    stats = {}
+    t0 = time.perf_counter()
+    maps = common.render_image(ts, grid, opt, spec, sub(sel), group=GROUP,
+                               stats=stats)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    check_launches(label, kerns)
+    py, px = pix(sub(sel))
+    rgb = maps["coarse_raycolor"][py, px]
+    np.testing.assert_array_equal(maps["ray_mask"][py, px],
+                                  ref["ray_mask"][py, px])
+    if not np.isfinite(rgb).all():
+        raise AssertionError(f"{label}: non-finite colours")
+    diff = float(np.abs(rgb - ref["coarse_raycolor"][py, px]).max())
+    if not diff <= BF16_IMAGE_TOL:
+        raise AssertionError(f"{label}: {diff:.3e} off the float32 image")
+    common.render_image(ts, grid, ref_opt, spec, sub(sel), group=GROUP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    common.render_image(ts, grid, ref_opt, spec, sub(sel), group=GROUP)
+    torch.cuda.synchronize()
+    ref_dt = time.perf_counter() - t0
+    hits = hit_ref[sel].reshape(GROUP, chunk).sum(1)
+    csel = sel[int(np.argmax(hits)) * chunk:][:chunk]
+    cpu_state = {k: (None if v is None else v.cpu()) for k, v in state.items()}
+    cpu_ts = ServeState(copy.deepcopy(agg).cpu(), cpu_state)
+    t0 = time.perf_counter()
+    cpu_maps = common.render_image(cpu_ts, {k: v.cpu() for k, v in
+                                            grid.items()},
+                                   opt.replace(use_fused_trunk=1), spec,
+                                   sub(csel), group=GROUP)
+    cy, cx = pix(sub(csel))
+    np.testing.assert_array_equal(cpu_maps["ray_mask"][cy, cx],
+                                  maps["ray_mask"][cy, cx])
+    np.testing.assert_allclose(cpu_maps["coarse_raycolor"][cy, cx],
+                               maps["coarse_raycolor"][cy, cx],
+                               **ENV_BF16_TOL)
+    cerr = float(np.abs(cpu_maps["coarse_raycolor"][cy, cx]
+                        - maps["coarse_raycolor"][cy, cx]).max())
+    log(f"{label}: one group of {GROUP} chunks ({rays} rays, "
+        f"{int(hit_ref[sel].sum())} hit): {1e3 * dt:.1f} ms ({1e3 * ref_dt:.1f}"
+        f" ms under the reference configuration), sr_overflow "
+        f"{stats['sr_overflow']}, launches {launches}; colours vs the "
+        f"float32 image max_abs_diff {diff:.3e} (bar {BF16_IMAGE_TOL}); "
+        f"CPU re-render of its busiest chunk ({int(hit_ref[csel].sum())} "
+        f"hit): max_abs_err {cerr:.3e} (tolerance {ENV_BF16_TOL}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def check_launches(label, kerns):
     """Every kernel of `kerns` launched since the counts were reset, and no
     trunk kernel outside it (K1/K2 on the default paths, K4/K5 on the
-    fused_shade ones)."""
+    fused_shade ones, K1b/K2b on the trunk_bf16 ones)."""
     from pointnerf_tpu_torch.ops import kernels
     for k in kernels.KERNELS:
         if k in kerns and k.launches == 0:
@@ -1268,7 +1620,7 @@ class KinkMask:
     def __init__(self):
         self.masks, self.replay, self.calls = [], False, 0
 
-    def smooth(self, L1, L3, nf, nd, order1, emb, d, ex3, ops):
+    def smooth(self, L1, L3, nf, nd, order1, emb, d, ex3, ops, bf16=False):
         from pointnerf_tpu_torch.ops import trunk as tt
         if self.replay:
             m = self.masks[self.calls].to(emb.device)
@@ -1279,7 +1631,8 @@ class KinkMask:
             return m
         with torch.no_grad():
             zs = tt.trunk_activations(L1, L3, nf, nd, emb, d, ex3,
-                                      [o.detach() for o in ops], not order1)
+                                      [o.detach() for o in ops], not order1,
+                                      bf16)
             m = torch.ones(emb.shape[0], 1, dtype=emb.dtype,
                            device=emb.device)
             for z in zs[2] + zs[4]:
@@ -1291,10 +1644,11 @@ class KinkMask:
         from pointnerf_tpu_torch.ops import trunk as tt
         self._trunk, self._shade = tt.fused_trunk, tt.fused_shade
 
-        def trunk(L1, L3, nf, nd, K, act_super, order1, emb, d, ex3, w, ops):
-            m = self.smooth(L1, L3, nf, nd, order1, emb, d, ex3, ops)
+        def trunk(L1, L3, nf, nd, K, act_super, order1, emb, d, ex3, w, ops,
+                  bf16=False):
+            m = self.smooth(L1, L3, nf, nd, order1, emb, d, ex3, ops, bf16)
             return self._trunk(L1, L3, nf, nd, K, act_super, order1, emb, d,
-                               ex3, w * m, ops)
+                               ex3, w * m, ops, bf16=bf16)
 
         def shade(L1, L3, nf, nd, K, act_super, order1, dist_mode, emb, xyz,
                   xyzp, color, pdir, conf, mask, sl, slw, ovd, RT, ops):
@@ -1315,6 +1669,9 @@ class KinkMask:
     def masked(self) -> int:
         return int(sum(float((1 - m).sum()) for m in self.masks))
 
+    def rows(self) -> int:
+        return int(sum(m.shape[0] for m in self.masks))
+
 
 def check_train_cpu(st, batch, opt, spec, grid, label):
     """One compute_grads on the card against the CPU's plain versions
@@ -1326,7 +1683,8 @@ def check_train_cpu(st, batch, opt, spec, grid, label):
     neighbor weight 0 on both devices (KinkMask): which of them take the
     other slope on the card changes with every rounding difference, and
     one parent run in three failed this check from them (color gradient
-    1.6e-3)."""
+    1.6e-3). Under trunk_dtype bfloat16 the gradients are held to
+    GRAD_REL_BF16."""
     from pointnerf_tpu_torch.train import trainer
     u = trainer.jitter_draws(st, batch, opt)
     points = {k: (None if v is None else v.detach().cpu())
@@ -1336,6 +1694,7 @@ def check_train_cpu(st, batch, opt, spec, grid, label):
     on_cpu = lambda d: {k: (v.cpu() if torch.is_tensor(v) else v)
                         for k, v in d.items()}
     t0 = time.perf_counter()
+    grad_rel = GRAD_REL_BF16 if opt.trunk_dtype == "bfloat16" else GRAD_REL
     with KinkMask() as kinks:
         cpu = trainer.compute_grads(cpu_st, on_cpu(grid), on_cpu(batch),
                                     opt.replace(use_fused_trunk=1), spec,
@@ -1350,24 +1709,26 @@ def check_train_cpu(st, batch, opt, spec, grid, label):
     for k, v in cpu[0].items():
         np.testing.assert_allclose(float(card[0][k]), float(v),
                                    rtol=LOSS_RTOL, err_msg=k)
-    worst, worst_abs = ("", 0.0), 0.0
+    rels, worst_abs = {}, 0.0
     for part in (1, 2):
         for k, g in cpu[part].items():
             d = card[part][k].cpu() - g
-            rel = float(d.norm() / g.norm()) if g.norm() > 0 \
+            rels[k] = float(d.norm() / g.norm()) if g.norm() > 0 \
                 else float(d.norm())
-            if not rel <= GRAD_REL:
-                raise AssertionError(f"gradient of {k} off by {rel:.3e} "
-                                     f"(||card - cpu|| / ||cpu||)")
-            worst = max(worst, (k, rel), key=lambda t: t[1])
             worst_abs = max(worst_abs, float(d.abs().max()))
+    off = {k: f"{v:.3e}" for k, v in rels.items() if not v <= grad_rel}
+    if off:
+        raise AssertionError(f"{label}: gradients off by (||card - cpu|| / "
+                             f"||cpu||) {off}, bar {grad_rel}")
+    worst = max(rels.items(), key=lambda t: t[1])
     log(f"{label}: card vs CPU compute_grads on the full "
         f"{batch['raydir'].shape[1]}-ray batch: loss_total "
         f"{float(card[0]['loss_total']):.7f} vs "
         f"{float(cpu[0]['loss_total']):.7f}; worst gradient {worst[0]} "
         f"||card - cpu||/||cpu|| {worst[1]:.3e}, max abs error "
-        f"{worst_abs:.3e}; {kinks.masked()} rows within {KINK:g} of a "
-        f"LeakyReLU kink weighted 0 on both; CPU {cpu_s:.1f} s")
+        f"{worst_abs:.3e} (bar {grad_rel:g}); {kinks.masked()} of "
+        f"{kinks.rows()} rows within {KINK:g} of a LeakyReLU kink weighted "
+        f"0 on both; CPU {cpu_s:.1f} s")
     return worst[1]
 
 
@@ -3331,10 +3692,10 @@ def envelopes_path(root, smi: str):
     train_ft run on the finetune phase's plate scene (FT_WH², lego widths):
     pers30 (distance mode 30: K1, K2 at dd 4, K3, K6), sh_intrp,
     gau_intrp, bf16, order0 and block2 (the composition around K3 and K6:
-    no K1, K2, K4 or K5). Each prints ms/step, the test PSNR before and
-    after over ENV_TEST_VIEWS test view, the peak and the launches, and renders
-    one chunk of a test view on the CPU from its checkpoint (1e-5; bf16
-    ENV_BF16_TOL). pers30 also renders through test_ft and one render_vid
+    no K1, K2, K4 or K5), trunk_bf16 (K1b, K2b, K3, K6). Each prints
+    ms/step, the test PSNR before and after over ENV_TEST_VIEWS test view,
+    the peak and the launches, and renders one chunk of a test view on the
+    CPU from its checkpoint (1e-5; bf16 and trunk_bf16 ENV_BF16_TOL). pers30 also renders through test_ft and one render_vid
     frame. Raises on a non-finite output, a loss that does not fall (the
     mean of the last five steps against the first five), a chunk outside
     its tolerance, or the kernels above. Returns each run's launches."""
@@ -3357,7 +3718,9 @@ def envelopes_path(root, smi: str):
         psnr0 = s0["psnr0"]
         del s0, train_ds
         torch.cuda.empty_cache()
-        kerns = fused[:2] if name == "pers30" else ()
+        kerns = {"pers30": fused[:2],
+                 "trunk_bf16": (kernels.TRUNK_FWD_BF16,
+                                kernels.TRUNK_BWD_BF16)}.get(name, ())
         losses = []
         res, ft, wall, _, peak = finetune_run(
             f"envelopes {name}", opt,
@@ -3366,7 +3729,7 @@ def envelopes_path(root, smi: str):
         head, tail = np.mean(losses[:5]), np.mean(losses[-5:])
         ms_step = 1e3 * tm["train_s"] / tm["steps"]
         ckpt = os.path.join(opt.checkpoints_dir, opt.experiment)
-        tol = ENV_BF16_TOL if name == "bf16" else TT_CPU_TOL
+        tol = ENV_BF16_TOL if name in ("bf16", "trunk_bf16") else TT_CPU_TOL
         ms_img, err, _, _ = chunks_vs_cpu(
             f"envelopes {name}", ckpt, opt,
             test_ds.get_item(0, full_img=True), tol=tol, n_chunks=1)
@@ -4183,10 +4546,12 @@ def main() -> int:
     with torch.inference_mode():
         k1 = check_trunk(agg, agg30, opt,
                          *tier_rows(GROUP * chunk * opt.SR))
+        k1b = check_trunk_bf16(agg, opt, *tier_rows(GROUP * chunk * opt.SR))
         k3 = check_occupancy(item, grid, spec, opt, GROUP * chunk)
         k4 = check_shade({20: agg, 0: agg0}, opt,
                          *tier_rows(GROUP * chunk * opt.SR))
     k2 = check_trunk_bwd(agg, agg30, opt, *tier_rows(chunk * opt.SR))
+    k2b = check_trunk_bwd_bf16(agg, opt, *tier_rows(chunk * opt.SR))
     k5 = check_shade_bwd(agg, opt, *tier_rows(chunk * opt.SR))
     for name, rows in (("K1", k1), ("K2", k2)):
         t20, t30 = tier_sums(rows), tier_sums(rows, 30)
@@ -4196,6 +4561,12 @@ def main() -> int:
             f"{t20[1]:.3f} -> {t30[1]:.3f} ms, bound (3xTF32) "
             f"{t20[2]:.3f} -> {t30[2]:.3f} ms, bound_fp32 {t20[3]:.3f} -> "
             f"{t30[3]:.3f} ms")
+    for name, rows in (("K1b", k1b), ("K2b", k2b)):
+        t = tier_sums(rows, keys=BF16_KEYS)
+        log(f"{name} narrow + wide (order 2): kernel {t[0]:.3f} ms against "
+            f"the float32 kernel's {t[3]:.3f} ms on the same inputs "
+            f"(x{t[3] / t[0]:.2f}), plain {t[1]:.3f} ms, bound (bf16) "
+            f"{t[2]:.3f} ms")
     del agg0, agg30
     torch.cuda.empty_cache()
     # K6 at its script's shapes (its train-step shapes follow the train
@@ -4233,6 +4604,13 @@ def main() -> int:
     for k in ("sr_overflow", "occ_overflow"):
         if stats_s[k] != stats[k]:
             raise AssertionError(f"{k} differs between the configurations")
+    # the trunk_bf16 configuration (K1b, K3 serving; K1b, K2b, K3, K6
+    # training)
+    bf16_opt = opt.replace(trunk_dtype="bfloat16")
+    bf16_k = (kernels.TRUNK_FWD_BF16, kernels.OCCUPANCY,
+              kernels.TRUNK_BWD_BF16, kernels.SCATTER_ROWS)
+    serve_b = serve_group_path(bf16_opt, state, spec, grid, agg, ts, item,
+                               maps, opt, "serve trunk_bf16", bf16_k[:2])
     del maps, maps_s
     torch.cuda.empty_cache()
     from pointnerf_tpu_torch.train import trainer
@@ -4259,6 +4637,15 @@ def main() -> int:
         f"vs {losses[0]:.7f} (relative difference {rel:.3e})")
     if not rel <= STEP1_RTOL:
         raise AssertionError(f"the fused_shade step-1 loss differs by {rel}")
+    del st, batch
+    torch.cuda.empty_cache()
+    train_b, st, batch, losses_b = train_path(
+        bf16_opt, state, spec, grid, "train trunk_bf16", bf16_k)
+    check_train_cpu(fresh(), batch, bf16_opt, spec, grid, "train trunk_bf16")
+    log(f"train trunk_bf16 vs default: step-1 loss_total {losses_b[0]:.7f} "
+        f"vs {losses[0]:.7f} (relative difference "
+        f"{abs(losses_b[0] - losses[0]) / abs(losses[0]):.3e}); step "
+        f"{len(losses_b)} {losses_b[-1]:.7f} vs {losses[-1]:.7f}")
     del st, batch, ts
     torch.cuda.empty_cache()
     timeline("serve and train")
@@ -4360,7 +4747,8 @@ def main() -> int:
     log(f"evaluation phase: {time.perf_counter() - t0:.1f} s")
 
     log(f"chip_smoke: {time.perf_counter() - start:.1f} s from the start")
-    runs = (serve, serve_s, train, train_s, par_w1, par_gloo, par_test,
+    runs = (serve, serve_s, serve_b, train, train_s, train_b, par_w1,
+            par_gloo, par_test,
             finetune, video, *envelopes,
             edit, edit_test, mvs, probnet, dtu_inf, dtu_gen, dtu_ft, dtu_pp,
             scannet_ft, scannet_lp3, vox_ft, vox_test, llff_ft, llff_vid,
@@ -4369,9 +4757,18 @@ def main() -> int:
     for k, rows in ((kernels.TRUNK_FWD, k1), (kernels.TRUNK_BWD, k2),
                     (kernels.OCCUPANCY, k3), (kernels.SHADE_FWD, k4),
                     (kernels.SHADE_BWD, k5), (kernels.SCATTER_ROWS, k6),
-                    (kernels.ROW_SELECT, k7)):
+                    (kernels.ROW_SELECT, k7), (kernels.TRUNK_FWD_BF16, k1b),
+                    (kernels.TRUNK_BWD_BF16, k2b)):
         extra = {}
-        if isinstance(rows, dict):
+        if k in (kernels.TRUNK_FWD_BF16, kernels.TRUNK_BWD_BF16):
+            err, by, library_ms = max(r["err"] for r in rows), \
+                "operations", None
+            ms, plain_ms, b_ms, f32_ms = tier_sums(rows, keys=BF16_KEYS)
+            extra = {"float32_kernel_ms": f32_ms,
+                     "bound_note": f"one bf16 tensor-core product per "
+                                   f"multiply-add at "
+                                   f"{PEAK_BF16 / 1e12:.0f} TFLOP/s"}
+        elif isinstance(rows, dict):
             err, by, library_ms = rows["err"], rows["bound_by"], \
                 rows.get("library_ms")
             ms, plain_ms, b_ms = rows["ms"], rows["plain_ms"], \

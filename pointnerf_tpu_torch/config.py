@@ -5,7 +5,9 @@ fields and defaults, `validate_options`, the preset tables and functions,
 and `PRESETS`. The port imports nothing of the JAX package, so it keeps
 this copy; `tests/test_torch_port_config.py` holds it to the original
 field by field and preset by preset. Comments on options that only the
-JAX package reads (TPU tiles, compile caches) are kept as they are there.
+JAX package reads (compile caches, dispatch) are kept as they are there;
+those of the fused kernels, the K-tier split, the occupancy budget and
+the point Adam say what each does in the port.
 
 The reference (Xharlie/pointnerf) assembles ~150 argparse flags dynamically from the chosen
 model/dataset classes (reference: options/base_options.py:118-137, models/neural_points/
@@ -284,67 +286,64 @@ class Options:
     lpips_alex_path: str = ""
     lpips_vgg_path: str = ""
     prefetch_depth: int = 2                # host batches prepared ahead of the device
-    remat: int = 0                         # rematerialize the shade phase in backward (memory; ~20% slower)
-    use_fused_trunk: int = -1              # Pallas fused PE+block1+block3+alpha trunk
-                                           # (ops/pallas_trunk.py). -1 = auto: on for TPU
-                                           # when the aggregator config qualifies
-                                           # (fused_trunk_ok); 0 = off; 1 = force (asserts
-                                           # the config, interpret-mode on CPU — slow).
-    fused_shade: int = 0                   # v2 Pallas shade kernel: dists + linear
-                                           # weights + conf clamp + trunk in ONE kernel
-                                           # with per-attribute cotangent outputs
-                                           # (fused_shade_ok envelope). 0 = off (default:
-                                           # measured NEUTRAL at bench shapes in round 4
-                                           # and ~2% SLOWER than the v1 trunk under the
-                                           # round-5 K-tier split — the in-kernel scatter
-                                           # it was built to host is a measured dead end,
-                                           # BASELINE.md round 5), -1 = auto (TPU),
-                                           # 1 = force (interpret on CPU — tests).
-    trunk_dtype: str = "float32"           # MXU operand dtype INSIDE the fused trunk.
-                                           # "bfloat16" (f32 accumulate) measured ZERO
-                                           # speedup at bench shapes — the kernel is
-                                           # MXU-pass/pipeline-bound, not dtype-rate-
-                                           # bound (BASELINE.md round 4) — so full
-                                           # precision stays the default.
-                                           # Bench A/B at lego shapes: 60.0k -> 72.2k rays/s.
-    trunk_tile: int = 768                  # rows per fused-kernel VMEM tile. Tiles > 512
-                                           # raise Mosaic's scoped-VMEM limit automatically
-                                           # (the 16 MB default rejected tile 1024 in
-                                           # round 4; v5e has 128 MB physical VMEM).
-                                           # A/B at bench shapes: 512 → 768 is +1%;
-                                           # 1024 fails to compile (remote helper 500).
+    remat: int = 0                         # recompute the shade phase in the backward
+                                           # (torch.utils.checkpoint): less memory, more work
+    use_fused_trunk: int = -1              # the fused trunk (ops/trunk.py: K1 forward,
+                                           # K2 backward). On the card it runs wherever
+                                           # the aggregator's products are float32 and
+                                           # the config is inside fused_trunk_ok, whatever
+                                           # this says; on the CPU 1 runs its plain
+                                           # versions, -1 and 0 the unfused composition.
+                                           # 1 raises ValueError outside the envelope.
+                                           # It must be nonzero for trunk_dtype bfloat16.
+    fused_shade: int = 0                   # the fused shade (ops/trunk.py: K4, K5):
+                                           # distances, linear weights, the conf clamp
+                                           # and the trunk in one kernel whose backward
+                                           # emits the per-attribute cotangents, inside
+                                           # fused_shade_ok, with float32 products and
+                                           # one Rw2c. 0 = off; -1 = on the card only;
+                                           # 1 = on the card, and on the CPU as the
+                                           # plain versions. It has no bfloat16 form.
+    trunk_dtype: str = "float32"           # product operands of the fused trunk.
+                                           # "float32": K1/K2 (3xTF32 on the tensor
+                                           # cores). "bfloat16": K1b/K2b, every MLP
+                                           # product on bf16-rounded operands summed in
+                                           # float32 (the PE projections stay float32),
+                                           # where the JAX package runs its bf16 kernel:
+                                           # use_fused_trunk != 0, compute_dtype float32,
+                                           # fused_trunk_ok, one Rw2c and the fused_shade
+                                           # route not taken (on the CPU as their plain
+                                           # versions); elsewhere it changes nothing.
+    trunk_tile: int = 768                  # rows per tile of the JAX package's Pallas
+                                           # trunk. Accepted and unused: the port's
+                                           # tiles are fixed (64 rows forward, 32
+                                           # backward); it changes no function.
     k_tier: int = -1                       # neighbor-count tiering of the compacted shade
-                                           # phase: compacted rows whose valid neighbors all
-                                           # fit in the first k_tier slots run a narrow
-                                           # K=k_tier aggregator; the rest run the full-K
-                                           # one. Exact (tier assignment is a partition;
-                                           # tested). Measured mean valid neighbors at bench
-                                           # shapes is 1.35 of K=8 — the single-tier kernel
-                                           # spends ~5x its rows on masked zeros. -1 = auto
-                                           # (1 when compaction is active), 0 = off.
+                                           # phase (models/renderer.py): compacted rows
+                                           # whose valid neighbors all fit in the first
+                                           # k_tier slots run a narrow K=k_tier
+                                           # aggregator, the rest the full-K one. Exact
+                                           # (the tiers partition the rows; tested).
+                                           # -1 = auto (1 when compaction is active),
+                                           # 0 = off.
     k_tier_wide_frac: float = 0.25         # wide-tier row budget as a fraction of the
                                            # compaction budget (narrow tier always gets the
                                            # full budget — it cannot overflow). Wide-tier
                                            # overflow counts into sr_overflow (driver raises
                                            # / serving ladder escalates, like SR_budget).
-    occ_segments: int = -1                 # segment-cached occupancy test: gather each
-                                           # ray's <=U distinct 128-voxel occupancy rows
-                                           # once, select per-sample bits with an MXU
-                                           # one-hot kernel (ops/query.py::
-                                           # mask_raypos_segmented). >0 = row budget U;
-                                           # -1 = auto (96 on accelerators, dense on CPU);
-                                           # 0 = dense per-sample row gathers. Exact below
-                                           # the budget; overflow rays go conservative-
-                                           # valid and count into items["occ_overflow"].
-    packed_point_adam: int = 1             # 1 (default): run the point-attribute Adam over
-                                           # ONE packed [cap,42] array instead of per-buffer
-                                           # [cap,3]/[cap,1] leaves (elementwise-identical;
-                                           # the narrow leaves waste up to 42/128 lanes per
-                                           # TPU tile in the moment updates; +4.7% step
-                                           # throughput on v5e, BASELINE.md). Changes the
-                                           # {iter}_full.npz optimizer-state layout; resume
-                                           # converts between layouts automatically
-                                           # (utils/checkpoint.py::load_pytree_npz).
+    occ_segments: int = -1                 # the JAX package's row budget for its
+                                           # segmented occupancy test. Accepted and
+                                           # unused: the port's occupancy test and
+                                           # select (K3, ops/query.occupancy_select) is
+                                           # exact for every ray without a budget, so
+                                           # occ_overflow stays 0; it changes no function.
+    packed_point_adam: int = 1             # the JAX package's layout of the point-
+                                           # attribute Adam state (one packed array or one
+                                           # leaf per buffer). Adam is elementwise, so the
+                                           # two are one function: the port keeps a
+                                           # moment per buffer whatever this says, writes
+                                           # {iter}_full.npz per buffer and reads either
+                                           # layout (utils/checkpoint.py).
     seed: int = 0
 
     # ------------------------------------------------------------------------- helpers

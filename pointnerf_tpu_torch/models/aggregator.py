@@ -340,6 +340,17 @@ def dist_denominator(opt, vsize) -> float:
                             * np.linalg.norm(np.asarray(vsize, np.float64))))
 
 
+def trunk_bf16(opt, uni: bool, compute_dtype: str) -> bool:
+    """trunk_dtype bfloat16 takes effect (JAX aggregator.py:393-406,
+    431-432 on an accelerator): the fused trunk on, float32 products, the
+    config inside fused_trunk_ok and one Rw2c for all neighbors. The
+    caller also rules out the fused_shade route."""
+    from ..ops.trunk import fused_trunk_ok
+    return (getattr(opt, "trunk_dtype", "float32") == "bfloat16"
+            and int(getattr(opt, "use_fused_trunk", 0)) != 0
+            and compute_dtype == "float32" and fused_trunk_ok(opt) and uni)
+
+
 def _rot3(v, M):
     """v [..., 3] @ M [..., 3, 3], elementwise (exact in float32)."""
     return torch.sum(v[..., :, None] * M, dim=-2)
@@ -401,10 +412,11 @@ def aggregator_forward(agg: Aggregator, opt,
     # the config is inside fused_shade_ok; on the CPU when fused_shade > 0
     # (the plain versions); otherwise the paths below run.
     fs = int(getattr(opt, "fused_shade", 0))
-    use_shade = (fs != 0 and uni and cd == "float32" and fused_shade_ok(opt)
-                 and (sampled_xyz.device.type == "cuda" or fs > 0)
-                 and all(t is not None for t in (sampled_conf, sampled_color,
-                                                 sampled_dir)))
+    shade_route = (fs != 0 and uni and cd == "float32" and fused_shade_ok(opt)
+                   and all(t is not None for t in (sampled_conf,
+                                                   sampled_color,
+                                                   sampled_dir)))
+    use_shade = shade_route and (sampled_xyz.device.type == "cuda" or fs > 0)
     if use_shade:
         Fd = sampled_embedding.shape[-1]
         rows = lambda t: t.reshape(-1, t.shape[-1]).contiguous()
@@ -484,15 +496,24 @@ def aggregator_forward(agg: Aggregator, opt,
     # are float32 and the config is inside its envelope, whatever
     # use_fused_trunk says. On the CPU, use_fused_trunk=1 picks the
     # kernel's plain version; other values the unfused composition below.
-    # Under bfloat16 both packages run the composition. K1 takes d_raw and
-    # the dirs already rotated, so a per-neighbor Rw2c (scene editing)
-    # runs it too; JAX composes that trunk in XLA (ROADMAP §2).
+    # Under compute_dtype bfloat16 both packages run the composition. K1
+    # takes d_raw and the dirs already rotated, so a per-neighbor Rw2c
+    # (scene editing) runs it too; JAX composes that trunk in XLA (ROADMAP
+    # §2). trunk_dtype bfloat16 selects the trunk's bf16 form (K1b/K2b, the
+    # JAX kernels' bf16=True) where JAX's accelerator runs it: the fused
+    # trunk on (use_fused_trunk != 0), float32 products, the config inside
+    # its envelope, one Rw2c and the fused_shade route not taken (JAX's
+    # shade kernel has no bf16 form). It runs on either device, on the CPU
+    # as its plain versions whatever use_fused_trunk's sign, so that a CPU
+    # render computes the card's function; elsewhere the flag changes
+    # nothing, as in JAX.
     uf = int(getattr(opt, "use_fused_trunk", 0))
     if uf > 0 and cd == "float32" and not fused_trunk_ok(opt):
         raise ValueError("use_fused_trunk=1 with an unsupported aggregator "
                          "config")
+    bf16 = trunk_bf16(opt, uni, cd) and not shade_route
     use_fused = cd == "float32" and fused_trunk_ok(opt) and (
-        sampled_xyz.device.type == "cuda" or uf > 0)
+        sampled_xyz.device.type == "cuda" or uf > 0 or bf16)
     if use_fused:
         ex3 = torch.cat(color_feats, dim=-1)
         ops = pack_trunk_params(agg, Fe, d_raw.shape[-1], opt.num_feat_freqs,
@@ -502,7 +523,7 @@ def aggregator_forward(agg: Aggregator, opt,
             opt.num_feat_freqs, abs(opt.dist_xyz_freq), K, opt.act_super > 0,
             order1, emb.reshape(-1, Fe).contiguous(),
             d_raw.reshape(-1, d_raw.shape[-1]).contiguous(), ex3.contiguous(),
-            w_eff.reshape(-1, 1).contiguous(), ops)
+            w_eff.reshape(-1, 1).contiguous(), ops, bf16=bf16)
         return heads(feat_pt, alpha), ray_valid, weight, conf_coefficient
 
     if opt.dist_xyz_freq != 0:

@@ -55,14 +55,24 @@ SCATTER_ROWS = Kernel("scatter_rows", "pointnerf_tpu_torch/csrc/scatter_rows.cu"
                       "scripts/scatter_pallas.py:68")
 ROW_SELECT = Kernel("row_select", "pointnerf_tpu_torch/csrc/row_select.cu",
                     "scripts/occ_micro3.py:134")
+# K1 and K2 with bfloat16 product operands (--trunk_dtype bfloat16): the
+# Pallas kernels compiled with bf16=True
+TRUNK_FWD_BF16 = Kernel("trunk_fwd_bf16",
+                        "pointnerf_tpu_torch/csrc/trunk_fwd_bf16.cu",
+                        "pointnerf_tpu/ops/pallas_trunk.py:168 (bf16)")
+TRUNK_BWD_BF16 = Kernel("trunk_bwd_bf16",
+                        "pointnerf_tpu_torch/csrc/trunk_bwd_bf16.cu",
+                        "pointnerf_tpu/ops/pallas_trunk.py:191 (bf16)")
 KERNELS = (TRUNK_FWD, TRUNK_BWD, OCCUPANCY, SHADE_FWD, SHADE_BWD,
-           SCATTER_ROWS, ROW_SELECT)
+           SCATTER_ROWS, ROW_SELECT, TRUNK_FWD_BF16, TRUNK_BWD_BF16)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # pointers..., ints..., stream; the launches return a cudaError_t
     "trunk_fwd": [_P] * 17 + [_L] + [_I] * 13 + [_P],
     "trunk_bwd": [_P] * 21 + [_L, _P] + [_I] * 13 + [_P],
+    "trunk_fwd_bf16": [_P] * 17 + [_L] + [_I] * 13 + [_P],
+    "trunk_bwd_bf16": [_P] * 21 + [_L, _P] + [_I] * 13 + [_P],
     "occupancy_select": [_P] * 8 + [_I] * 7 + [ctypes.c_float] * 6
     + [_I] * 3 + [_P],
     "shade_fwd": [_P] * 26 + [_L] + [_I] * 12 + [_P],
@@ -72,8 +82,10 @@ _SIGNATURES = {
     # workspace sizes in floats
     "trunk_fwd_workspace": [_I] * 6,
     "trunk_bwd_workspace": [_I] * 11,
+    "trunk_fwd_bf16_workspace": [_I] * 6,
+    "trunk_bwd_bf16_workspace": [_I] * 11,
 }
-_RESTYPES = {"trunk_fwd_workspace": _L, "trunk_bwd_workspace": _L}
+_RESTYPES = {name: _L for name in _SIGNATURES if name.endswith("_workspace")}
 
 
 class _Build:

@@ -15,6 +15,12 @@ forward launches `csrc/trunk_fwd.cu` (K1) and the backward
 versions, `fused_trunk_reference` and `fused_trunk_bwd_reference`. As in
 the JAX package, the PE selection constants get no gradient.
 
+With bf16=True (the JAX kernels' bf16 form, `--trunk_dtype bfloat16`)
+every MLP product takes operands rounded to bfloat16 and sums in float32,
+at the JAX kernels' rounding sites (`_dot_bf16`); the PE projections, the
+biases, the activations, dw and the K-sums stay float32. CUDA tensors
+launch `csrc/trunk_fwd_bf16.cu` (K1b) and `csrc/trunk_bwd_bf16.cu` (K2b).
+
 `fused_shade` (port of the JAX `fused_shade`, the `fused_shade`
 configuration) moves the front half in front of the trunk: from the
 neighbors' positions, colors, directions, confs and validity it forms the
@@ -91,6 +97,19 @@ def _unpack(ops, L1: int, L3: int, with_alpha: bool):
     return w1e, w1p, w1d, b1, extra1, w3x, w3e, b3, extra3, wa, ba
 
 
+def _rn(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16 (nearest, ties to even), kept in float32."""
+    return x.bfloat16().float()
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """a @ b in float32, or (bf16) of the operands rounded to bfloat16: the
+    products of bfloat16 values are exact in float32 and sum in float32, as
+    the JAX kernels' `_dot_bf16` (a product of bfloat16 tensors would round
+    its output)."""
+    return _rn(a) @ _rn(b) if bf16 else a @ b
+
+
 def _leaky(x):
     return F.leaky_relu(x, NEG_SLOPE)
 
@@ -109,35 +128,41 @@ def _dalpha_act(za: torch.Tensor, act_super: bool) -> torch.Tensor:
 
 
 def trunk_activations(L1: int, L3: int, n_feat_freqs: int,
-                      n_dist_freqs: int, emb, d, ex3, ops, with_alpha: bool):
+                      n_dist_freqs: int, emb, d, ex3, ops, with_alpha: bool,
+                      bf16: bool = False):
     """The trunk's forward per neighbor row, every layer kept: (t_e, t_d,
     zs1, hs, zs3, gs) with t_* the PE sine arguments, zs*/hs/gs each
-    LeakyReLU layer's input and output in block1 and block3."""
+    LeakyReLU layer's input and output in block1 and block3. bf16: the
+    layer products take bfloat16-rounded operands (the PE arguments stay
+    float32, as in the JAX kernel's `_fwd_tile`)."""
     w1e, w1p, w1d, b1, extra1, w3x, w3e, b3, extra3, _, _ = _unpack(
         ops, L1, L3, with_alpha)
+    mm = lambda a, b: _mm(a, b, bf16)
     t_e = pe_args(emb, n_feat_freqs)
     t_d = pe_args(d, n_dist_freqs)
-    zs1 = [emb @ w1e + torch.sin(t_e) @ w1p + torch.sin(t_d) @ w1d + b1]
+    zs1 = [mm(emb, w1e) + mm(torch.sin(t_e), w1p) + mm(torch.sin(t_d), w1d)
+           + b1]
     hs = [_leaky(zs1[0])]
     for wl, bl in extra1:
-        zs1.append(hs[-1] @ wl + bl)
+        zs1.append(mm(hs[-1], wl) + bl)
         hs.append(_leaky(zs1[-1]))
-    zs3 = [hs[-1] @ w3x + ex3 @ w3e + b3]
+    zs3 = [mm(hs[-1], w3x) + mm(ex3, w3e) + b3]
     gs = [_leaky(zs3[0])]
     for wl, bl in extra3:
-        zs3.append(gs[-1] @ wl + bl)
+        zs3.append(mm(gs[-1], wl) + bl)
         gs.append(_leaky(zs3[-1]))
     return t_e, t_d, zs1, hs, zs3, gs
 
 
 def fused_trunk_reference(L1: int, L3: int, n_feat_freqs: int,
                           n_dist_freqs: int, K: int, act_super: bool,
-                          order1: bool, emb, d, ex3, w, ops
+                          order1: bool, emb, d, ex3, w, ops,
+                          bf16: bool = False
                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Plain PyTorch version of the trunk forward (K1): same arguments,
-    same outputs as `fused_trunk`."""
+    """Plain PyTorch version of the trunk forward (K1, or K1b with bf16):
+    same arguments, same outputs as `fused_trunk`."""
     g = trunk_activations(L1, L3, n_feat_freqs, n_dist_freqs, emb, d, ex3,
-                          ops, not order1)[-1][-1]
+                          ops, not order1, bf16)[-1][-1]
     S = emb.shape[0]
 
     def group_sum(x):
@@ -147,22 +172,26 @@ def fused_trunk_reference(L1: int, L3: int, n_feat_freqs: int,
     if order1:
         return feat, None
     wa, ba = ops[-2:]
-    return feat, group_sum(_alpha_act(g @ wa + ba, act_super) * w)
+    return feat, group_sum(_alpha_act(_mm(g, wa, bf16) + ba, act_super) * w)
 
 
 def fused_trunk_bwd_reference(L1: int, L3: int, n_feat_freqs: int,
                               n_dist_freqs: int, K: int, act_super: bool,
                               order1: bool, emb, d, ex3, w, ops, dfeat,
-                              dalpha):
-    """Plain PyTorch version of the trunk backward (K2), a transcription of
-    the Pallas `_bwd_kernel`: recompute the forward, then chain the
-    per-shading-point cotangents dfeat [S/K,H] and dalpha [S/K,1] (None
-    for order 1) back through the alpha head, block3, block1 and the PE
-    sines. Returns (demb, dd, dex3, dw, dops), dops one gradient per op."""
+                              dalpha, bf16: bool = False):
+    """Plain PyTorch version of the trunk backward (K2, or K2b with bf16),
+    a transcription of the Pallas `_bwd_kernel`: recompute the forward,
+    then chain the per-shading-point cotangents dfeat [S/K,H] and dalpha
+    [S/K,1] (None for order 1) back through the alpha head, block3, block1
+    and the PE sines. With bf16 every product rounds its operands, the PE
+    input gradient (dx·cos) included before its sum. Returns (demb, dd,
+    dex3, dw, dops), dops one gradient per op."""
     w1e, w1p, w1d, b1, extra1, w3x, w3e, b3, extra3, wa, ba = _unpack(
         ops, L1, L3, not order1)
+    mm = lambda a, b: _mm(a, b, bf16)
     t_e, t_d, zs1, hs, zs3, gs = trunk_activations(
-        L1, L3, n_feat_freqs, n_dist_freqs, emb, d, ex3, ops, not order1)
+        L1, L3, n_feat_freqs, n_dist_freqs, emb, d, ex3, ops, not order1,
+        bf16)
     pe_e, pe_d = torch.sin(t_e), torch.sin(t_d)
     g = gs[-1]
 
@@ -171,12 +200,12 @@ def fused_trunk_bwd_reference(L1: int, L3: int, n_feat_freqs: int,
     dg = dfeat_r * w
     head = []
     if not order1:
-        za = g @ wa + ba
+        za = mm(g, wa) + ba
         dalpha_r = dalpha.repeat_interleave(K, dim=0)
         dw = dw + _alpha_act(za, act_super) * dalpha_r
         dza = dalpha_r * w * _dalpha_act(za, act_super)
-        dg = dg + dza @ wa.t()
-        head = [g.t() @ dza, torch.sum(dza, dim=0, keepdim=True)]
+        dg = dg + mm(dza, wa.t())
+        head = [mm(g.t(), dza), torch.sum(dza, dim=0, keepdim=True)]
 
     def back(dcur, zs, acts, extra):
         """Chain dcur back through the layers after a block's first:
@@ -184,25 +213,28 @@ def fused_trunk_bwd_reference(L1: int, L3: int, n_feat_freqs: int,
         later = []
         for li in range(len(extra), 0, -1):
             dz = dcur * _dleaky(zs[li])
-            later.insert(0, (acts[li - 1].t() @ dz,
+            later.insert(0, (mm(acts[li - 1].t(), dz),
                              torch.sum(dz, dim=0, keepdim=True)))
-            dcur = dz @ extra[li - 1][0].t()
+            dcur = mm(dz, extra[li - 1][0].t())
         return dcur * _dleaky(zs[0]), later
 
     dz3, later3 = back(dg, zs3, gs, extra3)
-    dex3 = dz3 @ w3e.t()
-    dz1, later1 = back(dz3 @ w3x.t(), zs1, hs, extra1)
+    dex3 = mm(dz3, w3e.t())
+    dz1, later1 = back(mm(dz3, w3x.t()), zs1, hs, extra1)
 
-    dops = [emb.t() @ dz1, pe_e.t() @ dz1, pe_d.t() @ dz1,
+    dops = [mm(emb.t(), dz1), mm(pe_e.t(), dz1), mm(pe_d.t(), dz1),
             torch.sum(dz1, dim=0, keepdim=True)]
     dops += [t for pair in later1 for t in pair]
-    dops += [hs[-1].t() @ dz3, ex3.t() @ dz3,
+    dops += [mm(hs[-1].t(), dz3), mm(ex3.t(), dz3),
              torch.sum(dz3, dim=0, keepdim=True)]
     dops += [t for pair in later3 for t in pair]
     dops += head
-    demb = dz1 @ w1e.t() + pe_input_grad(
-        (dz1 @ w1p.t()) * torch.cos(t_e), n_feat_freqs)
-    dd = pe_input_grad((dz1 @ w1d.t()) * torch.cos(t_d), n_dist_freqs)
+    # the PE selection's entries are powers of two (exact in bfloat16): its
+    # product is the rounded gradient scaled and summed per channel
+    sel = _rn if bf16 else (lambda x: x)
+    demb = mm(dz1, w1e.t()) + pe_input_grad(
+        sel(mm(dz1, w1p.t()) * torch.cos(t_e)), n_feat_freqs)
+    dd = pe_input_grad(sel(mm(dz1, w1d.t()) * torch.cos(t_d)), n_dist_freqs)
     return demb, dd, dex3, dw, dops
 
 
@@ -213,15 +245,17 @@ def _device_of(emb: torch.Tensor, name: str) -> str:
 
 
 def _trunk_forward(cfg, emb, d, ex3, w, ops):
+    *head, bf16 = cfg
     if _device_of(emb, "fused_trunk") == "cpu":
-        return fused_trunk_reference(*cfg, emb, d, ex3, w, ops)
-    return _launch(*cfg, emb, d, ex3, w, ops)
+        return fused_trunk_reference(*head, emb, d, ex3, w, ops, bf16)
+    return _launch(*head, emb, d, ex3, w, ops, bf16)
 
 
 class FusedTrunk(torch.autograd.Function):
     """`fused_trunk` with the gradient of the Pallas custom VJP: the
     backward recomputes the forward (nothing but the inputs is saved) and
-    returns demb, dd, dex3, dw and one gradient per trunk op."""
+    returns demb, dd, dex3, dw and one gradient per trunk op. cfg is
+    (L1, L3, n_feat_freqs, n_dist_freqs, K, act_super, order1, bf16)."""
 
     @staticmethod
     def forward(ctx, cfg, emb, d, ex3, w, *ops):
@@ -233,27 +267,28 @@ class FusedTrunk(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, dfeat, dalpha):
         emb, d, ex3, w, *ops = ctx.saved_tensors
-        order1 = ctx.cfg[-1]
-        S, K = emb.shape[0], ctx.cfg[4]
+        *head, bf16 = ctx.cfg
+        order1 = head[6]
+        S, K = emb.shape[0], head[4]
         if dfeat is None:
             dfeat = emb.new_zeros((S // K, ops[-1].shape[1] if order1
                                    else ops[-2].shape[0]))
         if not order1 and dalpha is None:
             dalpha = emb.new_zeros((S // K, 1))
         demb, dd, dex3, dw, dops = trunk_bwd(
-            *ctx.cfg, emb, d, ex3, w, ops, dfeat.contiguous(),
-            None if order1 else dalpha.contiguous())
+            *head, emb, d, ex3, w, ops, dfeat.contiguous(),
+            None if order1 else dalpha.contiguous(), bf16)
         return (None, demb, dd, dex3, dw, *dops)
 
 
 def trunk_bwd(L1: int, L3: int, n_feat_freqs: int, n_dist_freqs: int,
               K: int, act_super: bool, order1: bool, emb, d, ex3, w, ops,
-              dfeat, dalpha):
-    """The trunk backward: K2 on CUDA tensors, its plain version
-    `fused_trunk_bwd_reference` on CPU tensors (same arguments, same
-    returns: demb, dd, dex3, dw and one gradient per op)."""
+              dfeat, dalpha, bf16: bool = False):
+    """The trunk backward: K2 (K2b with bf16) on CUDA tensors, its plain
+    version `fused_trunk_bwd_reference` on CPU tensors (same arguments,
+    same returns: demb, dd, dex3, dw and one gradient per op)."""
     args = (L1, L3, n_feat_freqs, n_dist_freqs, K, act_super, order1, emb, d,
-            ex3, w, ops, dfeat, dalpha)
+            ex3, w, ops, dfeat, dalpha, bool(bf16))
     if _device_of(emb, "trunk_bwd") == "cpu":
         return fused_trunk_bwd_reference(*args)
     return _launch_bwd(*args)
@@ -262,18 +297,20 @@ def trunk_bwd(L1: int, L3: int, n_feat_freqs: int, n_dist_freqs: int,
 def fused_trunk(L1: int, L3: int, n_feat_freqs: int, n_dist_freqs: int,
                 K: int, act_super: bool, order1: bool,
                 emb: torch.Tensor, d: torch.Tensor, ex3: torch.Tensor,
-                w: torch.Tensor, ops: Sequence[torch.Tensor]
+                w: torch.Tensor, ops: Sequence[torch.Tensor],
+                bf16: bool = False
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """emb/d/ex3 [S,*] per-NEIGHBOR rows (the K neighbors of each shading
     point contiguous), w [S,1] effective neighbor weights, ops from
     pack_trunk_params. Returns per-SHADING-POINT (feat_pt [S/K,H],
-    alpha_pt [S/K,1]); order1 returns (feat_pt, None).
+    alpha_pt [S/K,1]); order1 returns (feat_pt, None). bf16: the products
+    take bfloat16-rounded operands (the JAX kernels' bf16 form).
 
-    CPU tensors run the plain versions; CUDA tensors launch the kernels.
-    Differentiable in every tensor argument.
+    CPU tensors run the plain versions; CUDA tensors launch the kernels
+    (K1 and K2, or K1b and K2b). Differentiable in every tensor argument.
     """
     cfg = (L1, L3, n_feat_freqs, n_dist_freqs, K, bool(act_super),
-           bool(order1))
+           bool(order1), bool(bf16))
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (emb, d, ex3, w, *ops)):
         return FusedTrunk.apply(cfg, emb, d, ex3, w, *ops)
@@ -554,14 +591,18 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _fwd_workspace(C1, H1, E3, H3, L1, L3, dev) -> torch.Tensor:
+def _fwd_workspace(C1, H1, E3, H3, L1, L3, dev, bf16=False) -> torch.Tensor:
     """The workspace K1 and K4 split their weights into (TF32 hi and lo
-    planes, csrc/tf32_mma.cuh)."""
-    n = kernels.library().trunk_fwd_workspace(C1, H1, E3, H3, L1, L3)
+    planes, csrc/tf32_mma.cuh), or K1b rounds them into (bf16 pairs,
+    csrc/bf16_mma.cuh)."""
+    lib = kernels.library()
+    size = lib.trunk_fwd_bf16_workspace if bf16 else lib.trunk_fwd_workspace
+    n = size(C1, H1, E3, H3, L1, L3)
     return torch.empty((n,), dtype=torch.float32, device=dev)
 
 
-def _launch(L1, L3, nf, nd, K, act_super, order1, emb, d, ex3, w, ops):
+def _launch(L1, L3, nf, nd, K, act_super, order1, emb, d, ex3, w, ops,
+            bf16=False):
     S, Fe, dd, E3 = _trunk_rows(emb, d, ex3, w)
     w1, w3, w12, b12, w32, b32 = _weight_operands(
         L1, L3, nf, nd, K, order1, S, Fe, dd, E3, emb.device, ops)
@@ -570,15 +611,18 @@ def _launch(L1, L3, nf, nd, K, act_super, order1, emb, d, ex3, w, ops):
     feat = torch.empty((S // K, H3), dtype=torch.float32, device=emb.device)
     alpha = None if order1 else torch.empty((S // K, 1), dtype=torch.float32,
                                             device=emb.device)
-    ws = _fwd_workspace(w1.shape[0], H1, E3, H3, L1, L3, emb.device)
-    err = kernels.library().trunk_fwd(
+    ws = _fwd_workspace(w1.shape[0], H1, E3, H3, L1, L3, emb.device, bf16)
+    lib = kernels.library()
+    kernel, launch = ((kernels.TRUNK_FWD_BF16, lib.trunk_fwd_bf16) if bf16
+                      else (kernels.TRUNK_FWD, lib.trunk_fwd))
+    err = launch(
         _ptr(emb), _ptr(d), _ptr(ex3), _ptr(w), _ptr(w1), _ptr(b1),
         _ptr(w12), _ptr(b12), _ptr(w3), _ptr(b3), _ptr(w32), _ptr(b32),
         _ptr(wa), _ptr(ba), _ptr(feat), _ptr(alpha), _ptr(ws), ws.numel(), S,
         Fe, dd, E3, nf, nd, H1, H3, L1, L3, K, int(bool(act_super)),
         int(bool(order1)), kernels.stream_handle(emb))
-    kernels.check(err, kernels.TRUNK_FWD)
-    kernels.TRUNK_FWD.launches += 1
+    kernels.check(err, kernel)
+    kernel.launches += 1
     return feat, alpha
 
 
@@ -597,10 +641,10 @@ def _grad_layout(C1, H1, X3, H3, L1, L3, order1):
 
 
 class _BwdOperands(NamedTuple):
-    """What K2 and K5 take beside their row inputs: the weights, the
-    workspace (the weights' TF32 planes, the scratch between the kernels'
-    two phases, their partial sums; sized by the library) and the flat dW
-    they sum into."""
+    """What K2, K2b and K5 take beside their row inputs: the weights, the
+    workspace (the weights' TF32 planes or bf16 pairs, the scratch between
+    the kernels' two phases, their partial sums; sized by the library) and
+    the flat dW they sum into."""
     weights: tuple    # w1, b1, w12, b12, w3, b3, w32, b32, wa, ba
                       # (None where absent)
     ws: torch.Tensor
@@ -609,7 +653,7 @@ class _BwdOperands(NamedTuple):
 
 
 def _bwd_operands(L1, L3, nf, nd, K, order1, S, Fe, dd, E3, dev, ops,
-                  dfeat, dalpha) -> _BwdOperands:
+                  dfeat, dalpha, bf16=False) -> _BwdOperands:
     w1, w3, w12, b12, w32, b32 = _weight_operands(
         L1, L3, nf, nd, K, order1, S, Fe, dd, E3, dev, ops)
     _, _, _, b1, _, _, _, b3, _, wa, ba = _unpack(ops, L1, L3, not order1)
@@ -624,8 +668,9 @@ def _bwd_operands(L1, L3, nf, nd, K, order1, S, Fe, dd, E3, dev, ops,
                          f"to {BWD_MAX_WIDTH}, got {C1} and {X3}")
     n_w = sum(a * b for _, (a, b) in
               _grad_layout(C1, H1, X3, H3, L1, L3, order1))
-    n_ws = kernels.library().trunk_bwd_workspace(
-        S, Fe, dd, E3, nf, nd, H1, H3, L1, L3, int(bool(order1)))
+    lib = kernels.library()
+    size = lib.trunk_bwd_bf16_workspace if bf16 else lib.trunk_bwd_workspace
+    n_ws = size(S, Fe, dd, E3, nf, nd, H1, H3, L1, L3, int(bool(order1)))
     weights = (w1, b1, w12, b12, w3, b3, w32, b32, wa, ba)
     # every dW entry is written by the kernels' sums when S > 0
     dW = (torch.empty if S > 0 else torch.zeros)((n_w,), dtype=f32,
@@ -655,21 +700,24 @@ def _split_dW(dW, L1, L3, Fe, nf, C1, H1, X3, H3, order1):
 
 
 def _launch_bwd(L1, L3, nf, nd, K, act_super, order1, emb, d, ex3, w, ops,
-                dfeat, dalpha):
+                dfeat, dalpha, bf16=False):
     S, Fe, dd, E3 = _trunk_rows(emb, d, ex3, w)
     b = _bwd_operands(L1, L3, nf, nd, K, order1, S, Fe, dd, E3, emb.device,
-                      ops, dfeat, dalpha)
+                      ops, dfeat, dalpha, bf16)
     demb, ddist = torch.empty_like(emb), torch.empty_like(d)
     dex3, dw = torch.empty_like(ex3), torch.empty_like(w)
     if S > 0:
-        err = kernels.library().trunk_bwd(
+        lib = kernels.library()
+        kernel, launch = ((kernels.TRUNK_BWD_BF16, lib.trunk_bwd_bf16)
+                          if bf16 else (kernels.TRUNK_BWD, lib.trunk_bwd))
+        err = launch(
             _ptr(emb), _ptr(d), _ptr(ex3), _ptr(w), _ptr(dfeat),
             _ptr(dalpha), *map(_ptr, b.weights), _ptr(demb), _ptr(ddist),
             _ptr(dex3), _ptr(dw), _ptr(b.ws), b.ws.numel(), _ptr(b.dW), S,
             Fe, dd, E3, nf, nd, *b.dims, L1, L3, K, int(bool(act_super)),
             int(bool(order1)), kernels.stream_handle(emb))
-        kernels.check(err, kernels.TRUNK_BWD)
-        kernels.TRUNK_BWD.launches += 1
+        kernels.check(err, kernel)
+        kernel.launches += 1
     H1, H3 = b.dims
     C1 = Fe + 2 * nf * Fe + 2 * nd * dd
     dops = _split_dW(b.dW, L1, L3, Fe, nf, C1, H1, H1 + E3, H3, order1)

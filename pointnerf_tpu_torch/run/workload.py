@@ -51,7 +51,8 @@ def lego_options():
 
 # one shading envelope each, on top of lego's options: the distance mode
 # 30, the learned kernels, bfloat16 products, order 0 (with the point color
-# and dir modes it needs) and block2 (with the feature PE it needs off)
+# and dir modes it needs), block2 (with the feature PE it needs off) and
+# the fused trunk's bfloat16 form (K1b, K2b)
 ENVELOPES = {
     "pers30": dict(agg_dist_pers=30),
     "sh_intrp": dict(agg_distance_kernel="sh_intrp"),
@@ -60,6 +61,7 @@ ENVELOPES = {
     "order0": dict(agg_intrp_order=0, point_color_mode="0",
                    point_dir_mode="0"),
     "block2": dict(shading_feature_mlp_layer2=1, num_feat_freqs=0),
+    "trunk_bf16": dict(trunk_dtype="bfloat16"),
 }
 
 

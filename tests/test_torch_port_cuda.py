@@ -48,6 +48,10 @@ pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-4, atol=1e-4)
 SUM_REL = 1e-4
 KINK = 1e-5
+KINK_BF16 = 1e-3     # the bf16 form's: an operand's bfloat16 rounding that
+                     # flips upstream (2^-8 of it) moves a pre-activation by
+                     # up to ~1e-4 here; one such row took the other slope
+                     # and sat 0.12 of scale off in dex3 at 1e-4
 GRAD_REL = 1e-3
 TRUNK_GRID = [(K, L1, L3, order, True) for K in (1, 8)
               for L1, L3 in ((1, 1), (2, 2), (1, 2))
@@ -97,14 +101,14 @@ def test_trunk_kernel_matches_plain(dev, K, L1, L3, order, act_super):
         assert got[1] is None
 
 
-def _bwd_args(dev, K, L1, L3, order, act_super):
-    """K2's arguments at small widths: seeded rows and cotangents, and rows
-    near a LeakyReLU kink weighted 0."""
+def _bwd_args(dev, K, L1, L3, order, act_super, bf16=False, n_pts=37):
+    """K2's (with bf16, K2b's) arguments at small widths: seeded rows and
+    cotangents, and rows near a LeakyReLU kink weighted 0."""
     opt = _opt(L1, L3, order)
     agg = init_aggregator_params(opt, torch.Generator().manual_seed(K),
                                  device=dev)
     g = torch.Generator().manual_seed(L1 + 2 * L3)
-    S = 37 * K                                  # ragged against the tile
+    S = n_pts * K                               # ragged against the tile
     emb = (torch.rand(S, 8, generator=g) - 0.5).to(dev)
     d = (0.05 * torch.randn(S, 6, generator=g)).to(dev)
     ex3 = (2 * torch.rand(S, 7, generator=g) - 1).to(dev)
@@ -114,9 +118,11 @@ def _bwd_args(dev, K, L1, L3, order, act_super):
                                                  generator=g).to(dev)
     ops = [o.detach() for o in tt.pack_trunk_params(agg, 8, 6, 2, 3,
                                                     with_alpha=order == 2)]
-    zs = tt.trunk_activations(L1, L3, 2, 3, emb, d, ex3, ops, order == 2)
+    zs = tt.trunk_activations(L1, L3, 2, 3, emb, d, ex3, ops, order == 2,
+                              bf16)
     for z in zs[2] + zs[4]:
-        w = w * (z.abs() >= KINK).all(dim=1, keepdim=True)
+        w = w * (z.abs() >= (KINK_BF16 if bf16 else KINK)).all(
+            dim=1, keepdim=True)
     return (L1, L3, 2, 3, K, act_super, order == 1, emb, d, ex3, w, ops,
             dfeat, dalpha)
 
@@ -191,6 +197,65 @@ def test_trunk_bwd_weight_grads_are_reproducible(dev):
     first, second = tt.trunk_bwd(*args), tt.trunk_bwd(*args)
     for a, b in zip(first[4], second[4]):
         assert torch.equal(a, b)
+
+
+# K1b and K2b (trunk_dtype bfloat16) against their plain versions. The
+# tensor cores sum in another order than the plain version's float32
+# product, and an ulp ahead of a bfloat16 rounding flips that operand by a
+# bfloat16 ulp, so both are held by quantiles of |kernel - plain| /
+# max|plain|, with the bars tests/test_torch_port_trunk_bf16.py holds the
+# plain versions to against JAX: each output of the forward and each
+# per-row cotangent on its own, the weight gradients as K2b's one flat dW
+# (a one-entry bias gradient that sums rows of both signs is no scale of
+# its own: a flipped dza rounding moved ba by 5e-5 of itself).
+BF16_BARS = dict(median=1e-6, p99=1e-4, max=5e-3)
+BF16_GRAD_BARS = dict(median=1e-5, p99=1e-4, max=5e-3)
+BF16_GRID = [(8, 2, 2, 2, True, 37), (8, 1, 2, 1, True, 37),
+             (1, 2, 1, 2, False, 37), (8, 2, 2, 1, False, 37),
+             (8, 2, 2, 2, True, 1001)]   # 8,008 rows: K2b's phase 2 splits
+
+
+def bf16_misses(got, want, bars):
+    """The bars that the (median, p99, max) of |got - want| / max|want|
+    exceed."""
+    r = ((got - want).abs().double() / (want.abs().max().double()
+                                        + 1e-30)).flatten().sort().values
+    n = r.numel()
+    q = dict(median=float(r[(n - 1) // 2]),
+             p99=float(r[int(round(0.99 * (n - 1)))]), max=float(r[-1]))
+    return {k: q[k] for k in bars if not q[k] <= bars[k]}
+
+
+@pytest.mark.parametrize("K,L1,L3,order,act_super,n_pts", BF16_GRID)
+def test_trunk_bf16_kernels_match_plain(dev, K, L1, L3, order, act_super,
+                                        n_pts):
+    """K1b and K2b against fused_trunk_reference and
+    fused_trunk_bwd_reference with bf16, at both orders; K1 and K2 do not
+    launch; two K2b launches give bit-equal weight gradients."""
+    args = _bwd_args(dev, K, L1, L3, order, act_super, True, n_pts)
+    counts = lambda: tuple(k.launches for k in (
+        kernels.TRUNK_FWD, kernels.TRUNK_BWD, kernels.TRUNK_FWD_BF16,
+        kernels.TRUNK_BWD_BF16))
+    before = counts()
+    with torch.inference_mode():
+        got = tt.fused_trunk(*args[:12], bf16=True)
+        want = tt.fused_trunk_reference(*args[:12], bf16=True)
+    bwd = tt.trunk_bwd(*args, bf16=True)
+    again = tt.trunk_bwd(*args, bf16=True)
+    bwant = tt.fused_trunk_bwd_reference(*args, bf16=True)
+    torch.cuda.synchronize()
+    assert counts() == (before[0], before[1], before[2] + 1, before[3] + 2)
+    assert (got[1] is None) == (order == 1)
+    for a, b in zip(got, want):
+        if b is not None:
+            assert bf16_misses(a, b, BF16_BARS) == {}
+    for a, b in zip(bwd[:4], bwant[:4]):
+        assert bf16_misses(a, b, BF16_GRAD_BARS) == {}
+    assert len(bwd[4]) == len(bwant[4])
+    for a, b, c in zip(bwd[4], bwant[4], again[4]):
+        assert a.shape == b.shape and torch.equal(a, c)
+    flat = lambda grads: torch.cat([g.flatten() for g in grads])
+    assert bf16_misses(flat(bwd[4]), flat(bwant[4]), BF16_GRAD_BARS) == {}
 
 
 # the tile kernels' edges: S below one tile (32 rows in K2, 64 in K1) and
