@@ -118,9 +118,11 @@ one of its chunks rendered again on the CPU from the same checkpoint
 (within 1e-5), and one 1920x1080 LPIPS distance on the card against the
 CPU.
 
-Before the checks it counts the HMMA instructions in the SASS of each
-trunk kernel's library (K1, K2, K4, K5 run their products on the tensor
-cores in a 3xTF32 split, K1b and K2b in bf16; a count of 0 fails) and the subroutine calls in
+Before the checks it counts the tensor-core product instructions in the
+SASS of each trunk kernel's library (HMMA: K1, K2, K4, K5 on mma.sync in a
+3xTF32 split; HGMMA: K1b and K2b on bf16 wgmma; a count of 0 fails), prints
+each kernel's ptxas lines (registers, spills, performance warnings), and
+counts the subroutine calls in
 K3's (its indices are 32-bit; a call, such as 64-bit integer division,
 fails), and turns TF32 off in cuBLAS and cuDNN, so the plain versions
 stay full fp32. The trunk kernels' bound is their 3xTF32 tensor-core
@@ -479,6 +481,9 @@ GRAPH_REPS = 100                      # calls captured in one CUDA graph
 GRAPH_REPLAYS = 5                     # timed replays of it
 EAGER_REPS = 200                      # eager calls of a function that cannot
                                       # be captured
+TURN_REPS = 10                        # launches a K1b/K2b or K1/K2 timing
+                                      # takes (CUDA events; 0.9-11 ms each)
+PLAIN_REPS = 3                        # eager calls of their plain versions
 
 
 def log(*a):
@@ -641,18 +646,21 @@ def sass(kernel) -> str:
 
 
 def tensor_core_products():
-    """HMMA instructions in the SASS of each trunk kernel's library
-    (cuobjdump -sass): K1, K2, K4, K5, K1b and K2b must issue their
-    products on the tensor cores. Returns {kernel name: count}."""
+    """Tensor-core product instructions in the SASS of each trunk kernel's
+    library (cuobjdump -sass): HMMA (mma.sync) for K1, K2, K4, K5, which run
+    a 3xTF32 split, HGMMA (wgmma) for K1b and K2b. A count of 0 fails.
+    Returns {kernel name: "count OPCODE"}."""
     from pointnerf_tpu_torch.ops import kernels
     counts = {}
-    for k in (kernels.TRUNK_FWD, kernels.TRUNK_BWD, kernels.SHADE_FWD,
-              kernels.SHADE_BWD, kernels.TRUNK_FWD_BF16,
-              kernels.TRUNK_BWD_BF16):
-        counts[k.name] = sum("HMMA" in line
-                             for line in sass(k).splitlines())
-        if not counts[k.name]:
-            raise AssertionError(f"{k.name} issues no HMMA instruction")
+    for k, op in ((kernels.TRUNK_FWD, "HMMA"), (kernels.TRUNK_BWD, "HMMA"),
+                  (kernels.SHADE_FWD, "HMMA"), (kernels.SHADE_BWD, "HMMA"),
+                  (kernels.TRUNK_FWD_BF16, "HGMMA"),
+                  (kernels.TRUNK_BWD_BF16, "HGMMA")):
+        n = sum(op in line.replace("HGMMA", "") if op == "HMMA"
+                else op in line for line in sass(k).splitlines())
+        if not n:
+            raise AssertionError(f"{k.name} issues no {op} instruction")
+        counts[k.name] = f"{n} {op}"
     return counts
 
 
@@ -898,7 +906,7 @@ def check_trunk_bf16(agg, opt, Ncb: int, NtB: int):
     """K1b (trunk_dtype bfloat16) against fused_trunk_reference with bf16
     at one serving group's tier shapes, orders 2 and 1, held by the
     quantiles of BF16_BARS; and against K1 on the same inputs, within
-    JAX's bf16-vs-f32 bar. K1 is timed beside it."""
+    JAX's bf16-vs-f32 bar. K1b and K1 are timed in turns (`turns`)."""
     from pointnerf_tpu_torch.ops import trunk as tt
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(1)
@@ -942,10 +950,12 @@ def check_trunk_bf16(agg, opt, Ncb: int, NtB: int):
                     f"{err:.3e}; vs K1 {vs32:.3e} of scale (bar {bar32:.3e};"
                     f" plain bf16 vs plain float32 {plain32:.3e})")
             if not order1:     # timed at order 2, the summed work
-                row.update(zip(("ms", "plain_ms"), timed_pair(
+                row["ms"], row["f32_ms"] = turns(
                     lambda: tt.fused_trunk(*args, bf16=True),
-                    lambda: tt.fused_trunk_reference(*args, bf16=True))))
-                row["f32_ms"] = cuda_time(lambda: tt.fused_trunk(*args), 3)
+                    lambda: tt.fused_trunk(*args))
+                row["plain_ms"] = cuda_time(
+                    lambda: tt.fused_trunk_reference(*args, bf16=True),
+                    PLAIN_REPS)
                 flops = 2 * S * trunk_macs(ops)
                 row["bound_ms"], b_by = bf16_bound(
                     flops, nbytes(emb, d, ex3, w, *ops, *got))
@@ -963,7 +973,7 @@ def check_trunk_bwd_bf16(agg, opt, Ncb: int, NtB: int):
     held by the quantiles of BF16_GRAD_BARS and the flat dW by those of
     BF16_DW_BARS; two launches
     give bit-equal dW; demb against K2's on the same inputs within JAX's
-    bf16-vs-f32 bar. K2 is timed beside it."""
+    bf16-vs-f32 bar. K2b and K2 are timed in turns (`turns`)."""
     from pointnerf_tpu_torch.ops import trunk as tt
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(2)
@@ -1017,10 +1027,12 @@ def check_trunk_bwd_bf16(agg, opt, Ncb: int, NtB: int):
                     f" demb vs K2 {vs32:.3e} of scale (bar {bar32:.3e}; "
                     f"plain bf16 vs plain float32 {plain32:.3e})")
             if not order1:     # timed at order 2, the summed work
-                row.update(zip(("ms", "plain_ms"), timed_pair(
+                row["ms"], row["f32_ms"] = turns(
                     lambda: tt.trunk_bwd(*args, bf16=True),
-                    lambda: tt.fused_trunk_bwd_reference(*args, bf16=True))))
-                row["f32_ms"] = cuda_time(lambda: tt.trunk_bwd(*args), 3)
+                    lambda: tt.trunk_bwd(*args))
+                row["plain_ms"] = cuda_time(
+                    lambda: tt.fused_trunk_bwd_reference(*args, bf16=True),
+                    PLAIN_REPS)
                 flops = 3 * 2 * S * trunk_macs(ops)
                 row["bound_ms"], b_by = bf16_bound(flops, nbytes(
                     *args[7:11], *ops, *args[12:], *got[:4], *got[4]))
@@ -1031,11 +1043,25 @@ def check_trunk_bwd_bf16(agg, opt, Ncb: int, NtB: int):
     return rows
 
 
+def turns(kernel_fn, other_fn, reps: int = TURN_REPS):
+    """(kernel ms, other ms) per call, each from CUDA events over `reps`
+    launches, in turns kernel, other, other, kernel after a warm-up."""
+    kernel_fn(), other_fn()
+    torch.cuda.synchronize()
+    k1 = cuda_time(kernel_fn, reps)
+    o1 = cuda_time(other_fn, reps)
+    o2 = cuda_time(other_fn, reps)
+    k2 = cuda_time(kernel_fn, reps)
+    return (k1 + k2) / 2, (o1 + o2) / 2
+
+
 def bf16_time_text(row, flops: float, b_by: str, f32_name: str) -> str:
     """The printed times of a K1b or K2b check row."""
     ms = row["ms"]
-    return (f"; kernel={ms:.3f} ms plain={row['plain_ms']:.3f} ms "
-            f"{f32_name}={row['f32_ms']:.3f} ms ({flops / ms / 1e9:.2f} "
+    return (f"; kernel={ms:.3f} ms {f32_name}={row['f32_ms']:.3f} ms (CUDA "
+            f"events over {TURN_REPS} launches each, in turns kernel, "
+            f"{f32_name}, {f32_name}, kernel) plain={row['plain_ms']:.3f} ms "
+            f"(eager, {PLAIN_REPS} calls) ({flops / ms / 1e9:.2f} "
             f"TFLOP/s) bound={row['bound_ms']:.3f} ms ({b_by}, bf16 at "
             f"{PEAK_BF16 / 1e12:.0f} TFLOP/s; "
             f"{100 * row['bound_ms'] / ms:.0f}% of the kernel's time)")
@@ -4510,9 +4536,10 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s build+load")
     for line in build_log.splitlines():
         if ("==" in line or "registers" in line or "spill" in line
-                or "error" in line):
+                or "error" in line or "Compiling entry" in line
+                or "Performance Loss" in line):
             log("  ptxas:", line.strip())
-    log(f"tensor-core products (HMMA instructions in cuobjdump -sass): "
+    log(f"tensor-core products (instructions in cuobjdump -sass): "
         f"{tensor_core_products()}")
     calls = sass_calls(kernels.OCCUPANCY)
     log(f"K3 subroutine calls (CALL instructions in cuobjdump -sass): "

@@ -44,6 +44,8 @@ from .pe import pe_args, pe_input_grad
 NEG_SLOPE = 0.1
 BWD_TILE = 32          # rows per K2/K5 tile (TILE in csrc/trunk_bwd.cuh)
 BWD_MAX_WIDTH = 288    # widest product K2/K5 run in place (MAX_N there)
+FWD_BF16_MAX_WIDTH = 576   # widest layer input K1b holds in shared memory
+                           # (nine 64-column panels a warpgroup)
 
 
 def pack_trunk_params(agg, F_emb: int, dd: int, n_feat_freqs: int,
@@ -593,8 +595,8 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _fwd_workspace(C1, H1, E3, H3, L1, L3, dev, bf16=False) -> torch.Tensor:
     """The workspace K1 and K4 split their weights into (TF32 hi and lo
-    planes, csrc/tf32_mma.cuh), or K1b rounds them into (bf16 pairs,
-    csrc/bf16_mma.cuh)."""
+    planes, csrc/tf32_mma.cuh), or K1b converts them into (their bf16
+    shared-memory images, csrc/bf16_wgmma.cuh)."""
     lib = kernels.library()
     size = lib.trunk_fwd_bf16_workspace if bf16 else lib.trunk_fwd_workspace
     n = size(C1, H1, E3, H3, L1, L3)
@@ -608,6 +610,10 @@ def _launch(L1, L3, nf, nd, K, act_super, order1, emb, d, ex3, w, ops,
         L1, L3, nf, nd, K, order1, S, Fe, dd, E3, emb.device, ops)
     _, _, _, b1, _, _, _, b3, _, wa, ba = _unpack(ops, L1, L3, not order1)
     H1, H3 = b1.shape[1], b3.shape[1]
+    if bf16 and max(w1.shape[0], H1 + E3) > FWD_BF16_MAX_WIDTH:
+        raise ValueError(f"the bfloat16 forward takes layer inputs up to "
+                         f"{FWD_BF16_MAX_WIDTH} wide, got {w1.shape[0]} and "
+                         f"{H1 + E3}")
     feat = torch.empty((S // K, H3), dtype=torch.float32, device=emb.device)
     alpha = None if order1 else torch.empty((S // K, 1), dtype=torch.float32,
                                             device=emb.device)
@@ -642,9 +648,9 @@ def _grad_layout(C1, H1, X3, H3, L1, L3, order1):
 
 class _BwdOperands(NamedTuple):
     """What K2, K2b and K5 take beside their row inputs: the weights, the
-    workspace (the weights' TF32 planes or bf16 pairs, the scratch between
-    the kernels' two phases, their partial sums; sized by the library) and
-    the flat dW they sum into."""
+    workspace (the weights' TF32 planes or bf16 shared-memory images, the
+    scratch between the kernels' two phases, their partial sums; sized by
+    the library) and the flat dW they sum into."""
     weights: tuple    # w1, b1, w12, b12, w3, b3, w32, b32, wa, ba
                       # (None where absent)
     ws: torch.Tensor

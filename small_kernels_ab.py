@@ -15,9 +15,11 @@ its plain version and library call from CUDA graphs of captured calls
 has it: the serving group and a jittered train batch) and the query's
 route before the select moved into K3, with the SASS subroutine calls of
 the tree's K3 library; and the trunk kernels (the `trunk` set) at
-chip_smoke's tier shapes, orders 1 and 2: K1 and K4 at one serving group's,
-K2 and K5 at one train step's, timed with their plain versions over eager
-loops (chip_smoke.timed_pair), with both bounds. Each check holds the
+chip_smoke's tier shapes, orders 1 and 2: K1, K4 and K1b at one serving
+group's, K2, K5 and K2b at one train step's, timed with their plain
+versions over eager loops (chip_smoke.timed_pair), K1b and K2b in turns
+with K1 and K2 from CUDA events over many launches (chip_smoke.turns),
+with their bounds. Each check holds the
 kernel against its plain version. The `paths` set times the main paths
 end to end instead, as chip_smoke times them: serving ms per 800x800 image
 and train ms per step, in the default and the fused_shade configuration,
@@ -52,23 +54,32 @@ def load_chip_smoke():
 
 
 def trunk_rows(cs, opt, agg, dev):
-    """K1, K4 at one serving group's tier shapes, K2, K5 at one train
-    step's (chip_smoke's checks, each row a tier and an order)."""
+    """K1, K4 and K1b at one serving group's tier shapes, K2, K5 and K2b at
+    one train step's (chip_smoke's checks, each row a tier, an order and,
+    for K1 and K2, a distance mode; agg and the mode-0 and mode-30
+    aggregators seeded as chip_smoke seeds them)."""
     import torch
     from pointnerf_tpu_torch.models.aggregator import init_aggregator_params
     group = cs.GROUP * opt.random_sample_size ** 2 * opt.SR
     step = opt.random_sample_size ** 2 * opt.SR
     agg0 = init_aggregator_params(opt.replace(agg_dist_pers=0),
                                   torch.Generator().manual_seed(5), device=dev)
+    agg30 = init_aggregator_params(opt.replace(agg_dist_pers=30),
+                                   torch.Generator().manual_seed(6),
+                                   device=dev)
     out = []
     with torch.inference_mode():
         out += [("K1 trunk_fwd", r) for r in cs.check_trunk(
-            agg, opt, *cs.tier_shapes(opt, group))]
+            agg, agg30, opt, *cs.tier_shapes(opt, group))]
         out += [("K4 shade_fwd", r) for r in cs.check_shade(
             {20: agg, 0: agg0}, opt, *cs.tier_shapes(opt, group))]
+        out += [("K1b trunk_fwd_bf16", r) for r in cs.check_trunk_bf16(
+            agg, opt, *cs.tier_shapes(opt, group))]
     out += [("K2 trunk_bwd", r) for r in cs.check_trunk_bwd(
-        agg, opt, *cs.tier_shapes(opt, step))]
+        agg, agg30, opt, *cs.tier_shapes(opt, step))]
     out += [("K5 shade_bwd", r) for r in cs.check_shade_bwd(
+        agg, opt, *cs.tier_shapes(opt, step))]
+    out += [("K2b trunk_bwd_bf16", r) for r in cs.check_trunk_bwd_bf16(
         agg, opt, *cs.tier_shapes(opt, step))]
     torch.cuda.empty_cache()
     return [dict(kernel=name, shape=f"{r['tier']} order {r['order']} dist "

@@ -307,6 +307,90 @@ def test_trunk_kernels_at_the_tiles_edges(dev, case):
         assert float((a - b).abs().max()) <= SUM_REL * float(b.abs().max())
 
 
+# K1b's and K2b's tiles (128 rows, two warpgroups of 64; 256-wide products;
+# 64-column panels of depth) at the same edges, with K = 16 and 64 (a
+# shading point over one or four warps), H 256 and lego's widths (Fe 32, 3
+# and 5 frequencies: C1 284, H 256, E3 7): (K, n_pts, L1, L3, order, H,
+# lego widths). Layers 252-256 wide are held to chip_smoke.py's card bars,
+# measured at lego widths, and the 32-36 wide ones to this file's: the
+# tensor cores' fp32 sums sit further from the plain version's than two
+# float32 orders of the plain version (the card's and the CPU's) sit from
+# each other, and four 256-wide layers give an operand more chances to
+# round to the other bfloat16 neighbour; alpha and dw, one sum of 256
+# such operands per point or row, show it most.
+CARD_BF16_BARS = dict(median=1e-6, p99=1e-3, max=5e-3)
+CARD_BF16_GRAD_BARS = dict(median=1e-5, p99=1e-3, max=1.5e-1)
+CARD_BF16_DW_BARS = dict(median=1e-4, p99=2e-3, max=2e-2)
+BF16_EDGES = {
+    "short": (8, 3, 2, 2, 2, 32, False), "one-row": (1, 1, 1, 1, 1, 32, False),
+    "h36": (4, 50, 2, 2, 2, 36, False),
+    "h36-l1-order1": (4, 50, 1, 2, 1, 36, False),
+    "k4": (4, 37, 2, 1, 2, 32, False), "k16": (16, 9, 2, 2, 1, 32, False),
+    "k64": (64, 5, 2, 2, 2, 32, False), "h252": (8, 40, 2, 2, 2, 252, False),
+    "h256": (8, 40, 1, 1, 2, 256, False),
+    "splits": (8, 1001, 2, 2, 2, 32, False),
+    "lego": (8, 300, 2, 2, 2, 256, True)}
+
+
+@pytest.mark.parametrize("case", sorted(BF16_EDGES))
+def test_trunk_bf16_kernels_at_the_tiles_edges(dev, case):
+    """K1b and K2b against their plain versions at the edges of their tiles
+    and products (BF16_BARS, BF16_GRAD_BARS; the card's bars at 252-256
+    wide layers); K2b's weight gradients bit-equal over two launches; K1
+    and K2 do not launch."""
+    K, n_pts, L1, L3, order, H, lego = BF16_EDGES[case]
+    wide = H >= 252
+    bars = CARD_BF16_BARS if wide else BF16_BARS
+    grad_bars = CARD_BF16_GRAD_BARS if wide else BF16_GRAD_BARS
+    dw_bars = CARD_BF16_DW_BARS if wide else BF16_GRAD_BARS
+    widths = (dict(point_features_dim=32, num_feat_freqs=3, dist_xyz_freq=5)
+              if lego else {})
+    opt = _opt(L1, L3, order, shading_feature_num=H, **widths)
+    Fe, nf, nd = (opt.point_features_dim, opt.num_feat_freqs,
+                  opt.dist_xyz_freq)
+    agg = init_aggregator_params(opt, torch.Generator().manual_seed(n_pts),
+                                 device=dev)
+    rng = np.random.RandomState(n_pts + K)
+    S = n_pts * K
+    rows = [rng.uniform(-0.5, 0.5, (S, Fe)), 0.05 * rng.normal(size=(S, 6)),
+            rng.uniform(-1, 1, (S, 7)), rng.uniform(0, 1, (S, 1)),
+            rng.normal(size=(S // K, H)), rng.normal(size=(S // K, 1))]
+    emb, d, ex3, w, dfeat, dalpha = [
+        torch.as_tensor(r.astype(np.float32), device=dev) for r in rows]
+    ops = [o.detach() for o in tt.pack_trunk_params(agg, Fe, 6, nf, nd,
+                                                    with_alpha=order == 2)]
+    zs = tt.trunk_activations(L1, L3, nf, nd, emb, d, ex3, ops, order == 2,
+                              True)
+    for z in zs[2] + zs[4]:
+        w = w * (z.abs() >= KINK_BF16).all(dim=1, keepdim=True)
+    fwd = (L1, L3, nf, nd, K, True, order == 1, emb, d, ex3, w, ops)
+    counts = lambda: tuple(k.launches for k in (
+        kernels.TRUNK_FWD, kernels.TRUNK_BWD, kernels.TRUNK_FWD_BF16,
+        kernels.TRUNK_BWD_BF16))
+    before = counts()
+    with torch.inference_mode():
+        got = tt.fused_trunk(*fwd, bf16=True)
+        want = tt.fused_trunk_reference(*fwd, bf16=True)
+    bwd = (*fwd, dfeat, None if order == 1 else dalpha)
+    gb, again = tt.trunk_bwd(*bwd, bf16=True), tt.trunk_bwd(*bwd, bf16=True)
+    wb = tt.fused_trunk_bwd_reference(*bwd, bf16=True)
+    torch.cuda.synchronize()
+    assert counts() == (before[0], before[1], before[2] + 1, before[3] + 2)
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+        else:
+            assert bf16_misses(a, b, bars) == {}
+    for a, b in zip(gb[:4], wb[:4]):
+        assert a.shape == b.shape
+        assert bf16_misses(a, b, grad_bars) == {}
+    assert len(gb[4]) == len(wb[4])
+    for a, b, c in zip(gb[4], wb[4], again[4]):
+        assert a.shape == b.shape and torch.equal(a, c)
+    flat = lambda grads: torch.cat([g.flatten() for g in grads])
+    assert bf16_misses(flat(gb[4]), flat(wb[4]), dw_bars) == {}
+
+
 def test_shade_bwd_weight_grads_are_reproducible_over_splits(dev):
     """K5 on 8,008 rows (its weight-gradient phase splits them 8 ways):
     two launches give bit-equal weight gradients."""
