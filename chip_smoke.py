@@ -29,18 +29,6 @@ K1b, K2b, K3, K6):
   within GRAD_REL_BF16); the fused_shade step-1 loss is held against the
   default one;
 
-then the multi-GPU runner (pointnerf_tpu_torch/parallel/) on the one
-card, from the same cloud and batch: at world size 1 on NCCL in this
-process, PAR_STEPS runner train steps against the unsharded train_step
-from the same state and draws (loss items within STEP1_RTOL, gradients
-within GRAD_REL in norm) and one serving group by mesh serving against
-the unsharded render; then two ranks that share the card over gloo
-(host-staged; NCCL takes one rank a card), spawned once, at mesh_points 1
-and 2, PAR_GLOO_STEPS steps each against the unsharded step at the same
-gates, each rank's at-rest bytes of the point shards half the whole at
-mesh_points 2; and, after the finetune below, test_ft with --n_devices -1
-on its checkpoint, whose PSNR must equal the single-device test_ft's;
-
 then the finetune driver, run/train_ft.main, at the lego preset's
 widths on a 400x400 plate scene it writes in the NeRF-Synthetic layout
 (FT_STEPS steps with a prune, a probe-and-grow and a final checkpoint;
@@ -54,7 +42,9 @@ aggregator's other shading envelopes on the same plate scene
 block2 through the composition, trunk_bf16 through K1b and K2b;
 ENV_STEPS steps each, the loss must fall,
 one chunk of a test view against the CPU, mode 30 also through test_ft
-and one render_vid frame); then the MVS point init
+and one render_vid frame); test_ft with --n_devices -1 on the finetune's
+checkpoint (the multi-GPU runner at world size 1), whose PSNR must equal
+the single-device test_ft's; then the MVS point init
 (load_points 0, the lego preset's default) on an 800x800 plate scene:
 gen_points_filter_embeddings over every view triplet of the 12 train views
 (MVSNet depth over 128 planes, fusion, embeddings, the visual hull, the
@@ -94,7 +84,20 @@ point_noise, the lattice of construct_res and grid_res): the lattice,
 its corner table and the share of shading samples with a full cell,
 train_ft.main for VOX_STEPS steps with a prune (K1, K2, K3, K6), test_ft
 on its checkpoint (K1, K3), two chunks against the CPU (within 1e-5);
-the LLFF finetune (llff_ft, 1008x756, 20 views, a 100,489-point
+then the multi-GPU runner (pointnerf_tpu_torch/parallel/) on the one card:
+at world size 1 on NCCL in this process, on the serving and training
+phases' cloud and batch, PAR_STEPS runner train steps against the
+unsharded train_step from the same state and draws (loss items within
+STEP1_RTOL, gradients within GRAD_REL in norm) and one serving group by
+mesh serving against the unsharded render; then two ranks that share the
+card over gloo (host-staged; NCCL takes one rank a card), spawned once:
+that cloud at mesh_points 1 and 2, PAR_GLOO_STEPS steps each against the
+unsharded step at the same gates, each rank's at-rest bytes of the point
+shards half the whole at mesh_points 2; the vox-grid phase's lattice
+(steps at mesh_points 1 and 2 and one served group) and the dtu_inf
+phase's cloud under the frustum query (a step and an eval chunk), whose
+ranks share each camera row's budget, each against the one-process
+result on the card (`query_jobs`); the LLFF finetune (llff_ft, 1008x756, 20 views, a 100,489-point
 fused.ply; LLFF_STEPS steps, two chunks against the CPU, render_vid over
 LLFF_VID_FRAMES render poses); the legacy NeRF-Synthetic finetune
 (nerf_synth_ft at 800x800, the MVS init over a pairs file's view groups,
@@ -373,9 +376,9 @@ LLFF_TESTSKIP = 8                     # LLFF's hold-out of every 8th view:
 LLFF_SIDE = 317                       # fused.ply: a 317² grid, 100,489
                                       # points
 LLFF_STEPS = 30                       # finetune steps (was 50)
-LLFF_TEST_VIEWS = 2                   # test renders (test_num)
-LLFF_VID_FRAMES = 2                   # poses of the render split rendered
-                                      # (was 3)
+LLFF_TEST_VIEWS = 1                   # test renders (test_num; was 2)
+LLFF_VID_FRAMES = 1                   # poses of the render split rendered
+                                      # (was 2)
 NSFT_WH = 800                         # the legacy NeRF-Synthetic views
 NSFT_PAIRS = dict(n_ref=3, n_extra=2, n_test=1)
                                       # pairs txt: 3 ref views, 2 more view
@@ -470,12 +473,22 @@ EDIT_LIFT = 0.15                      # the edited half: rotated 90° about z
                                       # and lifted this far
 VIS_FRAMES = 8                        # turntable frames
 VIS_SIZE = 512                        # turntable and growth frames' side
-PAR_STEPS = 3                         # runner train steps at world size 1
-                                      # (was 5)
+PAR_STEPS = 2                         # runner train steps at world size 1
+                                      # (was 3)
 PAR_GLOO_STEPS = 1                    # steps (was 2) of each mesh_points on
                                       # the two
                                       # gloo ranks sharing the card
 PAR_PSNR_TOL = 1e-3                   # test_ft on the runner vs one device
+PAR_FRUSTUM_SIDE = 56                 # the frustum step's rays: a 56² patch
+                                      # of a dtu_inf view (dtu_gen's batch)
+PAR_EVAL_SIDE = 48                    # its eval chunk: dtu_inf's 48² chunk
+PAR_BUDGET_SHARE = 0.5                # the frustum step's SR_budget: this
+                                      # share of its valid rows (overflows)
+PAR_SERVE_SHARE = 0.5                 # the vox-grid served group's budget:
+                                      # this share of its valid rows (a
+                                      # multiple of 128 a chunk), so the
+                                      # first rung overflows and the 2x rung
+                                      # holds every row
 PEAK_BYTES = 3.35e12                  # H100 SXM HBM3 bytes/s (data sheet)
 GRAPH_REPS = 100                      # calls captured in one CUDA graph
 GRAPH_REPLAYS = 5                     # timed replays of it
@@ -2089,7 +2102,180 @@ def unsharded_steps(opt, state, spec, grid, batch, draws):
     return (g_net, g_pts), (items, steps), ms
 
 
-def parallel_path(opt, state, spec, grid, agg, item, root):
+def np_batch_of(batch):
+    return {k: (v.cpu().numpy() if torch.is_tensor(v) else v)
+            for k, v in batch.items()}
+
+
+def on_card(batch, dev):
+    return {k: (torch.as_tensor(v, device=dev) if isinstance(v, np.ndarray)
+                else v) for k, v in batch.items()}
+
+
+def query_jobs(vox, fru, dev):
+    """The gloo spawn's jobs under the vox-grid query (NN -1) and the
+    frustum query (wcoord_query 0), each with its one-process reference
+    on the card (uncounted): [(label, job, (kind, reference, the
+    one-process budget rows))].
+
+    vox (the voxgrid phase's lattice at lego's widths): PAR_GLOO_STEPS
+    steps at mesh_points 1 and 2 on a train batch of the plate, at the
+    auto budget, which the plate's all-valid rows overflow; one serving
+    group (the middle GROUP chunks of a test view) at a budget of
+    PAR_SERVE_SHARE of its valid rows, so the ladder's first rung
+    overflows on the whole group and its 2x rung holds every row.
+    fru (the dtu_inf phase's cloud, a 640x512 view's frustum grid): one
+    step on a PAR_FRUSTUM_SIDE² patch at a budget of PAR_BUDGET_SHARE of
+    its valid rows, and the eval step on a PAR_EVAL_SIDE² chunk."""
+    from pointnerf_tpu_torch.models.renderer import (effective_sr_budget,
+                                                     render_query)
+    from pointnerf_tpu_torch.ops.grid import build_grid
+    from pointnerf_tpu_torch.run import common
+    from pointnerf_tpu_torch.train import trainer
+    from pointnerf_tpu_torch.utils.checkpoint import train_state_arrays
+    gen = torch.Generator(device=dev).manual_seed(12)
+    seed0 = lambda o, st: trainer.create_train_state(
+        o, st, torch.Generator().manual_seed(0))
+    out = []
+    vopt, vstate, vspec = vox["opt"], vox["state"], vox["spec"]
+    with torch.no_grad():
+        vgrid = build_grid(vstate["xyz"], vstate["mask"], vspec)
+    vb = on_card(vox["batch"], dev)
+    R = vb["raydir"].shape[1]
+    vu = [torch.rand((1, R, vopt.z_depth_dim), generator=gen, device=dev)
+          for _ in range(PAR_GLOO_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    vref = unsharded_steps(vopt, vstate, vspec, vgrid, vb, vu)
+    vpeak = torch.cuda.max_memory_allocated()
+    vflat = train_state_arrays(seed0(vopt, vstate))
+    for M in (1, 2):
+        out.append((f"vox-grid step mesh_points {M}", dict(
+            kind="step", opt=vopt.to_json(), points=M, state=vflat,
+            grid=None, spec=vspec, batch=np_batch_of(vb), all_ranks=True,
+            draws=[u.cpu().numpy() for u in vu]),
+            ("step", vref + (vpeak,), effective_sr_budget(
+                vopt, R * vopt.SR))))
+    sub = vox["item"]
+    with Uncounted(), torch.no_grad():
+        q = render_query(vstate, vgrid, vspec, vopt, on_card(
+            {k: sub[k] for k in ("raydir", "campos", "camrotc2w")}, dev)
+            | {"near": float(sub["near"]), "far": float(sub["far"])})
+        valid = int(torch.any(q.sample_pidx >= 0, dim=-1).sum())
+        del q
+        per_chunk = max(128, -(-int(PAR_SERVE_SHARE * valid) // GROUP
+                               // 128) * 128)
+        sopt = vopt.replace(SR_budget=per_chunk)
+        stats = {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        want = common.render_image(
+            trainer.ServeState(seed0(vopt, vstate).aggregator, vstate),
+            vgrid, sopt, vspec, sub, group=GROUP, stats=stats)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    out.append(("vox-grid serving group", dict(
+        kind="serve", opt=sopt.to_json(), points=1, state=vflat, grid=None,
+        spec=vspec, item=sub, group=GROUP),
+        ("serve", (want, stats, ms, torch.cuda.max_memory_allocated(),
+                   valid), per_chunk * GROUP)))
+    del vgrid
+
+    fopt, fstate, fspec = fru["opt"], fru["state"], fru["spec"]
+    fb = on_card(fru["batch"], dev)
+    R = fb["raydir"].shape[1]
+    fu = [torch.rand((1, R, fopt.SR), generator=gen, device=dev)]
+    with Uncounted(), torch.no_grad():
+        q = render_query(fstate, None, fspec, fopt, fb, is_train=True,
+                         u=fu[0])
+        valid = int(q.comp[4].sum())
+        del q
+    fopt = fopt.replace(SR_budget=max(
+        128, int(PAR_BUDGET_SHARE * valid) // 128 * 128))
+    torch.cuda.reset_peak_memory_stats()
+    fref = unsharded_steps(fopt, fstate, fspec, None, fb, fu)
+    fpeak = torch.cuda.max_memory_allocated()
+    fflat = train_state_arrays(seed0(fopt, fstate))
+    out.append(("frustum step", dict(
+        kind="step", opt=fopt.to_json(), points=1, state=fflat, grid=None,
+        spec=fspec, batch=np_batch_of(fb), all_ranks=True,
+        draws=[u.cpu().numpy() for u in fu]),
+        ("step", fref + (fpeak,), int(fopt.SR_budget))))
+    eb = on_card(fru["eval_batch"], dev)
+    with Uncounted():
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ewant = trainer.eval_step(seed0(fopt, fstate), None, eb, fopt, fspec)
+        torch.cuda.synchronize()
+        ems = 1e3 * (time.perf_counter() - t0)
+    out.append(("frustum eval chunk", dict(
+        kind="eval", opt=fopt.to_json(), points=1, state=fflat, grid=None,
+        spec=fspec, batch=np_batch_of(eb)),
+        ("eval", ({k: ewant[k].cpu().numpy() for k in
+                   ("coarse_raycolor", "ray_mask", "sr_overflow")}, ems,
+                  torch.cuda.max_memory_allocated()), int(fopt.SR_budget))))
+    return out
+
+
+def check_query_jobs(extra, res, smi):
+    """Each query job's ranks against its one-process reference: steps at
+    STEP1_RTOL and GRAD_REL (sr_overflow exactly), the eval chunk and the
+    served group at SHADE_IMAGE_TOL (ray_mask and sr_overflow exactly).
+    Logs each rank's rows shaded against the one-process budget, its peak
+    device memory and its time. Returns the launches summed (a step's over
+    both ranks; an eval's and a serve's rank 0's)."""
+    from pointnerf_tpu_torch.ops import kernels
+    launches = {k.name: 0 for k in kernels.KERNELS}
+    for (label, job, (kind, ref, budget)), got in zip(extra, res):
+        if kind == "step":
+            g_want, (i_want, s_want), ms_want, peak_want = ref
+            for r in got:
+                worst = grads_rel((r["g_net"], r["g_pts"]), g_want)
+                rel = max([items_rel(r["items"], i_want)]
+                          + [items_rel(a, b) for a, b in
+                             zip(r["step_items"], s_want)])
+                log(f"parallel gloo {label} rank {r['rank']}: "
+                    f"{1e3 * np.mean(r['step_s']):.1f} ms/step against the "
+                    f"one-process {ms_want:.1f} ms/step; rows shaded "
+                    f"{r['rows']} of the one-process budget's {budget}; "
+                    f"sr_overflow {r['items']['sr_overflow']:.0f} (one "
+                    f"process {float(i_want['sr_overflow']):.0f}); loss "
+                    f"items rel diff {rel:.3e}; gradients worst {worst[0]} "
+                    f"{worst[1]:.3e}; peak {r['peak_bytes'] / 2**30:.2f} GiB "
+                    f"(one process {peak_want / 2**30:.2f}); launches "
+                    f"{r['launches']}; {smi}")
+                if not (rel <= STEP1_RTOL and worst[1] <= GRAD_REL):
+                    raise AssertionError(f"the gloo ranks' {label} differs "
+                                         f"from the one-process step")
+                for k, v in r["launches"].items():
+                    launches[k] += v
+            continue
+        if kind == "eval":
+            want, ms_want, peak_want = ref
+            maps, over = got, int(got["sr_overflow"])
+            want_over = int(want["sr_overflow"])
+        else:
+            (want, stats, ms_want, peak_want, valid) = ref
+            maps, over, want_over = got["maps"], \
+                int(got["stats"]["sr_overflow"]), int(stats["sr_overflow"])
+        err = float(np.abs(maps["coarse_raycolor"]
+                           - want["coarse_raycolor"]).max())
+        same = bool(np.array_equal(maps["ray_mask"], want["ray_mask"]))
+        log(f"parallel gloo {label} (rank 0): {1e3 * got['seconds']:.1f} ms "
+            f"against the one-process {ms_want:.1f} ms; budget {budget} rows"
+            f"; sr_overflow {over} (one process {want_over}); max_abs_diff "
+            f"{err:.3e}, ray_mask equal {same}; peak "
+            f"{got['peak_bytes'] / 2**30:.2f} GiB (one process "
+            f"{peak_want / 2**30:.2f}); launches {got['launches']}; {smi}")
+        if not (err <= SHADE_IMAGE_TOL and same and over == want_over):
+            raise AssertionError(f"the gloo ranks' {label} differs from the "
+                                 f"one-process render")
+        for k, v in got["launches"].items():
+            launches[k] += v
+    return launches
+
+
+def parallel_path(opt, state, spec, grid, agg, item, root, vox, fru, smi):
     """The multi-GPU runner on the one card (bench.py's batch and cloud).
     World size 1 on NCCL, in this process (parallel.driver.launch): PAR_STEPS
     runner train steps against the unsharded train_step from the same
@@ -2100,8 +2286,10 @@ def parallel_path(opt, state, spec, grid, agg, item, root):
     mesh_points 1 (two ray shards, comp_groups 2) and 2 (two point shards),
     PAR_GLOO_STEPS steps each against the unsharded step at the same
     comp_groups, at the same gates, each rank's at-rest bytes of the
-    capacity buffers and bucket tables half the whole at mesh_points 2.
-    Returns (world-1 launches, the gloo ranks' launches summed)."""
+    capacity buffers and bucket tables half the whole at mesh_points 2;
+    in the same spawn the vox-grid and frustum jobs (`query_jobs`), whose
+    ranks share each camera row's budget. Returns (world-1 launches, the
+    gloo ranks' launches summed)."""
     from pointnerf_tpu_torch.ops import kernels
     from pointnerf_tpu_torch.parallel import checks
     from pointnerf_tpu_torch.parallel.dp import sharded_grads
@@ -2197,13 +2385,16 @@ def parallel_path(opt, state, spec, grid, agg, item, root):
     refs = {1: unsharded_steps(opt.replace(comp_groups=2), state, spec, grid,
                                batch, draws[:PAR_GLOO_STEPS]),
             2: (ref_g, (ref_items, ref_steps[:PAR_GLOO_STEPS]), ref_ms)}
+    extra = query_jobs(vox, fru, dev)
+    jobs += [job for _, job, _ in extra]
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     res = launch(checks.run_jobs, (jobs,), 2, 1, "cuda",
                  os.path.join(root, "gloo"), backend="gloo", shared=True)
     wall = time.perf_counter() - t0
-    gloo_launches = {k.name: 0 for k in kernels.KERNELS}
+    gloo_launches = check_query_jobs(extra, res[2:], smi)
     whole = None
-    for M, ranks in zip((1, 2), res):
+    for M, ranks in zip((1, 2), res[:2]):
         g_want, (i_want, s_want), ms_want = refs[M]
         for r in ranks:
             worst = grads_rel((r["g_net"], r["g_pts"]), g_want)
@@ -2230,7 +2421,8 @@ def parallel_path(opt, state, spec, grid, agg, item, root):
                 raise AssertionError(f"rank {r['rank']} holds "
                                      f"{r['bytes']} at rest, not half of "
                                      f"{whole}")
-    log(f"parallel gloo: one spawn of 2 ranks, both jobs, {wall:.1f} s")
+    log(f"parallel gloo: one spawn of 2 ranks, {len(jobs)} jobs, "
+        f"{wall:.1f} s")
     for k in (kernels.TRUNK_FWD, kernels.TRUNK_BWD, kernels.OCCUPANCY,
               kernels.SCATTER_ROWS):
         if not gloo_launches[k.name]:
@@ -2551,7 +2743,35 @@ def dtu_inf_path(root, dev=torch.device("cuda")):
         f"from the card's points: max_abs_err "
         f"{float(np.abs(cpu[py, px] - card[py, px]).max()):.3e} in "
         f"{time.perf_counter() - t0:.1f} s")
-    return launches
+    del cpu_ts
+    return launches, frustum_material(opt, state, spec, item)
+
+
+def frustum_material(opt, state, spec, item):
+    """The parallel phase's frustum inputs: the view's feed-forward cloud
+    (outside inference mode: a train state takes it), its frustum spec, a
+    PAR_FRUSTUM_SIDE² train patch and a PAR_EVAL_SIDE² eval chunk."""
+    from pointnerf_tpu_torch.run import train as gen
+    with torch.no_grad():
+        ps = gen.feedforward_point_state(state.mvs, opt, item["mvs_sample"])
+    return dict(opt=opt, state=ps, spec=spec,
+                batch=centre_patch(item, PAR_FRUSTUM_SIDE),
+                eval_batch=centre_patch(item, PAR_EVAL_SIDE))
+
+
+def centre_patch(item, side: int):
+    """The ray batch (numpy) of a side² pixel patch at the centre of a full
+    ray item, gt included."""
+    W, H = int(item["w"]), int(item["h"])
+    px, py = item["pixel_idx"][0, :, 0], item["pixel_idx"][0, :, 1]
+    x0, y0 = W // 2 - side // 2, H // 2 - side // 2
+    sel = np.nonzero((px >= x0) & (px < x0 + side) & (py >= y0)
+                     & (py < y0 + side))[0]
+    out = {k: np.asarray(item[k])[:, sel] for k in ("raydir", "gt_image")}
+    out.update({k: np.asarray(item[k]) for k in ("campos", "camrotc2w",
+                                                 "bg_color")})
+    out.update(near=float(item["near"]), far=float(item["far"]))
+    return out
 
 
 class FPNProbe:
@@ -2620,12 +2840,13 @@ def check_gen_cpu(st, sample, batch, opt, spec):
     CPU's distance, or GRAD_REL."""
     from pointnerf_tpu_torch.models.mvs import points_model as pm
     from pointnerf_tpu_torch.run import train as gen
+    from pointnerf_tpu_torch.train import trainer
     batch = {k: (v[:, :GEN_CPU_RAYS] if k in ("raydir", "gt_image") else v)
              for k, v in batch.items()}
     with torch.no_grad():
         [m for m in st.aggregator.alpha_branch
          if isinstance(m, torch.nn.Linear)][-1].bias += ALPHA_SHIFT
-    u = gen.render_draws(st, batch, opt)
+    u = trainer.jitter_draws(st, batch, opt)
     depths = pm.mvs_depths(st.mvs, opt, sample)
     cpu_st = gen.make_gen_state(copy.deepcopy(st.aggregator).cpu(),
                                 copy.deepcopy(st.mvs).cpu(), opt,
@@ -3499,6 +3720,23 @@ def voxgrid_options(root, cpath):
         test_freq=0, test_num=VOX_TEST_VIEWS)
 
 
+def vox_material(opt, st, spec, train_ds, test_ds):
+    """The parallel phase's vox-grid inputs: the cloud (st's points), its
+    spec, a train batch of the plate and the middle serving group of a
+    test view (numpy)."""
+    view = test_ds.get_item(0, full_img=True)
+    mid, n = view["raydir"].shape[1] // 2, GROUP * opt.random_sample_size ** 2
+    return dict(opt=opt, spec=spec,
+                state={k: (None if v is None else v.detach().clone())
+                       for k, v in st.points.items()},
+                batch={k: v for k, v in train_ds.get_item(0).items()
+                       if k in ("raydir", "gt_image", "campos", "camrotc2w",
+                                "bg_color", "near", "far")},
+                item=dict(view, **{k: view[k][:, mid - n // 2:mid + n // 2]
+                                   for k in ("raydir", "pixel_idx",
+                                             "gt_image") if k in view}))
+
+
 def voxgrid_path(root, smi: str):
     """The vox-grid querier on the card: a plate scene at VOX_WH² and a
     pickle of VOX_CLOUD_SIDE² plate samples; the cloud drawn, jittered and
@@ -3552,6 +3790,7 @@ def voxgrid_path(root, smi: str):
     if s0["n"] != len(lattice) or not 0 < full < sel:
         raise AssertionError("the lattice or its full cells are off")
     psnr0 = s0["psnr0"]
+    vox = vox_material(opt, s0["st"], spec, train_ds, test_ds)
     del s0, grid, table, train_ds
     torch.cuda.empty_cache()
 
@@ -3593,7 +3832,7 @@ def voxgrid_path(root, smi: str):
                              f" {final:.3f}, the start's {psnr0:.3f}")
     chunks_vs_cpu("voxgrid", ckpt, opt, test_ds.get_item(0, full_img=True))
     log(f"voxgrid phase: {time.perf_counter() - phase0:.1f} s")
-    return ft, tf
+    return ft, tf, vox
 
 
 def llff_options(root):
@@ -4677,16 +4916,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     timeline("serve and train")
 
-    # the multi-GPU runner on the one card: world size 1 on NCCL (K1, K2,
-    # K3, K6), two gloo ranks sharing the card (the same kernels)
     import tempfile
-    with tempfile.TemporaryDirectory() as root:
-        par_w1, par_gloo = parallel_path(opt, state, spec, grid, agg, item,
-                                         root)
-    del state, grid, agg
-    torch.cuda.empty_cache()
-    timeline("parallel")
-
     # the finetune driver at lego widths: K1, K2, K3, K6; then from the
     # MVS init
     with tempfile.TemporaryDirectory() as root:
@@ -4726,7 +4956,7 @@ def main() -> int:
         make_dtu_scene(root, n_views=DTU_VIEWS, wh=DTU_WH)
         log(f"DTU plate scene {DTU_WH[0]}x{DTU_WH[1]}, {DTU_VIEWS} views: "
             f"written in {time.perf_counter() - t0:.1f} s")
-        dtu_inf = dtu_inf_path(root)
+        dtu_inf, par_frustum = dtu_inf_path(root)
         torch.cuda.empty_cache()
         dtu_gen = dtu_gen_path(root)
         torch.cuda.empty_cache()
@@ -4754,9 +4984,20 @@ def main() -> int:
     # K1, K3), the LLFF finetune and its render path, and the legacy
     # NeRF-Synthetic finetune from the pairs file's MVS init
     with tempfile.TemporaryDirectory() as root:
-        vox_ft, vox_test = voxgrid_path(root, smi)
+        vox_ft, vox_test, par_vox = voxgrid_path(root, smi)
     torch.cuda.empty_cache()
     timeline("voxgrid")
+
+    # the multi-GPU runner on the one card: world size 1 on NCCL (K1, K2,
+    # K3, K6), two gloo ranks sharing the card (the same kernels) on the
+    # bench cloud, the voxgrid phase's lattice (K1, K2, K3, K6) and the
+    # dtu_inf phase's cloud under the frustum query (K1, K2, K6)
+    with tempfile.TemporaryDirectory() as root:
+        par_w1, par_gloo = parallel_path(opt, state, spec, grid, agg, item,
+                                         root, par_vox, par_frustum, smi)
+    del state, grid, agg, par_vox, par_frustum
+    torch.cuda.empty_cache()
+    timeline("parallel")
     with tempfile.TemporaryDirectory() as root:
         llff_ft, llff_vid = llff_path(root, smi)
     torch.cuda.empty_cache()

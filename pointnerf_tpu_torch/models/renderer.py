@@ -23,7 +23,8 @@ from ..ops import raygen
 from ..ops.camera import w2pers
 from ..ops.frustum import build_frustum_grid, query_frustum_points
 from ..ops.grid import GridSpec
-from ..ops.query import expand_compacted, query_grid_points
+from ..ops.query import (Shards, expand_compacted, query_grid_points,
+                         row_share)
 from ..ops.voxgrid import query_vox_grid
 from . import neural_points as npc
 from .aggregator import aggregator_forward, gradient_clamp
@@ -37,18 +38,41 @@ def _take_rows(a: torch.Tensor, src: torch.Tensor, valid: torch.Tensor, fill):
     return torch.where(v, out, fill)
 
 
-def _tier_map(m: torch.Tensor, cum: torch.Tensor, Nt: int):
+def _tier_map(m: torch.Tensor, cum: torch.Tensor, Nt: int, limit=None):
     """Rows with m set, in order, packed into Nt slots: (src [BG,Nt] row of
-    each slot, valid [BG,Nt], overflow [] rows past Nt)."""
+    each slot, valid [BG,Nt], overflow [] rows past Nt). limit ([BG,1],
+    a piece's share, `ops.query.row_share`): only the rows of running
+    count ≤ limit are kept, and the rest count as overflow."""
     BG, Ncb = m.shape
-    rank = torch.where(m & (cum <= Nt), cum - 1, Nt).long()  # Nt: dropped
+    lim = Nt if limit is None else limit
+    rank = torch.where(m & (cum <= lim), cum - 1, Nt).long()  # Nt: dropped
     iot = torch.arange(Ncb, dtype=torch.int32, device=m.device)
     src = torch.zeros((BG, Nt + 1), dtype=torch.int32, device=m.device)
     src = src.scatter_(1, rank, iot.expand(BG, Ncb))[:, :Nt]
     valid = torch.arange(Nt, device=m.device)[None] < torch.clamp(
-        cum[:, -1:], max=Nt)
-    overflow = torch.clamp(cum[:, -1] - Nt, min=0).sum(dtype=torch.int32)
+        torch.clamp(cum[:, -1:], max=Nt), max=lim)
+    overflow = torch.clamp(cum[:, -1:] - lim, min=0).sum(dtype=torch.int32)
     return src, valid, overflow
+
+
+def wide_budget(opt, Ncb: int) -> int:
+    """The wide K tier's rows for a compaction budget of Ncb rows."""
+    frac = float(getattr(opt, "k_tier_wide_frac", 0.25))
+    return min(Ncb, max(128, int(round(Ncb * frac))))
+
+
+def tier_k(opt, Kn: int) -> int:
+    """The narrow tier's K for Kn neighbor slots; 0: no K-tier split."""
+    kt = int(getattr(opt, "k_tier", 0))
+    if kt < 0:
+        kt = 1
+    return kt if 0 < kt < Kn else 0
+
+
+def wide_rows(c_pidx: torch.Tensor, kt: int) -> torch.Tensor:
+    """Rows with a valid neighbor past the first kt slots (the wide tier's
+    rows among the valid ones)."""
+    return torch.any(c_pidx[..., kt:] >= 0, dim=-1)
 
 
 def _bshape(m: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -99,7 +123,7 @@ class _TierAssemble(torch.autograd.Function):
 
 def _tiered_aggregate(agg, point_state, opt, c_pidx, comp_valid, c_loc,
                       c_loc_w, c_srd, camrotc2w, campos, kt,
-                      grid_vox_sz: float = 0.0, vsize=None):
+                      grid_vox_sz: float = 0.0, vsize=None, share=None):
     """Two-tier neighbor-count split of the compacted shade phase.
 
     Rows whose valid neighbors all sit in the first `kt` slots run a K=kt
@@ -114,19 +138,23 @@ def _tiered_aggregate(agg, point_state, opt, c_pidx, comp_valid, c_loc,
     c_pidx [BG,Ncb,K]; c_loc/c_loc_w/c_srd [BG,Ncb,1,3]. Returns
     (c_decoded [BG,Ncb,1,4], c_weight [BG,Ncb,1,K], c_conf [BG,Ncb,1,K],
     wide_overflow []).
+
+    share (`RowShare`, a piece of a camera row whose budget spans the
+    pieces): the wide budget is the whole row's, and this piece's wide
+    rows follow the wide rows the pieces before it keep.
     """
     BG, Ncb, Kn = c_pidx.shape
-    slot_valid = c_pidx >= 0
-    wide = torch.any(slot_valid[..., kt:], dim=-1)
-    mA = comp_valid & torch.any(slot_valid[..., :kt], dim=-1) & ~wide
+    wide = wide_rows(c_pidx, kt)
+    mA = comp_valid & torch.any(c_pidx[..., :kt] >= 0, dim=-1) & ~wide
     mB = comp_valid & wide
 
-    frac = float(getattr(opt, "k_tier_wide_frac", 0.25))
-    NtB = min(Ncb, max(128, int(round(Ncb * frac))))
+    NtB, limB = wide_budget(opt, Ncb), None
+    if share is not None:
+        NtB, limB = share.wide_rows, share.wide_limit
     cumA = torch.cumsum(mA.to(torch.int32), dim=1, dtype=torch.int32)
     cumB = torch.cumsum(mB.to(torch.int32), dim=1, dtype=torch.int32)
     srcA, validA, _ = _tier_map(mA, cumA, Ncb)    # full budget: no overflow
-    srcB, validB, ovB = _tier_map(mB, cumB, NtB)
+    srcB, validB, ovB = _tier_map(mB, cumB, NtB, limB)
 
     def run_tier(src, valid, Ktier):
         tp = _take_rows(c_pidx, src, valid, -1)[..., :Ktier]
@@ -157,7 +185,7 @@ def _tiered_aggregate(agg, point_state, opt, c_pidx, comp_valid, c_loc,
 
     rankA_c = torch.clamp(cumA - 1, 0, Ncb - 1)
     rankB_c = torch.clamp(cumB - 1, 0, NtB - 1)
-    inB = mB & (cumB - 1 < NtB)
+    inB = mB & (cumB <= (NtB if limB is None else limB))
     zero4 = torch.zeros((BG, Ncb, 1, decA.shape[-1]), dtype=decA.dtype,
                         device=decA.device)
     tiers = (mA, inB, rankA_c, rankB_c, srcA, validA, srcB, validB)
@@ -179,16 +207,16 @@ def effective_sr_budget(opt, rows: int) -> int:
     return Nc
 
 
-def comp_budget(opt, B: int, R: int, SR: int, shards=(1, 1)):
+def comp_budget(opt, B: int, R: int, SR: int, shards: Shards = Shards()):
     """(G, Ncb) of the query's compaction for B camera rows of R rays:
     each row's rays split into G contiguous groups of Ncb budget rows each
-    (Ncb 0: no compaction). shards = (b, r): this batch is one of b·r equal
+    (Ncb 0: no compaction). shards (b, r): this batch is one of b·r equal
     pieces of a batch of b·B rows by r·R rays (a rank's ray shard,
     `parallel.dp`), so the auto budget reads the global row count, the
     global budget splits over the b·B·comp_groups groups of the whole
     batch, and the piece holds comp_groups / r of each row's groups. A
     comp_groups that r does not divide raises ValueError."""
-    b, r = shards
+    b, r = shards.batch, shards.rays
     Bg, Rg = B * b, R * r
     Gg = max(1, int(getattr(opt, "comp_groups", 1)))
     if Gg % r:
@@ -210,6 +238,31 @@ class QueryOut(NamedTuple):
     comp: Optional[tuple]                   # compacted query (see
                                             # ops.query.query_grid_points)
     occ_overflow: Optional[torch.Tensor] = None  # [] int32, always 0
+    share: Optional["RowShare"] = None      # a piece's budget shares
+
+
+class RowShare(NamedTuple):
+    """A piece's shares of its camera rows' budgets when a row's budget
+    spans the ray shards (the frustum and vox-grid paths under `Shards`
+    with a prefix; `ops.query.row_share`): the compaction's (the vox-grid
+    compacts on the shade side; the frustum query has used it already) and
+    the wide K tier's. Taken in the query phase, so the shade phase, which
+    may run again in the backward pass, makes no collective."""
+    limit: object = None        # [B,1] int32 compaction budget left, or None
+    rows: int = 0               # its compaction buffer's rows
+    wide_limit: object = None   # [B,1] int32 wide-tier budget left, or None
+    wide_rows: int = 0          # its wide-tier buffer's rows
+
+
+def _wide_share(opt, Ncb: int, c_pidx, kept, shards: Shards):
+    """(wide_limit, wide_rows) of a piece whose kept rows are `kept`
+    [B,N] with neighbor slots c_pidx [B,N,K], under the whole row's
+    budget Ncb; (None, 0) without a K-tier split."""
+    kt = tier_k(opt, c_pidx.shape[-1])
+    if not kt:
+        return None, 0
+    n = (kept & wide_rows(c_pidx, kt)).sum(dim=1, dtype=torch.int32)
+    return row_share(n, wide_budget(opt, Ncb), shards)
 
 
 TRAIN_JITTER = 0.3     # depth-sample jitter at train (point_query.py:78-81)
@@ -220,7 +273,8 @@ def render_query(point_state: Dict, grid: Optional[Dict], spec: GridSpec,
                  u: Optional[torch.Tensor] = None,
                  prob: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 shards=(1, 1)) -> QueryOut:
+                 shards: Shards = Shards(),
+                 priorities: Optional[torch.Tensor] = None) -> QueryOut:
     """Query phase: ray samples → voxel walk → KNN indices. No gradient
     flows through it. Probe mode needs every row's statistics, so it runs
     uncompacted. The world-coordinate KNN query compacts the rows per ray
@@ -235,15 +289,19 @@ def render_query(point_state: Dict, grid: Optional[Dict], spec: GridSpec,
     unless `grid` is one already built (a dict holding "xyz_pers", as
     render_image passes once per image). At train u holds the shpnt_jitter
     draws [B,R,SR] (`ops.frustum.draw_jitter`). NN ≤ 0 ranks neighbors by
-    priorities drawn from `generator` (a fixed seed without one, as the
-    JAX package's fixed key at eval). The samples carry their own ray
-    directions."""
-    if tuple(shards) != (1, 1) and (opt.wcoord_query == 0 or opt.NN < 0):
-        raise ValueError("a ray-sharded query needs the world-coordinate "
-                         "KNN query (wcoord_query 1, NN > 0)")
+    `priorities` (`ops.frustum.query_frustum_points`), else by priorities
+    drawn from `generator` (a fixed seed without one, as the JAX
+    package's fixed key at eval). The samples carry their own ray
+    directions.
+
+    The frustum and vox-grid paths compact each camera row into one
+    budget; under `shards` with a prefix (`ops.query.Shards`) that budget
+    is the whole row's, shared across the ray shards in ray order
+    (`RowShare`), so the pieces keep, shade and count what the whole batch
+    keeps, shades and counts."""
     if opt.wcoord_query == 0:
         return _frustum_query(point_state, grid, spec, opt, batch, is_train,
-                              u, prob, generator)
+                              u, prob, generator, shards, priorities)
     raydir, campos = batch["raydir"], batch["campos"]
     gen = raygen.find_ray_generation_method(
         "near_far_disparity_linear" if opt.inverse > 0 else "near_far_linear")
@@ -265,7 +323,9 @@ def render_query(point_state: Dict, grid: Optional[Dict], spec: GridSpec,
                               K=1, Nc=0)
         sample_pidx = query_vox_grid(sample_loc_w, grid["vox_table"], spec)
         return QueryOut(sample_pidx, sample_loc_w, ray_mask, None,
-                        q_overflow, None, occ_over)
+                        q_overflow, None, occ_over,
+                        None if prob else _vox_share(opt, sample_pidx,
+                                                     shards))
     G, Ncb = comp_budget(opt, B, R, opt.SR, shards)
     (sample_pidx, sample_loc_w, ray_mask, q_overflow, comp,
      occ_over) = query_grid_points(
@@ -275,8 +335,28 @@ def render_query(point_state: Dict, grid: Optional[Dict], spec: GridSpec,
                     comp, occ_over)
 
 
+def _vox_share(opt, sample_pidx, shards: Shards) -> Optional[RowShare]:
+    """A vox-grid piece's budget shares (the shade side compacts its rows
+    with a neighbor into each camera row's budget), or None."""
+    if shards.prefix is None:
+        return None
+    B, R, SR, Kn = sample_pidx.shape
+    Bw = B * shards.batch
+    Nc = effective_sr_budget(opt, Bw * R * shards.rays * SR)
+    if not 0 < Nc < Bw * R * shards.rays * SR:
+        return None
+    Ncb = -(-Nc // Bw)
+    vmat = torch.any(sample_pidx >= 0, dim=-1).reshape(B, R * SR)
+    limit, rows = row_share(vmat.sum(dim=1, dtype=torch.int32), Ncb, shards)
+    cum = torch.cumsum(vmat.to(torch.int32), dim=1, dtype=torch.int32)
+    kept = vmat & (cum <= limit)
+    wlim, wrows = _wide_share(opt, Ncb, sample_pidx.reshape(B, R * SR, Kn),
+                              kept, shards)
+    return RowShare(limit, rows, wlim, wrows)
+
+
 def _frustum_query(point_state, grid, spec, opt, batch, is_train, u, prob,
-                   generator) -> QueryOut:
+                   generator, shards: Shards, priorities) -> QueryOut:
     raydir, campos = batch["raydir"], batch["campos"]
     if grid is not None and "xyz_pers" in grid:
         fgrid, xyz_pers = grid, grid["xyz_pers"]
@@ -287,14 +367,20 @@ def _frustum_query(point_state, grid, spec, opt, batch, is_train, u, prob,
     if is_train and u is None and opt.shpnt_jitter != "passfunc":
         raise ValueError("a train query needs the shpnt_jitter draws u")
     B, R = raydir.shape[0], raydir.shape[1]
-    Nc = effective_sr_budget(opt, B * R * opt.SR) if not prob else 0
+    Bw, Rw = B * shards.batch, R * shards.rays
+    Nc = effective_sr_budget(opt, Bw * Rw * opt.SR) if not prob else 0
     (sample_pidx, sample_loc_w, sample_ray_dirs, ray_mask, q_overflow,
      comp) = query_frustum_points(
         raydir, batch["camrotc2w"], campos, xyz_pers, fgrid, spec, SR=opt.SR,
         K=opt.K, jitter=opt.shpnt_jitter, u=u, is_train=is_train, Nc=Nc,
-        rand_mode=opt.NN <= 0, generator=generator)
+        rand_mode=opt.NN <= 0, priorities=priorities, generator=generator,
+        shards=shards)
+    share = None
+    if comp is not None and shards.prefix is not None:
+        share = RowShare(None, 0, *_wide_share(opt, -(-Nc // Bw), comp[2],
+                                               comp[1], shards))
     return QueryOut(sample_pidx, sample_loc_w, ray_mask, sample_ray_dirs,
-                    q_overflow, comp)
+                    q_overflow, comp, None, share)
 
 
 def render_shade(agg, point_state: Dict, spec: GridSpec, opt, batch: Dict,
@@ -313,7 +399,7 @@ def render_shade(agg, point_state: Dict, spec: GridSpec, opt, batch: Dict,
     camrotc2w = batch["camrotc2w"]
     B, R, _ = raydir.shape
     (sample_pidx, sample_loc_w, ray_mask, sample_ray_dirs, q_overflow,
-     q_comp, occ_overflow) = query_out
+     q_comp, occ_overflow, share) = query_out
 
     sample_loc = w2pers(sample_loc_w, camrotc2w, campos)
     if sample_ray_dirs is None:
@@ -326,23 +412,25 @@ def render_shade(agg, point_state: Dict, spec: GridSpec, opt, batch: Dict,
     gvs = float(spec.vox_gvs)
     RS = R * SR
     Nc = effective_sr_budget(opt, S)
-    if q_comp is None and 0 < Nc < S and not prob:
+    if q_comp is None and (share is not None or 0 < Nc < S) and not prob:
         # shade-side compaction (JAX renderer.py:350-390, one group): the
         # vox-grid query returns full-shape indices, so the rows with a
         # neighbor are packed here, each batch row into ceil(Nc/B) slots
-        # in row order; rows past the budget render empty and add to
+        # in row order (a piece of a camera row: its share of the row's,
+        # `RowShare`); rows past the budget render empty and add to
         # q_overflow. Row r of batch row b reads back packed slot
         # b·Ncb + rank[r] (src_row), a zero row when not kept.
-        Ncb = -(-Nc // B)
+        Ncb, lim = (-(-Nc // B), None) if share is None else \
+            (share.rows, share.limit)
         ray_valid = torch.any(sample_pidx >= 0, dim=-1)        # [B,R,SR]
         vmat = ray_valid.reshape(B, RS)
         cum = torch.cumsum(vmat.to(torch.int32), dim=1, dtype=torch.int32)
-        comp_src, comp_valid, over = _tier_map(vmat, cum, Ncb)
+        comp_src, comp_valid, over = _tier_map(vmat, cum, Ncb, lim)
         q_overflow = q_overflow + over
         boff = torch.arange(B, dtype=torch.int32,
                             device=raydir.device)[:, None] * Ncb
-        src_row = torch.where(vmat & (cum <= Ncb), cum - 1 + boff,
-                              B * Ncb).reshape(-1).long()
+        src_row = torch.where(vmat & (cum <= (Ncb if lim is None else lim)),
+                              cum - 1 + boff, B * Ncb).reshape(-1).long()
         q_comp = (comp_src, comp_valid,
                   _take_rows(sample_pidx.reshape(B, RS, -1), comp_src,
                              comp_valid, -1), ray_valid, None)
@@ -368,14 +456,12 @@ def render_shade(agg, point_state: Dict, spec: GridSpec, opt, batch: Dict,
 
         c_loc, c_loc_w = compact(sample_loc), compact(sample_loc_w)
         c_srd = compact(sample_ray_dirs)
-        kt = int(getattr(opt, "k_tier", 0))
-        if kt < 0:
-            kt = 1
-        Kn = c_pidx_mat.shape[-1]
-        if 0 < kt < Kn:
+        kt = tier_k(opt, c_pidx_mat.shape[-1])
+        if kt:
             c_decoded, c_weight, c_conf, t_overflow = _tiered_aggregate(
                 agg, point_state, opt, c_pidx_mat, comp_valid, c_loc,
-                c_loc_w, c_srd, camrotc2w, campos, kt, gvs, spec.vsize)
+                c_loc_w, c_srd, camrotc2w, campos, kt, gvs, spec.vsize,
+                share)
             q_overflow = q_overflow + t_overflow
         else:
             g = npc.gather_neighbors(point_state, c_pidx_mat[:, :, None, :],
@@ -502,7 +588,7 @@ def _probe_stats(opacity, sample_loc_w, weight, conf_coefficient,
 
 def render_forward(agg, point_state: Dict, grid: Optional[Dict],
                    spec: GridSpec, opt, batch: Dict, prob: bool = False,
-                   shards=(1, 1)) -> Dict:
+                   shards: Shards = Shards()) -> Dict:
     """Render a batch of rays (query + shade), at eval.
 
     batch: raydir [B,R,3], campos [B,3], camrotc2w [B,3,3], near/far

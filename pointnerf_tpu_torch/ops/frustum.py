@@ -29,8 +29,9 @@ import torch
 
 from .camera import dot3, pers2w
 from .grid import GridSpec, build_grid, fma
-from .query import (compact_row_map, knn_neighbors, knn_neighbors_superset,
-                    mask_raypos, scatter_row_valid)
+from .query import (Shards, compact_row_map, knn_neighbors,
+                    knn_neighbors_superset, mask_raypos, row_share,
+                    scatter_row_valid)
 
 SENTINEL = 1.0e6
 
@@ -172,7 +173,8 @@ def query_frustum_points(raydir: torch.Tensor, camrotc2w: torch.Tensor,
                          is_train: bool = False, Nc: int = 0,
                          rand_mode: bool = False,
                          priorities: Optional[torch.Tensor] = None,
-                         generator: Optional[torch.Generator] = None):
+                         generator: Optional[torch.Generator] = None,
+                         shards: Optional[Shards] = None):
     """The full frustum query (reference query_points :80-101).
 
     raydir [B,R,3] world ray dirs, camrotc2w [B,3,3], campos [B,3];
@@ -189,6 +191,15 @@ def query_frustum_points(raydir: torch.Tensor, camrotc2w: torch.Tensor,
     rows only; sample_pidx is then None and comp = (comp_src, comp_valid,
     c_pidx, row_valid, counts), `query_grid_points`' contract, the rows
     past the budget counted in q_overflow.
+
+    shards: these rays are a piece of a camera row's (`ops.query.Shards`).
+    Nc is then the whole batch's budget and the camera row compacts into
+    one budget of Ncb = ceil(Nc / B) rows across its pieces in ray order:
+    this piece keeps its valid rows that follow fewer than Ncb valid rows
+    of the row (`row_share`: one prefix over the pieces), into a buffer
+    of its own, and q_overflow counts the rows it drops, so the pieces'
+    counts sum to the whole row's. The priorities (given or drawn) are the
+    whole row's, as one device draws them, and the piece takes its rows'.
     """
     B, R, _ = raydir.shape
     if B != 1 or camrotc2w.shape[0] != 1 or campos.shape[0] != 1:
@@ -207,16 +218,29 @@ def query_frustum_points(raydir: torch.Tensor, camrotc2w: torch.Tensor,
     sample_loc, sample_mask = select_shading_points(raypos, rp_valid, SR)
     del raypos, rp_valid
 
-    def knn(loc, mask):
+    whole = shards is not None and shards.prefix is not None
+    Bw, Rw = (B * shards.batch, R * shards.rays) if whole else (B, R)
+
+    def knn(loc, mask, take=None):
         # the KNN runs on the unjittered locations (reference ordering:
-        # query_grid_point_index, then shpnt_jitter, :92-99)
+        # query_grid_point_index, then shpnt_jitter, :92-99); take = (the
+        # row's budget slot of this piece's first kept row [B], Ncb) under
+        # the budget
         if rand_mode:
             pri = priorities
             if pri is None:
                 O = spec.kernel_size[0] ** 3
                 gen = generator or torch.Generator(device=dev).manual_seed(0)
-                pri = torch.rand(loc.shape[:3] + (O * spec.P,),
-                                 generator=gen, device=dev)
+                n = (Bw, take[1], 1) if take is not None else (Bw, Rw, SR)
+                pri = torch.rand(n + (O * spec.P,), generator=gen,
+                                 device=dev)
+            if take is not None and whole:     # this piece's budget rows
+                idx = torch.clamp(take[0] + torch.arange(
+                    loc.shape[1], device=dev)[None], max=take[1] - 1)
+                pri = torch.gather(pri, 1, idx.long()[:, :, None, None]
+                                   .expand((B, loc.shape[1]) + pri.shape[2:]))
+            elif whole:                        # this piece's rays
+                pri = pri[:, shards.index * R:(shards.index + 1) * R]
             return knn_neighbors(loc, mask, grid, spec, K, priorities=pri)
         if spec.superset_P > 0:
             return knn_neighbors_superset(loc, mask, grid, spec, K)
@@ -225,18 +249,26 @@ def query_frustum_points(raydir: torch.Tensor, camrotc2w: torch.Tensor,
     S = B * R * SR
     q_overflow = torch.zeros((), dtype=torch.int32, device=dev)
     comp = None
-    if 0 < Nc < S:
-        Ncb = -(-Nc // B)
+    if 0 < Nc < Bw * Rw * SR:
+        Ncb = -(-Nc // Bw)
         counts = sample_mask.sum(dim=-1, dtype=torch.int32)           # [B,R]
-        comp_src, comp_valid, n_total = compact_row_map(counts, Ncb, SR)
+        limit, rows = row_share(counts.sum(dim=1, dtype=torch.int32), Ncb,
+                                shards)
+        comp_src, comp_valid, n_total = compact_row_map(counts, rows, SR,
+                                                        limit)
         c_loc = sample_loc.reshape(S, 3)[comp_src.reshape(-1).long()]
-        c_loc = c_loc.reshape(B, Ncb, 3)
-        c_pidx = knn(c_loc[:, :, None, :], comp_valid[:, :, None])[:, :, 0]
+        c_loc = c_loc.reshape(B, rows, 3)
+        # the row's budget rows the pieces before this one keep: its kept
+        # rows take the budget slots from there
+        first = (Ncb - limit)[:, 0] if whole else None
+        c_pidx = knn(c_loc[:, :, None, :], comp_valid[:, :, None],
+                     (first, Ncb))[:, :, 0]
         c_pidx = torch.where(comp_valid[..., None], c_pidx, -1)
         c_has = comp_valid & torch.any(c_pidx >= 0, dim=-1)
         row_valid = scatter_row_valid(comp_src, comp_valid, c_has, R, SR)
         ray_mask = torch.any(row_valid, dim=-1)
-        q_overflow = torch.clamp(n_total - Ncb, min=0).sum(dtype=torch.int32)
+        q_overflow = torch.clamp(n_total[:, None] - limit, min=0).sum(
+            dtype=torch.int32)
         comp = (comp_src, comp_valid, c_pidx, row_valid, counts)
         sample_pidx = None
     else:

@@ -23,7 +23,7 @@ runs it), launches `csrc/row_select.cu`.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -283,11 +283,51 @@ def select_shading_t(tvals: torch.Tensor, valid: torch.Tensor, SR: int
     return t_sel[..., :SR], mask, torch.clamp(total, max=SR)
 
 
-def compact_row_map(counts: torch.Tensor, Ncb: int, SR: int
+class Shards(NamedTuple):
+    """A batch's place in a ray-sharded one (`parallel.dp`, mesh serving):
+    it is the piece at ray coordinate `index` of `rays` equal pieces of
+    each camera row, and one of `batch` pieces of the camera rows, of a
+    batch of batch·B rows by rays·R rays. `prefix(counts)` takes a count
+    per camera row of this piece ([B] int32) and returns the sum of the
+    same counts over the pieces before it in those rows (the same on every
+    rank that holds this piece): the frustum and vox-grid paths compact
+    each whole camera row into one budget across its pieces with it.
+    Shards() is a whole batch."""
+    batch: int = 1
+    rays: int = 1
+    index: int = 0
+    prefix: Optional[Callable] = None
+
+
+SHARE_BUCKET = 128      # a piece's buffer rows: a multiple of this
+
+
+def row_share(counts: torch.Tensor, Nt: int, shards: Optional[Shards]):
+    """This piece's share of a budget of Nt rows per camera row, whose
+    rows are kept in ray order across the pieces: (limit, rows). limit:
+    the budget rows the pieces before it leave ([B,1] int32; Nt itself
+    for a whole batch), so its valid row of running count c is kept when
+    c ≤ limit; rows: the buffer it compacts into, Nt for a whole batch,
+    else its most kept rows over its camera rows rounded up to a multiple
+    of SHARE_BUCKET, at most Nt (one host read; the rounding repeats the
+    shapes the trunk sees). counts [B] int32: its valid rows per camera
+    row."""
+    if shards is None or shards.prefix is None:
+        return Nt, Nt
+    before = shards.prefix(counts.to(torch.int32))
+    limit = torch.clamp(Nt - before, min=0).to(torch.int32)[:, None]
+    need = int(torch.minimum(counts, limit[:, 0]).max())
+    rows = max(SHARE_BUCKET, -(-need // SHARE_BUCKET) * SHARE_BUCKET)
+    return limit, min(Nt, rows)
+
+
+def compact_row_map(counts: torch.Tensor, Ncb: int, SR: int, limit=None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-ray valid-row counts [B,R] → (comp_src [B,Ncb] flat ray·SR+slot
     source rows, comp_valid [B,Ncb], n_total [B]). Slot s belongs to the last
-    ray r with rayoff[r] ≤ s; slots ≥ n_total hold clamped garbage."""
+    ray r with rayoff[r] ≤ s; slots ≥ n_total hold clamped garbage. limit
+    ([B,1], `row_share`): only the first `limit` valid rows of a camera
+    row are valid slots."""
     B, R = counts.shape
     rayoff = torch.cumsum(counts, dim=-1, dtype=torch.int32) - counts
     n_total = rayoff[:, -1] + counts[:, -1]
@@ -297,7 +337,9 @@ def compact_row_map(counts: torch.Tensor, Ncb: int, SR: int
                                right=True) - 1
     c_s = slots[None] - torch.gather(rayoff, 1, c_ray)
     comp_src = torch.clamp(c_ray.to(torch.int32) * SR + c_s, 0, R * SR - 1)
-    comp_valid = slots[None] < torch.clamp(n_total[:, None], max=Ncb)
+    n = torch.clamp(n_total[:, None], max=Ncb)
+    comp_valid = slots[None] < (n if limit is None
+                                else torch.clamp(n, max=limit))
     return comp_src, comp_valid, n_total
 
 
@@ -313,14 +355,14 @@ def expand_compacted(SR: int, c: torch.Tensor, counts_g: torch.Tensor,
     would make of the expanding gather."""
     if torch.is_grad_enabled() and c.requires_grad:
         return _ExpandCompacted.apply(SR, c, counts_g, comp_src, comp_valid)
-    return _expand(SR, c, counts_g)
+    return _expand(SR, c, counts_g, comp_valid)
 
 
 class _ExpandCompacted(torch.autograd.Function):
     @staticmethod
     def forward(ctx, SR, c, counts_g, comp_src, comp_valid):
         ctx.save_for_backward(comp_src, comp_valid)
-        return _expand(SR, c, counts_g)
+        return _expand(SR, c, counts_g, comp_valid)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -337,15 +379,18 @@ class _ExpandCompacted(torch.autograd.Function):
         return None, ct_c, None, None, None
 
 
-def _expand(SR: int, c: torch.Tensor, counts_g: torch.Tensor) -> torch.Tensor:
+def _expand(SR: int, c: torch.Tensor, counts_g: torch.Tensor,
+            comp_valid: torch.Tensor) -> torch.Tensor:
     BG, Ncb = c.shape[:2]
     Rg = counts_g.shape[1]
     tail = tuple(c.shape[2:])
     rayoff = torch.cumsum(counts_g, dim=-1, dtype=torch.int32) - counts_g
     sr = torch.arange(SR, dtype=torch.int32, device=c.device)
     rank = rayoff[:, :, None] + sr[None, None]
-    valid = (sr[None, None] < counts_g[:, :, None]) & (rank < Ncb)
     take = torch.clamp(rank, 0, Ncb - 1).reshape(BG, Rg * SR).long()
+    # a slot inside the buffer may lie past a piece's share (`row_share`)
+    valid = (sr[None, None] < counts_g[:, :, None]) & (rank < Ncb) \
+        & torch.gather(comp_valid, 1, take).reshape(BG, Rg, SR)
     goff = (torch.arange(BG, device=c.device) * Ncb)[:, None]
     out = c.reshape((BG * Ncb,) + tail)[(take + goff).reshape(-1)]
     out = out.reshape((BG, Rg * SR) + tail)

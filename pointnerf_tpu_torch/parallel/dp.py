@@ -11,12 +11,20 @@ package's GSPMD step equals its single-device step:
   backward the identity), before they are divided; the gradients the
   ranks then compute sum to the whole batch's (a mean of per-rank means,
   as DataParallel takes, would not);
-* the compaction budget reads the whole batch's row count and splits over
-  comp_groups groups, set to the ray shards unless the user set it, so a
-  rank's groups are the single-device run's groups of its rays
-  (`models.renderer.comp_budget`);
-* every rank draws the whole batch's jitter from the same generator state
-  and takes its slice;
+* the world query's compaction budget reads the whole batch's row count
+  and splits over comp_groups groups, set to the ray shards unless the
+  user set it, so a rank's groups are the single-device run's groups of
+  its rays (`models.renderer.comp_budget`);
+* the frustum query (wcoord_query 0) and the vox-grid query (NN < 0)
+  compact each camera row into one budget, which comp_groups does not
+  split: a rank keeps its valid rows that follow fewer than the budget's
+  rows of its camera row, counted over the ray shards before it
+  (`Mesh.row_prefix`, one all-gather), into a buffer sized to the rows
+  it keeps, and the wide K tier's budget is shared the same way; each
+  rank counts the rows it drops, so the counts sum to the whole row's
+  (`models.renderer.RowShare`);
+* every rank draws the whole batch's jitter (and the frustum's NN ≤ 0
+  priorities) from the same generator state and takes its slice;
 * the net and point gradients are summed over the ray shards, once each
   (the ranks that share a ray index compute the same shard), and every
   rank runs the same Adam update, so the net weights stay equal.
@@ -24,7 +32,7 @@ package's GSPMD step equals its single-device step:
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -60,17 +68,19 @@ def _sum_tensors(mesh: Mesh, d: Dict[str, torch.Tensor]
 
 
 def sharded_grads(ts, grid, batch: Dict, opt, spec, mesh: Mesh,
-                  u: torch.Tensor, points_sharded: bool = False):
+                  u: Optional[torch.Tensor], points_sharded: bool = False,
+                  priorities: Optional[torch.Tensor] = None):
     """(items, net grads, point grads) of the whole batch: the items and
     net gradients are the same on every rank, the point gradients are
     this rank's rows (its shard when points_sharded, else the whole
-    buffers). batch and u [B,R,D] are the whole batch's."""
+    buffers). batch and u (`trainer.jitter_draws`) are the whole batch's;
+    priorities the whole row's (the frustum's NN ≤ 0, drawn when None)."""
     view = pts.full_view(ts, mesh) if points_sharded else ts
     g = pts.full_grid(grid, mesh) if points_sharded else grid
     items, g_net, g_pts = trainer.compute_grads(
         view, g, shard_batch(batch, mesh), _with_comp_groups(opt, mesh), spec,
-        shard_rays(u, mesh), shards=(mesh.batch, mesh.rays),
-        reduce=mesh.plane_sum)
+        None if u is None else shard_rays(u, mesh), shards=mesh.shards(),
+        reduce=mesh.plane_sum, priorities=priorities)
     if points_sharded:
         return items, _sum_tensors(mesh, g_net), mesh.sum_rows(g_pts)
     both = _sum_tensors(mesh, {**{("net", k): v for k, v in g_net.items()},
@@ -80,14 +90,15 @@ def sharded_grads(ts, grid, batch: Dict, opt, spec, mesh: Mesh,
 
 
 def sharded_train_step(ts, grid, batch: Dict, opt, spec, mesh: Mesh,
-                       u=None, points_sharded: bool = False):
+                       u=None, points_sharded: bool = False,
+                       priorities=None):
     """One step of the whole batch from this rank's shard, in place (the
-    sharded `trainer.train_step`). u: the whole batch's jitter draws; None
-    draws them from ts.generator, the same on every rank."""
+    sharded `trainer.train_step`). u: the whole batch's draws; None draws
+    them from ts.generator, the same on every rank."""
     if u is None:
         u = trainer.jitter_draws(ts, batch, opt)
     items, g_net, g_pts = sharded_grads(ts, grid, batch, opt, spec, mesh, u,
-                                        points_sharded)
+                                        points_sharded, priorities)
     return trainer.apply_grads(ts, g_net, g_pts, opt), items
 
 
@@ -104,7 +115,7 @@ def sharded_eval_step(ts, grid, batch: Dict, opt, spec, mesh: Mesh,
     local = shard_batch(batch, mesh)
     Bl, Rl = local["raydir"].shape[:2]
     out = trainer.eval_step(ts, grid, local, _with_comp_groups(opt, mesh),
-                            spec, prob=prob, shards=(mesh.batch, mesh.rays))
+                            spec, prob=prob, shards=mesh.shards())
     full = {}
     for k, v in out.items():
         if v is None or k in trainer.COMPACT_KEYS:
@@ -117,10 +128,12 @@ def sharded_eval_step(ts, grid, batch: Dict, opt, spec, mesh: Mesh,
 
 
 def make_dp_train_step(opt, spec, mesh: Mesh):
-    """step(ts, grid, batch, u=None) -> (ts, items) with the state and the
-    grid whole on every rank and the batch split over the ray shards."""
-    def step(ts, grid, batch, u=None):
-        return sharded_train_step(ts, grid, batch, opt, spec, mesh, u=u)
+    """step(ts, grid, batch, u=None, priorities=None) -> (ts, items) with
+    the state and the grid whole on every rank and the batch split over
+    the ray shards."""
+    def step(ts, grid, batch, u=None, priorities=None):
+        return sharded_train_step(ts, grid, batch, opt, spec, mesh, u=u,
+                                  priorities=priorities)
     return step
 
 

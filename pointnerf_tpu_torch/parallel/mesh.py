@@ -17,6 +17,12 @@ images, reduced gradients) is summed or gathered from the ranks of point
 index 0 in ray order, after one all-gather over the whole group, so every
 rank holds the same bits whatever the backend's reduction order.
 
+The frustum and vox-grid queries compact each camera row into one budget
+across its ray shards: `Mesh.shards` gives the renderer a rank's place
+and `row_prefix`, the exclusive prefix of a per-row count over the ray
+shards before it in the same camera rows (one all-gather of B int32s per
+rank, in the same way), so a rank keeps the rows the whole batch keeps.
+
 The collectives use the backend's own ops: NCCL on the card, gloo on the
 CPU. CUDA tensors are staged through host memory only when the group's
 backend is gloo (several ranks sharing one card, which NCCL refuses);
@@ -131,6 +137,27 @@ class Mesh:
         for i in range(1, g.shape[0]):
             out += g[i]
         return out
+
+    def row_prefix(self, counts: torch.Tensor, serving: bool = False
+                   ) -> torch.Tensor:
+        """counts [B] int32, one per camera row of this rank's piece,
+        summed over the ray shards before it in the same camera rows (its
+        batch shard's, or with `serving` every ray shard of the plane, one
+        wide row); ranks that share a ray index get the same sums."""
+        b, r = (1, self.plane) if serving else (self.batch, self.rays)
+        g = self.gather_plane(counts).reshape((b, r) + tuple(counts.shape))
+        bi, ri = divmod(self.ray_index, r)
+        return g[bi, :ri].sum(dim=0, dtype=torch.int32)
+
+    def shards(self, serving: bool = False):
+        """This rank's place for the renderer (`ops.query.Shards`): the
+        batch and ray shards, its ray coordinate and `row_prefix`. With
+        `serving` the piece is one of the plane's ray shards of one wide
+        camera row (mesh serving)."""
+        from ..ops.query import Shards
+        b, r = (1, self.plane) if serving else (self.batch, self.rays)
+        return Shards(b, r, self.ray_index % r,
+                      lambda c: self.row_prefix(c, serving))
 
     def gather_points(self, x: torch.Tensor) -> torch.Tensor:
         """The point shards of x along dim 0, joined over the ranks that

@@ -65,8 +65,9 @@ def shard_state_arrays(flat: Dict[str, np.ndarray], mesh: Mesh
 def shard_grid(grid: Dict[str, torch.Tensor], spec, mesh: Mesh
                ) -> Dict[str, torch.Tensor]:
     """This rank's rows of the bucket tables (max_o rows); the dense
-    voxel maps whole. ValueError naming max_o if M does not divide it."""
-    if mesh.points == 1:
+    voxel maps whole. ValueError naming max_o if M does not divide it. No
+    grid (the frustum path's, built per camera) stays None."""
+    if mesh.points == 1 or grid is None:
         return grid
     return {k: (_rows(v, mesh.points, mesh.point_index, "max_o")
                 if k in BUCKET_KEYS else v) for k, v in grid.items()}
@@ -75,7 +76,7 @@ def shard_grid(grid: Dict[str, torch.Tensor], spec, mesh: Mesh
 def full_grid(grid: Dict[str, torch.Tensor], mesh: Mesh
               ) -> Dict[str, torch.Tensor]:
     """The bucket tables joined from the point shards (transient)."""
-    if mesh.points == 1:
+    if mesh.points == 1 or grid is None:
         return grid
     return {k: (mesh.gather_points(v) if k in BUCKET_KEYS else v)
             for k, v in grid.items()}
@@ -126,18 +127,18 @@ def at_rest_bytes(ts: trainer.TrainState, grid: Dict[str, torch.Tensor]
         buf += sum(st[k].numel() * st[k].element_size()
                    for k in ("exp_avg", "exp_avg_sq") if k in st)
     tables = sum(grid[k].numel() * grid[k].element_size()
-                 for k in BUCKET_KEYS if k in grid)
+                 for k in BUCKET_KEYS if grid is not None and k in grid)
     return {"capacity_bytes": int(buf), "bucket_bytes": int(tables)}
 
 
 def make_mp_train_step(opt, spec, mesh: Mesh):
-    """step(ts, grid, batch, u=None) -> (ts, items) over point-sharded
-    state and grid (`parallel.dp.sharded_train_step`)."""
+    """step(ts, grid, batch, u=None, priorities=None) -> (ts, items) over
+    point-sharded state and grid (`parallel.dp.sharded_train_step`)."""
     from .dp import sharded_train_step
 
-    def step(ts, grid, batch, u=None):
+    def step(ts, grid, batch, u=None, priorities=None):
         return sharded_train_step(ts, grid, batch, opt, spec, mesh, u=u,
-                                  points_sharded=True)
+                                  points_sharded=True, priorities=priorities)
     return step
 
 

@@ -484,12 +484,14 @@ def render_image(ts: trainer.ServeState, grid, opt, spec, item: Dict,
     placed state and grid): the point shards and bucket tables are joined
     once per image; each group's wide batch splits over the ray shards
     (comp_groups set to their number unless the user set it, so each rank
-    compacts and shades its own rays into its own budget slices; a chunk
-    the shards do not divide raises ValueError), the uncompacted renders
-    split each chunk, and the ray outputs are gathered, so every rank
-    holds the image. The budget ladder reads the overflow summed over the
-    ranks: every rank takes the same rung. The frustum query is
-    single-device (ValueError).
+    compacts and shades its own rays into its own budget slices; under
+    NN < 0 the wide batch's one budget is shared across the ranks in ray
+    order, `Mesh.row_prefix`; a chunk the shards do not divide raises
+    ValueError), the uncompacted renders split each chunk, and the ray
+    outputs are gathered, so every rank holds the image. The budget
+    ladder reads the whole image's overflow (each rank's dropped rows,
+    summed): every rank takes the same rung. The frustum query is
+    single-device (ValueError), as in the JAX package.
     """
     plane = 1
     if runner is not None:
@@ -556,7 +558,7 @@ def render_image(ts: trainer.ServeState, grid, opt, spec, item: Dict,
                     ts, grid, stacked, const_batch, opt_used, spec)
             out = trainer.eval_chunks_stacked(
                 ts, grid, stacked, const_batch, opt_used, spec,
-                part=(mesh.ray_index, plane))
+                part=mesh.shards(serving=True))
             return _join_wide(out, len(pending))
         # budget-off rung or probe: chunk-sized uncompacted renders
         if runner is None:

@@ -42,9 +42,9 @@ from ..models.mvs import points_model as pm
 from ..models.networks import make_lr_schedule
 from ..models.neural_points import SENTINEL
 from ..models.renderer import render_query, render_shade
-from ..ops.frustum import draw_jitter, make_frustum_spec
+from ..ops.frustum import make_frustum_spec
 from ..ops.grid import GridSpec, build_grid, make_grid_spec
-from ..train.trainer import ADAM, ServeState, _adam_count
+from ..train.trainer import ADAM, ServeState, _adam_count, jitter_draws
 from ..utils.checkpoint import load_gen_npz, save_gen_npz
 from ..utils.metrics import psnr as psnr_fn
 from ..utils.visualizer import Visualizer
@@ -157,28 +157,14 @@ def batch_of(item: Dict, dev) -> Dict:
     return batch
 
 
-def render_draws(state: GenTrainState, batch: Dict, opt
-                 ) -> Optional[torch.Tensor]:
-    """One train render's draws from state.generator: the depth jitter's
-    uniform draws [B,R,z_depth_dim] (world coordinates), or the
-    shpnt_jitter draws [B,R,SR] (frustum)."""
-    B, R = batch["raydir"].shape[:2]
-    dev = batch["raydir"].device
-    if opt.wcoord_query == 0:
-        return draw_jitter(opt.shpnt_jitter, (B, R, opt.SR), state.generator,
-                           dev)
-    return torch.rand((B, R, opt.z_depth_dim), generator=state.generator,
-                      device=dev)
-
-
 def gen_compute_grads(state: GenTrainState, sample: Dict, batch: Dict, opt,
                       spec: GridSpec, u: Optional[torch.Tensor],
                       depths: Optional[Dict] = None):
     """Loss items and the gradients of both chains for one bundle and ray
     batch (JAX's gen_train_step loss_fn): points from the bundle, the world
     grid over them (none on the frustum path: render_query builds the
-    camera's), the train render with the draws u (`render_draws`), the
-    losses. depths: the frozen MVS half's output (`pm.mvs_depths`),
+    camera's), the train render with the draws u
+    (`trainer.jitter_draws`), the losses. depths: the frozen MVS half's output (`pm.mvs_depths`),
     computed here when None. Returns (items, net grads by parameter name,
     MVS grads by parameter name); items are detached."""
     ps = feedforward_point_state(state.mvs, opt, sample, depths=depths)
@@ -211,7 +197,7 @@ def gen_train_step(state: GenTrainState, sample: Dict, batch: Dict, opt,
     lr (mvs_lr, else lr, for the MVS chain). u None draws from
     state.generator. Returns (state, items)."""
     if u is None:
-        u = render_draws(state, batch, opt)
+        u = jitter_draws(state, batch, opt)
     items, g_net, g_mvs = gen_compute_grads(state, sample, batch, opt, spec,
                                             u)
     net_on = mvs_on = 1.0

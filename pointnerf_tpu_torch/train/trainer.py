@@ -30,7 +30,9 @@ from ..models.losses import compute_losses, over_shards
 from ..models.networks import make_lr_schedule
 from ..models.neural_points import SENTINEL
 from ..models.renderer import render_forward, render_query, render_shade
+from ..ops.frustum import build_frustum_grid, draw_jitter
 from ..ops.grid import build_grid
+from ..ops.query import Shards
 
 POINT_TRAINABLE_FLAGS = {
     "embedding": "feat_grad",
@@ -131,20 +133,27 @@ def _adam_count(optim: torch.optim.Adam) -> int:
     return 0
 
 
-def jitter_draws(state: TrainState, batch: Dict, opt) -> torch.Tensor:
-    """The depth jitter's uniform draws u [B,R,z_depth_dim] for one step."""
+def jitter_draws(state, batch: Dict, opt) -> Optional[torch.Tensor]:
+    """One train render's draws from state.generator (any state with one):
+    the depth jitter's uniform draws u [B,R,z_depth_dim] (world
+    coordinates), or the shpnt_jitter draws [B,R,SR] (the frustum,
+    `ops.frustum.draw_jitter`; None under passfunc)."""
     B, R = batch["raydir"].shape[:2]
+    dev = batch["raydir"].device
+    if opt.wcoord_query == 0:
+        return draw_jitter(opt.shpnt_jitter, (B, R, opt.SR), state.generator,
+                           dev)
     return torch.rand((B, R, opt.z_depth_dim), generator=state.generator,
-                      device=batch["raydir"].device)
+                      device=dev)
 
 
 def _render(state: TrainState, grid, spec, opt, batch: Dict,
-            u: torch.Tensor, shards=(1, 1)) -> Dict:
+            u: torch.Tensor, shards: Shards = Shards(), priorities=None) -> Dict:
     """Query (no gradient, outside any recomputation), then the shade
     phase, rematerialized in the backward pass when opt.remat is set."""
     with torch.no_grad():
         q = render_query(state.points, grid, spec, opt, batch, is_train=True,
-                         u=u, shards=shards)
+                         u=u, shards=shards, priorities=priorities)
     keys = list(state.pt_train)
 
     def shade(*train):
@@ -158,7 +167,7 @@ def _render(state: TrainState, grid, spec, opt, batch: Dict,
 
 
 def _chunked_render(state: TrainState, grid, spec, opt, batch: Dict,
-                    u: torch.Tensor, shards=(1, 1)) -> Dict:
+                    u: torch.Tensor, shards: Shards = Shards(), priorities=None) -> Dict:
     """The render over ray_chunk-sized chunks, outputs joined: ray-shaped
     leaves along the ray axis, the compact-form loss leaves stacked on a
     leading chunk axis (compute_losses sums them), counters summed."""
@@ -169,7 +178,9 @@ def _chunked_render(state: TrainState, grid, spec, opt, batch: Dict,
         sl = slice(i * C, (i + 1) * C)
         sub = dict(batch, **{k: v[:, sl] for k, v in batch.items()
                              if k in RAY_KEYS and torch.is_tensor(v)})
-        outs.append(_render(state, grid, spec, opt, sub, u[:, sl], shards))
+        outs.append(_render(state, grid, spec, opt, sub,
+                            None if u is None else u[:, sl], shards,
+                            priorities))
     keys = ["coarse_raycolor", "ray_mask"]
     if opt.depth_loss_items:
         keys.append("coarse_depth")
@@ -186,25 +197,45 @@ def _chunked_render(state: TrainState, grid, spec, opt, batch: Dict,
     return output
 
 
+def frustum_grid(points: Dict, grid, batch: Dict, spec):
+    """The frustum path's camera grid (a dict holding xyz_pers) of the
+    batch's camera, built from the points unless `grid` is one already:
+    once per step, not once per ray chunk."""
+    if grid is not None and "xyz_pers" in grid:
+        return grid
+    with torch.no_grad():
+        fgrid, xyz_pers = build_frustum_grid(
+            points["xyz"].detach(), points["mask"], batch["camrotc2w"],
+            batch["campos"], spec)
+    return dict(fgrid, xyz_pers=xyz_pers)
+
+
 def compute_grads(state: TrainState, grid, batch: Dict, opt, spec,
-                  u: torch.Tensor, shards=(1, 1), reduce=None):
+                  u: Optional[torch.Tensor], shards: Shards = Shards(), reduce=None,
+                  priorities: Optional[torch.Tensor] = None):
     """Loss items and the gradients of both parameter groups for one batch
-    (forward and backward only). u: the depth jitter's draws
-    [B,R,z_depth_dim]. Returns (items, net grads by parameter name, point
-    grads by buffer name); items are detached.
+    (forward and backward only). u: the render's draws (`jitter_draws`).
+    priorities: the frustum's NN ≤ 0 neighbor priorities
+    (`ops.frustum.query_frustum_points`), drawn when None. Returns (items,
+    net grads by parameter name, point grads by buffer name); items are
+    detached.
 
     A rank of a ray-sharded step (`parallel.dp`) passes its shard of the
     batch with `shards` (its place in the whole batch, for the compaction
-    budget) and `reduce` (the sum over the shards of a vector: the losses'
-    sums and the counters go through it in one call, `losses.over_shards`):
-    the items are then the whole batch's, and the gradients this shard's
-    part of the whole batch's."""
+    budget, `ops.query.Shards`) and `reduce` (the sum over the shards of a
+    vector: the losses' sums and the counters go through it in one call,
+    `losses.over_shards`): the items are then the whole batch's, and the
+    gradients this shard's part of the whole batch's."""
+    if opt.wcoord_query == 0:
+        grid = frustum_grid(state.points, grid, batch, spec)
     R = batch["raydir"].shape[1]
     C = int(opt.ray_chunk)
     if C > 0 and R > C and R % C == 0:
-        output = _chunked_render(state, grid, spec, opt, batch, u, shards)
+        output = _chunked_render(state, grid, spec, opt, batch, u, shards,
+                                 priorities)
     else:
-        output = _render(state, grid, spec, opt, batch, u, shards)
+        output = _render(state, grid, spec, opt, batch, u, shards,
+                         priorities)
 
     def losses(red):
         total, items = compute_losses(opt, output, batch["gt_image"],
@@ -231,9 +262,9 @@ def train_step(state: TrainState, grid, batch: Dict, opt, spec,
                u: Optional[torch.Tensor] = None
                ) -> Tuple[TrainState, Dict]:
     """One optimization step (reference train hot loop, SURVEY.md §3.2),
-    in place. u: the jitter draws; None draws them from state.generator.
-    With alter_step the idle chain gets zero gradients, so its Adam moments
-    still decay, as optax's do."""
+    in place. u: the render's draws; None draws them from state.generator
+    (`jitter_draws`). With alter_step the idle chain gets zero gradients,
+    so its Adam moments still decay, as optax's do."""
     if u is None:
         u = jitter_draws(state, batch, opt)
     items, g_net, g_pts = compute_grads(state, grid, batch, opt, spec, u)
@@ -266,7 +297,7 @@ def apply_grads(state: TrainState, g_net: Dict, g_pts: Dict, opt
 
 @torch.inference_mode()
 def eval_step(state, grid: Dict, batch: Dict, opt, spec,
-              prob: bool = False, shards=(1, 1)) -> Dict:
+              prob: bool = False, shards: Shards = Shards()) -> Dict:
     """No-grad forward for test/render (reference base_model.test); with
     `prob` the uncompacted probe render of point growing; `shards` for a
     rank's piece of a wider batch (`models.renderer.comp_budget`)."""
@@ -301,20 +332,21 @@ def eval_chunks_stacked(state, grid: Dict, stacked: Dict, const_batch: Dict,
     per-ray outputs come back; `sr_overflow` (a group total) comes back as
     [n] with the total at slot 0.
 
-    part = (i, r): render only the i-th of r equal contiguous pieces of the
-    wide batch's rays (a rank of mesh serving, `run.common.render_image`),
-    with the compaction budget and groups of the whole wide batch
-    (`models.renderer.comp_budget`); the per-ray outputs come back as
-    [1, n·C/r, ...] and `sr_overflow` as this piece's total.
+    part (`ops.query.Shards` with batch 1): render only the piece
+    part.index of part.rays equal contiguous pieces of the wide batch's
+    rays (a rank of mesh serving, `run.common.render_image`), with the
+    compaction budget and groups of the whole wide batch
+    (`models.renderer.comp_budget`; the vox-grid's camera-row budget
+    through part.prefix); the per-ray outputs come back as [1, n·C/r, ...]
+    and `sr_overflow` as this piece's share of the total.
     """
     n, _, C = next(iter(stacked.values())).shape[:3]
     wide = {k: v.reshape((1, n * C) + v.shape[3:]) for k, v in stacked.items()}
     if part is not None:
-        i, r = part
-        w = n * C // r
+        i, w = part.index, n * C // part.rays
         wide = {k: v[:, i * w:(i + 1) * w] for k, v in wide.items()}
         return eval_step(state, grid, dict(const_batch, **wide), opt, spec,
-                         shards=(1, r))
+                         shards=part)
     out = eval_step(state, grid, dict(const_batch, **wide), opt, spec)
     split: Dict = {}
     for k, v in out.items():

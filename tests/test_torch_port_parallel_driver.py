@@ -7,6 +7,10 @@ The sharded run (2 gloo ranks, mesh_points 2: one ray shard, the point
 buffers and bucket tables in two shards) draws the same batches and
 jitter as the single-device run, so its final PSNR is held to it within
 0.5 dB (JAX's bar for its sharded driver, tests/test_train_ft_driver.py).
+Under the vox-grid query (NN -1; the scene and options of
+test_torch_port_voxgrid.py's driver test, with a budget that overflows
+and grows) the 2 ranks are two ray shards sharing each batch's budget,
+and test_ft scores the checkpoint by mesh serving on 2 ranks too.
 """
 
 import multiprocessing
@@ -21,6 +25,7 @@ from pointnerf_tpu_torch.parallel.driver import make_runner, world_size
 from pointnerf_tpu_torch.run import render_vid, test_ft, train_ft
 
 from fixtures import make_nerf_synth_scene
+from test_torch_port_voxgrid import _driver_opt, vox_scene  # noqa: F401
 from test_train_ft_driver import tiny_train_opt
 
 # 100 steps with a prune at 60 (conf 0.4 points under the 0.41 threshold
@@ -95,6 +100,39 @@ def test_world_size_rule(n_devices, mesh_points, device, want):
     else:
         with pytest.raises(ValueError, match=want):
             world_size(opt, device)
+
+
+def _vox_opt(root, cpath, out, **kw):
+    return Options.from_json(_driver_opt(root, cpath, out, SR_budget=32,
+                                         **kw).to_json())
+
+
+@pytest.fixture(scope="module")
+def vox_single(vox_scene, tmp_path_factory):  # noqa: F811
+    out = str(tmp_path_factory.mktemp("vox_single"))
+    return out, train_ft.main(_vox_opt(*vox_scene, out), device="cpu")
+
+
+def test_sharded_vox_grid_driver_matches_single_device(vox_scene,  # noqa: F811
+                                                       vox_single, tmp_path):
+    """NN -1 on n_devices 2 (two ray shards): the budget overflows and
+    grows as on one device, the final PSNR within 0.5 dB of the
+    single-device run; test_ft on 2 ranks (mesh serving under NN -1)
+    scores the checkpoint as the single-device test_ft does (1e-3 dB)."""
+    out_1, want = vox_single
+    opt = _vox_opt(*vox_scene, str(tmp_path), n_devices=2)
+    got = train_ft.main(opt, device="cpu")
+    assert got["total_steps"] == want["total_steps"] == 20
+    assert abs(got["final_psnr"] - want["final_psnr"]) < 0.5, \
+        (got["final_psnr"], want["final_psnr"])
+    exp = os.path.join(str(tmp_path), opt.experiment)
+    with open(os.path.join(exp, "log.txt")) as f:
+        log = f.read()
+    assert "SR_budget overflow" in log and "budget 32 -> 128" in log
+    scored = test_ft.main(opt, device="cpu")
+    scored_1 = test_ft.main(opt.replace(n_devices=0), device="cpu")
+    assert scored["step"] == scored_1["step"] == 20
+    assert abs(scored["psnr"] - scored_1["psnr"]) < 1e-3
 
 
 def test_sharded_driver_matches_single_device(scene_root, single, tmp_path):
