@@ -27,11 +27,15 @@ K1b, K2b, K3, K6):
   train_step, one warm-up step and TRAIN_STEPS timed ones, then one
   compute_grads on the card against the CPU's plain versions (trunk_bf16:
   within GRAD_REL_BF16); the fused_shade step-1 loss is held against the
-  default one;
+  default one; the graphed dispatch (trainer.train_steps_scan: one CUDA
+  graph of the step, replayed) of GRAPH_STEPS steps against as many eager
+  steps on the default configuration (graph_check: equal items, state
+  and launches; ms/step, busy share and peak memory of both);
 
 then the finetune driver, run/train_ft.main, at the lego preset's
 widths on a 400x400 plate scene it writes in the NeRF-Synthetic layout
-(FT_STEPS steps with a prune, a probe-and-grow and a final checkpoint;
+(FT_STEPS steps at steps_per_dispatch 8, graphed, with a prune, a
+probe-and-grow and a final checkpoint;
 the test PSNR must pass FT_PSNR and the PSNR before training), then main
 again, which must resume and stop at once, then run/render_vid.main on its
 checkpoint (the NeRF-Synthetic render path's 20 frames and their GIF,
@@ -151,7 +155,10 @@ render_vid two poses (was three), and the scannet scene holds 15 frames
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; every kernel of the path's configuration must have launched in it,
-and the other configuration's trunk kernels not at all. Any failed check
+and the other configuration's trunk kernels not at all. A graphed
+dispatch counts each replay's launches as the eager steps would; a "train
+routes" line gives each train configuration's route (graph_route) and its
+dispatches, replays and captures. Any failed check
 raises. The last line is a JSON object with the device; the line before it
 is the card's name and power limit, and the line before that lists each
 kernel's launches (summed over the paths; K7's from its micro-benchmark's
@@ -182,6 +189,10 @@ GROUP = 8              # chunks per stacked serving group
 K1_TOL = dict(rtol=1e-4, atol=1e-4)   # fp32, other summation order over
                                        # four <=284-term layers
 CPU_TOL = dict(rtol=1e-4, atol=1e-4)  # card vs CPU: summation order differs
+CPU_SIDE = 24                         # the image re-renders on the CPU take
+                                      # CPU_SIDE² rays of each chunk they
+                                      # hold to the card's (`cpu_rays`; was
+                                      # the whole chunk)
 K2_ROW_TOL = K1_TOL                   # K2's per-row cotangents: as K1
 KINK = 1e-5                           # rows with a LeakyReLU input this near
                                       # 0 get neighbor weight 0 in the K2
@@ -191,6 +202,8 @@ K2_SUM_REL = 1e-4                     # K2's weight gradients sum ~1e5 rows in
                                       # another order: max error over the
                                       # gradient's largest entry
 TRAIN_STEPS = 20                      # timed train steps after one warm-up
+GRAPH_STEPS = 8                       # steps of the graphed check's dispatch
+                                      # (steps_per_dispatch's default)
 LOSS_RTOL = 1e-4                      # card vs CPU loss items
 GRAD_REL = 1e-3                       # card vs CPU gradients, ||diff|| /
                                       # ||cpu|| per tensor: summation order
@@ -461,7 +474,7 @@ PN_MASS_TIE = 1e-4                    # keep masks compared away from this
 PN_MIN_POINTS = 1000                  # the init must leave a thousand
 PNG_STEPS = 3                         # ProbNet steps at dtu_gen's size
                                       # (was 5)
-PNG_CPU_D = 32                        # depth planes of its card-vs-CPU
+PNG_CPU_D = 16                        # depth planes of its card-vs-CPU
                                       # gradient (the CPU's float64 backward
                                       # grows with D)
 PNG_F32_SPREAD = 2.0                  # the card's float32 gradient no
@@ -1443,13 +1456,35 @@ def sass_calls(kernel):
     return calls
 
 
+def cpu_rays(chunks, hit, chunk: int, side: int = CPU_SIDE) -> np.ndarray:
+    """The rays of an image's `chunks` (chunk indices of `chunk` rays in
+    the item's order; `hit` the image's ray mask in that order) that its
+    CPU re-render takes: side² of each chunk, half hits and half misses
+    where the chunk has both, in ray order."""
+    n, out = side * side, []
+    for c in chunks:
+        rays = np.arange(c * chunk, (c + 1) * chunk)
+        h, m = rays[hit[rays]], rays[~hit[rays]]
+        nh = min(len(h), max(n // 2, n - len(m)))
+        out.append(np.sort(np.concatenate([h[:nh], m[:n - nh]])))
+    return np.concatenate(out)
+
+
+def cpu_options(opt, fused: int = 1):
+    """The options of a CPU re-render of `cpu_rays`: chunks of their
+    side² rays (eval shades every valid row whatever the chunk, up the
+    budget ladder), the fused trunk's plain version where the card runs
+    its kernel."""
+    return opt.replace(use_fused_trunk=fused, random_sample_size=CPU_SIDE)
+
+
 def serve_path(opt, state, spec, grid, agg, ts, item, label, kerns):
     """The serving main path: one full image through render_image, twice
     (the first call warms the allocator and cuBLAS; the counts cover the
-    second), then its chunk with the most hits re-rendered on the CPU.
-    Every kernel of
-    `kerns` must launch, no other trunk kernel. Returns (launch counts, the
-    image's maps, render stats)."""
+    second), then rays of its chunk with the most hits (`cpu_rays`)
+    re-rendered on the CPU. Every kernel of `kerns` must launch, no other
+    trunk kernel. Returns (launch counts, the image's maps, render
+    stats)."""
     from pointnerf_tpu_torch.ops import kernels
     from pointnerf_tpu_torch.run import common
     from pointnerf_tpu_torch.train.trainer import ServeState
@@ -1483,20 +1518,19 @@ def serve_path(opt, state, spec, grid, agg, ts, item, label, kerns):
     if not np.allclose(rgb[~hit], 1.0, atol=1e-6):
         raise AssertionError("missed rays do not show the white background")
 
-    # the chunk with the most hits rendered again on the CPU with the
-    # plain versions
+    # rays of the chunk with the most hits rendered again on the CPU with
+    # the plain versions
     per_chunk = hit.reshape(-1)[: (H * W // chunk) * chunk].reshape(-1, chunk)
     pick = np.sort(np.argsort(-per_chunk.sum(1), kind="stable")[:1])
-    sel = np.concatenate([np.arange(c * chunk, (c + 1) * chunk) for c in pick])
+    sel = cpu_rays(pick, hit.reshape(-1), chunk)
     sub = dict(item, raydir=item["raydir"][:, sel],
                pixel_idx=item["pixel_idx"][:, sel])
     cpu_state = {k: (None if v is None else v.cpu()) for k, v in state.items()}
     cpu_grid = {k: v.cpu() for k, v in grid.items()}
     cpu_ts = ServeState(copy.deepcopy(agg).cpu(), cpu_state)
     t0 = time.perf_counter()
-    cpu_maps = common.render_image(cpu_ts, cpu_grid,
-                                   opt.replace(use_fused_trunk=1), spec, sub,
-                                   group=GROUP)
+    cpu_maps = common.render_image(cpu_ts, cpu_grid, cpu_options(opt), spec,
+                                   sub, group=GROUP)
     px, py = sub["pixel_idx"][0, :, 0].astype(int), \
         sub["pixel_idx"][0, :, 1].astype(int)
     np.testing.assert_array_equal(cpu_maps["ray_mask"][py, px],
@@ -1562,14 +1596,14 @@ def serve_group_path(opt, state, spec, grid, agg, ts, item, ref, ref_opt,
     torch.cuda.synchronize()
     ref_dt = time.perf_counter() - t0
     hits = hit_ref[sel].reshape(GROUP, chunk).sum(1)
-    csel = sel[int(np.argmax(hits)) * chunk:][:chunk]
+    csel = cpu_rays([sel[0] // chunk + int(np.argmax(hits))], hit_ref, chunk)
     cpu_state = {k: (None if v is None else v.cpu()) for k, v in state.items()}
     cpu_ts = ServeState(copy.deepcopy(agg).cpu(), cpu_state)
     t0 = time.perf_counter()
     cpu_maps = common.render_image(cpu_ts, {k: v.cpu() for k, v in
                                             grid.items()},
-                                   opt.replace(use_fused_trunk=1), spec,
-                                   sub(csel), group=GROUP)
+                                   cpu_options(opt), spec, sub(csel),
+                                   group=GROUP)
     cy, cx = pix(sub(csel))
     np.testing.assert_array_equal(cpu_maps["ray_mask"][cy, cx],
                                   maps["ray_mask"][cy, cx])
@@ -1583,8 +1617,8 @@ def serve_group_path(opt, state, spec, grid, agg, ts, item, ref, ref_opt,
         f" ms under the reference configuration), sr_overflow "
         f"{stats['sr_overflow']}, launches {launches}; colours vs the "
         f"float32 image max_abs_diff {diff:.3e} (bar {BF16_IMAGE_TOL}); "
-        f"CPU re-render of its busiest chunk ({int(hit_ref[csel].sum())} "
-        f"hit): max_abs_err {cerr:.3e} (tolerance {ENV_BF16_TOL}) in "
+        f"CPU re-render of {len(csel)} rays of its busiest chunk "
+        f"({int(hit_ref[csel].sum())} hit): max_abs_err {cerr:.3e} (tolerance {ENV_BF16_TOL}) in "
         f"{time.perf_counter() - t0:.1f} s")
     return launches
 
@@ -1639,6 +1673,9 @@ def train_path(opt, state, spec, grid, label, kerns):
         f"{len(losses)} {losses[-1]:.6f}; items of the last step "
         f"{ {k: round(float(v), 6) for k, v in steps[-1].items()} }")
     check_launches(label, kerns)
+    from pointnerf_tpu_torch.train import graph
+    ROUTES.append(f"{label}: eager, {TRAIN_STEPS} timed train_step calls "
+                  f"(graph_route: {graph.graph_route(opt)})")
     if not all(np.isfinite(float(v)) for i in steps for v in i.values()):
         raise AssertionError("a train step gave a non-finite loss item")
     if not losses[-1] < losses[0]:
@@ -1710,6 +1747,34 @@ class KinkMask:
 
     def rows(self) -> int:
         return int(sum(m.shape[0] for m in self.masks))
+
+
+def graph_check(opt, state, spec, grid, label):
+    """The graphed dispatch (trainer.train_steps_scan: one CUDA graph of
+    the train step replayed) of GRAPH_STEPS steps against as many eager
+    train_steps from twin fresh states with the same draws on bench.py's
+    batch (`scripts.steps_ab.compare`: items within 1e-5, weights and
+    buffers within 1e-3 in norm, equal launches; it raises otherwise),
+    then both routes' ms/step in turns (eager, graphed, graphed, eager),
+    busy share under torch.profiler and peak memory. A comparison: its
+    launches are put back. Returns the row."""
+    from pointnerf_tpu_torch.scripts.steps_ab import compare
+    with Uncounted():
+        row = compare(opt, state, spec, grid, GRAPH_STEPS, 1,
+                      torch.device("cuda"))
+    ms = lambda v: "/".join(f"{x:.2f}" for x in v)
+    log(f"{label} graphed check ({GRAPH_STEPS} steps, route "
+        f"{row['route']}): items within {row['items_rel']:.2e} of the eager "
+        f"steps', weights and buffers {row['state_rel']:.2e} in norm, "
+        f"launches per dispatch {row['launches']}; ms/step eager "
+        f"{ms(row['eager_ms'])}, graphed {ms(row['graphed_ms'])}; busy "
+        f"share eager {100 * row['eager_busy']:.1f}%, graphed "
+        f"{100 * row['graphed_busy']:.1f}%; peak eager "
+        f"{row['eager_peak_gib']:.2f} GiB, graphed "
+        f"{row['graphed_peak_gib']:.2f} GiB")
+    ROUTES.append(f"{label} graphed check: {row['route']}, "
+                  f"{GRAPH_STEPS} steps a dispatch")
+    return row
 
 
 def check_train_cpu(st, batch, opt, spec, grid, label):
@@ -2000,7 +2065,7 @@ def finetune_path(root):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = train_ft.main(opt)
+    res = drive("finetune", opt)
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels.KERNELS}
     tm = res["timing"]
@@ -2599,7 +2664,7 @@ def mvs_path(root):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = train_ft.main(opt)
+    res = drive("mvs finetune", opt)
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels.KERNELS}
     tm = res["timing"]
@@ -3154,7 +3219,7 @@ def dtu_ft_path(root, smi: str):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = train_ft.main(opt)
+    res = drive("dtu_ft", opt)
     wall = time.perf_counter() - t0
     ft = {k.name: k.launches for k in kernels.KERNELS}
     tm = res["timing"]
@@ -3246,7 +3311,7 @@ def dtu_ft_path(root, smi: str):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = train_ft.main(pp_opt)
+    res = drive("dtu_ft planepoints", pp_opt)
     wall = time.perf_counter() - t0
     pp = {k.name: k.launches for k in kernels.KERNELS}
     tm = res["timing"]
@@ -3362,36 +3427,35 @@ def check_image_io(root):
 
 # ---------------------------------- shared by the scene finetune phases
 class StepItems:
-    """Within the block, the sum of every train_step's sr_overflow (the
+    """Within the block, the sum of every train step's sr_overflow (the
     query's and the shade-side compaction's dropped rows), each step's
-    loss_total and the step count, from the items the driver fetches
-    anyway."""
+    loss_total and the step count, from the items of each dispatch
+    (train_steps_scan), which the driver fetches anyway."""
 
     def __enter__(self):
         from pointnerf_tpu_torch.train import trainer
-        self.trainer, self.step = trainer, trainer.train_step
-        self.sr_overflow, self.steps = 0, 0
+        self.trainer, self.scan = trainer, trainer.train_steps_scan
+        self.sr_overflow, self.steps, self.losses = 0, 0, []
 
-        self.losses = []
-
-        def spy(*a, **kw):
-            ts, items = self.step(*a, **kw)
-            self.sr_overflow += int(float(items["sr_overflow"]))
-            self.losses.append(float(items["loss_total"]))
-            self.steps += 1
+        def spy_scan(*a, **kw):
+            ts, items = self.scan(*a, **kw)
+            self.sr_overflow += int(sum(float(v)
+                                        for v in items["sr_overflow"]))
+            self.losses += [float(v) for v in items["loss_total"]]
+            self.steps += len(items["loss_total"])
             return ts, items
-        trainer.train_step = spy
+        trainer.train_steps_scan = spy_scan
         return self
 
     def __exit__(self, *exc):
-        self.trainer.train_step = self.step
+        self.trainer.train_steps_scan = self.scan
 
 
 def chunks_vs_cpu(label, ckpt, opt, item, tol=TT_CPU_TOL, n_chunks=2):
     """The checkpoint on the card: a timed render of the full view, then
-    n_chunks of its chunks (one with hits and misses, and with two the one
-    with the most hits) rendered again on the CPU from the same checkpoint
-    with the kernels' plain versions; ray_mask equal, colours within
+    rays of n_chunks of its chunks (one with hits and misses, and with two
+    the one with the most hits; `cpu_rays`) rendered again on the CPU from
+    the same checkpoint with the kernels' plain versions; ray_mask equal, colours within
     `tol`. Launches made here are put back. Returns (ms per image,
     max_abs_err, hit share, the render's counters)."""
     from pointnerf_tpu_torch.ops.trunk import fused_trunk_ok
@@ -3417,8 +3481,7 @@ def chunks_vs_cpu(label, ckpt, opt, item, tol=TT_CPU_TOL, n_chunks=2):
     mixed = int(np.argmin(np.abs(per_chunk - chunk / 2)))
     pick = sorted({int(np.argmax(per_chunk)), mixed}) if n_chunks == 2 \
         else [mixed]
-    sel = np.concatenate([np.arange(c * chunk, (c + 1) * chunk)
-                          for c in pick])
+    sel = cpu_rays(pick, hit.reshape(-1), chunk)
     sub = dict(item, raydir=item["raydir"][:, sel],
                pixel_idx=item["pixel_idx"][:, sel])
     sub.pop("gt_image", None)
@@ -3427,8 +3490,8 @@ def chunks_vs_cpu(label, ckpt, opt, item, tol=TT_CPU_TOL, n_chunks=2):
     _, cpu_grid = common.make_spec_and_grid(opt, cpu_ts.points)
     # the CPU runs K1's plain version where the card runs K1
     cpu = common.render_image(
-        cpu_ts, cpu_grid, opt.replace(use_fused_trunk=int(fused_trunk_ok(
-            opt))), spec, sub)
+        cpu_ts, cpu_grid, cpu_options(opt, int(fused_trunk_ok(opt))), spec,
+        sub)
     px, py = sub["pixel_idx"][0, :, 0].astype(int), \
         sub["pixel_idx"][0, :, 1].astype(int)
     np.testing.assert_array_equal(cpu["ray_mask"][py, px],
@@ -3449,6 +3512,24 @@ def chunks_vs_cpu(label, ckpt, opt, item, tol=TT_CPU_TOL, n_chunks=2):
     return 1e3 * dt, err, float(hit.mean()), stats
 
 
+ROUTES = []   # how each train configuration of this run took its steps
+
+
+def drive(label, opt):
+    """train_ft.main(opt); its dispatch route, dispatches and the graph's
+    captures and replays go to ROUTES."""
+    from pointnerf_tpu_torch.run import train_ft
+    from pointnerf_tpu_torch.train import graph
+    res = train_ft.main(opt)
+    tm = res["timing"]
+    ROUTES.append(
+        f"{label}: {graph.graph_route(opt)}, steps_per_dispatch "
+        f"{opt.steps_per_dispatch}, {tm['steps']} steps in "
+        f"{len(tm['chunks'])} dispatches, {tm['replays']} replayed, "
+        f"{tm['captures']} captures")
+    return res
+
+
 def finetune_run(label, opt, kerns, losses=None):
     """train_ft.main with the counts set to 0 just before and read just
     after, its train steps' sr_overflow summed (and each step's loss_total
@@ -3456,14 +3537,13 @@ def finetune_run(label, opt, kerns, losses=None):
     (the result, its launches, wall seconds, the steps' sr_overflow, peak
     GiB)."""
     from pointnerf_tpu_torch.ops import kernels
-    from pointnerf_tpu_torch.run import train_ft
     for k in kernels.KERNELS:
         k.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with StepItems() as steps:
-        res = train_ft.main(opt)
+        res = drive(label, opt)
     wall = time.perf_counter() - t0
     if losses is not None:
         losses += steps.losses
@@ -4595,7 +4675,7 @@ def tt_eval_path(root, smi: str):
     on the card. Returns the two runs' launch counts."""
     from pointnerf_tpu_torch.data import create_dataset
     from pointnerf_tpu_torch.ops import kernels
-    from pointnerf_tpu_torch.run import common, test_ft, train_ft
+    from pointnerf_tpu_torch.run import common, test_ft
     from pointnerf_tpu_torch.run.workload import (lpips_state_dict,
                                                   make_tt_scene)
     from pointnerf_tpu_torch.utils.checkpoint import load_checkpoint
@@ -4619,7 +4699,7 @@ def tt_eval_path(root, smi: str):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = train_ft.main(opt)
+    res = drive("T&T finetune", opt)
     wall = time.perf_counter() - t0
     ft = {k.name: k.launches for k in kernels.KERNELS}
     tm = res["timing"]
@@ -4894,6 +4974,7 @@ def main() -> int:
                        *max(rec.calls, key=lambda c: c[0].shape[0]))
     del st, rec
     torch.cuda.empty_cache()
+    graph_check(opt, state, spec, grid, "train")
     train_s, st, batch, losses_s = train_path(shade_opt, state, spec, grid,
                                               "train fused_shade", shade_k)
     check_train_cpu(fresh(), batch, shade_opt, spec, grid,
@@ -4997,6 +5078,8 @@ def main() -> int:
                                          root, par_vox, par_frustum, smi)
     del state, grid, agg, par_vox, par_frustum
     torch.cuda.empty_cache()
+    ROUTES.append("parallel (world size 1 on NCCL, two gloo ranks): eager, "
+                  "MeshRunner steps in turn")
     timeline("parallel")
     with tempfile.TemporaryDirectory() as root:
         llff_ft, llff_vid = llff_path(root, smi)
@@ -5015,6 +5098,7 @@ def main() -> int:
     log(f"evaluation phase: {time.perf_counter() - t0:.1f} s")
 
     log(f"chip_smoke: {time.perf_counter() - start:.1f} s from the start")
+    log("train routes: " + "; ".join(ROUTES))
     runs = (serve, serve_s, serve_b, train, train_s, train_b, par_w1,
             par_gloo, par_test,
             finetune, video, *envelopes,

@@ -276,11 +276,18 @@ class Options:
     # ---------------------------------------------------------------- tpu-native extras
     grid_rebuild_every: int = 1            # rebuild point grid every N steps (1 = per step)
     compute_dtype: str = "float32"         # float32 | bfloat16 for the aggregator MLP
-    steps_per_dispatch: int = 8            # train steps fused into one device dispatch
+    steps_per_dispatch: int = 8            # train steps in one dispatch (train_ft; 1 before
+                                           # a prune/grow/print/save/test boundary). On the
+                                           # card one train step is captured in a CUDA graph
+                                           # and replayed (train/graph.py::graph_route): every
+                                           # configuration but the frustum query (wcoord_query
+                                           # 0: its step builds the camera grid, a host read),
+                                           # which runs its steps in turn, as a MeshRunner
+                                           # (--n_devices, --mesh_points) runs its sharded ones
     query_max_voxels: int = 14             # cull KNN candidate voxels to T nearest centers (0=all)
     superset_P: int = 0                    # >0: precomputed per-voxel neighborhood supersets (fast query)
     ray_chunk: int = 0                     # >0: map the train render over ray chunks of this size
-    profile_dir: str = ""                  # capture a jax.profiler trace of the train loop here
+    profile_dir: str = ""                  # write a torch.profiler trace of the train loop here
     # LPIPS weights (full torch state dicts; see utils/lpips_jax.py docstring
     # for the one-file drop). Empty = LPIPS reported as SKIPPED.
     lpips_alex_path: str = ""

@@ -22,7 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.geometry import compute_world2local_dist
-from ..ops.grid import true_div
+from ..ops.grid import host_const, true_div
 from ..ops.pe import positional_encoding
 from ..ops.sh import sh_basis
 from .networks import (COMPUTE_DTYPES, apply_mlp, apply_mlp_pieces, init_mlp,
@@ -268,8 +268,9 @@ def compute_weights(opt, dists, pnt_mask, grid_vox_sz: float = 0.0,
             -0.5 * torch.sum(torch.square(gau), dim=-1))
     if name not in FIXED_KERNELS:
         raise ValueError(f"unsupported agg_distance_kernel {name}")
-    aw = None if unit_axis_weight(opt) else torch.tensor(
-        np.asarray(opt.agg_axis_weight, np.float32), device=dists.device)
+    aw = None if unit_axis_weight(opt) else host_const(
+        np.asarray(opt.agg_axis_weight, np.float32), torch.float32,
+        dists.device)
 
     def axis_radius():
         return torch.sqrt(torch.sum(torch.square(dists[..., :2]), dim=-1)) \

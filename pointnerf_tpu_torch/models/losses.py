@@ -57,11 +57,17 @@ def _masked_mse(pred, gt, mask, red=_keep):
                        torch.zeros((), dtype=pred.dtype, device=pred.device))
 
 
+def _count(x):
+    """x.numel() as a 0-d tensor of x's type on its device, filled there
+    (a tensor made from a host number is a blocking copy to the card)."""
+    return torch.full((), float(x.numel()), dtype=x.dtype, device=x.device)
+
+
 def _mean(x, red=_keep):
     """torch.mean of x over the whole batch."""
     if red is _keep:
         return torch.mean(x)
-    return red(torch.sum(x)) / red(x.new_tensor(float(x.numel())))
+    return red(torch.sum(x)) / red(_count(x))
 
 
 def _pair(items, weights):
@@ -131,7 +137,7 @@ def compute_losses(opt, output: Dict, gt_image: torch.Tensor,
             term = torch.where(output["compact_valid"],
                                torch.log(v) + torch.log(1.0 - v), const)
             n_total = red(torch.sum(output["zero_one_total"]).to(term.dtype))
-            n_kept = red(term.new_tensor(float(term.numel())))
+            n_kept = red(_count(term))
             loss = (red(torch.sum(term)) + (n_total - n_kept) * const) \
                 / n_total
         elif output.get(name) is None:

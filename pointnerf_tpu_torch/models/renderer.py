@@ -268,6 +268,16 @@ def _wide_share(opt, Ncb: int, c_pidx, kept, shards: Shards):
 TRAIN_JITTER = 0.3     # depth-sample jitter at train (point_query.py:78-81)
 
 
+def ray_depths(opt, near: float, far: float):
+    """The host half of the world query's depth samples between near and
+    far (`raygen.near_far_depths`, linear or under `inverse` in
+    disparity), [z_depth_dim + 1] float32. A batch may carry them, as a
+    tensor on its rays' device, as `depths` in place of near and far: a
+    captured train step reads them as an input (`train.graph`)."""
+    return raygen.near_far_depths(opt.z_depth_dim, near, far,
+                                  disparity=opt.inverse > 0)
+
+
 def render_query(point_state: Dict, grid: Optional[Dict], spec: GridSpec,
                  opt, batch: Dict, is_train: bool = False,
                  u: Optional[torch.Tensor] = None,
@@ -282,7 +292,8 @@ def render_query(point_state: Dict, grid: Optional[Dict], spec: GridSpec,
     when the batch is a rank's piece of a wider one).
 
     World coordinates: at train the depth samples are jittered by the
-    uniform draws u [B,R,z_depth_dim] (on the rays' device).
+    uniform draws u [B,R,z_depth_dim] (on the rays' device); the batch's
+    `depths` (`ray_depths`), where it has them, stand for near and far.
 
     wcoord_query 0, the perspective frustum (`ops.frustum`): `spec` is a
     frustum spec, and the camera's grid is built here from the points
@@ -307,9 +318,11 @@ def render_query(point_state: Dict, grid: Optional[Dict], spec: GridSpec,
         "near_far_disparity_linear" if opt.inverse > 0 else "near_far_linear")
     if is_train and u is None:
         raise ValueError("a train query needs the jitter draws u")
+    planes = {"depths": batch["depths"]} if "depths" in batch else \
+        {"near": float(batch["near"]), "far": float(batch["far"])}
     _, _, _, mid_ts = gen(campos, raydir, opt.z_depth_dim,
-                          near=float(batch["near"]), far=float(batch["far"]),
-                          jitter=TRAIN_JITTER if is_train else 0.0, u=u)
+                          jitter=TRAIN_JITTER if is_train else 0.0, u=u,
+                          **planes)
     B, R = raydir.shape[0], raydir.shape[1]
     if opt.NN < 0:
         # vox-grid mode (JAX renderer.py:298-309): the occupancy select

@@ -110,14 +110,31 @@ def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
     return x / x.new_full((), c)
 
 
+_CONSTS: Dict[tuple, torch.Tensor] = {}
+
+
 def host_const(values, dtype, device) -> torch.Tensor:
-    """A small constant tensor on `device`. On a CUDA device it is copied
-    from pinned memory without blocking: a plain copy from pageable memory
-    waits for every kernel queued before it."""
+    """A small constant tensor on `device`; callers never write into it.
+    On a CUDA device it is made once per value and device, copied from
+    pinned memory without blocking (a plain copy from pageable memory waits
+    for every kernel queued before it), and kept: later calls return the
+    same tensor, so a train step captured in a CUDA graph (`train.graph`)
+    reads constants that outlive the capture. Making one inside a capture
+    raises: the step's eager run before the capture makes them all."""
     t = torch.as_tensor(values, dtype=dtype)
-    if torch.device(device).type != "cuda":
+    dev = torch.device(device)
+    if dev.type != "cuda":
         return t
-    return t.pin_memory().to(device, non_blocking=True)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (t.dtype, dev.index, tuple(t.shape), t.numpy().tobytes())
+    hit = _CONSTS.get(key)
+    if hit is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a constant made for the first time inside a "
+                               "CUDA graph capture")
+        hit = _CONSTS[key] = t.pin_memory().to(dev, non_blocking=True)
+    return hit
 
 
 def grid_consts(spec: GridSpec, device) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -7,6 +7,8 @@ import functools
 import numpy as np
 import torch
 
+from .grid import host_const
+
 
 def positional_encoding(positions: torch.Tensor, freqs: int,
                         ori: bool = False) -> torch.Tensor:
@@ -39,8 +41,8 @@ def pe_args(positions: torch.Tensor, freqs: int) -> torch.Tensor:
     [..., 2·D·F] in its column order."""
     d = positions.shape[-1]
     pts = _scaled(positions, freqs)
-    phase = torch.as_tensor(_pe_selection_np(d, freqs)[1],
-                            device=positions.device)
+    phase = host_const(_pe_selection_np(d, freqs)[1], torch.float32,
+                       positions.device)
     both = pts[..., :, None].expand(pts.shape + (2,)).reshape(
         pts.shape[:-1] + (2 * d * freqs,))
     return both + phase

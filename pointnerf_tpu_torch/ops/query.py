@@ -29,7 +29,8 @@ import numpy as np
 import torch
 
 from . import kernels
-from .grid import GridSpec, fma, grid_consts, linearize, voxel_coords
+from .grid import (GridSpec, fma, grid_consts, host_const, linearize,
+                   voxel_coords)
 
 BIG = 3.0e38
 INDEX_LIMIT = 2 ** 31   # K3 indexes with 32-bit integers
@@ -466,11 +467,10 @@ def knn_neighbors(sample_loc: torch.Tensor, sample_mask: torch.Tensor,
     coords, _ = voxel_coords(sample_loc, spec)
     lx = (spec.kernel_size[0] + 1) // 2 - 1
     ax = np.arange(-lx, lx + 1)
-    offs = torch.as_tensor(np.stack(np.meshgrid(ax, ax, ax, indexing="ij"),
-                                    axis=-1).reshape(-1, 3).astype(np.int32),
-                           device=dev)
+    offs = host_const(np.stack(np.meshgrid(ax, ax, ax, indexing="ij"),
+                               axis=-1).reshape(-1, 3), torch.int32, dev)
     O = offs.shape[0]
-    vdim = torch.tensor(spec.vdim, dtype=torch.int32, device=dev)
+    vdim = host_const(spec.vdim, torch.int32, dev)
     c = coords[..., None, :] + offs                          # [B,R,SR,O,3]
     inb = torch.all((c >= 0) & (c < vdim), dim=-1)
     lin = torch.where(inb, linearize(c, spec), 0)
@@ -478,8 +478,8 @@ def knn_neighbors(sample_loc: torch.Tensor, sample_mask: torch.Tensor,
                        grid["coor_2_occ"][lin.long()], -1)   # [B,R,SR,O]
     T = spec.query_max_voxels if priorities is None else 0
     if 0 < T < O:
-        mn = torch.tensor(spec.ranges_min, dtype=torch.float32, device=dev)
-        vs = torch.tensor(spec.scaled_vsize, dtype=torch.float32, device=dev)
+        mn = host_const(spec.ranges_min, torch.float32, dev)
+        vs = host_const(spec.scaled_vsize, torch.float32, dev)
         diff = fma(c.float() + 0.5, vs, mn) - sample_loc[..., None, :]
         dc = fma(diff[..., 2], diff[..., 2],
                  fma(diff[..., 1], diff[..., 1], diff[..., 0] * diff[..., 0]))

@@ -71,6 +71,35 @@ def find_tone_map(name: str) -> Callable:
     raise RuntimeError(f"Unknown tone map: {name}")
 
 
+class _Transmission(torch.autograd.Function):
+    """torch.cumprod along the last axis of a tensor with no zero entry,
+    with torch's own backward for that case, reversed_cumsum(out·ct) / x,
+    but without torch's test for zeros, whose flag comes back to the host
+    (a sync, which a train step captured in a CUDA graph cannot make)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, out = ctx.saved_tensors
+        if x.shape[-1] == 1:
+            return ct
+        return torch.flip(torch.cumsum(torch.flip(out * ct, [-1]), -1),
+                          [-1]) / x
+
+
+def transmission(x: torch.Tensor) -> torch.Tensor:
+    """cumprod(x) along the last axis; x > 0 everywhere (1 - opacity +
+    1e-10)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Transmission.apply(x)
+    return torch.cumprod(x, dim=-1)
+
+
 def ray_march(ray_dist: torch.Tensor, ray_valid: torch.Tensor,
               ray_features: torch.Tensor, render_func: Callable,
               blend_func: Callable, bg_color: Optional[torch.Tensor] = None
@@ -85,7 +114,7 @@ def ray_march(ray_dist: torch.Tensor, ray_valid: torch.Tensor,
     point_color = render_func(ray_features)
     sigma = ray_features[..., 0] * ray_valid.to(ray_features.dtype)
     opacity = 1.0 - torch.exp(-sigma * ray_dist)
-    acc = torch.cumprod(1.0 - opacity + 1e-10, dim=-1)
+    acc = transmission(1.0 - opacity + 1e-10)
     background_transmission = acc[:, :, -1:]
     acc = torch.cat([torch.ones_like(acc[:, :, :1]), acc[:, :, :-1]], dim=-1)
     blend_weight = blend_func(opacity, acc)[..., None]

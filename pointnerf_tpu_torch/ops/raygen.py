@@ -78,22 +78,34 @@ def _draws(u: torch.Tensor, shape, dev) -> torch.Tensor:
     return u
 
 
-def _march(campos, raydir, tvals: np.ndarray, point_count, near,
-           scale_by_norm: bool, jitter: float,
-           u: Optional[torch.Tensor]) -> Arrays4:
-    """Segments between the depths `tvals` (all of them jittered by the
-    draws u [B,R,len(tvals)-1], then the first point_count kept), summed
-    from `near`; samples at the segments' midpoints."""
+def march_depths(tvals: np.ndarray, near) -> np.ndarray:
+    """The host half of a march: the float32 segment lengths between the
+    depths `tvals`, then `near`, [len(tvals)]."""
+    return np.append(tvals[1:] - tvals[:-1], _f32(near)).astype(_f32)
+
+
+def _march(campos, raydir, depths, point_count, scale_by_norm: bool,
+           jitter: float, u: Optional[torch.Tensor]) -> Arrays4:
+    """Segments of `depths` (`march_depths`: a host array, or a float32
+    tensor of the same values on the rays' device), all of them jittered
+    by the draws u [B,R,len(depths)-1], then the first point_count kept,
+    summed from its last entry, near; samples at the segments'
+    midpoints."""
     B, R, _ = raydir.shape
     dev = raydir.device
-    seg = host_const(tvals[1:] - tvals[:-1], torch.float32, dev)   # [S']
+    if not torch.is_tensor(depths):
+        near = float(depths[-1])
+        depths = host_const(depths, torch.float32, dev)
+    else:
+        near = depths[-1]
+    seg = depths[:-1]                                              # [S']
     if jitter > 0.0 and u is not None:
         u = _draws(u, (B, R, seg.shape[0]), dev)
         seg = seg * fma(u - 0.5, float(_f32(jitter)), 1.0)         # [B,R,S']
     seg = seg[..., :point_count]
     lead = seg.shape[:-1]
     end_ts = torch.cat([torch.zeros(lead + (1,), device=dev),
-                        _cumsum(seg)], dim=-1) + float(_f32(near))
+                        _cumsum(seg)], dim=-1) + near
     mid_ts = (0.5 * (end_ts[..., :-1] + end_ts[..., 1:])).expand(
         B, R, point_count)
     seg = seg.expand(B, R, point_count)
@@ -115,25 +127,40 @@ def _disparity(a: float, b: float, t: np.ndarray) -> np.ndarray:
     return _f32(1) / _lerp(_f32(1) / _f32(a), _f32(1) / _f32(b), t)
 
 
+def near_far_depths(point_count: int, near, far,
+                    disparity: bool = False) -> np.ndarray:
+    """The host half of the two near/far generators (`march_depths`):
+    point_count segment lengths, uniform in depth or in disparity, then
+    near."""
+    t = _linspace01(point_count)
+    return march_depths(_disparity(near, far, t) if disparity
+                        else _lerp(near, far, t), near)
+
+
 def near_far_linear_ray_generation(campos, raydir, point_count, near=0.1,
                                    far=10.0, jitter=0.0,
                                    u: Optional[torch.Tensor] = None,
-                                   **_) -> Arrays4:
+                                   depths=None, **_) -> Arrays4:
     """Uniform-in-depth samples (reference: diff_ray_marching.py:349-392);
     with jitter > 0 and draws u, each segment is scaled by
-    1 + jitter·(u - 0.5)."""
-    tvals = _lerp(near, far, _linspace01(point_count))
-    return _march(campos, raydir, tvals, point_count, near, True, jitter, u)
+    1 + jitter·(u - 0.5). `depths`, if given, stands for near and far:
+    their `near_far_depths`, on the host or as a float32 tensor on the
+    rays' device (a captured train step's input, `train.graph`)."""
+    if depths is None:
+        depths = near_far_depths(point_count, near, far)
+    return _march(campos, raydir, depths, point_count, True, jitter, u)
 
 
 def near_far_disparity_linear_ray_generation(campos, raydir, point_count,
                                              near=0.1, far=10.0, jitter=0.0,
                                              u: Optional[torch.Tensor] = None,
-                                             **_) -> Arrays4:
+                                             depths=None, **_) -> Arrays4:
     """Uniform-in-disparity samples (reference: :201-249). The reference
-    does not scale the segments by |raydir| here (it is unit)."""
-    tvals = _disparity(near, far, _linspace01(point_count))
-    return _march(campos, raydir, tvals, point_count, near, False, jitter, u)
+    does not scale the segments by |raydir| here (it is unit). `depths`
+    as for the linear generator."""
+    if depths is None:
+        depths = near_far_depths(point_count, near, far, disparity=True)
+    return _march(campos, raydir, depths, point_count, False, jitter, u)
 
 
 def near_middle_far_ray_generation(campos, raydir, point_count, near=0.1,
@@ -149,7 +176,8 @@ def near_middle_far_ray_generation(campos, raydir, point_count, near=0.1,
     n1 = int(point_count * (1.0 - middle_split)) + 2
     tvals = np.concatenate([_lerp(near, middle, _linspace01(n0 - 1)),
                             _disparity(middle, far, _linspace01(n1 - 1))])
-    return _march(campos, raydir, tvals, point_count, near, False, jitter, u)
+    return _march(campos, raydir, march_depths(tvals, near), point_count,
+                  False, jitter, u)
 
 
 def _stratified(campos, raydir, tv: np.ndarray, jitter: float,

@@ -93,9 +93,10 @@ def check_vox_volume(spec) -> int:
 
 
 def _lattice_consts(spec, device):
-    mn = torch.tensor(spec.vox_space_min, dtype=torch.float32, device=device)
+    from .grid import host_const     # grid imports this module
+    mn = host_const(spec.vox_space_min, torch.float32, device)
     inv = float(np.float32(1.0) / np.float32(spec.vox_gvs))
-    dims = torch.tensor(spec.vox_dim, dtype=torch.int32, device=device)
+    dims = host_const(spec.vox_dim, torch.int32, device)
     return mn, inv, dims
 
 
@@ -126,10 +127,10 @@ def query_vox_grid(sample_loc_w: torch.Tensor, vox_table: torch.Tensor,
     """Shading location → its cell's 8 corner point indices, [B,R,SR,3] →
     [B,R,SR,8] int32 (reference neural_points.py:580-592): a sample whose
     cell has any corner empty or out of the box gets -1 in all 8."""
+    from .grid import host_const
     mn, inv, dims = _lattice_consts(spec, sample_loc_w.device)
     cell = torch.floor((sample_loc_w - mn) * inv).to(torch.int32)
-    shift = torch.tensor(CORNER_SHIFT, dtype=torch.int32,
-                         device=sample_loc_w.device)
+    shift = host_const(CORNER_SHIFT, torch.int32, sample_loc_w.device)
     corner = cell[..., None, :] + shift                        # [B,R,SR,8,3]
     oob = torch.any((corner < 0) | (corner >= dims), dim=-1)
     corner = torch.minimum(torch.clamp(corner, min=0), dims - 1)

@@ -149,6 +149,26 @@ def step_job(job: Dict, device) -> Dict:
     return out
 
 
+def scan_job(job: Dict, device) -> Dict:
+    """`MeshRunner.train_steps_scan` on the job's batch repeated `steps`
+    times with its draws [steps, ...]: the items of every step, the net
+    weights and the joined point buffers after them."""
+    opt, runner, ts, grid = _placed(job, device)
+    batch = _batch(job["batch"], runner.device)
+    batches = {k: (torch.stack([v] * job["steps"]) if torch.is_tensor(v)
+                   else v) for k, v in batch.items()}
+    ts, items = runner.train_steps_scan(
+        ts, grid, batches, opt, job["spec"],
+        torch.as_tensor(job["draws"], device=runner.device))
+    sharded = runner.points > 1
+    return {"items": {k: _np(v) for k, v in items.items()},
+            "net_after": {k: _np(v) for k, v in
+                          ts.aggregator.named_parameters()},
+            "points_after": {k: _np(runner.mesh.gather_points(v.detach())
+                                    if sharded else v)
+                             for k, v in ts.pt_train.items()}}
+
+
 def serve_job(job: Dict, device) -> Dict:
     """One image by mesh serving: the maps, its counters and seconds."""
     opt, runner, ts, grid = _placed(job, device)
@@ -184,7 +204,8 @@ def eval_job(job: Dict, device) -> Dict:
     return res
 
 
-JOBS = {"step": step_job, "serve": serve_job, "eval": eval_job}
+JOBS = {"step": step_job, "scan": scan_job, "serve": serve_job,
+        "eval": eval_job}
 
 
 def run_jobs(jobs: List[Dict], device=None, runner=None) -> List[Dict]:

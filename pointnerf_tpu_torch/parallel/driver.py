@@ -195,6 +195,15 @@ class MeshRunner:
         return sharded_train_step(ts, grid, batch, opt, spec, self.mesh, u=u,
                                   points_sharded=self.points > 1)
 
+    def train_steps_scan(self, ts, grid, batches: Dict, opt, spec, u=None):
+        """S steps of stacked batches [S, ...] (JAX driver.py:135-138),
+        each sharded by ray as `train_step` shards one; the items are the
+        whole batch's, read back once. They run one after another, not
+        graphed: their collectives are not captured (`train.graph`)."""
+        return trainer.steps_in_turn(
+            lambda st, b, us: self.train_step(st, grid, b, opt, spec, us),
+            ts, batches, u)
+
 
 def make_runner(opt, device="cuda") -> Optional[MeshRunner]:
     """A MeshRunner over the current process group when the options ask

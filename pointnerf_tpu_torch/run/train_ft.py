@@ -4,8 +4,15 @@ Reference: run/train_ft.py (epoch loop :829-1011, probe_hole :417-530,
 test :252-414). As in the JAX package, prune and grow are masked buffer
 updates with no process restart; running out of free slots expands the
 buffers and keeps the point-Adam moments; the voxel grid is rebuilt only
-when points change. Each train step is one `trainer.train_step` call whose
-loss items come to the host in one transfer. The numpy streams are the JAX
+when points change. As in the JAX driver, up to steps_per_dispatch steps
+run in one dispatch (`trainer.train_steps_scan`: on the card one train
+step captured in a CUDA graph and replayed, `train.graph`), clamped to one
+step before a prune, grow, print, save, test or grid-rebuild boundary;
+their loss items come to the host in one transfer, the ray-miss ranking
+and the loss log take them step by step, and the SR_budget rises once a
+dispatch on its largest overflow. Each loss line carries the phase timer
+(`utils.profiling.PhaseTimer`: host_data, device_step), and --profile_dir
+writes a torch.profiler trace of the loop there. The numpy streams are the JAX
 driver's (RandomState(seed) for frame choices, RandomState(seed + 9999) for
 batches); the weights and the depth jitter come from torch generators, so a
 run matches the JAX driver's by PSNR, not bit for bit.
@@ -30,9 +37,8 @@ train batch and test render carries its rays' `bg_ray`.
 Multi-GPU (--n_devices, --gpu_ids, --mesh_points) runs the driver on
 the ranks of `parallel.driver.launch`: the ray batch, and with
 mesh_points > 1 the point buffers, shard over the ranks, and the host
-events run on rank 0 on the gathered state. Not ported (raises
-NotImplementedError): profile_dir (profile with profile_render.py);
-steps_per_dispatch is ignored (one call per step). The MVS init takes ProbNet's learned depth
+events run on rank 0 on the gathered state; a runner's dispatch runs its
+steps one after another. The MVS init takes ProbNet's learned depth
 distribution with manual_depth_view -1 (`models/mvs/probnet.py`).
 With gen_vid the run ends with a video of the render path
 (`render_vid.render_vid`); a dataset with no render split skips it with a
@@ -60,9 +66,11 @@ from ..models import neural_points as npc
 from ..models.networks import PlateauTracker
 from ..models.renderer import effective_sr_budget
 from ..parallel.driver import launch, world_size
+from ..train import graph as step_graph
 from ..train import trainer
 from ..utils.checkpoint import latest_step, load_checkpoint, save_checkpoint
 from ..utils.metrics import psnr as psnr_fn, report_metrics
+from ..utils.profiling import PhaseTimer, device_trace
 from ..utils.visualizer import Visualizer
 from .common import (PROBE_KEYS, gen_points_filter_embeddings,
                      init_point_state_from_dataset, make_spec_and_grid,
@@ -276,12 +284,6 @@ def score_test_images(visualizer, total_steps: int, opt, device) -> Dict:
                        "vgglpips": opt.lpips_vgg_path}, device=device)
 
 
-def _check_ported(opt) -> None:
-    if opt.profile_dir:
-        raise NotImplementedError("profile_dir is not ported; profile with "
-                                  "profile_render.py")
-
-
 def initial_points(opt, train_ds, dev) -> Dict:
     """The starting point state: the dataset's cloud, its sensor-depth
     points or both (load_points 1, 2, 3) or the MVS init (load_points 0,
@@ -360,18 +362,19 @@ def main(opt, max_steps: Optional[int] = None, device="cuda") -> Dict:
     best PSNR, the metric scores, the video's path (gen_vid, else None),
     the state, the grid and spec, the test split's background maps
     (`bg_test`, None without a plane background), and
-    `timing`: host seconds in train steps (each ending in the fetch of its
-    items), in prunes, probe-and-grows, test renders, checkpoint writes
-    and the plane background's precompute (`bg_s`), the number of steps
-    run, the points before and after each prune and grow, and the plane
-    points added (`plane_points`).
+    `timing`: host seconds in train dispatches (the batches' upload, the
+    steps, the fetch of their items), in prunes, probe-and-grows, test
+    renders, checkpoint writes and the plane background's precompute
+    (`bg_s`), the number of steps run, the length of each dispatch
+    (`chunks`) and the step graph's captures and replays, the points
+    before and after each prune and grow, and the plane points added
+    (`plane_points`).
 
     Options that ask for more than one device (--n_devices, --gpu_ids,
     --mesh_points; `parallel.driver.world_size`) run the driver on that
     many ranks (`parallel.driver.launch`), and rank 0's result comes back:
     the state is then the final ServeState and the grid the whole grid,
     both on the CPU when the ranks were processes of their own."""
-    _check_ported(opt)
     if opt.timestamp:
         opt = opt.replace(timestamp=False, experiment=opt.experiment
                           + time.strftime("_%m%d_%H%M%S"))
@@ -479,7 +482,9 @@ def _train(opt, max_steps: Optional[int], device, runner=None) -> Dict:
 
     def event(fn):
         """fn(whole ts) -> (ts, grid, info) on the whole state: here, or
-        on rank 0 with the result placed on every rank."""
+        on rank 0 with the result placed on every rank. The step graph
+        and its memory go first (the event replaces what it captured)."""
+        step_graph.drop(ts)
         if runner is None:
             return fn(ts)
         return runner.host_event(ts, grid, spec, opt, fn)
@@ -489,8 +494,9 @@ def _train(opt, max_steps: Optional[int], device, runner=None) -> Dict:
         return ts if runner is None else runner.gather_state(ts, opt)
 
     timing = {"train_s": 0.0, "prune_s": 0.0, "grow_s": 0.0, "test_s": 0.0,
-              "save_s": 0.0, "bg_s": start["bg_s"], "steps": 0, "prune": [],
-              "grow": [], "plane_points": start["n_plane"]}
+              "save_s": 0.0, "bg_s": start["bg_s"], "steps": 0, "chunks": [],
+              "captures": 0, "replays": 0, "prune": [], "grow": [],
+              "plane_points": start["n_plane"]}
 
     # ray-miss frame ranking (reference: mvs_points_volumetric_model.py:
     # 134-166)
@@ -500,6 +506,7 @@ def _train(opt, max_steps: Optional[int], device, runner=None) -> Dict:
     stop_at = min(opt.maximum_step, total_steps + max_steps) if max_steps \
         else opt.maximum_step
     t_start = time.time()
+    timer = PhaseTimer()
     data_rng = np.random.RandomState(opt.seed + 9999)
 
     def produce():
@@ -520,8 +527,27 @@ def _train(opt, max_steps: Optional[int], device, runner=None) -> Dict:
         after = int(npc.num_active(trainer.point_state_of(st)))
         return st, trainer.rebuild_grid(st, spec), (before, after, dropped)
 
-    prefetcher = Prefetcher(produce, depth=max(1, opt.prefetch_depth))
+    scan = trainer.train_steps_scan if runner is None else \
+        runner.train_steps_scan
+
+    def dispatch(hosts):
+        """The steps of `hosts` (one item each) in one dispatch, the state
+        updated in place: train_steps_scan on the stacked items, each
+        step with its item's near and far. Returns each step's loss items
+        as host floats."""
+        batch = {k: torch.as_tensor(np.stack([h[k] for h in hosts]),
+                                    device=dev) for k in batch_keys}
+        batch.update({k: [float(h[k]) for h in hosts]
+                      for k in ("near", "far")})
+        _, items = scan(ts, grid, batch, opt, spec)
+        return [{k: float(v[s]) for k, v in items.items()}
+                for s in range(len(hosts))]
+
+    prefetcher = Prefetcher(produce, depth=max(1, opt.prefetch_depth)
+                            * max(1, opt.steps_per_dispatch))
     miss_key = "loss_ray_miss_coarse_raycolor"
+    trace = device_trace(opt.profile_dir)
+    trace.__enter__()
     try:
         while total_steps < stop_at:
             if opt.prune_iter > 0 and 0 < total_steps <= opt.prune_max_iter \
@@ -552,6 +578,7 @@ def _train(opt, max_steps: Optional[int], device, runner=None) -> Dict:
                         frame_ids = rng.permutation(len(train_ds))[:num_probe]
                 else:
                     frame_ids = rng.permutation(len(train_ds))[:num_probe]
+                step_graph.drop(ts)     # the probe renders need its memory
                 cand = probe_hole(ts, opt, probe_ds, frame_ids, visualizer,
                                   total_steps, runner=runner)
                 if cand:
@@ -564,56 +591,65 @@ def _train(opt, max_steps: Optional[int], device, runner=None) -> Dict:
                 top_miss_ids[:] = np.arange(num_probe + 1) % len(train_ds)
                 timing["grow_s"] += time.perf_counter() - t0
 
-            fid, host = prefetcher.get()
-            batch = {k: torch.as_tensor(host[k], device=dev)
-                     for k in batch_keys}
-            batch["near"], batch["far"] = float(host["near"]), \
-                float(host["far"])
+            # up to steps_per_dispatch steps in one dispatch, clamped to
+            # one so that prune, grow, print, save, test and rebuild
+            # boundaries land exactly (JAX train_ft.py:402-415)
+            boundaries = [stop_at]
+            for freq in (opt.prune_iter, opt.prob_freq, opt.print_freq,
+                         opt.save_iter_freq, opt.test_freq,
+                         opt.save_point_freq,
+                         opt.grid_rebuild_every if opt.xyz_grad > 0 else 0):
+                if freq > 0:
+                    boundaries.append((total_steps // freq + 1) * freq)
+            spd = max(1, opt.steps_per_dispatch)
+            chunk = spd if min(boundaries) - total_steps >= spd else 1
+            with timer.phase("host_data"):
+                pulled = [prefetcher.get() for _ in range(chunk)]
             t0 = time.perf_counter()
-            if runner is None:
-                ts, items = trainer.train_step(ts, grid, batch, opt, spec)
-            else:
-                ts, items = runner.train_step(ts, grid, batch, opt, spec)
-            names = list(items)
-            values = torch.stack([items[k].to(torch.float32).reshape(())
-                                  for k in names]).cpu().tolist()
-            items = dict(zip(names, values))
+            with timer.phase("device_step"):
+                step_items = dispatch([host for _, host in pulled])
             timing["train_s"] += time.perf_counter() - t0
-            timing["steps"] += 1
-            total_steps += 1
+            timing["steps"] += chunk
+            timing["chunks"].append(chunk)
+            total_steps += chunk
 
             if opt.grid_rebuild_every > 0 and opt.xyz_grad > 0 and \
                     total_steps % opt.grid_rebuild_every == 0:
                 ts, grid, _ = event(
                     lambda st: (st, trainer.rebuild_grid(st, spec), None))
-            if opt.prob_freq > 0 and miss_key in items:
-                loss_miss = items[miss_key]
-                hit = np.flatnonzero(top_miss_ids == fid)
-                if len(hit):
-                    top_miss_loss[hit] = np.maximum(top_miss_loss[hit],
-                                                    loss_miss)
-                else:
-                    top_miss_ids[-1] = fid
-                    top_miss_loss[-1] = loss_miss
-                order = np.argsort(-top_miss_loss, kind="stable")
-                top_miss_loss = top_miss_loss[order]
-                top_miss_ids = top_miss_ids[order]
-            visualizer.accumulate_losses(items)
+            for (fid, _), items in zip(pulled, step_items):
+                if opt.prob_freq > 0 and miss_key in items:
+                    loss_miss = items[miss_key]
+                    hit = np.flatnonzero(top_miss_ids == fid)
+                    if len(hit):
+                        top_miss_loss[hit] = np.maximum(top_miss_loss[hit],
+                                                        loss_miss)
+                    else:
+                        top_miss_ids[-1] = fid
+                        top_miss_loss[-1] = loss_miss
+                    order = np.argsort(-top_miss_loss, kind="stable")
+                    top_miss_loss = top_miss_loss[order]
+                    top_miss_ids = top_miss_ids[order]
+                visualizer.accumulate_losses(items)
 
-            # sr_overflow > 0: valid shading rows were rendered empty; raise
-            # the compaction budget 1.5x
-            if items.get("sr_overflow", 0.0) > 0:
+            # sr_overflow > 0: valid shading rows were rendered empty in
+            # the dispatch; raise the compaction budget 1.5x on its
+            # largest overflow
+            overflow = max(it.get("sr_overflow", 0.0) for it in step_items)
+            if overflow > 0:
                 rows = opt.random_sample_size ** 2 * opt.SR
                 cur = effective_sr_budget(opt, rows)
                 new = min(rows, -(-int(cur * 1.5) // 128) * 128)
                 if 0 < cur < new:
+                    step_graph.drop(ts)
                     opt = opt.replace(SR_budget=new)
                     visualizer.print_details(
                         f"SR_budget overflow at {total_steps} "
-                        f"({int(items['sr_overflow'])} rows dropped): budget "
+                        f"({int(overflow)} rows dropped): budget "
                         f"{cur} -> {new}")
             if total_steps % opt.print_freq == 0:
-                visualizer.print_losses(total_steps)
+                visualizer.print_losses(total_steps, extra=timer.summary())
+                timer.reset()
             if opt.save_point_freq > 0 and \
                     total_steps % opt.save_point_freq == 0:
                 st = whole()
@@ -633,6 +669,7 @@ def _train(opt, max_steps: Optional[int], device, runner=None) -> Dict:
                 timing["save_s"] += time.perf_counter() - t0
             if opt.test_freq > 0 and total_steps % opt.test_freq == 0:
                 t0 = time.perf_counter()
+                step_graph.drop(ts)
                 cur = test(ts, grid, opt, spec, test_ds, visualizer,
                            total_steps, max_images=opt.test_num,
                            bg_maps=bg_test, runner=runner)
@@ -640,12 +677,18 @@ def _train(opt, max_steps: Optional[int], device, runner=None) -> Dict:
                 if cur > best_psnr:
                     best_psnr, best_iter = cur, total_steps
                 if plateau is not None and plateau.update(cur):
+                    step_graph.drop(ts)
                     opt = opt.replace(lr=opt.lr * plateau.factor,
                                       plr=opt.plr * plateau.factor)
                     visualizer.print_details(
                         f"plateau: lr -> {opt.lr:.3e}, plr -> {opt.plr:.3e}")
     finally:
+        trace.__exit__(None, None, None)
         prefetcher.close()
+        step_graph.drop(ts)
+    if ts.dispatch is not None:
+        timing.update(captures=ts.dispatch.captures,
+                      replays=ts.dispatch.replays)
 
     t0 = time.perf_counter()
     final_state = whole()

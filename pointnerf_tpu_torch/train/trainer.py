@@ -8,13 +8,18 @@ weights at `lr` and the trainable point buffers at `plr`, each scaled by
 with `alter_step` alternating them. Adam follows optax's
 ``scale_by_adam(0.9, 0.999, eps=1e-8)`` then ``-lr(count)``: torch's Adam
 with the group's lr set from the schedule before each step is the same
-update. The JAX package packs the point moments into one [cap, 42] array
+update (`Adam`: capturable on the card, its count mirrored on the host).
+The JAX package packs the point moments into one [cap, 42] array
 for the TPU's lane tiling; Adam is elementwise, so the port keeps one
 moment per buffer. The port updates the state in place (`train_step`
 returns the same object). `expand_capacity` grows the point buffers: new
 leaf tensors, a rebuilt point optimizer whose moments are padded with
-zeros and whose step count carries over. Not ported: the multi-step
-`lax.scan` dispatch.
+zeros and whose step count carries over.
+
+`train_steps_scan` is JAX's multi-step dispatch (`lax.scan` over S
+steps): on the card one train step captured in a CUDA graph and replayed
+S times (`train.graph`), elsewhere the loop of S `train_step`s; either way
+the same function as S `train_step` calls, with the items read back once.
 """
 
 from __future__ import annotations
@@ -75,11 +80,44 @@ def merge_point_params(trainable: Dict, static: Dict) -> Dict:
     return out
 
 
+class Adam(torch.optim.Adam):
+    """torch's Adam at optax's constants (`ADAM`). On the card it is
+    capturable: its update count lives on the device and its lr is a 0-d
+    device tensor the update reads, so a train step can be captured in a
+    CUDA graph (`train.graph`) and the eager step computes the same update.
+    `count` mirrors the update count on the host, so the lr schedule is
+    read with no device sync; whoever sets the optimizer's state sets it
+    too (`utils.checkpoint._load_adam`, `expand_capacity`)."""
+
+    def __init__(self, params, lr: float):
+        params = list(params)
+        on_card = any(p.is_cuda for p in params)
+        rate = torch.tensor(float(lr), dtype=torch.float32,
+                            device=params[0].device) if on_card else lr
+        super().__init__(params, lr=rate, capturable=on_card, **ADAM)
+        self.count = 0
+        # eager steps on the card take the capturable update by design
+        self._warned_capturable_if_run_uncaptured = True
+
+    def set_lr(self, lr) -> None:
+        """The lr of the next update: a Python float, or a 0-d device
+        tensor (a captured step's, copied on the device)."""
+        for group in self.param_groups:
+            if not torch.is_tensor(group["lr"]):
+                group["lr"] = float(lr)
+            elif torch.is_tensor(lr):
+                group["lr"].copy_(lr)
+            else:
+                group["lr"].fill_(float(lr))
+
+
 @dataclass
 class TrainState:
     """The aggregator, the point buffers split into trainable leaves (the
     point Adam's parameters) and static ones, both optimizers, the step,
-    and the generator of the depth jitter (on the points' device)."""
+    the generator of the depth jitter (on the points' device), and on the
+    card the graphed dispatch of its train step (`graph.Dispatch`, made
+    by the first graphed train_steps_scan)."""
     aggregator: Aggregator
     pt_train: Dict[str, torch.Tensor]
     pt_static: Dict[str, torch.Tensor]
@@ -87,6 +125,7 @@ class TrainState:
     opt_pts: torch.optim.Adam
     step: int
     generator: torch.Generator
+    dispatch: Optional[object] = None
 
     @property
     def points(self) -> Dict[str, torch.Tensor]:
@@ -103,9 +142,9 @@ def make_train_state(aggregator: Aggregator, point_state: Dict, opt,
                 for k, v in pt_train.items()}
     return TrainState(
         aggregator=aggregator, pt_train=pt_train, pt_static=pt_static,
-        opt_net=torch.optim.Adam(aggregator.parameters(), lr=opt.lr, **ADAM),
-        opt_pts=torch.optim.Adam(list(pt_train.values()), lr=opt.plr, **ADAM),
-        step=step, generator=generator)
+        opt_net=Adam(aggregator.parameters(), opt.lr),
+        opt_pts=Adam(pt_train.values(), opt.plr), step=step,
+        generator=generator)
 
 
 def create_train_state(opt, point_state: Dict, generator: torch.Generator,
@@ -125,7 +164,8 @@ def point_state_of(state) -> Dict:
 
 
 def _adam_count(optim: torch.optim.Adam) -> int:
-    """Updates the optimizer has made (its parameters share one count)."""
+    """Updates a torch Adam has made (its parameters share one count),
+    read from its state (`Adam.count` holds it on the host)."""
     for group in optim.param_groups:
         for p in group["params"]:
             if "step" in optim.state.get(p, {}):
@@ -162,7 +202,9 @@ def _render(state: TrainState, grid, spec, opt, batch: Dict,
 
     train = [state.pt_train[k] for k in keys]
     if opt.remat > 0:
-        return checkpoint(shade, *train, use_reentrant=False)
+        # the shade phase draws no random numbers: no RNG state to keep
+        return checkpoint(shade, *train, use_reentrant=False,
+                          preserve_rng_state=False)
     return shade(*train)
 
 
@@ -271,28 +313,95 @@ def train_step(state: TrainState, grid, batch: Dict, opt, spec,
     return apply_grads(state, g_net, g_pts, opt), items
 
 
-def apply_grads(state: TrainState, g_net: Dict, g_pts: Dict, opt
-                ) -> TrainState:
-    """The two Adam updates from the gradients by name, in place (the
-    second half of `train_step`), and the step count."""
+def step_knobs(state: TrainState, opt, s: int = 0
+               ) -> Tuple[float, float, float, float]:
+    """(net_on, pts_on, lr, plr) of the update s steps after the state's:
+    the alter_step gates at step state.step + s and each chain's scheduled
+    lr at its count + s, all read on the host."""
     net_on = pts_on = 1.0
     if opt.alter_step > 0:
-        phase = (state.step // opt.alter_step) % 2
+        phase = ((state.step + s) // opt.alter_step) % 2
         net_on, pts_on = float(phase == 0), float(phase == 1)
+    return (net_on, pts_on,
+            make_lr_schedule(opt, opt.lr)(state.opt_net.count + s),
+            make_lr_schedule(opt, opt.plr)(state.opt_pts.count + s))
+
+
+def apply_grads(state: TrainState, g_net: Dict, g_pts: Dict, opt,
+                knobs=None) -> TrainState:
+    """The two Adam updates from the gradients by name, in place (the
+    second half of `train_step`), and the step counts. knobs: the step's
+    (net_on, pts_on, lr, plr) as 0-d device tensors (a captured step,
+    `train.graph`); None reads them on the host (`step_knobs`)."""
+    net_on, pts_on, lr, plr = step_knobs(state, opt) if knobs is None \
+        else knobs
     named = dict(state.aggregator.named_parameters())
     with torch.no_grad():
         for k, g in g_net.items():
             named[k].grad = g * net_on
         for k, g in g_pts.items():
             state.pt_train[k].grad = g * pts_on
-    for optim, base in ((state.opt_net, opt.lr), (state.opt_pts, opt.plr)):
-        lr = make_lr_schedule(opt, base)(_adam_count(optim))
-        for group in optim.param_groups:
-            group["lr"] = lr
+    for optim, rate in ((state.opt_net, lr), (state.opt_pts, plr)):
+        optim.set_lr(rate)
         optim.step()
         optim.zero_grad(set_to_none=True)
+        optim.count += 1
     state.step += 1
     return state
+
+
+def item_vector(items: Dict[str, torch.Tensor], names) -> torch.Tensor:
+    """The items named `names` as one float32 vector on their device."""
+    return torch.stack([items[k].to(torch.float32).reshape(())
+                        for k in names])
+
+
+def stacked_step(batches: Dict, s: int) -> Dict:
+    """Step s of stacked batches: tensor leaves [S, ...] and lists of S
+    host values (near, far: a dataset may give each view its own) indexed
+    at s, other leaves (one near, far for every step) as they are."""
+    return {k: (v[s] if torch.is_tensor(v) or isinstance(v, (list, tuple))
+                else v) for k, v in batches.items()}
+
+
+def steps_in_turn(step, state, batches: Dict, u=None):
+    """S calls of step(state, batch, u) -> (state, items), one per step of
+    stacked batches (`stacked_step`), u[s] or None each; the items of
+    every step go to the host in one copy. Returns (state, items by name
+    as float32 CPU tensors [S])."""
+    S = next(v for v in batches.values() if torch.is_tensor(v)).shape[0]
+    names, rows = None, []
+    for s in range(S):
+        state, items = step(state, stacked_step(batches, s),
+                            None if u is None else u[s])
+        names = names or sorted(items)
+        rows.append(item_vector(items, names))
+    values = torch.stack(rows).cpu()
+    return state, {k: values[:, i] for i, k in enumerate(names)}
+
+
+def train_steps_scan(state: TrainState, grid, batches: Dict, opt, spec,
+                     u: Optional[torch.Tensor] = None
+                     ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """S optimization steps in one dispatch (JAX trainer.py:291-309, a
+    lax.scan of train_step): the same function as S `train_step` calls,
+    in place. batches: tensor leaves stacked [S, ...], near and far a
+    float each for every step or a list of S (`stacked_step`); u: the
+    steps' draws stacked [S, ...], or None to draw each from
+    state.generator in step order, as S train_step calls do. Returns
+    (state, items): each loss item as a float32 CPU tensor [S], read back
+    from the device in one copy.
+
+    On the card a configuration that `graph.graph_route` sends graphed
+    replays one captured step (`graph.graphed_steps`); any other, and the
+    CPU, runs the S steps one after another."""
+    from . import graph
+    if state.pt_static["mask"].is_cuda and \
+            graph.graph_route(opt) == "graphed":
+        return graph.graphed_steps(state, grid, batches, opt, spec, u)
+    return steps_in_turn(
+        lambda st, b, us: train_step(st, grid, b, opt, spec, us), state,
+        batches, u)
 
 
 @torch.inference_mode()
@@ -395,8 +504,9 @@ def expand_capacity(state: TrainState, new_cap: int) -> TrainState:
     old = state.opt_pts
     new_train = {k: pad(p, fill_of(k)).requires_grad_(True)
                  for k, p in state.pt_train.items()}
-    opt_pts = torch.optim.Adam(list(new_train.values()),
-                               lr=old.param_groups[0]["lr"], **ADAM)
+    opt_pts = Adam(new_train.values(), 0.0)
+    opt_pts.set_lr(old.param_groups[0]["lr"])
+    opt_pts.count = old.count
     for k, p in state.pt_train.items():
         st = old.state.get(p)
         if st:

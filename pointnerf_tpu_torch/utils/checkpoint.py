@@ -129,17 +129,25 @@ def _point_moments(m, template: Dict[str, torch.Tensor]) -> Dict:
 
 def _load_adam(optim: torch.optim.Adam, params: Dict[str, torch.Tensor],
                adam, mu: Dict, nu: Dict) -> None:
-    count = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
+    """JAX's Adam state (count, moments by name) into `optim`: the count
+    on the parameters' device where the optimizer is capturable (the
+    card's `trainer.Adam`), on the CPU otherwise; a `trainer.Adam` keeps
+    it on the host too (`count`)."""
+    n = int(np.asarray(adam.count))
+    capturable = optim.defaults.get("capturable", False)
     for k, p in params.items():
         if tuple(mu[k].shape) != tuple(p.shape):
             raise ValueError(f"Adam moment of {k} has shape {mu[k].shape}, "
                              f"the parameter {tuple(p.shape)}")
         optim.state[p] = {
-            "step": count.clone(),
+            "step": torch.tensor(float(n), dtype=torch.float32,
+                                 device=p.device if capturable else "cpu"),
             "exp_avg": torch.as_tensor(np.array(mu[k], np.float32),
                                        device=p.device),
             "exp_avg_sq": torch.as_tensor(np.array(nu[k], np.float32),
                                           device=p.device)}
+    if isinstance(optim, trainer.Adam):
+        optim.count = n
 
 
 def from_jax_train_state(ts, opt, device="cuda") -> "trainer.TrainState":
@@ -305,12 +313,14 @@ def _jax_tree(agg: Aggregator, per_param) -> Dict[str, np.ndarray]:
 
 def _adam_leaves(optim: torch.optim.Adam, p: torch.Tensor):
     """(count, exp_avg, exp_avg_sq) of one parameter; zeros before the
-    first update."""
+    first update. A `trainer.Adam`'s count is read on the host."""
     st = optim.state.get(p, {})
     if "step" not in st:
         z = torch.zeros_like(p)
         return 0, z, z
-    return int(st["step"]), st["exp_avg"], st["exp_avg_sq"]
+    count = optim.count if isinstance(optim, trainer.Adam) \
+        else int(st["step"])
+    return count, st["exp_avg"], st["exp_avg_sq"]
 
 
 def train_state_arrays(state: "trainer.TrainState") -> Dict[str, np.ndarray]:

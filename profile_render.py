@@ -73,19 +73,6 @@ def family(name: str, shade: bool = False) -> str:
     return "rest"
 
 
-def union_us(intervals) -> float:
-    """Total length of the union of (start, end) intervals."""
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if s > end:
-            total += e - s
-            end = e
-        elif e > end:
-            total += e - end
-            end = e
-    return total
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--train", action="store_true",
@@ -111,6 +98,7 @@ def main() -> int:
     from pointnerf_tpu_torch.ops import kernels
     from pointnerf_tpu_torch.run import common
     from pointnerf_tpu_torch.train import trainer
+    from pointnerf_tpu_torch.utils.profiling import union_ms
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -215,7 +203,7 @@ def main() -> int:
     if not dev_events:
         raise RuntimeError("the profiler recorded no device activity")
     spans = [(e.time_range.start, e.time_range.end) for e in dev_events]
-    busy_ms = union_us(spans) / 1e3
+    busy_ms = union_ms(spans)
     by_family, launches = {}, {}
     for e in dev_events:
         fam = family(e.name, args.fused_shade)

@@ -1526,3 +1526,255 @@ def test_probnet_gen_points_on_card_matches_cpu(dev, tmp_path):
     g_card, g_host = grads
     assert torch.isfinite(g_card).all() and g_card.abs().max() > 0
     assert float((g_card - g_host).norm() / g_host.norm()) <= GRAD_REL
+
+
+# ------------------------------------------------- the graphed dispatch
+def _graph_scene(dev, **kw):
+    """The card train test's scene (800 points, a 24² batch, the K-tier
+    split, an auto budget that overflows) with the lego trunk's options
+    and `kw`: (opt, point state, spec, grid, batch)."""
+    rng = np.random.RandomState(0)
+    xyz = rng.uniform(-0.4, 0.4, (800, 3)).astype(np.float32)
+    xyz[:, 2] *= 0.1
+    n = len(xyz)
+    opt = _opt(vsize=(0.04, 0.04, 0.04), vscale=(1, 1, 1),
+               kernel_size=(3, 3, 3), query_size=(3, 3, 3), max_o=2048, P=8,
+               K=8, SR=8, z_depth_dim=64, superset_P=16, SR_budget=-1,
+               k_tier=-1, ranges=(-0.5, -0.5, -0.5, 0.5, 0.5, 0.5),
+               radius_limit_scale=4.0, use_fused_trunk=1, lr=0.01, plr=0.02,
+               color_loss_items=("ray_masked_coarse_raycolor",),
+               color_loss_weights=(1.0,),
+               zero_one_loss_items=("conf_coefficient",),
+               zero_one_loss_weights=(0.0001,), **kw)
+    state = npc.create_point_cloud(
+        xyz, rng.uniform(-0.5, 0.5, (n, 8)), rng.uniform(0, 1, (n, 3)),
+        rng.normal(size=(n, 3)), rng.uniform(0.5, 1.2, (n, 1)), device=dev)
+    spec = tgrid.make_grid_spec(opt, xyz.min(0), xyz.max(0), n)
+    grid = tgrid.build_grid(state["xyz"], state["mask"], spec)
+    px = np.linspace(-0.15, 0.15, 24, dtype=np.float32)
+    dx, dy = np.meshgrid(px, px, indexing="ij")
+    rd = np.stack([dx, dy, np.ones_like(dx)], -1).reshape(1, -1, 3)
+    batch = {"raydir": torch.as_tensor(rd, device=dev),
+             "campos": torch.tensor([[0.0, 0.0, -3.0]], device=dev),
+             "camrotc2w": torch.eye(3, device=dev)[None],
+             "near": 2.0, "far": 4.0,
+             "bg_color": torch.ones(1, 3, device=dev),
+             "gt_image": torch.as_tensor(
+                 rng.uniform(0, 1, (1, rd.shape[1], 3)).astype(np.float32),
+                 device=dev)}
+    return opt, state, spec, grid, batch
+
+
+def _stacked(batch, S):
+    return {k: (torch.stack([v] * S) if torch.is_tensor(v) else v)
+            for k, v in batch.items()}
+
+
+def _twins(opt, state):
+    """Two train states from one seed on the points' device."""
+    make = lambda: trainer.create_train_state(
+        opt, state, torch.Generator().manual_seed(0))
+    return make(), make()
+
+
+def _hold_graphed_to_eager(got, want, st, ref):
+    """Items of every step at rtol 1e-5, sr_overflow exactly; each weight
+    and point buffer within GRAD_REL in norm (K6's float atomics differ
+    from run to run, and Adam carries them)."""
+    for k, v in want.items():
+        torch.testing.assert_close(got[k], v, rtol=1e-5, atol=1e-7, msg=k)
+    assert torch.equal(got["sr_overflow"], want["sr_overflow"])
+    pairs = list(zip(st.aggregator.parameters(), ref.aggregator.parameters()))
+    pairs += [(st.pt_train[k], v) for k, v in ref.pt_train.items()]
+    for p, q in pairs:
+        p, q = p.detach(), q.detach()
+        assert float((p - q).norm()) <= GRAD_REL * float(q.norm())
+    assert st.step == ref.step
+    assert st.opt_net.count == ref.opt_net.count
+    assert st.opt_pts.count == ref.opt_pts.count
+
+
+def _eager_steps(st, grid, batch, opt, spec, u):
+    out = [trainer.train_step(st, grid, batch, opt, spec, us)[1] for us in u]
+    return {k: torch.stack([o[k].float() for o in out]).cpu() for k in out[0]}
+
+
+@pytest.mark.parametrize("kw", [
+    pytest.param(dict(), id="default"), pytest.param(dict(alter_step=3),
+                                                     id="alter_step"),
+    pytest.param(dict(lr_policy="step", lr_decay_iters=4), id="lr_step")])
+def test_graphed_dispatch_equals_eager_steps(dev, kw):
+    """Eight steps in one graphed dispatch against eight eager train_steps
+    from twin states with the same draws (the alter_step gates and a
+    stepped lr moving inside the dispatch): the same items and state, the
+    same launches (each replay counts the captured step's), one capture
+    and seven replays (the first step is the eager warm-up)."""
+    from pointnerf_tpu_torch.train import graph
+    opt, state, spec, grid, batch = _graph_scene(dev, **kw)
+    S = 8
+    u = torch.rand((S, 1, batch["raydir"].shape[1], opt.z_depth_dim),
+                   generator=torch.Generator(device=dev).manual_seed(1),
+                   device=dev)
+    st, ref = _twins(opt, state)
+    assert graph.graph_route(opt) == "graphed"
+    for k in kernels.KERNELS:
+        k.launches = 0
+    want = _eager_steps(ref, grid, batch, opt, spec, u)
+    eager = {k.name: k.launches for k in kernels.KERNELS}
+    for k in kernels.KERNELS:
+        k.launches = 0
+    st, got = trainer.train_steps_scan(st, grid, _stacked(batch, S), opt,
+                                       spec, u)
+    assert {k.name: k.launches for k in kernels.KERNELS} == eager
+    assert (st.dispatch.captures, st.dispatch.replays) == (1, S - 1)
+    _hold_graphed_to_eager(got, want, st, ref)
+    # a second dispatch replays the live graph from its first step
+    want = _eager_steps(ref, grid, batch, opt, spec, u)
+    st, got = trainer.train_steps_scan(st, grid, _stacked(batch, S), opt,
+                                       spec, u)
+    assert (st.dispatch.captures, st.dispatch.replays) == (1, 2 * S - 1)
+    _hold_graphed_to_eager(got, want, st, ref)
+    graph.drop(st)
+
+
+def test_graphed_dispatch_takes_each_steps_near_far(dev):
+    """A dispatch whose steps differ in near and far (a dataset with a
+    depth range per view) against eager train_steps, each with its own:
+    the same items and state, and one capture for both dispatches (the
+    depths are the graph's input, not part of its key)."""
+    from pointnerf_tpu_torch.train import graph
+    opt, state, spec, grid, batch = _graph_scene(dev)
+    S = 4
+    nf = ([2.0, 2.125, 1.9375, 2.0625], [4.0, 3.875, 4.25, 4.0])
+    u = torch.rand((S, 1, batch["raydir"].shape[1], opt.z_depth_dim),
+                   generator=torch.Generator(device=dev).manual_seed(2),
+                   device=dev)
+    st, ref = _twins(opt, state)
+    batches = dict(_stacked(batch, S), near=nf[0], far=nf[1])
+    for rnd in range(2):
+        out = [trainer.train_step(ref, grid, trainer.stacked_step(batches, s),
+                                  opt, spec, u[s])[1] for s in range(S)]
+        want = {k: torch.stack([o[k].float() for o in out]).cpu()
+                for k in out[0]}
+        st, got = trainer.train_steps_scan(st, grid, batches, opt, spec, u)
+        _hold_graphed_to_eager(got, want, st, ref)
+        batches.update(near=nf[0][::-1], far=nf[1][::-1])
+    assert (st.dispatch.captures, st.dispatch.replays) == (1, 2 * S - 1)
+    graph.drop(st)
+
+
+def test_graph_recaptures_after_prune_grow_and_a_budget_raise(dev):
+    """A prune (the grid rebuilt), a grow past the capacity
+    (expand_capacity: new buffers and point optimizer) and a budget raise
+    (new options) each change the key: the next dispatch captures anew
+    and still equals the eager steps."""
+    from pointnerf_tpu_torch.train import graph
+    opt, state, spec, grid, batch = _graph_scene(dev)
+    S = 4
+    u = torch.rand((S, 1, batch["raydir"].shape[1], opt.z_depth_dim),
+                   generator=torch.Generator(device=dev).manual_seed(2),
+                   device=dev)
+    st, ref = _twins(opt, state)
+
+    def dispatch(opt, grid_st, grid_ref):
+        want = _eager_steps(ref, grid_ref, batch, opt, spec, u)
+        got = trainer.train_steps_scan(st, grid_st, _stacked(batch, S), opt,
+                                       spec, u)[1]
+        _hold_graphed_to_eager(got, want, st, ref)
+        return st.dispatch.graph
+
+    first = dispatch(opt, grid, grid)
+    for s in (st, ref):
+        npc.prune(s.points, 0.9)
+    g_st, g_ref = trainer.rebuild_grid(st, spec), trainer.rebuild_grid(ref,
+                                                                       spec)
+    pruned = dispatch(opt, g_st, g_ref)
+    assert pruned is not first
+    cap = st.pt_static["mask"].shape[0]
+    for s in (st, ref):
+        trainer.expand_capacity(s, cap + 512)
+    grown = dispatch(opt, g_st, g_ref)
+    assert grown is not pruned and st.pt_static["mask"].shape[0] == cap + 512
+    raised = dispatch(opt.replace(SR_budget=2048), g_st, g_ref)
+    assert raised is not grown and st.dispatch.captures == 4
+    graph.drop(st)
+    assert st.dispatch.graph is None
+
+
+def test_capture_runs_with_syncs_raising(dev, monkeypatch):
+    """The step is captured under torch.cuda.set_sync_debug_mode("error")
+    (a host read would raise) and the capture succeeds: the step makes
+    no host sync."""
+    from pointnerf_tpu_torch.train import graph
+    opt, state, spec, grid, batch = _graph_scene(dev)
+    modes = []
+    step = trainer.compute_grads
+
+    def spy(*a, **k):
+        modes.append(torch.cuda.get_sync_debug_mode())
+        return step(*a, **k)
+    monkeypatch.setattr(trainer, "compute_grads", spy)
+    st, _ = _twins(opt, state)
+    trainer.train_steps_scan(st, grid, _stacked(batch, 3), opt, spec)
+    assert modes == [0, 2] and st.dispatch.graph is not None
+    graph.drop(st)
+
+
+def test_graphed_route_raises_on_a_host_read(dev, monkeypatch):
+    """A host read forced into the step (the ray march's transmission
+    reads a value back) makes the graphed dispatch raise; it does not run
+    the steps eagerly instead."""
+    from pointnerf_tpu_torch.ops import ray_march
+    opt, state, spec, grid, batch = _graph_scene(dev)
+    plain = ray_march.transmission
+
+    def read_back(x):
+        float(x.sum())
+        return plain(x)
+    monkeypatch.setattr(ray_march, "transmission", read_back)
+    st, _ = _twins(opt, state)
+    with pytest.raises(RuntimeError):
+        trainer.train_steps_scan(st, grid, _stacked(batch, 3), opt, spec)
+    assert st.dispatch.graph is None and st.dispatch.captures == 0
+    torch.cuda.synchronize()
+
+
+def test_checkpoint_after_a_graphed_dispatch_loads_and_exports(dev,
+                                                               tmp_path):
+    """After a graphed dispatch the checkpoint holds the host's counts and
+    the card's moments: it loads on the card and on the CPU to the same
+    state, and carries the counts into JAX's layout."""
+    from pointnerf_tpu_torch.train import graph
+    from pointnerf_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                      save_checkpoint,
+                                                      train_state_arrays)
+    opt, state, spec, grid, batch = _graph_scene(dev)
+    st, _ = _twins(opt, state)
+    S = 5
+    st, _ = trainer.train_steps_scan(st, grid, _stacked(batch, S), opt, spec)
+    graph.drop(st)
+    save_checkpoint(str(tmp_path), S, st, opt)
+    flat = train_state_arrays(st)
+    for chain in (".opt_state_net", ".opt_state_pts"):
+        assert int(flat[f"{chain}/0/.count"]) == S
+    assert int(flat[".step"]) == S
+    for device in (dev, "cpu"):
+        back, counters = load_checkpoint(str(tmp_path), opt, device=device)
+        assert counters["total_steps"] == S and back.step == S
+        assert back.opt_net.count == back.opt_pts.count == S
+        for k, v in st.pt_train.items():
+            torch.testing.assert_close(back.pt_train[k].detach().cpu(),
+                                       v.detach().cpu(), rtol=0, atol=0)
+        for p, q in zip(back.opt_pts.param_groups[0]["params"],
+                        st.opt_pts.param_groups[0]["params"]):
+            a, b = back.opt_pts.state[p], st.opt_pts.state[q]
+            assert float(a["step"]) == float(b["step"]) == S
+            assert a["step"].device.type == torch.device(device).type
+            torch.testing.assert_close(a["exp_avg"].cpu(),
+                                       b["exp_avg"].cpu(), rtol=0, atol=0)
+    # the loaded state trains on: one more graphed dispatch from it
+    back, _ = load_checkpoint(str(tmp_path), opt, device=dev)
+    back, items = trainer.train_steps_scan(back, grid, _stacked(batch, 2),
+                                           opt, spec)
+    assert back.step == S + 2 and torch.isfinite(items["loss_total"]).all()
+    graph.drop(back)
