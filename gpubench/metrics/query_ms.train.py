@@ -1,0 +1,8 @@
+"""The query's kernels (K3 occupancy, the KNN's sorts, the compaction's
+searchsorted) by readers.layer_ms, for the train mix."""
+
+from gpubench.readers import layer_ms
+
+
+def read(ctx):
+    return layer_ms(ctx, "train", "query")
