@@ -288,6 +288,9 @@ class Options:
     superset_P: int = 0                    # >0: precomputed per-voxel neighborhood supersets (fast query)
     ray_chunk: int = 0                     # >0: map the train render over ray chunks of this size
     profile_dir: str = ""                  # write a torch.profiler trace of the train loop here
+                                           # (train_loop.pt.trace.json) and the trace record's
+                                           # counters beside it (train_loop.counters.json:
+                                           # trunk rows and slots, captures; utils/profiling.py)
     # LPIPS weights (full torch state dicts; see utils/lpips_jax.py docstring
     # for the one-file drop). Empty = LPIPS reported as SKIPPED.
     lpips_alex_path: str = ""

@@ -10,6 +10,17 @@ through zero density, so their color is the background. The query phase
 carries no gradient; the shade phase is differentiable in the aggregator's
 weights and the point buffers, with the JAX package's gather-form
 backwards for the tier reassembly and the compaction expansion.
+
+Where a tally is open (`utils.profiling.tally`: a train dispatch's steps,
+render_image's groups) the shade phase counts its rows on the device:
+per trunk tier (``narrow`` and ``wide`` of the K-tier split; the
+untiered compacted trunk counts as ``wide``, the uncompacted one as
+``dense``) the trunk rows, (shading row, neighbor slot) pairs, that carry
+a valid neighbor (``trunk.rows.<tier>``) and the slots the trunk runs
+(``trunk.slots.<tier>``, from the shapes); and the shading rows the
+compaction saw (``shade.rows.occupied``: its kept rows and those past its
+budget; uncompacted, the rows with a neighbor) and the rows the trunk
+shades with a neighbor (``shade.rows.kept``).
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ from ..ops.grid import GridSpec
 from ..ops.query import (Shards, expand_compacted, query_grid_points,
                          row_share)
 from ..ops.voxgrid import query_vox_grid
+from ..utils import profiling
 from . import neural_points as npc
 from .aggregator import aggregator_forward, gradient_clamp
 
@@ -73,6 +85,23 @@ def wide_rows(c_pidx: torch.Tensor, kt: int) -> torch.Tensor:
     """Rows with a valid neighbor past the first kt slots (the wide tier's
     rows among the valid ones)."""
     return torch.any(c_pidx[..., kt:] >= 0, dim=-1)
+
+
+def _tally_rows(tier: str, pidx: torch.Tensor, kept: torch.Tensor) -> None:
+    """Into the open tally, if any: the trunk tier's neighbor slots pidx
+    [..., K] (-1 empty) that carry a valid neighbor, the slots it runs,
+    and its shading rows `kept` (bool) that carry one."""
+    t = profiling.tallying()
+    if t is not None:
+        t.add("trunk.rows." + tier, (pidx >= 0).sum(dtype=torch.int64))
+        t.add("trunk.slots." + tier, pidx.numel())
+        t.add("shade.rows.kept", kept.sum(dtype=torch.int64))
+
+
+def _tally_occupied(n: torch.Tensor) -> None:
+    t = profiling.tallying()
+    if t is not None:
+        t.add("shade.rows.occupied", n.to(torch.int64))
 
 
 def _bshape(m: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -156,8 +185,9 @@ def _tiered_aggregate(agg, point_state, opt, c_pidx, comp_valid, c_loc,
     srcA, validA, _ = _tier_map(mA, cumA, Ncb)    # full budget: no overflow
     srcB, validB, ovB = _tier_map(mB, cumB, NtB, limB)
 
-    def run_tier(src, valid, Ktier):
+    def run_tier(src, valid, Ktier, tier):
         tp = _take_rows(c_pidx, src, valid, -1)[..., :Ktier]
+        _tally_rows(tier, tp, valid)
         g = npc.gather_neighbors(point_state, tp[:, :, None, :], camrotc2w,
                                  campos)
         dec, _, w_t, cf_t = aggregator_forward(
@@ -169,8 +199,8 @@ def _tiered_aggregate(agg, point_state, opt, c_pidx, comp_valid, c_loc,
             _take_rows(c_srd, src, valid, 0.0), grid_vox_sz, vsize)
         return dec, w_t, cf_t
 
-    decA, wA, cfA = run_tier(srcA, validA, kt)
-    decB, wB, cfB = run_tier(srcB, validB, Kn)
+    decA, wA, cfA = run_tier(srcA, validA, kt, "narrow")
+    decB, wB, cfB = run_tier(srcB, validB, Kn, "wide")
 
     conf = point_state.get("conf")
     if conf is not None:
@@ -456,6 +486,7 @@ def render_shade(agg, point_state: Dict, spec: GridSpec, opt, batch: Dict,
         # inside the block
         comp_src, comp_valid, c_pidx_mat, ray_valid, counts = q_comp
         BG, Ncb = comp_src.shape
+        _tally_occupied(comp_valid.sum(dtype=torch.int64) + q_overflow)
         goff = (torch.arange(BG, device=raydir.device)
                 * (RS // (BG // B)))[:, None]
         gsrc = (comp_src + goff).reshape(-1).long()
@@ -477,6 +508,8 @@ def render_shade(agg, point_state: Dict, spec: GridSpec, opt, batch: Dict,
                 share)
             q_overflow = q_overflow + t_overflow
         else:
+            _tally_rows("wide", c_pidx_mat, comp_valid & torch.any(
+                c_pidx_mat >= 0, dim=-1))
             g = npc.gather_neighbors(point_state, c_pidx_mat[:, :, None, :],
                                      camrotc2w, campos)
             c_decoded, _, c_weight, c_conf = aggregator_forward(
@@ -508,6 +541,10 @@ def render_shade(agg, point_state: Dict, spec: GridSpec, opt, batch: Dict,
         }
     else:
         compact_losses = {}
+        if profiling.tallying() is not None:
+            has = torch.any(sample_pidx >= 0, dim=-1)
+            _tally_occupied(has.sum(dtype=torch.int64))
+            _tally_rows("dense", sample_pidx, has)
         g = npc.gather_neighbors(point_state, sample_pidx, camrotc2w, campos)
         decoded, ray_valid, weight, conf_coefficient = aggregator_forward(
             agg, opt, g["sampled_color"], g["Rw2c"], g["sampled_dir"],

@@ -29,6 +29,7 @@ from ..ops.frustum import build_frustum_grid
 from ..ops.grid import build_grid, make_grid_spec
 from ..ops.voxgrid import construct_grid_points, derive_lattice
 from ..train import trainer
+from ..utils import profiling
 
 RAY_CHUNK_KEYS = ("raydir", "gt_image", "bg_ray")
 CONST_BATCH_KEYS = ("campos", "camrotc2w", "bg_color")
@@ -476,9 +477,19 @@ def render_image(ts: trainer.ServeState, grid, opt, spec, item: Dict,
     reference rebuilds it per query_points call, query_point_indices.py:
     92-94). A `stats` dict, if given, receives the image's counters:
     sr_overflow (valid rows the first rung dropped, all re-rendered),
-    occ_overflow and the group count; and where it builds the frustum
-    grid, its host seconds (grid_s, the device synchronized) and occupied
-    voxels (num_occ).
+    occ_overflow and the group count; per rung of the ladder, the groups
+    that finished there (rung_groups, summing to groups) and the trunk
+    rows with a valid neighbor and trunk slots its renders ran
+    (trunk_rows, trunk_slots; `models.renderer`'s counts, every attempt's);
+    and where it builds the frustum grid, its host seconds (grid_s, the
+    device synchronized) and occupied voxels (num_occ).
+
+    Traced (`utils.profiling`): spans ``render.image``, ``render.group``
+    (one a render of a group, from stacking its chunks to the read of its
+    overflow, which syncs: attrs rung and dropped) and ``render.readback``
+    (the outputs to the host, into the maps); the row counts, read with
+    the overflow in one transfer, add to the trace record's counters with
+    ``render.groups.r<rung>``.
 
     Mesh serving (a `parallel.MeshRunner`, every rank calling with its
     placed state and grid): the point shards and bucket tables are joined
@@ -543,6 +554,9 @@ def render_image(ts: trainer.ServeState, grid, opt, spec, item: Dict,
     overflow = 0
     occ_overflow = 0
     n_groups = 0
+    rung_groups = [0] * len(rungs)
+    trunk_rows = [0] * len(rungs)
+    trunk_slots = [0] * len(rungs)
 
     def run_group(pending, opt_used):
         stacked = {k: torch.as_tensor(np.stack([p[0][k] for p in pending]),
@@ -599,43 +613,68 @@ def render_image(ts: trainer.ServeState, grid, opt, spec, item: Dict,
                 res[k] = mesh.plane_sum(out[k])
         return res
 
+    def traced_group(pending, r):
+        """The group rendered at rung r: (outputs, dropped rows, occupancy
+        overflow), the counters and its row counts read in one transfer."""
+        n = len(pending)
+        with profiling.span("render.group", rung=r) as sp, \
+                profiling.tally() as t:
+            outs = run_group(pending, rungs[r])
+            heads = [outs[k][:n].sum().to(torch.int64)
+                     for k in ("sr_overflow", "occ_overflow") if k in outs]
+            counted = t.names()
+            read = torch.stack(heads + [t.device[k] for k in counted]
+                               ).tolist()
+            sp.attrs["dropped"] = read[0]
+        counts = {**dict(zip(counted, read[len(heads):])), **t.host}
+        for k, v in counts.items():
+            profiling.count(k, v)
+            if k.startswith("trunk.rows."):
+                trunk_rows[r] += v
+            elif k.startswith("trunk.slots."):
+                trunk_slots[r] += v
+        return outs, read[0], read[1] if len(heads) > 1 else 0
+
     def finish(pending, rung_used):
         nonlocal rung, overflow, occ_overflow, n_groups
-        outs = run_group(pending, rungs[rung_used])
         n_groups += 1
         while True:
-            dropped = int(outs["sr_overflow"][: len(pending)].sum())
+            outs, dropped, occ = traced_group(pending, rung_used)
             if dropped == 0 or rung_used == len(rungs) - 1:
                 break
             overflow += dropped
             rung_used += 1
             rung = max(rung, rung_used)
-            outs = run_group(pending, rungs[rung_used])
-        if "occ_overflow" in outs:
-            occ_overflow += int(outs["occ_overflow"][: len(pending)].sum())
-        host = {k: outs[k].cpu().numpy() for k in keys if k in outs}
-        for ci, (_, s, e) in enumerate(pending):
-            px, py = pix[s:e, 0], pix[s:e, 1]
-            for key, full in host.items():
-                arr = np.asarray(full[ci][0], np.float32)
-                if arr.ndim == 1:
-                    arr = arr[:, None]
-                arr = arr[: e - s]
-                if key not in maps:
-                    maps[key] = np.zeros((H, W, arr.shape[-1]), np.float32)
-                maps[key][py, px] = arr
+        rung_groups[rung_used] += 1
+        profiling.count(f"render.groups.r{rung_used}", 1)
+        occ_overflow += occ
+        with profiling.span("render.readback"):
+            host = {k: outs[k].cpu().numpy() for k in keys if k in outs}
+            for ci, (_, s, e) in enumerate(pending):
+                px, py = pix[s:e, 0], pix[s:e, 1]
+                for key, full in host.items():
+                    arr = np.asarray(full[ci][0], np.float32)
+                    if arr.ndim == 1:
+                        arr = arr[:, None]
+                    arr = arr[: e - s]
+                    if key not in maps:
+                        maps[key] = np.zeros((H, W, arr.shape[-1]),
+                                             np.float32)
+                    maps[key][py, px] = arr
 
-    pending = []
-    for sub, s, e in chunks_of_item(item, chunk):
-        pending.append((sub, s, e))
-        if len(pending) == group:
+    with profiling.span("render.image"):
+        pending = []
+        for sub, s, e in chunks_of_item(item, chunk):
+            pending.append((sub, s, e))
+            if len(pending) == group:
+                finish(pending, rung)
+                pending = []
+        if pending:
             finish(pending, rung)
-            pending = []
-    if pending:
-        finish(pending, rung)
     if stats is not None:
         stats.update(sr_overflow=overflow, occ_overflow=occ_overflow,
-                     groups=n_groups)
+                     groups=n_groups, rung_groups=rung_groups,
+                     trunk_rows=trunk_rows, trunk_slots=trunk_slots)
     if overflow > 0 and (runner is None or runner.is_main):
         print(f"[render_image] note: SR_budget overflow on {overflow} shading "
               f"rows; groups re-rendered up the budget ladder")

@@ -12,7 +12,8 @@ their loss items come to the host in one transfer, the ray-miss ranking
 and the loss log take them step by step, and the SR_budget rises once a
 dispatch on its largest overflow. Each loss line carries the phase timer
 (`utils.profiling.PhaseTimer`: host_data, device_step), and --profile_dir
-writes a torch.profiler trace of the loop there. The numpy streams are the JAX
+writes a torch.profiler trace of the loop there, with the trace record's
+counters (`utils.profiling.device_trace`). The numpy streams are the JAX
 driver's (RandomState(seed) for frame choices, RandomState(seed + 9999) for
 batches); the weights and the depth jitter come from torch generators, so a
 run matches the JAX driver's by PSNR, not bit for bit.

@@ -16,8 +16,10 @@ captured once and replayed S times a dispatch (`graphed_steps`):
   (net_on, pts_on, lr, plr: the alter_step gates and the scheduled lrs,
   which an eager step takes as Python numbers), and writes its loss items
   into one vector. Before each replay the step's leaves, depths and knobs
-  are copied in on the device; after it the items go into the dispatch's
-  [S, n_items] buffer, which reaches the host in one copy.
+  are copied in on the device; after it the items, and the step's row
+  counts (`trainer.step_row`), go into the dispatch's [S, n_items +
+  n_counts] buffer, which reaches the host in one copy
+  (`trainer.read_rows`).
 * The draws are not captured: before each replay the step's draws are
   drawn from state.generator (`trainer.jitter_draws`) into the static
   buffer, in step order, so the generator's stream is the eager loop's.
@@ -59,6 +61,7 @@ import torch
 
 from ..models import renderer
 from ..ops import kernels
+from ..utils import profiling
 from . import trainer
 
 
@@ -74,16 +77,20 @@ def graph_route(opt) -> str:
 
 
 class StepGraph:
-    """One captured train step, its static buffers and its key."""
+    """One captured train step, its static buffers and its key; its row
+    (`trainer.step_row`: the items `names`, the device counts `counted`)
+    and the host counts of one step (`host`)."""
 
-    def __init__(self, key, names: List[str]):
+    def __init__(self, key, names: List[str], counted: List[str]):
         self.key = key
         self.names = names
+        self.counted = counted
         self.graph = torch.cuda.CUDAGraph()
         self.batch: Dict = {}
         self.u: Optional[torch.Tensor] = None
         self.knobs: Optional[torch.Tensor] = None
         self.items: Optional[torch.Tensor] = None
+        self.host: Dict[str, int] = {}
         self.launches: List[Tuple[kernels.Kernel, int]] = []
 
 
@@ -168,11 +175,11 @@ def _syncs_raise():
 
 
 def capture(state, grid, batch: Dict, u, opt, spec, key, names: List[str],
-            stream: torch.cuda.Stream) -> StepGraph:
+            counted: List[str], stream: torch.cuda.Stream) -> StepGraph:
     """Capture one train step from `state` on `stream` (nothing runs; the
     host's step counts and launch counters are put back afterwards).
     Raises if the capture fails or the step syncs with the host."""
-    g = StepGraph(key, names)
+    g = StepGraph(key, names, counted)
     g.batch = {k: (v.clone() if torch.is_tensor(v) else v)
                for k, v in batch.items()}
     g.u = None if u is None else u.clone()
@@ -183,11 +190,12 @@ def capture(state, grid, batch: Dict, u, opt, spec, key, names: List[str],
     counts = (state.step, state.opt_net.count, state.opt_pts.count)
     try:
         with torch.cuda.graph(g.graph, stream=stream):
-            with _syncs_raise():
+            with _syncs_raise(), profiling.tally() as t:
                 items, g_net, g_pts = trainer.compute_grads(
                     state, grid, g.batch, opt, spec, g.u)
                 trainer.apply_grads(state, g_net, g_pts, opt, knobs)
-                g.items = trainer.item_vector(items, names)
+                g.items = trainer.step_row(items, names, t, counted)
+        g.host = t.host
     finally:
         state.step, state.opt_net.count, state.opt_pts.count = counts
         g.launches = [(k, k.launches - n) for k, n in before
@@ -198,12 +206,14 @@ def capture(state, grid, batch: Dict, u, opt, spec, key, names: List[str],
 
 
 def graphed_steps(state, grid, batches: Dict, opt, spec,
-                  u: Optional[torch.Tensor] = None):
+                  u: Optional[torch.Tensor] = None, launched=lambda: None):
     """`trainer.train_steps_scan` on the card: S steps in place through
     the state's live graph, or, under a new key, a first step run eagerly
     on the capture stream and the rest through a graph captured from the
-    state it leaves; the items read back in one copy. Returns (state,
-    items by name as float32 CPU tensors [S])."""
+    state it leaves; the items read back in one copy. `launched` is called
+    once the first step is launched (the first replay), or as the eager
+    first step starts. Returns (state, items by name as float32 CPU
+    tensors [S])."""
     S = next(v for v in batches.values() if torch.is_tensor(v)).shape[0]
     steps = [trainer.stacked_step(batches, s) for s in range(S)]
     dev = steps[0]["raydir"].device
@@ -211,9 +221,11 @@ def graphed_steps(state, grid, batches: Dict, opt, spec,
     def on_card(rows):
         return torch.tensor(np.stack(rows), dtype=torch.float32
                             ).pin_memory().to(dev, non_blocking=True)
-    knobs = on_card([trainer.step_knobs(state, opt, s) for s in range(S)])
-    depths = on_card([renderer.ray_depths(opt, st["near"], st["far"])
-                      for st in steps])
+    with profiling.span("train.inputs"):
+        knobs = on_card([trainer.step_knobs(state, opt, s)
+                         for s in range(S)])
+        depths = on_card([renderer.ray_depths(opt, st["near"], st["far"])
+                          for st in steps])
     steps = [dict({k: v for k, v in st.items() if k not in ("near", "far")},
                   depths=depths[s]) for s, st in enumerate(steps)]
     if state.dispatch is None:
@@ -225,31 +237,41 @@ def graphed_steps(state, grid, batches: Dict, opt, spec,
             else u[s]
 
     s0, u0 = 0, draws(0)
-    if disp.graph is not None and disp.graph.key == step_key(
-            state, grid, steps[0], u0, opt, spec):
-        names = disp.graph.names
-        out = torch.empty((S, len(names)), dtype=torch.float32, device=dev)
+    host: Dict[str, int] = {}
+    with profiling.span("train.key"):
+        live = disp.graph is not None and disp.graph.key == step_key(
+            state, grid, steps[0], u0, opt, spec)
+    if live:
+        names, counted = disp.graph.names, disp.graph.counted
+        out = torch.empty((S, len(names) + len(counted)),
+                          dtype=torch.float64, device=dev)
     else:
         disp.drop()
         disp.stream.wait_stream(torch.cuda.current_stream(dev))
+        launched()
         with torch.cuda.stream(disp.stream):
-            _, first = trainer.train_step(state, grid, steps[0], opt, spec,
-                                          u0)
-            names = sorted(first)
-            out = torch.empty((S, len(names)), dtype=torch.float32,
-                              device=dev)
-            out[0] = trainer.item_vector(first, names)
+            with profiling.tally() as t:
+                _, first = trainer.train_step(state, grid, steps[0], opt,
+                                              spec, u0)
+            names, counted, host = sorted(first), t.names(), dict(t.host)
+            out = torch.empty((S, len(names) + len(counted)),
+                              dtype=torch.float64, device=dev)
+            out[0] = trainer.step_row(first, names, t, counted)
         torch.cuda.current_stream(dev).wait_stream(disp.stream)
         s0 = 1
     for s in range(s0, S):
         us = u0 if s == 0 else draws(s)
         if disp.graph is None:
-            disp.graph = capture(
-                state, grid, steps[s], us, opt, spec,
-                step_key(state, grid, steps[s], us, opt, spec), names,
-                disp.stream)
+            with profiling.span("train.capture"):
+                disp.graph = capture(
+                    state, grid, steps[s], us, opt, spec,
+                    step_key(state, grid, steps[s], us, opt, spec), names,
+                    counted, disp.stream)
             disp.captures += 1
+            profiling.count("train.captures", 1)
         disp.replay(state, steps[s], us, knobs[s])
+        launched()
         out[s] = disp.graph.items
-    values = out.cpu()
-    return state, {k: values[:, i] for i, k in enumerate(names)}
+        for k, n in disp.graph.host.items():
+            host[k] = host.get(k, 0) + n
+    return state, trainer.read_rows(out, names, counted, host)

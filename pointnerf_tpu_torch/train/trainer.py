@@ -20,6 +20,12 @@ zeros and whose step count carries over.
 steps): on the card one train step captured in a CUDA graph and replayed
 S times (`train.graph`), elsewhere the loop of S `train_step`s; either way
 the same function as S `train_step` calls, with the items read back once.
+The dispatch is traced (`utils.profiling`): spans ``train.dispatch``,
+``train.lead`` (entry to the first step's launch; graphed, it holds
+``train.inputs``, the knobs and depths put on the card, and
+``train.key``, the graph's key checked), ``train.capture`` and
+``train.readback``; the row counts of its steps (`models.renderer`) ride
+the items' copy as extra columns and add to the trace record's counters.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from ..models.renderer import render_forward, render_query, render_shade
 from ..ops.frustum import build_frustum_grid, draw_jitter
 from ..ops.grid import build_grid
 from ..ops.query import Shards
+from ..utils import profiling
 
 POINT_TRAINABLE_FLAGS = {
     "embedding": "feat_grad",
@@ -291,7 +298,8 @@ def compute_grads(state: TrainState, grid, batch: Dict, opt, spec,
         over_shards(losses, reduce)
     named = dict(state.aggregator.named_parameters())
     params = list(named.values()) + list(state.pt_train.values())
-    grads = torch.autograd.grad(total, params, allow_unused=True)
+    with profiling.tally(paused=True):  # remat shades again: counted once
+        grads = torch.autograd.grad(total, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params, grads)]
     g_net = dict(zip(named, grads[:len(named)]))
@@ -356,6 +364,36 @@ def item_vector(items: Dict[str, torch.Tensor], names) -> torch.Tensor:
                         for k in names])
 
 
+def step_row(items: Dict[str, torch.Tensor], names, tally, counted
+             ) -> torch.Tensor:
+    """One step's row of a dispatch's readback: the items named `names`
+    (float32) and the tally's device counts named `counted` (int64), as
+    one float64 vector, which holds both exactly."""
+    row = item_vector(items, names).to(torch.float64)
+    if not counted:
+        return row
+    return torch.cat([row, torch.stack([tally.device[k] for k in counted])
+                      .to(torch.float64)])
+
+
+def read_rows(rows: torch.Tensor, names, counted, host: Dict[str, int]
+              ) -> Dict[str, torch.Tensor]:
+    """A dispatch's step rows [S, items + counts] (`step_row`) to the host
+    in one copy: the items by name as float32 CPU tensors [S]; the counts
+    summed over the steps, and the host counts `host`, into the trace
+    record's counters."""
+    with profiling.span("train.readback"):
+        values = rows.cpu()
+        out = {k: values[:, i].to(torch.float32)
+               for i, k in enumerate(names)}
+        sums = values[:, len(names):].sum(dim=0)
+        for k, v in zip(counted, sums.tolist()):
+            profiling.count(k, int(v))
+        for k, n in host.items():
+            profiling.count(k, n)
+    return out
+
+
 def stacked_step(batches: Dict, s: int) -> Dict:
     """Step s of stacked batches: tensor leaves [S, ...] and lists of S
     host values (near, far: a dataset may give each view its own) indexed
@@ -364,20 +402,27 @@ def stacked_step(batches: Dict, s: int) -> Dict:
                 else v) for k, v in batches.items()}
 
 
-def steps_in_turn(step, state, batches: Dict, u=None):
+def steps_in_turn(step, state, batches: Dict, u=None,
+                  launched=lambda: None):
     """S calls of step(state, batch, u) -> (state, items), one per step of
     stacked batches (`stacked_step`), u[s] or None each; the items of
-    every step go to the host in one copy. Returns (state, items by name
-    as float32 CPU tensors [S])."""
+    every step go to the host in one copy, with the steps' row counts
+    (`read_rows`). `launched` is called as the first step starts. Returns
+    (state, items by name as float32 CPU tensors [S])."""
     S = next(v for v in batches.values() if torch.is_tensor(v)).shape[0]
-    names, rows = None, []
+    names = counted = None
+    rows, host = [], {}
     for s in range(S):
-        state, items = step(state, stacked_step(batches, s),
-                            None if u is None else u[s])
+        launched()
+        with profiling.tally() as t:
+            state, items = step(state, stacked_step(batches, s),
+                                None if u is None else u[s])
         names = names or sorted(items)
-        rows.append(item_vector(items, names))
-    values = torch.stack(rows).cpu()
-    return state, {k: values[:, i] for i, k in enumerate(names)}
+        counted = t.names() if counted is None else counted
+        rows.append(step_row(items, names, t, counted))
+        for k, n in t.host.items():
+            host[k] = host.get(k, 0) + n
+    return state, read_rows(torch.stack(rows), names, counted, host)
 
 
 def train_steps_scan(state: TrainState, grid, batches: Dict, opt, spec,
@@ -396,12 +441,21 @@ def train_steps_scan(state: TrainState, grid, batches: Dict, opt, spec,
     replays one captured step (`graph.graphed_steps`); any other, and the
     CPU, runs the S steps one after another."""
     from . import graph
-    if state.pt_static["mask"].is_cuda and \
-            graph.graph_route(opt) == "graphed":
-        return graph.graphed_steps(state, grid, batches, opt, spec, u)
-    return steps_in_turn(
-        lambda st, b, us: train_step(st, grid, b, opt, spec, us), state,
-        batches, u)
+    S = next(v for v in batches.values() if torch.is_tensor(v)).shape[0]
+    graphed = state.pt_static["mask"].is_cuda and \
+        graph.graph_route(opt) == "graphed"
+    with profiling.span("train.dispatch", steps=S,
+                        route="graphed" if graphed else "in_turn"):
+        lead = profiling.span("train.lead").open()
+        try:
+            if graphed:
+                return graph.graphed_steps(state, grid, batches, opt, spec,
+                                           u, launched=lead.close)
+            return steps_in_turn(
+                lambda st, b, us: train_step(st, grid, b, opt, spec, us),
+                state, batches, u, launched=lead.close)
+        finally:
+            lead.close()
 
 
 @torch.inference_mode()
