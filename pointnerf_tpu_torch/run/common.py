@@ -24,7 +24,7 @@ from ..config import PRESETS, Options, validate_options
 from ..data.load_blender import apply_point_noise, load_blender_cloud
 from ..data.ply import read_ply_points
 from ..models import neural_points as npc
-from ..models.renderer import effective_sr_budget
+from ..models.renderer import effective_sr_budget, wide_budget
 from ..ops.frustum import build_frustum_grid
 from ..ops.grid import build_grid, make_grid_spec
 from ..ops.voxgrid import construct_grid_points, derive_lattice
@@ -469,27 +469,41 @@ def render_image(ts: trainer.ServeState, grid, opt, spec, item: Dict,
     wide uncompacted group would gather [1, group·chunk, SR, K, 42] rows
     (≈390 MB a 3,600-ray chunk at lego widths). Eval never drops a
     valid shading row: a group whose compaction budget overflows is
-    re-rendered up a static budget ladder (2x the budget, then compaction
-    off), and the raised rung persists for the rest of the image.
+    re-rendered up the budget ladder: rung 0 the configured budget,
+    rung 1 a budget sized from the overflow, rung 2 compaction off. A
+    render at Ncb compaction rows and NtB wide-tier rows that drops d
+    rows (its sr_overflow: c past the compaction, w past the wide tier)
+    drops none at Ncb + d and NtB + d: the compaction needs at most
+    Ncb + c rows, and the wide tier at most NtB + w + c, even if every
+    row the compaction dropped is wide. Rung 1 is that budget: a
+    per-chunk SR_budget rounded up to 128 rows (with comp_groups G, each
+    group's Ncb grows by d, the budget by G·d) and a k_tier_wide_frac
+    that gives the wide tier at least NtB + d. Only a sized budget that
+    reaches the group's rows goes to rung 2. The raised rung persists for
+    the rest of the image at the largest size it has needed: a later
+    group that still drops rows is sized again from its own render.
     Rendering happens on the device that holds the points. On the frustum
     path (wcoord_query 0) `grid` may be None: the camera's perspective grid
     is then built once here and serves every group of the image (the
     reference rebuilds it per query_points call, query_point_indices.py:
     92-94). A `stats` dict, if given, receives the image's counters:
-    sr_overflow (valid rows the first rung dropped, all re-rendered),
+    sr_overflow (valid rows its renders dropped, all re-rendered),
     occ_overflow and the group count; per rung of the ladder, the groups
     that finished there (rung_groups, summing to groups) and the trunk
     rows with a valid neighbor and trunk slots its renders ran
     (trunk_rows, trunk_slots; `models.renderer`'s counts, every attempt's);
-    and where it builds the frustum grid, its host seconds (grid_s, the
+    sized_budget, rung 1's last per-chunk budget (0: never sized); and
+    where it builds the frustum grid, its host seconds (grid_s, the
     device synchronized) and occupied voxels (num_occ).
 
     Traced (`utils.profiling`): spans ``render.image``, ``render.group``
     (one a render of a group, from stacking its chunks to the read of its
-    overflow, which syncs: attrs rung and dropped) and ``render.readback``
+    overflow, which syncs: attrs rung, dropped, budget and wide, its
+    compaction and wide-tier rows, 0 uncompacted) and ``render.readback``
     (the outputs to the host, into the maps); the row counts, read with
     the overflow in one transfer, add to the trace record's counters with
-    ``render.groups.r<rung>``.
+    ``render.groups.r<rung>`` and ``render.resized`` (renders whose budget
+    was sized from an overflow).
 
     Mesh serving (a `parallel.MeshRunner`, every rank calling with its
     placed state and grid): the point shards and bucket tables are joined
@@ -544,12 +558,14 @@ def render_image(ts: trainer.ServeState, grid, opt, spec, item: Dict,
     group = max(1, int(group))
 
     S_chunk = chunk * opt.SR
-    rungs = [opt]
-    if int(opt.SR_budget) != 0:
-        Nc_eff = effective_sr_budget(opt, S_chunk)
-        if 0 < 2 * Nc_eff < S_chunk:
-            rungs.append(opt.replace(SR_budget=2 * Nc_eff))
-        rungs.append(opt.replace(SR_budget=0))
+    # rung 1's options are sized from an overflow (`sized`), persisted here
+    rungs = [opt, None, opt.replace(SR_budget=0)]
+    # the compaction groups a budget splits over: comp_groups on the
+    # world-coordinate KNN query; the frustum and vox-grid paths compact
+    # each camera row into one budget
+    G = max(1, int(getattr(opt, "comp_groups", 1))) \
+        if opt.wcoord_query != 0 and opt.NN >= 0 else 1
+    tiered = int(getattr(opt, "k_tier", 0)) != 0
     rung = 0
     overflow = 0
     occ_overflow = 0
@@ -557,6 +573,30 @@ def render_image(ts: trainer.ServeState, grid, opt, spec, item: Dict,
     rung_groups = [0] * len(rungs)
     trunk_rows = [0] * len(rungs)
     trunk_slots = [0] * len(rungs)
+
+    def budgets(o, n):
+        """(Ncb, NtB) of n chunks rendered at o: each compaction group's
+        rows and its wide tier's; (0, 0) uncompacted."""
+        Nc = int(o.SR_budget) * n if int(o.SR_budget) > 0 else \
+            effective_sr_budget(o, n * S_chunk)
+        if prob or not 0 < Nc < n * S_chunk:
+            return 0, 0
+        Ncb = -(-Nc // G)
+        return Ncb, wide_budget(o, Ncb) if tiered else 0
+
+    def sized(o, n, d):
+        """The options under which n chunks that dropped d rows at o drop
+        none, or None where the budget reaches their rows."""
+        Ncb, NtB = budgets(o, n)
+        per_chunk = -(-G * (Ncb + d) // (n * 128)) * 128
+        if per_chunk >= S_chunk:
+            return None
+        up = o.replace(SR_budget=per_chunk)
+        if tiered:
+            Ncb_up = -(-per_chunk * n // G)
+            up = up.replace(k_tier_wide_frac=(NtB + d) / Ncb_up)
+            assert wide_budget(up, Ncb_up) >= NtB + d
+        return up
 
     def run_group(pending, opt_used):
         stacked = {k: torch.as_tensor(np.stack([p[0][k] for p in pending]),
@@ -617,7 +657,9 @@ def render_image(ts: trainer.ServeState, grid, opt, spec, item: Dict,
         """The group rendered at rung r: (outputs, dropped rows, occupancy
         overflow), the counters and its row counts read in one transfer."""
         n = len(pending)
-        with profiling.span("render.group", rung=r) as sp, \
+        Ncb, NtB = budgets(rungs[r], n)
+        with profiling.span("render.group", rung=r, budget=G * Ncb,
+                            wide=G * NtB) as sp, \
                 profiling.tally() as t:
             outs = run_group(pending, rungs[r])
             heads = [outs[k][:n].sum().to(torch.int64)
@@ -640,10 +682,15 @@ def render_image(ts: trainer.ServeState, grid, opt, spec, item: Dict,
         n_groups += 1
         while True:
             outs, dropped, occ = traced_group(pending, rung_used)
-            if dropped == 0 or rung_used == len(rungs) - 1:
+            if dropped == 0 or rung_used == 2:
                 break
             overflow += dropped
-            rung_used += 1
+            up = sized(rungs[rung_used], len(pending), dropped)
+            if up is None:
+                rung_used = 2
+            else:
+                rungs[1], rung_used = up, 1
+                profiling.count("render.resized", 1)
             rung = max(rung, rung_used)
         rung_groups[rung_used] += 1
         profiling.count(f"render.groups.r{rung_used}", 1)
@@ -674,7 +721,9 @@ def render_image(ts: trainer.ServeState, grid, opt, spec, item: Dict,
     if stats is not None:
         stats.update(sr_overflow=overflow, occ_overflow=occ_overflow,
                      groups=n_groups, rung_groups=rung_groups,
-                     trunk_rows=trunk_rows, trunk_slots=trunk_slots)
+                     trunk_rows=trunk_rows, trunk_slots=trunk_slots,
+                     sized_budget=0 if rungs[1] is None
+                     else rungs[1].SR_budget)
     if overflow > 0 and (runner is None or runner.is_main):
         print(f"[render_image] note: SR_budget overflow on {overflow} shading "
               f"rows; groups re-rendered up the budget ladder")

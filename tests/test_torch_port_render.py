@@ -15,6 +15,7 @@ import numpy as np
 import jax
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from pointnerf_tpu.ops import grid as jgrid
 from pointnerf_tpu.run import common as jcommon
@@ -25,6 +26,7 @@ from pointnerf_tpu_torch.ops import kernels
 from pointnerf_tpu_torch.ops import trunk as tt
 from pointnerf_tpu_torch.run import common as tcommon
 from pointnerf_tpu_torch.train import trainer as ttrainer
+from pointnerf_tpu_torch.utils import profiling
 from pointnerf_tpu_torch.utils.checkpoint import (from_jax_params,
                                                   load_net_ray_marching_npz)
 
@@ -147,3 +149,81 @@ def test_render_image_matches_jax_through_ckpt(tmp_path, capsys):
     assert sorted(sd) == sorted(ref)
     for k, v in sd.items():
         np.testing.assert_array_equal(v.numpy(), ref[k], err_msg=k)
+
+
+# an image whose groups overflow the configured budget: 24x24 rays, the
+# plane filling 84% of them, in chunks of 36 rays with 24 shading rows a
+# ray (the plane occupies about 8 of them)
+LADDER = dict(random_sample_size=6, SR=24)
+
+
+@pytest.fixture(scope="module")
+def ladder_scene():
+    opt, ts, _, _, _ = _lego_like(**LADDER)
+    return opt, _port_state(ts)
+
+
+def _traced_render(st, grid, opt, spec, item):
+    """render_image in groups of 4 chunks under a profiler session: (maps,
+    stats, the render.group spans' attrs, the record's counters)."""
+    stats = {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        profiling.RECORD.clear()
+        maps = tcommon.render_image(st, grid, opt, spec, item, group=4,
+                                    stats=stats)
+    groups = [dict(s.attrs) for s in profiling.RECORD.spans
+              if s.name == "render.group"]
+    return maps, stats, groups, dict(profiling.RECORD.counters)
+
+
+@pytest.mark.parametrize("kw,case", [
+    pytest.param(dict(SR_budget=448, k_tier_wide_frac=0.05), "wide",
+                 id="wide-tier"),
+    pytest.param(dict(SR_budget=64), "both", id="tight"),
+    pytest.param(dict(comp_groups=2), "", id="comp-groups"),
+    pytest.param(dict(k_tier=0), "", id="no-k-tier"),
+    pytest.param({}, "resized", id="resized")])
+def test_sized_rung_renders_every_row(ladder_scene, kw, case):
+    """A group that drops d rows at Ncb compaction rows and NtB wide-tier
+    rows renders again at Ncb + d and NtB + d (each compaction group's),
+    and drops nothing there: the image equals the uncompacted render
+    (SR_budget 0) and no group reaches rung 2. wide: only the wide tier
+    overflows (the compaction keeps every row); both: the compaction and
+    the wide tier overflow; resized: a later group outgrows the persisted
+    budget and is sized again, and the groups after it start there."""
+    opt0, st = ladder_scene
+    opt = opt0.replace(**kw)
+    item = _image_item(H=24, W=24, focal=60.0)
+    spec, grid = tcommon.make_spec_and_grid(opt, st.points)
+    exact = tcommon.render_image(st, grid, opt.replace(SR_budget=0), spec,
+                                 item, group=4)
+    got, stats, groups, counters = _traced_render(st, grid, opt, spec, item)
+    np.testing.assert_array_equal(got["ray_mask"], exact["ray_mask"])
+    np.testing.assert_allclose(got["coarse_raycolor"],
+                               exact["coarse_raycolor"], atol=1e-5)
+    assert stats["rung_groups"][2] == 0 and stats["rung_groups"][1] > 0
+    assert groups[0]["rung"] == 0 and groups[0]["dropped"] > 0
+    G = int(opt.comp_groups)
+    for a, b in zip(groups, groups[1:]):
+        if a["dropped"]:            # the same group again, sized
+            assert b["rung"] == 1
+            assert b["budget"] >= a["budget"] + G * a["dropped"]
+            assert b["wide"] >= a["wide"] + G * a["dropped"] \
+                if opt.k_tier else b["wide"] == 0
+    assert counters["render.resized"] == sum(g["dropped"] > 0
+                                             for g in groups)
+    assert stats["sized_budget"] == groups[-1]["budget"] // 4
+    if case in ("wide", "both"):
+        # the compaction's own overflow: the same render with a wide tier
+        # as large as the budget
+        _, _, whole, _ = _traced_render(
+            st, grid, opt.replace(k_tier_wide_frac=1.0), spec, item)
+        c = whole[0]["dropped"]
+        assert (c == 0) if case == "wide" else 0 < c < groups[0]["dropped"]
+    if case == "resized":
+        i = next(i for i, g in enumerate(groups)
+                 if g["rung"] == 1 and g["dropped"] > 0)
+        assert groups[i + 1]["budget"] > groups[i]["budget"]
+        assert len(groups) > i + 2
+        assert all(g["budget"] == groups[i + 1]["budget"]
+                   for g in groups[i + 2:])

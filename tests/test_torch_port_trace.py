@@ -235,42 +235,51 @@ def _item(batch):
 
 def _ladder_overflow(ts, grid, opt, spec, batch, group):
     """render_image's budget ladder over the image's groups, from the
-    wide renders' own sr_overflow: the rows the first rung dropped."""
+    wide renders' own sr_overflow: a render of n chunks at Nc compaction
+    rows and NtB wide-tier rows that drops d rows is rendered again at
+    Nc + d rows (rounded up to 128 a chunk) with a wide tier of at least
+    NtB + d, and later groups start at that budget. Returns (the rows
+    dropped and rendered again, the renders that dropped rows, the groups
+    by the rung they finished at)."""
     chunk = opt.random_sample_size ** 2
     const = {k: batch[k] for k in ("campos", "camrotc2w", "bg_color")}
     const.update(near=2.0, far=4.0)
     S_chunk = chunk * opt.SR
-    Nc = renderer.effective_sr_budget(opt, S_chunk)
-    rungs = [opt] + ([opt.replace(SR_budget=2 * Nc)]
-                     if 0 < 2 * Nc < S_chunk else []) \
-        + [opt.replace(SR_budget=0)]
     rays = batch["raydir"][0]
     chunks = [rays[i:i + chunk] for i in range(0, rays.shape[0], chunk)]
-    rung = over = 0
+    up = None
+    over = drops = 0
+    finals = [0, 0, 0]
     for g in range(0, len(chunks), group):
-        stacked = {"raydir": torch.stack(chunks[g:g + group])[:, None]}
-        r = rung
+        part = chunks[g:g + group]
+        n = len(part)
+        stacked = {"raydir": torch.stack(part)[:, None]}
+        o, r = (opt, 0) if up is None else (up, 1)
         while True:
-            o = rungs[r]
-            if int(o.SR_budget) > 0:    # a chunk's budget, for the group
-                o = o.replace(SR_budget=int(o.SR_budget) * group)
-            if int(o.SR_budget) != 0:
-                out = trainer.eval_chunks_stacked(ts, grid, stacked, const,
-                                                  o, spec)
-            else:
-                out = trainer.eval_chunks(ts, grid, stacked, const, o, spec)
+            Nc = int(o.SR_budget) * n if int(o.SR_budget) > 0 else \
+                renderer.effective_sr_budget(o, n * S_chunk)
+            out = trainer.eval_chunks_stacked(
+                ts, grid, stacked, const, o.replace(SR_budget=Nc), spec)
             d = int(out["sr_overflow"].sum())
-            if d == 0 or r == len(rungs) - 1:
+            if d == 0:
                 break
-            over, r = over + d, r + 1
-            rung = max(rung, r)
-    return over
+            over, drops = over + d, drops + 1
+            per_chunk = -(-(Nc + d) // (n * 128)) * 128
+            assert per_chunk < S_chunk       # the sized rung stays compacted
+            NtB = renderer.wide_budget(o, Nc)
+            up = o = o.replace(SR_budget=per_chunk,
+                               k_tier_wide_frac=(NtB + d) / (per_chunk * n))
+            r = 1
+        finals[r] += 1
+    return over, drops, finals
 
 
 def test_render_image_counts_its_rungs():
     """Groups by the rung they finished at sum to the image's groups, the
     record's counters equal the stats, and sr_overflow is the ladder's
-    own count of the rows the first rung dropped."""
+    own count of the rows the renders dropped. The sized rung renders
+    every row: no group reaches rung 2, and every render that dropped
+    rows was sized again."""
     opt, state, spec, grid, batch = _scene(side=24)     # 16 chunks of 36
     ts = _state(opt, state)
     ss = trainer.ServeState(ts.aggregator, ts.points)
@@ -280,8 +289,9 @@ def test_render_image_counts_its_rungs():
                             stats=stats)
     assert sum(stats["rung_groups"]) == stats["groups"] == 4
     assert stats["sr_overflow"] > 0 and sum(stats["rung_groups"][1:]) > 0
-    assert stats["sr_overflow"] == _ladder_overflow(ts, grid, opt, spec,
-                                                    batch, 4)
+    over, drops, finals = _ladder_overflow(ts, grid, opt, spec, batch, 4)
+    assert stats["sr_overflow"] == over
+    assert stats["rung_groups"] == finals and stats["rung_groups"][2] == 0
     c = profiling.RECORD.counters
     assert [c.get(f"render.groups.r{i}", 0) for i in range(3)] == \
         stats["rung_groups"]
@@ -289,11 +299,13 @@ def test_render_image_counts_its_rungs():
         sum(stats["trunk_rows"]) > 0
     assert sum(c.get(f"trunk.slots.{t}", 0) for t in TIERS) == \
         sum(stats["trunk_slots"])
-    assert stats["trunk_slots"][-1] == c["trunk.slots.dense"]
+    assert stats["trunk_slots"][-1] == c.get("trunk.slots.dense", 0) == 0
     groups = _named("render.group")
     dropped = [g.attrs["dropped"] for g in groups]
     assert sum(dropped) == stats["sr_overflow"]
     assert len(groups) == stats["groups"] + sum(d > 0 for d in dropped)
+    assert c["render.resized"] == sum(d > 0 for d in dropped) == drops
+    assert stats["sized_budget"] == groups[-1].attrs["budget"] // 4
     # untraced, the same image and stats
     again = {}
     maps2 = render_image(ss, grid, opt, spec, _item(batch), group=4,
