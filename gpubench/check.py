@@ -11,10 +11,14 @@ least a thousandth of the median leaf's (a smaller one moves under Adam
 by round-off alone), `step_gap`, the median of the relative gaps between
 the norms of each leaf's change over the steps, and `point_gap`, the
 largest of them over the point leaves (embedding, colour, direction,
-confidence: K6's and the point optimizer's). The worst leaf of the
+confidence: K6's and the point optimizer's); `point_grad_gap`, the
+largest first-gradient gap over the point leaves (K6's scatter and the
+backward into the points, before any Adam step). The worst leaf of the
 weights is not compared: Adam moves an element whose gradient is near
 zero by a whole step whichever its sign, so one such element of a small
-leaf swings it from seed to seed (PERF.md).
+leaf swings it from seed to seed (PERF.md). Over 17 steps the point
+leaves' change is swung so too, on some inputs far more than on others:
+`point_grad_gap` is the steadier number of the point leaves.
 
 Render: `pixel_gap`, the widest gap of a colour channel over every pixel
 of the images compared.
@@ -68,7 +72,8 @@ def train_numbers(prog_losses: List[float], ref_losses: List[float],
                             for p, r in zip(prog_losses, ref_losses)),
             "grad_gap": _gap(g_prog, g_ref, g_ref),
             "step_gap": statistics.median(step.values()),
-            "point_gap": max(step[k] for k in POINT_LEAVES if k in step)}
+            "point_gap": max(step[k] for k in POINT_LEAVES if k in step),
+            "point_grad_gap": max(g_gap[k] for k in POINT_LEAVES)}
 
 
 def render_numbers(prog_images: List[np.ndarray],

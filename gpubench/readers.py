@@ -1,9 +1,11 @@
 """The arithmetic of the per-layer metrics, one function a family; each
-file of gpubench/metrics/ names its traffic kind (train or render) and
-calls one of these. A reader returns None where the run has nothing for
-it to read: another kind of traffic, no rows, no device time.
+file of gpubench/metrics/ names the traffic kind it reads and calls one
+of these. A reader returns None where the run has nothing for it to
+read: another kind of traffic, no rows, no device time.
 
-`passes` counts a train step's forward and backward as three forwards.
+The model's arithmetic comes in the context from the cell's mix
+(`mix.model`): `passes` counts the forwards a unit's rows run (a train
+step's forward and backward as three).
 """
 
 from __future__ import annotations
@@ -12,8 +14,6 @@ from typing import Optional
 
 from .layers import layer_seconds
 from .peaks import mfu_pct, trunk_bound_s, trunk_bytes
-
-PASSES = {"train": 3, "render": 1}
 
 
 def mfu(ctx, kind: str) -> Optional[float]:
@@ -25,7 +25,7 @@ def mfu(ctx, kind: str) -> Optional[float]:
     if ctx["kind"] != kind or ctx["window_rows"][0] == 0:
         return None
     nb, sh = ctx["window_rows"]
-    flops = PASSES[kind] * 2.0 * (nb * ctx["trunk_macs"]
+    flops = ctx["passes"] * 2.0 * (nb * ctx["trunk_macs"]
                                   + sh * ctx["head_macs"])
     return mfu_pct(flops, ctx["window_s"])
 
@@ -39,7 +39,7 @@ def trunk_roofline(ctx, kind: str) -> Optional[float]:
     nb, sh = ctx["slice_rows"]
     if ctx["kind"] != kind or t <= 0 or nb == 0:
         return None
-    n = PASSES[kind]
+    n = ctx["passes"]
     nbytes = n * trunk_bytes(nb, sh, ctx["point_features"],
                              ctx["trunk_width"])
     return 100.0 * trunk_bound_s(n * nb * ctx["trunk_macs"], nbytes) / t

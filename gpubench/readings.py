@@ -30,8 +30,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seconds", type=float, default=0.5)
     args = ap.parse_args(argv)
     spec = run.load_cell(args.workload)
-    kind = spec["traffic"]["kind"]
-    faults = run.TRAIN_FAULTS if kind == "train" else run.RENDER_FAULTS
+    faults = run.load_mix(spec["mixes"], spec["traffic"]["kind"]).FAULTS
     plan = [("program", None, False, args.first_seed + 7919 * i)
             for i in range(args.seeds)]
     plan += [("control", None, True, args.first_seed + 104729 * (i + 1))

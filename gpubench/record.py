@@ -1,8 +1,9 @@
 """The program's own trace record (`pointnerf_tpu_torch.utils.profiling.
 RECORD`) as the traced slice's profiler session left it: the spans and
-counters the port kept while the slice recorded. Beside `system.py` the
-one module of the benchmark that reaches into the program; it reads that
-record and nothing else, and gives None where the program keeps none.
+counters the port kept while the slice recorded. Beside the
+`system*.py` modules the one module of the benchmark that reaches into
+the program; it reads that record and nothing else, and gives None where
+the program keeps none.
 
 Counters (the port's names): ``trunk.rows.<tier>``, the trunk's (shading
 row, neighbor slot) pairs that carry a valid neighbor, and

@@ -1,10 +1,12 @@
-"""The program under test, `pointnerf_tpu_torch`, as the benchmark drives
-it: its options built from a configuration's file, its point state and
-aggregator built around the benchmark's inputs, its two entry points
-(`trainer.train_steps_scan` and `run.common.render_image`), and what it
-counts (kernel launches, the optimizer's state). Nothing else of the
-benchmark imports the program, and this module imports it only when
-called.
+"""The program under test, `pointnerf_tpu_torch`, as the train and render
+mixes drive it: its options built from a configuration's file, its point
+state and aggregator built around the benchmark's inputs, its two entry
+points (`trainer.train_steps_scan` and `run.common.render_image`), and
+what it counts (kernel launches, the optimizer's state). A mix of
+another kind puts its calls into the program in a module of its own,
+gpubench/system_<kind>.py. Only these modules of the benchmark, and
+record.py's reading of the trace record, import the program, and only
+when called.
 """
 
 from __future__ import annotations

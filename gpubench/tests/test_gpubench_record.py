@@ -10,6 +10,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from gpubench import inputs, record, run
+from gpubench.mix import reference_scene
 from gpubench.reference import model
 from gpubench.tests.conftest import tiny
 
@@ -65,15 +66,16 @@ def test_trunk_rows_are_the_references_shaded_rows():
     and its kept shading rows the reference's shaded shading rows."""
     from pointnerf_tpu_torch.utils import profiling
     spec = tiny("lego.train", 20000, focal=120.0)
-    mix = run.Train(spec, SEED, run.Card("cpu"), None)
+    train = run.load_mix(spec["mixes"], "train")
+    mix = train.Train(spec, SEED, run.Card("cpu"), None)
     o = spec["cfg"]["options"]
-    _, gspec, g = run._reference_scene(spec, SEED, "cpu")
+    _, gspec, g = reference_scene(spec, SEED, "cpu")
     d = mix.pool[2]
     buf = inputs.draws(d, torch.empty_like(mix.u))
     for s in range(mix.S):
         with profile(activities=[ProfilerActivity.CPU]):
             profiling.RECORD.clear()
-            mix.call(run._sub(d, s, s + 1))
+            mix.call(train._sub(d, s, s + 1))
         c = profiling.RECORD.counters
         b = inputs.step_of(d, s)
         want = model.count_rows(o, g, gspec, b["campos"], b["raydir"],

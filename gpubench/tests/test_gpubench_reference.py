@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from gpubench import inputs, run, system
+from gpubench.mix import ones
 from gpubench.reference import grid as rgrid, model
 
 SEED = 2 ** 31 + 11
@@ -21,7 +22,7 @@ def _both_grids(spec):
     state = system.point_state(cloud)
     gspec, g = system.grid(opt, state)
     rspec = rgrid.make_spec(cfg["options"], cloud["xyz"])
-    rg = rgrid.build(cloud["xyz"], run._ones(cloud), rspec)
+    rg = rgrid.build(cloud["xyz"], ones(cloud), rspec)
     return cloud, opt, state, gspec, g, rspec, rg
 
 
@@ -90,7 +91,8 @@ def test_first_steps_match_the_program(tiny_spec, workload, points,
                                        overflows):
     spec = tiny_spec(workload, points, focal=120.0,
                      fill=0.5 if overflows else None)
-    mix = run.Train(spec, SEED, run.Card("cpu"), None)
+    mix = run.load_mix(spec["mixes"], "train").Train(spec, SEED,
+                                                     run.Card("cpu"), None)
     over = mix.call(mix.pool[1])["sr_overflow"]
     assert (over.sum() > 0) == overflows
     n = mix.reference()
@@ -99,13 +101,15 @@ def test_first_steps_match_the_program(tiny_spec, workload, points,
     assert n["grad_gap"] < 1e-4, n
     assert n["step_gap"] < 1e-3, n
     assert n["point_gap"] < 1e-3, n
+    assert n["point_grad_gap"] < 1e-6, n
 
 
 @pytest.mark.parametrize("points,ladder", [(3000, False), (60000, True)])
 def test_images_match_the_program(tiny_spec, points, ladder):
     spec = tiny_spec("lego.render", points, focal=120.0,
                      fill=0.5 if ladder else None)
-    mix = run.Render(spec, SEED, run.Card("cpu"), None)
+    mix = run.load_mix(spec["mixes"], "render").Render(spec, SEED,
+                                                       run.Card("cpu"), None)
     for _ in range(2):
         mix.unit()
     assert (sum(mix.ladder) > 0) == ladder
